@@ -23,7 +23,33 @@ Phases (any failure exits non-zero and prints no result line):
 6. times   — each kernel and its plain version timed with CUDA events
              (median of 50 launches) beside the least time the card
              could take for the same work (bytes over 3.35 TB/s, f32
-             operations over 67 TFLOP/s: the H100 SXM data sheet).
+             operations over 67 TFLOP/s: the H100 SXM data sheet);
+7. train kernels — on the bench frame (``make_airlines_like``, the draws
+             of bench.py) at 1,000,000 rows, the level inputs of one tree
+             are captured; ``hist_uniform``, ``hist_varbin`` and
+             ``split_records`` are held against their plain versions on
+             them (and on a ragged row count and L = 1, 8, 32):
+             histograms bitwise on integer-valued stats and to 1e-5 of
+             each plane's total on the real bernoulli stats, records
+             bitwise;
+8. train   — launch counts set to 0, then
+             ``XGBoost(max_depth=6, nbins=256, seed=1, ntrees=20)`` trains
+             on the 1M-row frame on the card: ``hist`` and
+             ``split_records`` must each launch trees x levels times.  The
+             same train with the three wrappers swapped for their plain
+             versions on the card must give the same splits at every
+             level of the first tree, predictions to rtol 1e-4 and the
+             training AUC to 1e-4.  The model is then published and a
+             256-row batch answered by ``predict_rows`` must equal
+             ``m.predict``.  A second kernel train reports whether f32
+             atomics left the trees bitwise identical;
+9. train times — each training kernel's device time per tree (the six
+             captured level launches) beside its bound, its plain
+             version and, for the histograms, the one ``index_add_`` call
+             that computes the same sums;
+10. headline — the bench protocol at its default 10,000,000 rows: a
+             20-tree warmup train, then trees/s of a 50-tree train,
+             with a torch.profiler breakdown of a 10-tree train.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -52,6 +78,39 @@ SPIN_CYCLES = 20_000_000         # ~10 ms of device clock
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def make_airlines_like(n):
+    """The bench frame: bench.py's ``make_airlines_like`` (the same draws
+    from ``np.random.default_rng(0)``), 5 numeric and 3 categorical
+    columns and a binary response."""
+    rng = np.random.default_rng(0)
+    cols = {
+        "year": rng.integers(1987, 2008, n).astype(np.float32),
+        "month": rng.integers(1, 13, n).astype(np.float32),
+        "day_of_week": rng.integers(1, 8, n).astype(np.float32),
+        "crs_dep_time": rng.integers(0, 2400, n).astype(np.float32),
+        "distance": np.abs(rng.normal(700, 500, n)).astype(np.float32),
+        "carrier": rng.integers(0, 22, n),
+        "origin": rng.integers(0, 300, n),
+        "dest": rng.integers(0, 300, n),
+    }
+    logit = (0.002 * (cols["crs_dep_time"] / 100 - 12) ** 2
+             - 0.0005 * cols["distance"] / 100
+             + 0.2 * np.isin(cols["day_of_week"], (5, 7))
+             + 0.1 * rng.normal(size=n))
+    dep_delayed = rng.random(n) < 1 / (1 + np.exp(-logit))
+    cols["dep_delayed_15min"] = np.where(dep_delayed, "YES",
+                                         "NO").astype(object)
+    types = {"carrier": "cat", "origin": "cat", "dest": "cat"}
+    domains = {"carrier": [str(i) for i in range(22)],
+               "origin": [str(i) for i in range(300)],
+               "dest": [str(i) for i in range(300)]}
+    return cols, types, domains
+
+
+BENCH_CFG = dict(response_column="dep_delayed_15min", max_depth=6,
+                 nbins=256, seed=1, score_tree_interval=10 ** 9)
 
 
 def serving_profile(T: int, depth: int, F: int, K: int, rng):
@@ -156,6 +215,406 @@ def traverse_work(planes, X, depth):
     return nbytes, steps, n_nodes
 
 
+# ------------------------------------------------------------ training
+
+def plane_err(got, want, planes):
+    """max |got - want| and the largest such error relative to its plane's
+    total |sum|; ``planes`` picks plane s of a histogram."""
+    err, rel = 0.0, 0.0
+    for s in range(3):
+        a, b = planes(got, s), planes(want, s)
+        e = float((a - b).abs().max())
+        err = max(err, e)
+        rel = max(rel, e / max(float(b.abs().sum()), 1.0))
+    return err, rel
+
+
+def dense_plane(h, s):
+    return h[s]
+
+
+def packed_plane(h, s):
+    return h[:, s::3]
+
+
+def capture_levels(fr, XGBoost, hist):
+    """Train one tree with the histogram and records wrappers watched:
+    the inputs each level gave ``hist_varbin`` and ``split_records``."""
+    hv, sr = [], []
+    real_hv, real_sr = hist.hist_varbin, hist.split_records
+
+    def spy_hv(gcodes, leaf, stats, L, bc, B):
+        hv.append((gcodes.clone(), leaf.clone(), stats.clone(), L,
+                   tuple(bc), B))
+        return real_hv(gcodes, leaf, stats, L, bc, B)
+
+    def spy_sr(Hist, nbins, *args, **kw):
+        sr.append((Hist.clone(), nbins, args))
+        return real_sr(Hist, nbins, *args, **kw)
+
+    hist.hist_varbin, hist.split_records = spy_hv, spy_sr
+    try:
+        XGBoost(ntrees=1, **BENCH_CFG).train(fr)
+    finally:
+        hist.hist_varbin, hist.split_records = real_hv, real_sr
+    return hv, sr
+
+
+def train_plain(fr, XGBoost, hist, ntrees):
+    """The same train with ``hist_varbin``, ``hist_uniform`` and
+    ``split_records`` swapped for their plain torch versions on the card:
+    the route the kernels' training is held against."""
+    real = hist.hist_varbin, hist.hist_uniform, hist.split_records
+
+    def varbin(gcodes, leaf, stats, L, bc, B):
+        return hist.hist_varbin_torch(gcodes, leaf, stats, L,
+                                      hist.packed_layout(tuple(bc), B))
+
+    def uniform(codes, leaf, stats, L, B):
+        return hist.hist_uniform_torch(codes, leaf, stats, L, B)
+
+    def records(Hist, nbins, *args):
+        return hist._split_records_torch(Hist, *args)
+
+    hist.hist_varbin, hist.hist_uniform, hist.split_records = \
+        varbin, uniform, records
+    try:
+        return XGBoost(ntrees=ntrees, **BENCH_CFG).train(fr)
+    finally:
+        hist.hist_varbin, hist.hist_uniform, hist.split_records = real
+
+
+def raw_codes(gcodes, bc, nbins, hist):
+    """Packed varbin ids back to the uniform codes (NA -> nbins)."""
+    import torch
+    offsets, _, _, _ = hist.varbin_layout(bc, nbins + 1)
+    off = torch.as_tensor(offsets, device=gcodes.device)[:, None]
+    bf = torch.as_tensor([min(b, nbins) for b in bc],
+                         device=gcodes.device)[:, None]
+    c = gcodes.int() - off
+    return torch.where(c == bf, nbins, c).to(torch.int32)
+
+
+def int_stats(n, gen, dev):
+    import torch
+    return torch.stack([
+        torch.randint(-3, 4, (n,), generator=gen, device=dev),
+        torch.randint(0, 3, (n,), generator=gen, device=dev),
+        torch.randint(0, 2, (n,), generator=gen, device=dev)]).float()
+
+
+def check_train_kernels(hv, sr, hist, dev):
+    """Phase 7: every training kernel against its plain version on the
+    card, on the captured bench levels and on synthetic ones.  Returns
+    the largest absolute difference seen (real-valued stats)."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    max_err = plain_err = 0.0
+    g0, _, st0, _, bc, B = hv[0]
+    nbins = B - 1
+    layout = hist.packed_layout(bc, B)
+    cases = [(g, leaf, st, L, "level %d" % i)
+             for i, (g, leaf, st, L, _, _) in enumerate(hv)]
+    n0 = g0.shape[1]
+    for L in (1, 8, 32):
+        leaf = torch.randint(0, L, (n0,), generator=gen, device=dev,
+                             dtype=torch.int32)
+        cases.append((g0, leaf, st0, L, f"L={L}"))
+        rag = n0 - 17                  # a ragged row count
+        cases.append((g0[:, :rag], leaf[:rag], st0[:, :rag], L,
+                      f"L={L} n={rag}"))
+    for g, leaf, st, L, what in cases:
+        g = g.contiguous()
+        n = g.shape[1]
+        raw = raw_codes(g, bc, nbins, hist)
+        for stats, exact in ((int_stats(n, gen, dev), True),
+                             (st.contiguous(), False)):
+            pv = hist.hist_varbin(g, leaf, stats, L, bc, B)
+            pu = hist.hist_uniform(raw, leaf, stats, L, B)
+            # integer stats: the plain version in f32 (every sum exact);
+            # real stats: the plain version in f64, the reference both
+            # f32 orders are measured by
+            st_ref = stats if exact else stats.double()
+            pv_ref = hist.hist_varbin_torch(g, leaf, st_ref, L, layout)
+            pu_ref = hist.hist_uniform_torch(raw, leaf, st_ref, L, B)
+            torch.cuda.synchronize()
+            for name, a, b, planes in (("hist_varbin", pv, pv_ref,
+                                        packed_plane),
+                                       ("hist_uniform", pu, pu_ref,
+                                        dense_plane)):
+                if exact:
+                    if not torch.equal(a, b):
+                        raise AssertionError(
+                            f"{name} != plain on integer stats ({what})")
+                    continue
+                err, rel = plane_err(a.double(), b, planes)
+                max_err = max(max_err, err)
+                if rel > 1e-5:
+                    raise AssertionError(
+                        f"{name} vs its plain version in f64 ({what}): "
+                        f"max|diff| {err:.3e} = {rel:.3e} of its plane's "
+                        f"total > 1e-5")
+            if not exact:
+                f32 = hist.hist_varbin_torch(g, leaf, stats, L, layout)
+                perr, _ = plane_err(f32.double(), pv_ref, packed_plane)
+                plain_err = max(plain_err, perr)
+            dense = hist.expand_varbin(pv, bc, L, B)
+            if exact and not torch.equal(dense, pu):
+                raise AssertionError(f"varbin expanded != uniform ({what})")
+    log(f"kernel check hist: hist_varbin and hist_uniform equal their "
+        f"plain versions bitwise on integer-valued stats and, on the "
+        f"bench's bernoulli stats, the plain version in f64 within 1e-5 "
+        f"of each plane's total (max|diff| {max_err:.3e}; the f32 plain "
+        f"version's own max|diff| to f64: {plain_err:.3e}), over "
+        f"{len(cases)} cases: the "
+        f"{len(hv)} captured levels of a bench tree (n = {n0}) and "
+        f"L = 1, 8, 32 at n = {n0} and a ragged n = {n0 - 17}")
+    for i, (H, nbins_, args) in enumerate(sr):
+        for Hc, what in ((H, "real"), (H.round(), "integer-valued")):
+            got = hist.split_records(Hc, nbins_, *args)
+            want = hist._split_records_torch(Hc, *args)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                a = got.view(torch.int32).long()
+                b = want.view(torch.int32).long()
+                ulp = int((a - b).abs().max())
+                raise AssertionError(
+                    f"split_records != plain on {what} H at level {i}: "
+                    f"max {ulp} ulp")
+    log(f"kernel check split_records: bitwise equal to its plain version "
+        f"on the {len(sr)} captured levels' H and on their integer-valued "
+        f"rounding")
+    return max_err
+
+
+def work_hist(g, leaf, L, Q, F):
+    """Bytes and f32 adds one level's histogram needs: every leaf id, the
+    codes and stats of the rows in [0, L), the packed output once."""
+    valid = int(((leaf >= 0) & (leaf < L)).sum())
+    nbytes = 4 * leaf.numel() + valid * (F * g.element_size() + 12) \
+        + Q * 3 * L * 4
+    return nbytes, 3 * F * valid
+
+
+def work_records(LF, B):
+    """Bytes and f32 operations of one records launch, counted from
+    csrc/split_records.cu: 3 adds per regular bin for the totals, 53 per
+    candidate bin (prefix sums, right sides, two gains, max)."""
+    nbins = B - 1
+    return 3 * LF * B * 4 + LF * 12 * 4, LF * (3 * nbins + 53 * (nbins - 1))
+
+
+def bound(nbytes, ops):
+    b = nbytes / HBM_BYTES_PER_S * 1e3
+    o = ops / F32_OPS_PER_S * 1e3
+    return max(b, o), ("bytes" if b >= o else "operations")
+
+
+def time_train_kernels(hv, sr, hist, label):
+    """Phase 9: device time of each level's launch of the training
+    kernels, their plain versions and the one-call index_add_ yardstick;
+    returns per-tree sums."""
+    import torch
+    rows = []
+    tot = {"hist": [0.0, 0.0, 0.0, 0.0, 0, 0], "hist_uniform":
+           [0.0, 0.0, 0.0, 0.0, 0, 0], "split_records":
+           [0.0, 0.0, 0.0, 0.0, 0, 0]}
+    for i, (g, leaf, st, L, bc, B) in enumerate(hv):
+        layout = hist.packed_layout(bc, B)
+        F = g.shape[0]
+        raw = raw_codes(g, bc, B - 1, hist)
+        ms = cuda_ms(lambda: hist.hist_varbin(g, leaf, st, L, bc, B))
+        plain = cuda_ms(lambda: hist.hist_varbin_torch(g, leaf, st, L,
+                                                       layout), reps=20)
+        ums = cuda_ms(lambda: hist.hist_uniform(raw, leaf, st, L, B))
+        uplain = cuda_ms(lambda: hist.hist_uniform_torch(raw, leaf, st, L,
+                                                         B), reps=20)
+        # the yardstick: the one index_add_ that computes the same sums,
+        # its index and source prepared outside the timed call
+        q = g.long()
+        lf = leaf.long()
+        ok = ((lf >= 0) & (lf < L))[None, :].expand_as(q)
+        idx = (q * L + lf[None, :])[ok]
+        src = st.t()[None].expand(F, -1, 3)[ok]
+        out = torch.zeros((layout.Q * L, 3), device=g.device)
+        lib = cuda_ms(lambda: out.index_add_(0, idx, src))
+        uidx = ((lf[None, :] * F + torch.arange(F, device=g.device)[:, None])
+                * B + raw.long())[ok]
+        uout = torch.zeros((3, L * F * B), device=g.device)
+        usrc = st[:, None, :].expand(3, F, -1)[:, ok]
+        ulib = cuda_ms(lambda: uout.index_add_(1, uidx, usrc))
+        nbytes, ops = work_hist(g, leaf, L, layout.Q, F)
+        bnd, _ = bound(nbytes, ops)
+        ubnd, _ = bound(nbytes - layout.Q * 3 * L * 4 + F * B * 3 * L * 4,
+                        ops)
+        H, nbins, args = sr[i]
+        LF, Bh = H.shape[1] * H.shape[2], H.shape[3]
+        rms = cuda_ms(lambda: hist.split_records(H, nbins, *args))
+        rplain = cuda_ms(lambda: hist._split_records_torch(H, *args),
+                         reps=10)
+        rb, rops = work_records(LF, Bh)
+        rbnd, _ = bound(rb, rops)
+        for k, v in (("hist", (ms, plain, bnd, lib, nbytes, ops)),
+                     ("hist_uniform", (ums, uplain, ubnd, ulib, 0, ops)),
+                     ("split_records", (rms, rplain, rbnd, 0.0, rb, rops))):
+            for j in range(6):
+                tot[k][j] += v[j]
+        log(f"train times {label} level {i} (L={L}, n={g.shape[1]}, "
+            f"valid rows {ops // (3 * F)}): hist_varbin {ms:.4f} ms "
+            f"(plain {plain:.4f}, index_add_ {lib:.4f}, bound {bnd:.5f}); "
+            f"hist_uniform {ums:.4f} ms (plain {uplain:.4f}, index_add_ "
+            f"{ulib:.4f}, bound {ubnd:.5f}); split_records {rms:.4f} ms "
+            f"(plain {rplain:.4f}, bound {rbnd:.6f}, LF={LF})")
+    return tot
+
+
+def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
+                hist, card):
+    """Phase 8: the training main path, counted, against the plain route,
+    then published into the serving plane."""
+    import torch
+    n = len(cols["year"])
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    ntrees = 20
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = XGBoost(ntrees=ntrees, **BENCH_CFG).train(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    st = m.output["stacked"]
+    levels = st.depth
+    if m.output["hist_kernel"] != "varbin":
+        raise AssertionError("the bench frame did not take the varbin "
+                             "histogram")
+    for name in ("hist", "split_records"):
+        if launches[name] != ntrees * levels:
+            raise AssertionError(
+                f"{name} launched {launches[name]} times on the train; "
+                f"expected trees x levels = {ntrees} x {levels}")
+    log(f"train: XGBoost(max_depth=6, nbins=256, ntrees={ntrees}) on "
+        f"{n} rows in {train_s:.3f} s {card}; launches {launches} = "
+        f"{ntrees} trees x {levels} levels for hist and split_records")
+
+    plain_from = {k.name: k.launches for k in kernels}
+    mp = train_plain(fr, XGBoost, hist, ntrees)
+    if {k.name: k.launches for k in kernels} != plain_from:
+        raise AssertionError("the plain-route train launched a kernel")
+    a, b = m.output["trees"][0], mp.output["trees"][0]
+    for d in range(levels):
+        for name in ("feat", "na_left", "valid", "thr"):
+            if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                raise AssertionError(
+                    f"kernel and plain-route trains differ on {name} at "
+                    f"level {d} of the first tree")
+    p_k = m.predict(fr).vec("YES").to_numpy()
+    p_p = mp.predict(fr).vec("YES").to_numpy()
+    if not (np.isfinite(p_k).all() and p_k.shape == (n,)):
+        raise AssertionError("kernel-route predictions are not finite")
+    pred_rel = float(np.max(np.abs(p_k - p_p) / np.abs(p_p)))
+    if not np.allclose(p_k, p_p, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"predictions differ from the plain route: "
+                             f"max rel {pred_rel:.3e} > 1e-4")
+    auc_k, auc_p = m.training_metrics.auc, mp.training_metrics.auc
+    if abs(auc_k - auc_p) > 1e-4:
+        raise AssertionError(f"training AUC {auc_k} vs plain {auc_p}")
+    same_trees = 0
+    for tk, tp in zip(m.output["trees"], mp.output["trees"]):
+        same_trees += all(torch.equal(getattr(tk, nm)[d], getattr(tp, nm)[d])
+                          for nm in ("feat", "thr", "na_left", "valid")
+                          for d in range(levels))
+    log(f"train vs plain route on the card: first tree's splits equal at "
+        f"all {levels} levels; {same_trees}/{ntrees} trees with equal "
+        f"splits; predictions max rel diff {pred_rel:.3e}; training AUC "
+        f"{auc_k:.6f} vs {auc_p:.6f}; logloss "
+        f"{m.training_metrics.logloss:.6f} vs "
+        f"{mp.training_metrics.logloss:.6f}")
+
+    m2 = XGBoost(ntrees=ntrees, **BENCH_CFG).train(fr)
+    bitwise = all(torch.equal(x, y) for lv1, lv2 in zip(
+        st.levels, m2.output["stacked"].levels) for x, y in zip(lv1, lv2)) \
+        and torch.equal(st.values, m2.output["stacked"].values)
+    log(f"determinism: a second kernel train gave "
+        f"{'bitwise identical' if bitwise else 'NOT bitwise identical'} "
+        f"trees (f32 atomics sum in a run-dependent order)")
+
+    rows = []
+    for i in range(256):
+        r = {}
+        for k, v in cols.items():
+            if k in ("carrier", "origin", "dest"):
+                r[k] = str(int(v[i]))
+            elif k != "dep_delayed_15min":
+                r[k] = float(v[i])
+        rows.append(r)
+    try:
+        ent = batcher.publish("trained-xgboost", m)
+        ans = ent.predict_rows(rows)
+    finally:
+        batcher.shutdown_all()
+    if not np.allclose(ans["probabilities"][:, 1], p_k[:256], rtol=1e-5,
+                       atol=1e-7):
+        raise AssertionError("published model's answers differ from "
+                             "m.predict")
+    labels = m.predict(fr).vec("predict").to_numpy()[:256]
+    if not (ans["predict"] == np.asarray(["NO", "YES"],
+                                         dtype=object)[labels]).all():
+        raise AssertionError("published model's labels differ")
+    log("publish: the trained model, published through to_archive, "
+        "answered 256 rows equal to m.predict (rtol 1e-5)")
+    return fr, launches, ntrees
+
+
+def headline(XGBoost, Frame, card, n=10_000_000):
+    """Phase 10: the bench protocol at 10M rows, and a profile."""
+    import torch
+    t0 = time.perf_counter()
+    cols, types, domains = make_airlines_like(n)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    torch.cuda.synchronize()
+    log(f"headline frame: {n} rows made and on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    XGBoost(ntrees=20, **BENCH_CFG).train(fr)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m = XGBoost(ntrees=50, **BENCH_CFG).train(fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    log(f"headline: bench_trees protocol, {n} rows, XGBoost(max_depth=6, "
+        f"nbins=256): 20-tree warmup {warm:.3f} s, then 50 trees in "
+        f"{dt:.3f} s = {50 / dt:.3f} trees/s; training AUC "
+        f"{m.training_metrics.auc:.6f} {card}")
+    from torch.profiler import ProfilerActivity, profile
+    nprof = 10
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        XGBoost(ntrees=nprof, **BENCH_CFG).train(fr)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    if busy <= 0:
+        log("profile: no device time in the trace: not measured")
+    else:
+        # the profiler slows the host, so the wall time per tree is the
+        # unprofiled 50-tree train's; binning runs once in each train
+        wall_tree = dt / 50 * 1e3
+        kern.sort(key=lambda e: -e.self_device_time_total)
+        log(f"profile of a {nprof}-tree train at {n} rows: device busy "
+            f"{busy / nprof:.2f} ms per tree against {wall_tree:.2f} ms of "
+            f"wall per tree unprofiled: idle share "
+            f"{max(0.0, 1 - busy / nprof / wall_tree):.3f}; device ms per "
+            f"tree by kernel (launches per tree): " + "; ".join(
+                f"{e.key[:110]} {e.self_device_time_total / 1e3 / nprof:.3f}"
+                f" ({e.count / nprof:g})" for e in kern[:14]))
+    return fr
+
+
 def main() -> dict:
     import torch
     if not torch.cuda.is_available():
@@ -174,12 +633,15 @@ def main() -> dict:
 
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.export.mojo import from_reference
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree import hist
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
     from h2o3_tpu_torch.runtime import config as cfgmod
     from h2o3_tpu_torch.runtime import observability as obs
     from h2o3_tpu_torch.serving import batcher, kernel
 
     # ----------------------------------------------------------- 2 build
-    kernels = [kernel.TRAVERSE]
+    kernels = [kernel.TRAVERSE, hist.HIST, hist.SPLIT_RECORDS]
     t0 = time.perf_counter()
     native.build_all(kernels)
     log(f"build: {len(kernels)} kernel(s) in "
@@ -249,7 +711,8 @@ def main() -> dict:
 
     threads = [threading.Thread(target=client, args=(c,))
                for c in range(n_threads)]
-    for k in kernels:
+    serve_kernels = [kernel.TRAVERSE]      # the serving path's kernels
+    for k in serve_kernels:
         k.launches = 0
     try:
         t_pub = time.perf_counter()
@@ -261,7 +724,7 @@ def main() -> dict:
         for t in threads:
             t.join(timeout=300)
         wall = time.perf_counter() - t_serve
-        launches = {k.name: k.launches for k in kernels}
+        launches = {k.name: k.launches for k in serve_kernels}
         batcher_launches = ent.batcher.launches
     finally:
         batcher.shutdown_all()
@@ -330,16 +793,64 @@ def main() -> dict:
         f"8 B + roots + X + out, over 3.35 TB/s; {steps} f32 compares "
         f"over 67 TFLOP/s)")
 
+    traverse_row = {
+        "name": "traverse", "route": "cuda",
+        "source": "h2o3_tpu_torch/csrc/traverse.cu",
+        "replaces": "h2o3_tpu/serving/kernel.py:68",
+        "launches": launches["traverse"], "max_abs_err": max_err,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "library_ms": None,
+    }
+
+    # ------------------------------------------------- 7 train kernels
+    dev = torch.device("cuda")
+    cols, types, domains = make_airlines_like(1_000_000)
+    fr1 = Frame.from_numpy(cols, types=types, domains=domains)
+    hv, sr = capture_levels(fr1, XGBoost, hist)
+    train_err = check_train_kernels(hv, sr, hist, dev)
+
+    # ---------------------------------------------------------- 8 train
+    kernels_train = [hist.HIST, hist.SPLIT_RECORDS]
+    _, tlaunch, ntrees = train_phase(cols, types, domains, kernels_train,
+                                     XGBoost, Frame, batcher, hist, card)
+
+    # ---------------------------------------------------- 9 train times
+    tot = time_train_kernels(hv, sr, hist, "1M rows")
+    per_tree = {k: tlaunch[k] / ntrees for k in tlaunch}
+    log(f"train times per tree at 1M rows (sum of the {len(hv)} level "
+        f"launches) {card}: " + "; ".join(
+            f"{k} {v[0]:.4f} ms (plain {v[1]:.4f}, bound {v[2]:.5f}"
+            + (f", index_add_ {v[3]:.4f})" if k != "split_records" else ")")
+            for k, v in tot.items())
+        + f"; launches per tree {per_tree}")
+    rows = []
+    for kname, src, rep, lib in (
+            ("hist", "h2o3_tpu_torch/csrc/hist.cu",
+             "h2o3_tpu/models/tree/hist.py:256; "
+             "h2o3_tpu/models/tree/hist.py:80", True),
+            ("split_records", "h2o3_tpu_torch/csrc/split_records.cu",
+             "h2o3_tpu/models/tree/hist.py:1526", False)):
+        v = tot[kname]
+        bnd = v[2]                       # the sum of the levels' bounds
+        _, by = bound(v[4], v[5])
+        rows.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": rep, "launches": tlaunch[kname],
+            "max_abs_err": train_err if kname == "hist" else 0.0,
+            "ms": v[0], "plain_ms": v[1], "bound_ms": bnd, "bound_by": by,
+            "library_ms": v[3] if lib else None,
+        })
+    del hv, sr
+
+    # ------------------------------------------------------ 10 headline
+    fr10 = headline(XGBoost, Frame, card)
+    hv10, sr10 = capture_levels(fr10, XGBoost, hist)
+    del fr10
+    time_train_kernels(hv10, sr10, hist, "10M rows")
+
     return {
-        "kernels": [{
-            "name": "traverse", "route": "cuda",
-            "source": "h2o3_tpu_torch/csrc/traverse.cu",
-            "replaces": "h2o3_tpu/serving/kernel.py:68",
-            "launches": launches["traverse"], "max_abs_err": max_err,
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None,
-        }],
+        "kernels": [traverse_row] + rows,
         "device": {"platform": "gpu", "kind": name,
                    "count": torch.cuda.device_count()},
     }

@@ -1,0 +1,616 @@
+"""Histogram, split-search and partition steps of tree training — the
+level path of ``h2o3_tpu/models/tree/hist.py``.
+
+Reference hot loop: ``hex/tree/DHistogram.java`` (per-(leaf, column, bin)
+sums of the gradient statistics) and XGBoost's ``gpu_hist``.  One tree
+level is: the level histogram ``H[3, L, F, B]`` of (Σg, Σh, Σw) per
+(leaf, feature, bin) -> the per-(leaf, feature) winner records -> the
+per-leaf best split -> the row partition into child leaves.  ``B`` counts
+``nbins`` regular bins and the NA bin last.
+
+Kernels (``csrc/``, built by ``native.py``), each beside its plain torch
+version:
+
+* ``hist_uniform`` / ``hist_varbin`` -> ``csrc/hist.cu``: the histogram
+  on the uniform bin axis (JAX ``_make_pallas_hist``) and on the packed
+  per-feature axis (JAX ``_make_pallas_varbin_hist``); plain versions
+  ``hist_uniform_torch`` / ``hist_varbin_torch``, one ``index_add_`` each;
+* ``split_records`` -> ``csrc/split_records.cu`` (JAX
+  ``_make_pallas_split_records``); plain version ``_split_records_torch``
+  (the JAX package's ``_split_records_xla`` with its prefix sums taken in
+  sequential order).
+
+A wrapper launches its kernel for CUDA tensors and takes the plain
+version for CPU tensors.  The JAX package's one-hot matmul lookups (``table_lookup``) were a TPU
+workaround; here they are plain gathers.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import functools
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from ... import native
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+HIST = native.Kernel("hist", {
+    "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I, _P,
+                     _L, _L, _L, _P), _I),
+})
+SPLIT_RECORDS = native.Kernel("split_records", {
+    "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
+})
+
+_REC_PLANES = 12
+# shared memory one histogram block may use: two blocks of 512 threads
+# then fit one SM (227 KB each at most)
+HIST_SMEM_BUDGET = 96 * 1024
+_HIST_THREADS = 512
+
+
+def _on_cuda(t: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU tensor
+    (the plain version); any other device raises."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"no {what} for device {t.device}")
+
+
+# ---------------------------------------------------------------- layouts
+
+@dataclasses.dataclass(frozen=True)
+class HistLayout:
+    """Where each feature's bins lie on the packed bin axis q.
+
+    Row r of feature f adds to q = code_off[f] + codes[f, r] when q lies
+    in its segment [qstart[f], qstart[f] + qlen[f]); Q rows in all."""
+
+    code_off: Tuple[int, ...]
+    qstart: Tuple[int, ...]
+    qlen: Tuple[int, ...]
+    Q: int
+
+    @property
+    def F(self) -> int:
+        return len(self.qstart)
+
+
+@functools.lru_cache(maxsize=None)
+def uniform_layout(F: int, B: int) -> HistLayout:
+    """B bins per feature, raw codes: q = f * B + code."""
+    off = tuple(f * B for f in range(F))
+    return HistLayout(off, off, (B,) * F, F * B)
+
+
+def varbin_layout(bin_counts, B: int):
+    """Packed ragged bin-axis layout: per-feature [offset, B_f regular bins,
+    NA slot], each segment 8-padded with at least one spare slot.
+
+    Returns (offsets[F], segment row counts [F], total rows Q8, and the
+    dense gather map [F, B+1] -> packed row, with empty bins pointing at
+    padding slots that stay zero).  A copy of the JAX package's layout.
+    """
+    offsets, rows = [], []
+    q = 0
+    for bf in bin_counts:
+        bf = min(bf, B - 1)
+        seg = ((bf + 2) + 7) // 8 * 8
+        offsets.append(q)
+        rows.append(seg)
+        q += seg
+    qmap = np.zeros((len(bin_counts), B + 1), np.int32)
+    for f, bf in enumerate(bin_counts):
+        bf = min(bf, B - 1)
+        for b in range(B + 1):
+            if b < bf:
+                qmap[f, b] = offsets[f] + b
+            elif b == B:
+                qmap[f, b] = offsets[f] + bf
+            else:
+                qmap[f, b] = offsets[f] + rows[f] - 1
+    return (np.asarray(offsets, np.int32), np.asarray(rows, np.int32),
+            q, qmap)
+
+
+@functools.lru_cache(maxsize=None)
+def packed_layout(bin_counts: tuple, B: int) -> HistLayout:
+    """The varbin layout as a HistLayout: codes arrive pre-offset
+    (``offset_codes``), so code_off is 0."""
+    offsets, rows, Q8, _ = varbin_layout(bin_counts, B)
+    return HistLayout((0,) * len(bin_counts), tuple(int(o) for o in offsets),
+                      tuple(int(r) for r in rows), int(Q8))
+
+
+@functools.lru_cache(maxsize=None)
+def _qmap_dense(bin_counts: tuple, B: int) -> np.ndarray:
+    """[F*B] packed row of each dense (feature, bin); bins 0..B-2 regular,
+    B-1 the NA slot."""
+    _, _, _, qmap = varbin_layout(bin_counts, B)
+    return np.ascontiguousarray(
+        qmap[:, list(range(B - 1)) + [B]].reshape(-1)).astype(np.int64)
+
+
+def offset_codes(codes: torch.Tensor, bin_counts, nbins: int) -> torch.Tensor:
+    """codes [F, N] (NA == nbins) -> packed bin ids of the varbin layout;
+    int16 when every id fits, as in the JAX package (it halves the bytes
+    the histogram reads at every level of the tree)."""
+    offsets, _, Q8, _ = varbin_layout(bin_counts, nbins + 1)
+    dev = codes.device
+    off = torch.as_tensor(offsets, dtype=torch.int32, device=dev)[:, None]
+    bf = torch.as_tensor([min(b, nbins) for b in bin_counts],
+                         dtype=torch.int32, device=dev)[:, None]
+    out = torch.where(codes >= nbins, off + bf, codes + off)
+    return out.to(torch.int16 if Q8 < 32_000 else torch.int32)
+
+
+def hist_tiles(layout: HistLayout, L: int,
+               budget: int = HIST_SMEM_BUDGET) -> Tuple[np.ndarray, int]:
+    """Cut the [Q, L] output into tiles of (contiguous feature range) x
+    (leaf range) of at most ``budget`` bytes of shared memory.
+
+    The leaf range is the largest even split of L at which the widest
+    feature segment fits; features are then packed greedily at that
+    width.  Returns ([T, 8] int32 rows fa, fb, qa, qn, l0, ln, use_smem,
+    0) and the shared-memory bytes of the largest tile.  A feature whose
+    segment alone exceeds the budget at one leaf gets a tile with
+    use_smem = 0 (global atomics)."""
+    per_q = 3 * 4                                  # (g, h, w) f32 per bin
+    widest = max(layout.qlen)
+    lt_max = budget // (per_q * widest)
+    groups = max(1, -(-L // max(lt_max, 1)))
+    Lt = -(-L // groups)
+    tiles = []
+    fa = 0
+    F = layout.F
+    while fa < F:
+        fb = fa + 1
+        while fb < F and (layout.qstart[fb] + layout.qlen[fb]
+                          - layout.qstart[fa]) * Lt * per_q <= budget:
+            fb += 1
+        qa = layout.qstart[fa]
+        qn = layout.qstart[fb - 1] + layout.qlen[fb - 1] - qa
+        smem = int(qn * Lt * per_q <= budget)
+        for l0 in range(0, L, Lt):
+            tiles.append((fa, fb, qa, qn, l0, min(Lt, L - l0), smem, 0))
+        fa = fb
+    arr = np.asarray(tiles, np.int32)
+    used = arr[:, 6] == 1
+    smem_bytes = int((arr[used, 3] * arr[used, 5]).max() * per_q) \
+        if used.any() else 0
+    return arr, smem_bytes
+
+
+@functools.lru_cache(maxsize=None)
+def _device_meta(layout: HistLayout, L: int, device: str):
+    """The layout's [3, F] feature table and its [T, 8] tiles on the
+    device, uploaded once per (layout, L, device)."""
+    tiles, smem = hist_tiles(layout, L)
+    meta = np.asarray([layout.code_off, layout.qstart, layout.qlen],
+                      np.int32)
+    dev = torch.device(device)
+    return (torch.from_numpy(meta).to(dev), torch.from_numpy(tiles).to(dev),
+            int(tiles.shape[0]), smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: str) -> int:
+    return torch.cuda.get_device_properties(
+        torch.device(device)).multi_processor_count
+
+
+def _rows_per_block(n: int, n_tiles: int, smem: int, device: str) -> int:
+    """Rows per block: enough blocks for two waves of the card, at least
+    2,048 rows a block, at most 65,535 row blocks (the grid's y limit)."""
+    per_sm = max(1, min(2048 // _HIST_THREADS,
+                        (227 * 1024) // max(smem, 1)))
+    target = 2 * _sm_count(device) * per_sm
+    chunks = max(1, min(-(-n // 2048), -(-target // n_tiles)))
+    rows = -(-n // chunks)
+    return max(rows, -(-n // 65_535))
+
+
+# --------------------------------------------------- histogram: kernel path
+
+def _check_hist_operands(codes, leaf, stats):
+    if codes.dim() != 2 or codes.dtype not in (torch.int16, torch.int32):
+        raise ValueError("codes must be a [F, n] int16/int32 tensor")
+    n = codes.shape[1]
+    if leaf.shape != (n,) or leaf.dtype != torch.int32:
+        raise ValueError("leaf must be an [n] int32 tensor")
+    if stats.dim() != 2 or stats.shape[0] != 3 or stats.shape[1] != n \
+            or stats.dtype != torch.float32:
+        raise ValueError("stats must be a [3, n] f32 tensor")
+    for name, t in (("codes", codes), ("leaf", leaf), ("stats", stats)):
+        if t.device != codes.device:
+            raise ValueError(f"{name} is on {t.device}, codes on "
+                             f"{codes.device}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name} rows must be contiguous")
+
+
+def _launch_hist(codes, leaf, stats, L: int, layout: HistLayout,
+                 out: torch.Tensor, strides) -> None:
+    """Launch ``csrc/hist.cu`` adding the level histogram into ``out``
+    (zeroed by the caller) through ``strides`` = (s, l, q)."""
+    dev = codes.device
+    n = codes.shape[1]
+    meta, tiles, n_tiles, smem = _device_meta(layout, L, str(dev))
+    if n == 0:
+        return
+    rpb = _rows_per_block(n, n_tiles, smem, str(dev))
+    lib = HIST.lib()
+    with torch.cuda.device(dev):
+        rc = lib.hist_launch(
+            codes.data_ptr(), codes.element_size(), codes.stride(0),
+            leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
+            meta.data_ptr(), layout.F, tiles.data_ptr(), n_tiles, n, rpb,
+            smem, out.data_ptr(), strides[0], strides[1], strides[2],
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
+    HIST.count()
+
+
+def hist_uniform_torch(codes, leaf, stats, L: int, B: int) -> torch.Tensor:
+    """Plain torch level histogram on the uniform axis: one
+    ``index_add_`` over the flattened (leaf, feature, bin) index.
+    codes [F, n], leaf [n], stats [3, n] -> H [3, L, F, B] in the stats'
+    dtype (f64 stats give the reference the f32 sums are measured by)."""
+    F, n = codes.shape
+    dev = codes.device
+    c = codes.long()
+    lf = leaf.long()
+    ok = ((lf >= 0) & (lf < L))[None, :] & (c >= 0) & (c < B)
+    idx = (lf[None, :] * F + torch.arange(F, device=dev)[:, None]) * B + c
+    src = stats[:, None, :].expand(3, F, n)
+    out = torch.zeros((3, L * F * B), dtype=stats.dtype, device=dev)
+    out.index_add_(1, idx[ok], src[:, ok])
+    return out.view(3, L, F, B)
+
+
+def hist_uniform(codes, leaf, stats, L: int, B: int) -> torch.Tensor:
+    """Level histogram on the uniform bin axis -> H [3, L, F, B].
+
+    codes [F, n] int16/int32 in [0, B), leaf [n] int32 (rows outside
+    [0, L) add nothing), stats [3, n] f32 = (g, h, w).  CUDA tensors
+    launch ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU tensors
+    take ``hist_uniform_torch``."""
+    _check_hist_operands(codes, leaf, stats)
+    if not _on_cuda(codes, "histogram"):
+        return hist_uniform_torch(codes, leaf, stats, L, B)
+    F = codes.shape[0]
+    out = torch.zeros((3, L, F * B), dtype=torch.float32,
+                      device=codes.device)
+    _launch_hist(codes, leaf, stats, L, uniform_layout(F, B), out,
+                 (L * F * B, F * B, 1))
+    return out.view(3, L, F, B)
+
+
+def hist_varbin_torch(gcodes, leaf, stats, L: int, layout: HistLayout
+                      ) -> torch.Tensor:
+    """Plain torch level histogram on the packed axis: one ``index_add_``
+    over the flattened (packed bin, leaf) index.  gcodes [F, n]
+    (pre-offset), leaf [n], stats [3, n] -> [Q8, 3L], column 3 l + s, in
+    the stats' dtype."""
+    F, n = gcodes.shape
+    dev = gcodes.device
+    q = gcodes.long()
+    lf = leaf.long()
+    lo = torch.as_tensor(layout.qstart, device=dev)[:, None]
+    hi = lo + torch.as_tensor(layout.qlen, device=dev)[:, None]
+    ok = ((lf >= 0) & (lf < L))[None, :] & (q >= lo) & (q < hi)
+    idx = q * L + lf[None, :]
+    src = stats.t()[None, :, :].expand(F, n, 3)
+    out = torch.zeros((layout.Q * L, 3), dtype=stats.dtype, device=dev)
+    out.index_add_(0, idx[ok], src[ok])
+    return out.view(layout.Q, 3 * L)
+
+
+def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple,
+                B: int) -> torch.Tensor:
+    """Level histogram on the packed per-feature axis -> [Q8, 3L]
+    (row q, column 3 l + s; expand with ``expand_varbin``).
+
+    gcodes [F, n] are pre-offset packed ids (``offset_codes``).  CUDA
+    tensors launch ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU
+    tensors take ``hist_varbin_torch``."""
+    _check_hist_operands(gcodes, leaf, stats)
+    layout = packed_layout(tuple(bin_counts), B)
+    if not _on_cuda(gcodes, "histogram"):
+        return hist_varbin_torch(gcodes, leaf, stats, L, layout)
+    out = torch.zeros((layout.Q, 3 * L), dtype=torch.float32,
+                      device=gcodes.device)
+    _launch_hist(gcodes, leaf, stats, L, layout, out, (1, 3, 3 * L))
+    return out
+
+
+def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
+                  B: int) -> torch.Tensor:
+    """[Q8, 3L] packed histogram -> the dense [3, L, F, B] contract
+    through the static qmap gather (hist.py:389-395 of the JAX package)."""
+    F = len(bin_counts)
+    qd = torch.as_tensor(_qmap_dense(tuple(bin_counts), B),
+                         device=packed.device)
+    H = packed.index_select(0, qd)                    # [F*B, 3L]
+    return H.view(F, B, L, 3).permute(3, 2, 0, 1).contiguous()
+
+
+def local_hist(codes, leaf, stats, L: int, F: int, B: int,
+               bin_counts=None) -> torch.Tensor:
+    """Level histogram in the dense [3, L, F, B] contract: the varbin
+    layout when ``bin_counts`` is given (codes pre-offset), else the
+    uniform one (the JAX package's ``make_hist_fn`` and
+    ``make_varbin_hist_fn``; one device, so no psum)."""
+    if bin_counts is not None:
+        packed = hist_varbin(codes, leaf, stats, L, tuple(bin_counts), B)
+        return expand_varbin(packed, tuple(bin_counts), L, B)
+    return hist_uniform(codes, leaf, stats, L, B)
+
+
+def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
+    """Level-``d`` histogram by smaller-sibling compaction + parent
+    subtraction (the JAX package's ``make_subtract_level_fn``;
+    DHistogram / LightGBM / gpu_hist's halving).
+
+    Each parent's child with fewer rows is compacted into a dense prefix
+    of ``n // 2`` rows (a cumsum-positioned scatter: ``index_copy_`` of a
+    permutation that puts the chosen rows first), only that prefix is
+    histogrammed at the parent-slot geometry, and the larger sibling is
+    ``H_parent - H_small`` in f32 with its h/w planes clamped at 0.
+    Rows of the prefix past the compacted count carry leaf -1 and add
+    nothing.  Returns ``fn(codes, leaf, g, h, w[, carry]) -> (H, carry)``
+    where ``carry`` is the level's own histogram, the next level's
+    parent; ``fn.stacked(codes, leaf, stats, carry)`` takes the stats
+    already stacked as [3, n].
+    """
+    bc = tuple(bin_counts) if bin_counts is not None else None
+    Lp = 2 ** max(d - 1, 0)
+    Lc = 2 ** d
+
+    def level(codes, leaf, stats, carry=None):
+        if d == 0:
+            H = local_hist(codes, leaf, stats, 1, F, B, bc)
+            return H, H
+        if carry is None:
+            raise ValueError(f"level {d} needs the previous level's carry")
+        n = codes.shape[1]
+        cap = n // 2
+        dev = codes.device
+        # rows per child: a shared-memory histogram of the leaf ids
+        # (exact in f64; bincount would sync the host for its length, and
+        # an index_add_ of ones piles every row's atomic on 2^d addresses)
+        cnt = torch.histc(leaf.double(), bins=Lc, min=0, max=Lc)
+        small_is_left = cnt[0::2] <= cnt[1::2]                     # [Lp]
+        chosen_child = torch.stack([small_is_left, ~small_is_left],
+                                   dim=1).reshape(-1)              # [Lc]
+        chosen = chosen_child[leaf.long()]
+        # a permutation: the chosen rows, in order, to the prefix, every
+        # other row after them (distinct targets, so no write contention)
+        c_incl = torch.cumsum(chosen, dim=0)
+        row = torch.arange(n, device=dev)
+        target = torch.where(chosen, c_incl - 1, c_incl[-1] + row - c_incl)
+        ccodes = torch.empty_like(codes).index_copy_(1, target, codes)
+        pleaf = torch.empty_like(leaf).index_copy_(
+            0, target, torch.where(chosen, leaf >> 1, -1))
+        st = torch.empty_like(stats).index_copy_(1, target, stats)
+        Hs = local_hist(ccodes[:, :cap], pleaf[:cap], st[:, :cap], Lp, F,
+                        B, bc)                                     # [3,Lp,F,B]
+        Ho = carry - Hs
+        Ho[1:].clamp_min_(0.0)
+        sl = small_is_left[None, :, None, None]
+        Hl = torch.where(sl, Hs, Ho)
+        Hr = torch.where(sl, Ho, Hs)
+        H = torch.stack([Hl, Hr], dim=2).reshape(3, Lc, F, B)
+        return H, H
+
+    def fn(codes, leaf, g, h, w, carry=None):
+        return level(codes, leaf, torch.stack([g, h, w]).to(torch.float32),
+                     carry)
+
+    fn.stacked = level
+    return fn
+
+
+# ------------------------------------------------------------ split search
+
+def _soft_threshold(G, alpha):
+    return torch.sign(G) * torch.clamp_min(G.abs() - alpha, 0.0)
+
+
+def _score(G, H, lam, alpha=0.0):
+    Gt = _soft_threshold(G, alpha)
+    return Gt * Gt / (H + lam)
+
+
+def newton_value(g, h, reg_lambda: float, reg_alpha: float):
+    """Soft-thresholded Newton node value, the one formula shared by
+    split rejection and leaf fitting."""
+    num = torch.sign(g) * torch.clamp_min(g.abs() - reg_alpha, 0.0)
+    return -num / (h + reg_lambda + 1e-12)
+
+
+def _cumsum_seq(x: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sums over the last axis in sequential f32 order
+    (bin 0, then + bin 1, ...): the order ``csrc/split_records.cu`` takes.
+    ``torch.cumsum`` accumulates in f64 on the CPU and in a tree on the
+    card, so it would give other last bits on each."""
+    out = torch.empty_like(x)
+    acc = x[..., 0]
+    out[..., 0] = acc
+    for b in range(1, x.shape[-1]):
+        acc = acc + x[..., b]
+        out[..., b] = acc
+    return out
+
+
+def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
+                         min_child_weight) -> torch.Tensor:
+    """Per-(leaf, feature) winner records [L, F, 12] — the plain version
+    of ``csrc/split_records.cu`` and the port of the JAX package's
+    ``_split_records_xla`` (same formula; prefix sums in sequential f32
+    order).  Fields: gain, bin, na_left, GL, HL, CL at the bin (NA
+    excluded), g_na, h_na, c_na, totG, totH, totC."""
+    G, Hs, C = Hist[0], Hist[1], Hist[2]
+    g_na, h_na, c_na = G[..., -1], Hs[..., -1], C[..., -1]
+    cum = _cumsum_seq(Hist[..., :-1])
+    cumG, cumH, cumC = cum[0], cum[1], cum[2]
+    totG = cumG[..., -1] + g_na
+    totH = cumH[..., -1] + h_na
+    totC = cumC[..., -1] + c_na
+    parent = _score(totG, totH, reg_lambda, reg_alpha)
+    GL, HL, CL = cumG[..., :-1], cumH[..., :-1], cumC[..., :-1]
+    GR = totG[..., None] - GL - g_na[..., None]
+    HR = totH[..., None] - HL - h_na[..., None]
+    CR = totC[..., None] - CL - c_na[..., None]
+
+    def gain_with_na(gl, hl, cl, gr, hr, cr):
+        g = 0.5 * (_score(gl, hl, reg_lambda, reg_alpha)
+                   + _score(gr, hr, reg_lambda, reg_alpha)
+                   - parent[..., None]) - gamma
+        ok = (cl >= min_rows) & (cr >= min_rows) & \
+            (hl >= min_child_weight) & (hr >= min_child_weight)
+        return torch.where(ok, g, -torch.inf)
+
+    gain_naL = gain_with_na(GL + g_na[..., None], HL + h_na[..., None],
+                            CL + c_na[..., None], GR, HR, CR)
+    gain_naR = gain_with_na(GL, HL, CL, GR + g_na[..., None],
+                            HR + h_na[..., None], CR + c_na[..., None])
+    na_left_better = gain_naL >= gain_naR
+    gain = torch.maximum(gain_naL, gain_naR)
+    bin_ = torch.argmax(gain, dim=-1)
+
+    def pick(a):
+        return a.gather(-1, bin_[..., None])[..., 0]
+
+    return torch.stack(
+        [pick(gain), bin_.to(torch.float32),
+         pick(na_left_better).to(torch.float32),
+         pick(GL), pick(HL), pick(CL), g_na, h_na, c_na,
+         totG, totH, totC], dim=-1)
+
+
+def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
+                  gamma=0.0, min_child_weight=0.0) -> torch.Tensor:
+    """Per-(leaf, feature) winner records [L, F, 12] from H[3, L, F, B].
+
+    CUDA tensors launch ``csrc/split_records.cu`` (counted in
+    ``SPLIT_RECORDS.launches``); CPU tensors take
+    ``_split_records_torch``.  Scalar parameters only: the per-leaf form
+    of the batched grid waits for that slice."""
+    if Hist.dim() != 4 or Hist.shape[0] != 3 or Hist.shape[-1] != nbins + 1:
+        raise ValueError(f"Hist must be [3, L, F, {nbins + 1}], got "
+                         f"{tuple(Hist.shape)}")
+    if Hist.dtype != torch.float32:
+        raise ValueError("Hist must be f32")
+    if not _on_cuda(Hist, "split records"):
+        return _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha,
+                                    gamma, min_child_weight)
+    _, L, F, B = Hist.shape
+    H = Hist.contiguous()
+    rec = torch.empty((L, F, _REC_PLANES), dtype=torch.float32,
+                      device=H.device)
+    lib = SPLIT_RECORDS.lib()
+    with torch.cuda.device(H.device):
+        rc = lib.split_records_launch(
+            H.data_ptr(), L * F, B, float(reg_lambda), float(reg_alpha),
+            float(gamma), float(min_rows), float(min_child_weight),
+            rec.data_ptr(), torch.cuda.current_stream(H.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"split_records kernel launch failed: CUDA "
+                           f"error {rc}")
+    SPLIT_RECORDS.count()
+    return rec
+
+
+def finish_splits(rec, min_rows, min_split_improvement, feat_mask=None):
+    """Reduce winner records over features into the per-leaf best split
+    (feat, bin, na_left, gain, valid, children[L, 6]), in the JAX
+    package's ``best_splits`` arithmetic order."""
+    L, F, _ = rec.shape
+    gain = rec[..., 0]
+    if feat_mask is not None:
+        m = feat_mask if feat_mask.dim() == 2 else feat_mask[None, :]
+        gain = torch.where(m, gain, -torch.inf)
+    feat = torch.argmax(gain, dim=1)
+    fl = feat[:, None]
+
+    def pick(i):
+        return rec[..., i].gather(1, fl)[:, 0]
+
+    best_gain = gain.gather(1, fl)[:, 0]
+    bin_ = pick(1).to(torch.int32)
+    na_left = pick(2) > 0.5
+    glx, hlx, clx = pick(3), pick(4), pick(5)
+    gna, hna, cna = pick(6), pick(7), pick(8)
+    ftot, htot, ctot = pick(9), pick(10), pick(11)
+    valid = torch.isfinite(best_gain) & \
+        (best_gain > min_split_improvement) & \
+        (rec[..., 11] >= 2 * min_rows).any(-1)
+    gr0 = ftot - glx - gna
+    hr0 = htot - hlx - hna
+    cr0 = ctot - clx - cna
+    gl = torch.where(na_left, glx + gna, glx)
+    hl = torch.where(na_left, hlx + hna, hlx)
+    cl = torch.where(na_left, clx + cna, clx)
+    gr = torch.where(na_left, gr0, gr0 + gna)
+    hr = torch.where(na_left, hr0, hr0 + hna)
+    cr = torch.where(na_left, cr0, cr0 + cna)
+    gl = torch.where(valid, gl, ftot)
+    hl = torch.where(valid, hl, htot)
+    cl = torch.where(valid, cl, ctot)
+    zero = torch.zeros((), dtype=gr.dtype, device=gr.device)
+    gr = torch.where(valid, gr, zero)
+    hr = torch.where(valid, hr, zero)
+    cr = torch.where(valid, cr, zero)
+    children = torch.stack([gl, hl, cl, gr, hr, cr], dim=1)
+    return feat.to(torch.int32), bin_, na_left, best_gain, valid, children
+
+
+def fused_best_splits(Hist, nbins: int, reg_lambda, min_rows,
+                      min_split_improvement, feat_mask=None,
+                      reg_alpha=0.0, gamma=0.0, min_child_weight=0.0):
+    """Best split per leaf through the records wrapper: one records
+    launch, then the feature argmax (``split_mode="fused"``)."""
+    rec = split_records(Hist, nbins, reg_lambda, min_rows, reg_alpha,
+                        gamma, min_child_weight)
+    return finish_splits(rec, min_rows, min_split_improvement, feat_mask)
+
+
+def best_splits(Hist, nbins: int, reg_lambda, min_rows,
+                min_split_improvement, feat_mask=None, reg_alpha=0.0,
+                gamma=0.0, min_child_weight=0.0):
+    """Best split per leaf through the plain records on any device — the
+    oracle of ``split_mode="separate"`` (and of "check", which holds the
+    records kernel against it on a card)."""
+    rec = _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha,
+                               gamma, min_child_weight)
+    return finish_splits(rec, min_rows, min_split_improvement, feat_mask)
+
+
+# --------------------------------------------------------------- partition
+
+def partition(codes, leaf, feat, bin_, na_left, valid, na_bin: int):
+    """Send rows to child leaves: new_leaf = 2 * leaf + went_right.
+
+    ``codes`` is feature-major [F, N].  Each row gathers its leaf's split
+    (feature, bin, NA direction, valid) and its code of that feature; a
+    terminal (invalid) leaf routes every row left."""
+    li = leaf.long()
+    f = feat.long()[li]
+    b = bin_[li]
+    nl = na_left[li]
+    v = valid[li]
+    c = codes.gather(0, f[None, :])[0]
+    right = torch.where(c == na_bin, ~nl, c > b) & v
+    return (2 * leaf + right.to(torch.int32)).to(torch.int32)

@@ -1,7 +1,8 @@
 """Runtime configuration — the ``H2O3_TPU_*`` env surface of the port.
 
-A copy of the serving part of ``h2o3_tpu/runtime/config.py``: one typed
-config read from the environment at first use.  The env names are the
+A copy of the serving and tree-training part of
+``h2o3_tpu/runtime/config.py``: one typed config read from the
+environment at first use.  The env names are the
 JAX package's, so one deployment's settings drive either package.  The
 JAX package's ``serve_impl`` knob has no counterpart: on the port the
 tensor's device picks the traversal (the CUDA kernel on a card, the
@@ -34,6 +35,11 @@ class Config:
     # cannot be dispatched to the device before its deadline is shed
     # instead of waiting in the queue — also during shutdown drain
     serve_deadline_ms: float = 0.0
+    # tree histogram layout: "" lets training choose (the packed
+    # variable-bin kernel on a CUDA device when packing saves work), and
+    # "varbin" forces the packed layout on any device — the JAX package
+    # reads the same knob (models/tree/shared.py varbin_kernel_engages)
+    hist_impl: str = ""
 
     @staticmethod
     def from_env() -> "Config":
@@ -47,6 +53,7 @@ class Config:
             serve_queue_depth=int(e("H2O3_TPU_SERVE_QUEUE", 4096)),
             serve_score_mode=e("H2O3_TPU_SERVE_SCORE_MODE", "packed"),
             serve_deadline_ms=float(e("H2O3_TPU_SERVE_DEADLINE_MS", 0.0)),
+            hist_impl=e("H2O3_TPU_HIST_IMPL", ""),
         )
 
 

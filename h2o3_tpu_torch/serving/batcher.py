@@ -273,8 +273,9 @@ def publish(key: str, model, warm: bool = True,
     (idempotent: a key already published returns its entry).
 
     ``model`` is a port ``ScoringModel`` (``export.mojo.from_reference``
-    or ``import_mojo``) or the path of an archive.  ``device`` defaults
-    to ``cuda``.
+    or ``import_mojo``), a tree model trained by the port (carried over
+    through its ``to_archive()``), or the path of an archive.  ``device``
+    defaults to ``cuda``.
     """
     with _registry_lock:
         ent = _registry.get(key)
@@ -284,6 +285,9 @@ def publish(key: str, model, warm: bool = True,
     from .kernel import PackedScorer
     if isinstance(model, (str, os.PathLike)):
         model = import_mojo(os.fspath(model))
+    elif hasattr(model, "to_archive"):
+        from ..export.mojo import from_reference
+        model = from_reference(*model.to_archive())
     scorer = PackedScorer(model, device=device)
     batcher = MicroBatcher(scorer)
     warmup_s = batcher.warmup() if warm else 0.0

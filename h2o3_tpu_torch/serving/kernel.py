@@ -29,6 +29,7 @@ import torch
 
 from .. import native
 from ..runtime.config import config
+from ..runtime.device import resolve_device
 from . import pack as packmod
 
 _SCORE_MODES = ("packed", "ref", "check")
@@ -38,18 +39,6 @@ _I = ctypes.c_int
 TRAVERSE = native.Kernel("traverse", {
     "traverse_launch": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
 })
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: ``cuda`` unless the caller
-    names another.  Raises when CUDA is asked for and absent — an entry
-    point never falls back to the CPU on its own."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "h2o3_tpu_torch runs on a CUDA device and none is available; "
-            "pass device='cpu' to run the plain torch version")
-    return dev
 
 
 # ------------------------------------------------------------ traversal

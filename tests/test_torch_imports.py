@@ -55,6 +55,7 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.serving.kernel\n"
         "import h2o3_tpu_torch.serving.batcher\n"
         "import h2o3_tpu_torch.export\n"
+        "import h2o3_tpu_torch.models.tree.xgboost\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -77,3 +78,21 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         batcher.publish("no-cuda", sm)
     assert kernel.PackedScorer(sm, device="cpu").device.type == "cpu"
+
+
+def test_training_entry_points_raise_without_cuda(monkeypatch):
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    from h2o3_tpu_torch.runtime import device
+    cols = {"x": [0.5, 1.5, 2.5, 3.5], "y": ["a", "b", "a", "b"]}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Frame.from_numpy(cols)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        device.resolve_device()
+    fr = Frame.from_numpy(cols, device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        XGBoost(response_column="y", ntrees=1).train(fr)
+    m = XGBoost(response_column="y", ntrees=1, max_depth=2, nbins=4,
+                min_rows=1.0, device="cpu").train(fr)
+    assert m.output["stacked"].values.device.type == "cpu"
