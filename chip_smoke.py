@@ -37,7 +37,8 @@ Phases (any failure exits non-zero and prints no result line):
              on the 1M-row frame on the card: ``hist`` and
              ``split_records`` must each launch trees x levels times.  The
              same train with the three wrappers swapped for their plain
-             versions on the card must give the same splits at every
+             versions on the card (the histograms summed in f64, rounded
+             to f32: see ``train_plain``) must give the same splits at every
              level of the first tree, predictions to rtol 1e-4 and the
              training AUC to 1e-4.  The model is then published and a
              256-row batch answered by ``predict_rows`` must equal
@@ -47,9 +48,38 @@ Phases (any failure exits non-zero and prints no result line):
              captured level launches) beside its bound, its plain
              version and, for the histograms, the one ``index_add_`` call
              that computes the same sums;
-10. headline — the bench protocol at its default 10,000,000 rows: a
-             20-tree warmup train, then trees/s of a 50-tree train,
-             with a torch.profiler breakdown of a 10-tree train.
+10. hier kernels — the same train with ``split_search="hier"`` (the
+             hierarchical split search) captures one tree's level inputs;
+             ``fine_hist`` is held against its plain version on them, on
+             a ragged row count, with rows of leaf -1 and on the
+             nbins = 61 geometry whose NA code aliases into a fine slot
+             (bitwise on integer-valued stats, within 1e-5 of each
+             plane's total of the f64 plain version on the real ones);
+             so is the coarse pass's ``hist_uniform`` on its captured
+             levels, with the 3 planes the path launches and with 4;
+11. hier train — launch counts set to 0, then the 20-tree hier train at
+             1M rows: ``fine_hist`` and ``hist`` must each launch trees x
+             levels times and ``split_records`` never.  The same train
+             with the wrappers swapped for their plain versions must
+             give the same splits on the first tree (a threshold may
+             differ only where both bins route every row alike: the two
+             sides of a structural tie, summed from different
+             histograms), predictions to rtol 1e-4 and the training AUC
+             to 1e-4; the AUC must lie within 0.01 of the exact search's;
+             the model published must answer like ``m.predict``; a
+             second kernel train reports how far f32 atomics moved it;
+12. hier times — ``fine_hist`` per captured level and per tree beside
+             its bound, its plain version and the one ``index_add_``
+             call on its precomputed slots; the coarse ``hist_uniform``
+             launches beside theirs;
+13. headlines — the bench protocol at its default 10,000,000 rows, for
+             the exact and then the hierarchical search: a 20-tree
+             warmup train, then trees/s of a 50-tree train, with a
+             torch.profiler breakdown of a 10-tree train and the host's
+             cost of one small torch op before and after (``host_op_us``),
+             which with the device operations per tree bounds the wall a
+             launch-bound train can reach; then the exact search's kernel
+             times on a captured 10M tree.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -217,11 +247,11 @@ def traverse_work(planes, X, depth):
 
 # ------------------------------------------------------------ training
 
-def plane_err(got, want, planes):
+def plane_err(got, want, planes, nplanes=3):
     """max |got - want| and the largest such error relative to its plane's
     total |sum|; ``planes`` picks plane s of a histogram."""
     err, rel = 0.0, 0.0
-    for s in range(3):
+    for s in range(nplanes):
         a, b = planes(got, s), planes(want, s)
         e = float((a - b).abs().max())
         err = max(err, e)
@@ -260,28 +290,41 @@ def capture_levels(fr, XGBoost, hist):
     return hv, sr
 
 
-def train_plain(fr, XGBoost, hist, ntrees):
-    """The same train with ``hist_varbin``, ``hist_uniform`` and
-    ``split_records`` swapped for their plain torch versions on the card:
-    the route the kernels' training is held against."""
-    real = hist.hist_varbin, hist.hist_uniform, hist.split_records
+def train_plain(fr, XGBoost, hist, ntrees, **extra):
+    """The same train with ``hist_varbin``, ``hist_uniform``,
+    ``split_records`` and ``fine_hist`` swapped for their plain torch
+    versions on the card: the route the kernels' training is held
+    against.  The plain histograms sum the stats in f64 and round to f32:
+    ``index_add_`` on f32 keeps one accumulator per slot, which drifts by
+    units over 1M rows (by ~1,000 on a coarse super-bin that holds every
+    row of day_of_week), in another way each run, and parent - child
+    subtractions carry that into the deep levels' splits."""
+    real = (hist.hist_varbin, hist.hist_uniform, hist.split_records,
+            hist.fine_hist)
 
     def varbin(gcodes, leaf, stats, L, bc, B):
-        return hist.hist_varbin_torch(gcodes, leaf, stats, L,
-                                      hist.packed_layout(tuple(bc), B))
+        return hist.hist_varbin_torch(gcodes, leaf, stats.double(), L,
+                                      hist.packed_layout(tuple(bc), B)
+                                      ).float()
 
-    def uniform(codes, leaf, stats, L, B):
-        return hist.hist_uniform_torch(codes, leaf, stats, L, B)
+    def uniform(codes, leaf, stats, L, B, planes=3):
+        return hist.hist_uniform_torch(codes, leaf, stats.double(), L, B,
+                                       planes).float()
 
     def records(Hist, nbins, *args):
         return hist._split_records_torch(Hist, *args)
 
-    hist.hist_varbin, hist.hist_uniform, hist.split_records = \
-        varbin, uniform, records
+    def fine(codes, leaf, stats, sel, W, nbins):
+        return hist.fine_hist_torch(codes, leaf, stats.double(), sel, W,
+                                    nbins).float()
+
+    (hist.hist_varbin, hist.hist_uniform, hist.split_records,
+     hist.fine_hist) = varbin, uniform, records, fine
     try:
-        return XGBoost(ntrees=ntrees, **BENCH_CFG).train(fr)
+        return XGBoost(ntrees=ntrees, **BENCH_CFG, **extra).train(fr)
     finally:
-        hist.hist_varbin, hist.hist_uniform, hist.split_records = real
+        (hist.hist_varbin, hist.hist_uniform, hist.split_records,
+         hist.fine_hist) = real
 
 
 def raw_codes(gcodes, bc, nbins, hist):
@@ -540,6 +583,13 @@ def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
         f"{'bitwise identical' if bitwise else 'NOT bitwise identical'} "
         f"trees (f32 atomics sum in a run-dependent order)")
 
+    publish_check("trained-xgboost", m, fr, cols, batcher, p_k)
+    return fr, launches, ntrees, auc_k
+
+
+def publish_check(name, m, fr, cols, batcher, p_k):
+    """Publish ``m`` into the serving plane; 256 rows answered by
+    ``predict_rows`` must equal ``m.predict``."""
     rows = []
     for i in range(256):
         r = {}
@@ -550,69 +600,406 @@ def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
                 r[k] = float(v[i])
         rows.append(r)
     try:
-        ent = batcher.publish("trained-xgboost", m)
+        ent = batcher.publish(name, m)
         ans = ent.predict_rows(rows)
     finally:
         batcher.shutdown_all()
     if not np.allclose(ans["probabilities"][:, 1], p_k[:256], rtol=1e-5,
                        atol=1e-7):
-        raise AssertionError("published model's answers differ from "
-                             "m.predict")
+        raise AssertionError(f"published model {name}'s answers differ "
+                             "from m.predict")
     labels = m.predict(fr).vec("predict").to_numpy()[:256]
     if not (ans["predict"] == np.asarray(["NO", "YES"],
                                          dtype=object)[labels]).all():
-        raise AssertionError("published model's labels differ")
-    log("publish: the trained model, published through to_archive, "
-        "answered 256 rows equal to m.predict (rtol 1e-5)")
-    return fr, launches, ntrees
+        raise AssertionError(f"published model {name}'s labels differ")
+    log(f"publish: the trained model {name}, published through "
+        "to_archive, answered 256 rows equal to m.predict (rtol 1e-5)")
 
 
-def headline(XGBoost, Frame, card, n=10_000_000):
-    """Phase 10: the bench protocol at 10M rows, and a profile."""
+def host_op_us(n: int = 4000) -> float:
+    """Wall microseconds per small torch op on the card when the host
+    alone sets the pace: ``n`` in-place adds on one element, synchronized
+    once.  The host's launch cost in this process, read beside a
+    headline whose device sits idle between launches."""
     import torch
-    t0 = time.perf_counter()
-    cols, types, domains = make_airlines_like(n)
-    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    x = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
-    log(f"headline frame: {n} rows made and on the card in "
-        f"{time.perf_counter() - t0:.2f} s")
     t0 = time.perf_counter()
-    XGBoost(ntrees=20, **BENCH_CFG).train(fr)
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def headline(XGBoost, fr, card, search):
+    """Phase 13: the bench protocol at 10M rows with ``split_search =
+    search``, and a profile."""
+    import torch
+    n = fr.nrows
+    probe_us = host_op_us()
+    cfg = dict(BENCH_CFG, split_search=search)
+    t0 = time.perf_counter()
+    XGBoost(ntrees=20, **cfg).train(fr)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     t0 = time.perf_counter()
-    m = XGBoost(ntrees=50, **BENCH_CFG).train(fr)
+    m = XGBoost(ntrees=50, **cfg).train(fr)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log(f"headline: bench_trees protocol, {n} rows, XGBoost(max_depth=6, "
-        f"nbins=256): 20-tree warmup {warm:.3f} s, then 50 trees in "
-        f"{dt:.3f} s = {50 / dt:.3f} trees/s; training AUC "
+    log(f"headline {search}: bench_trees protocol, {n} rows, "
+        f"XGBoost(max_depth=6, nbins=256, split_search={search!r}): "
+        f"20-tree warmup {warm:.3f} s, then 50 trees in {dt:.3f} s = "
+        f"{50 / dt:.3f} trees/s; training AUC "
         f"{m.training_metrics.auc:.6f} {card}")
     from torch.profiler import ProfilerActivity, profile
     nprof = 10
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        XGBoost(ntrees=nprof, **BENCH_CFG).train(fr)
+        XGBoost(ntrees=nprof, **cfg).train(fr)
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy <= 0:
-        log("profile: no device time in the trace: not measured")
+        log(f"profile {search}: no device time in the trace: not "
+            "measured")
     else:
         # the profiler slows the host, so the wall time per tree is the
         # unprofiled 50-tree train's; binning runs once in each train
         wall_tree = dt / 50 * 1e3
+        per_tree = sum(e.count for e in kern) / nprof
+        probe_after = host_op_us()
         kern.sort(key=lambda e: -e.self_device_time_total)
-        log(f"profile of a {nprof}-tree train at {n} rows: device busy "
+        log(f"host {search}: {per_tree:g} device operations per tree; a "
+            f"small torch op costs the host {probe_us:.2f} us before the "
+            f"headline and {probe_after:.2f} us after it, so the launches "
+            f"alone hold a tree for {per_tree * probe_us / 1e3:.2f}-"
+            f"{per_tree * probe_after / 1e3:.2f} ms of its "
+            f"{wall_tree:.2f} ms of wall")
+        log(f"profile {search} of a {nprof}-tree train at {n} rows: "
+            f"device busy "
             f"{busy / nprof:.2f} ms per tree against {wall_tree:.2f} ms of "
             f"wall per tree unprofiled: idle share "
             f"{max(0.0, 1 - busy / nprof / wall_tree):.3f}; device ms per "
             f"tree by kernel (launches per tree): " + "; ".join(
                 f"{e.key[:110]} {e.self_device_time_total / 1e3 / nprof:.3f}"
                 f" ({e.count / nprof:g})" for e in kern[:14]))
-    return fr
+    return 50 / dt
+
+# ------------------------------------------------- the hierarchical search
+
+HIER = dict(split_search="hier")
+
+
+def capture_hier_levels(fr, XGBoost, hist):
+    """Train one hierarchical-search tree with ``fine_hist`` and
+    ``hist_uniform`` watched: the inputs each level gave them (the fine
+    histogram's raw codes, leaf, stats, sel, W, nbins; the coarse pass's
+    super-bin codes, parent ids, stats, L, B)."""
+    fh, hu = [], []
+    real_fh, real_hu = hist.fine_hist, hist.hist_uniform
+
+    def spy_fh(codes, leaf, stats, sel, W, nbins):
+        fh.append((codes, leaf, stats, sel.clone(), W, nbins))
+        return real_fh(codes, leaf, stats, sel, W, nbins)
+
+    def spy_hu(codes, leaf, stats, L, B, planes=3):
+        hu.append((codes, leaf, stats, L, B))
+        return real_hu(codes, leaf, stats, L, B, planes)
+
+    hist.fine_hist, hist.hist_uniform = spy_fh, spy_hu
+    try:
+        XGBoost(ntrees=1, **BENCH_CFG, **HIER).train(fr)
+    finally:
+        hist.fine_hist, hist.hist_uniform = real_fh, real_hu
+    return fh, hu
+
+
+def check_hier_kernels(fh, hu, hist, dev):
+    """Phase 10: ``fine_hist`` and the coarse pass's ``hist_uniform``
+    (with 3 planes, as the hier path launches it, and with 4) against
+    their plain versions on the card.  Returns the largest absolute
+    differences from the f64 plain versions on the real stats of
+    fine_hist and of the 3-plane coarse launches."""
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    codes, leaf_d, st, sel_d, W, nbins = fh[-1]
+    n0 = codes.shape[1]
+    cases = [(c, lf, s, sel, w, nb, f"level {i}")
+             for i, (c, lf, s, sel, w, nb) in enumerate(fh)]
+    rag = n0 - 17                      # a ragged row count
+    cases.append((codes[:, :rag], leaf_d[:rag], st[:, :rag], sel_d, W,
+                  nbins, f"level {len(fh) - 1} n={rag}"))
+    minus = torch.rand(n0, generator=gen, device=dev) < 0.1
+    cases.append((codes, torch.where(minus, -1, leaf_d), st, sel_d, W,
+                  nbins, "leaf -1 on a tenth of the rows"))
+    # nbins = 61 (S = 8, W = 8): the NA code 61 is slot 5 of super-bin 7,
+    # which every (leaf, feature) selects as its first super-bin
+    nb61 = 61
+    S61, W61 = hist.superbin_geometry(nb61)
+    c61 = torch.randint(0, nb61 + 1, (8, n0), generator=gen, device=dev,
+                        dtype=torch.int32)
+    l61 = torch.randint(-1, 4, (n0,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    s61 = torch.randint(0, S61, (4, 8, 2), generator=gen, device=dev,
+                        dtype=torch.int32)
+    s61[:, :, 0] = S61 - 1
+    cases.append((c61, l61, st, s61, W61, nb61, "NA alias nbins=61"))
+    max_err = plain_err = 0.0
+    for c, lf, s, sel, w, nb, what in cases:
+        n = c.shape[1]
+        for stats, exact in ((int_stats(n, gen, dev), True),
+                             (s.contiguous(), False)):
+            got = hist.fine_hist(c, lf, stats, sel, w, nb)
+            ref = hist.fine_hist_torch(c, lf, stats if exact
+                                       else stats.double(), sel, w, nb)
+            torch.cuda.synchronize()
+            if nb == nb61 and bool((got[:, :, :, 0, 5] != 0).any()):
+                raise AssertionError("fine_hist landed the NA code in the "
+                                     "slot it aliases")
+            if exact:
+                if not torch.equal(got, ref):
+                    raise AssertionError(
+                        f"fine_hist != plain on integer stats ({what})")
+                continue
+            err, rel = plane_err(got.double(), ref, dense_plane)
+            max_err = max(max_err, err)
+            if rel > 1e-5:
+                raise AssertionError(
+                    f"fine_hist vs its plain version in f64 ({what}): "
+                    f"max|diff| {err:.3e} = {rel:.3e} of its plane's total "
+                    f"> 1e-5")
+            f32 = hist.fine_hist_torch(c, lf, stats, sel, w, nb)
+            perr, _ = plane_err(f32.double(), ref, dense_plane)
+            plain_err = max(plain_err, perr)
+    log(f"kernel check fine_hist: equal to its plain version bitwise on "
+        f"integer-valued stats and, on the bench's bernoulli stats, the "
+        f"plain version in f64 within 1e-5 of each plane's total "
+        f"(max|diff| {max_err:.3e}; the f32 plain version's own max|diff| "
+        f"to f64: {plain_err:.3e}), over {len(cases)} cases: the "
+        f"{len(fh)} captured levels of a hier bench tree (n = {n0}, "
+        f"W = {W}, K = {sel_d.shape[-1]}), a ragged n = {rag}, leaf -1 "
+        f"rows and the nbins = 61 NA-alias geometry")
+    # the hier path's own coarse launches (planes = 3: B = S+1, parent ids
+    # with the right children's rows at leaf -1), and the |g| plane
+    coarse_err = 0.0
+    for planes in (3, 4):
+        p_err = p_plain = 0.0
+        for i, (c, lf, s, L, B) in enumerate(hu):
+            n = c.shape[1]
+            for stats, exact in ((int_stats(n, gen, dev), True),
+                                 (s.contiguous(), False)):
+                got = hist.hist_uniform(c, lf, stats, L, B, planes)
+                ref = hist.hist_uniform_torch(c, lf, stats if exact
+                                              else stats.double(), L, B,
+                                              planes)
+                torch.cuda.synchronize()
+                if exact:
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"hist_uniform(planes={planes}) != plain on "
+                            f"integer stats (coarse level {i})")
+                    continue
+                err, rel = plane_err(got.double(), ref, dense_plane, planes)
+                p_err = max(p_err, err)
+                if rel > 1e-5:
+                    raise AssertionError(
+                        f"hist_uniform(planes={planes}) vs f64 plain "
+                        f"(coarse level {i}): {rel:.3e} of its plane's "
+                        f"total > 1e-5")
+                f32 = hist.hist_uniform_torch(c, lf, stats, L, B, planes)
+                p_plain = max(p_plain, plane_err(f32.double(), ref,
+                                                 dense_plane, planes)[0])
+        if planes == 3:
+            coarse_err = p_err
+        log(f"kernel check hist_uniform(planes={planes}): equal to its "
+            f"plain version bitwise on integer-valued stats and within 1e-5 "
+            f"of each of the {planes} planes' totals of the f64 plain "
+            f"version (max|diff| {p_err:.3e}; the f32 plain version's own "
+            f"max|diff| to f64: {p_plain:.3e}) on the {len(hu)} captured "
+            f"coarse levels of the hier path (B = {hu[0][4]}, L = "
+            f"{[h[3] for h in hu]})")
+    return max_err, coarse_err
+
+
+def split_agreement(ta, tb, codes, edges, nbins, hist):
+    """Hold tree ``tb`` against ``ta`` level by level: the same valid
+    flags, and where a node is valid the same feature and NA direction;
+    each level's partition of the rows the same, so a threshold may
+    differ only where both trees' bins send every row alike (no row of
+    the node has a code between them).  A dead node's stored split is
+    arbitrary (the JAX package's split crosscheck skips it too).  Returns
+    (the number of such tied nodes, None) or (None, the first
+    difference)."""
+    import torch
+    leaf = torch.zeros(codes.shape[1], dtype=torch.int32,
+                       device=codes.device)
+    ties = 0
+    for d in range(len(ta.feat)):
+        valid = ta.valid[d]
+        if not torch.equal(valid, tb.valid[d]):
+            return None, f"valid at level {d}"
+        for nm in ("feat", "na_left"):
+            a, b = getattr(ta, nm)[d], getattr(tb, nm)[d]
+            if not torch.equal(a[valid], b[valid]):
+                return None, (f"{nm} at level {d}: {a.tolist()} vs "
+                              f"{b.tolist()} (valid {valid.tolist()})")
+        feat, nal = ta.feat[d], ta.na_left[d]
+        rows = edges[feat.long()]                          # [L, nbins]
+        bins = [(rows == t.thr[d][:, None]).int().argmax(1).to(torch.int32)
+                for t in (ta, tb)]
+        la, lb = (hist.partition(codes, leaf, feat, b, nal, valid, nbins)
+                  for b in bins)
+        if not torch.equal(la, lb):
+            return None, (f"routing at level {d}: bins {bins[0].tolist()} "
+                          f"vs {bins[1].tolist()}")
+        ties += int((ta.thr[d] != tb.thr[d])[valid].sum())
+        leaf = la
+    return ties, None
+
+
+def train_hier_phase(fr, cols, kernels, XGBoost, batcher, hist, codes,
+                     exact_auc, card):
+    """Phase 11: the hierarchical search's training path, counted, against
+    the plain route, then published."""
+    import torch
+    from h2o3_tpu_torch.models.tree import binning
+    n = len(cols["year"])
+    ntrees = 20
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = XGBoost(ntrees=ntrees, **BENCH_CFG, **HIER).train(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    levels = m.output["stacked"].depth
+    if m.output["split_search"] != "hier":
+        raise AssertionError("the train did not take the hierarchical "
+                             "search")
+    want = {"hist": ntrees * levels, "fine_hist": ntrees * levels,
+            "split_records": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"hier train launches {launches}; expected "
+                             f"{want}")
+    log(f"hier train: XGBoost(max_depth=6, nbins=256, ntrees={ntrees}, "
+        f"split_search='hier') on {n} rows in {train_s:.3f} s {card}; "
+        f"launches {launches} = {ntrees} trees x {levels} levels for "
+        f"fine_hist and the coarse hist, none for split_records")
+
+    plain_from = {k.name: k.launches for k in kernels}
+    mp = train_plain(fr, XGBoost, hist, ntrees, **HIER)
+    if {k.name: k.launches for k in kernels} != plain_from:
+        raise AssertionError("the plain-route hier train launched a kernel")
+    nbins = BENCH_CFG["nbins"]
+    edges = torch.from_numpy(binning.edges_matrix(m.output["edges"],
+                                                  nbins)).to(codes.device)
+    agree = [split_agreement(tp, tk, codes, edges, nbins, hist)
+             for tk, tp in zip(m.output["trees"], mp.output["trees"])]
+    if agree[0][0] is None:
+        raise AssertionError(f"kernel and plain-route hier trains differ "
+                             f"on the first tree: {agree[0][1]}")
+    same = sum(a is not None for a, _ in agree)
+    bitwise = sum(a == 0 for a, _ in agree)
+    first_diff = next((f"tree {t}: {why}" for t, (_, why) in
+                       enumerate(agree) if why), "none")
+    p_k = m.predict(fr).vec("YES").to_numpy()
+    p_p = mp.predict(fr).vec("YES").to_numpy()
+    if not (np.isfinite(p_k).all() and p_k.shape == (n,)):
+        raise AssertionError("hier kernel-route predictions are not finite")
+    pred_rel = float(np.max(np.abs(p_k - p_p) / np.abs(p_p)))
+    if not np.allclose(p_k, p_p, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"hier predictions differ from the plain "
+                             f"route: max rel {pred_rel:.3e} > 1e-4")
+    auc_k, auc_p = m.training_metrics.auc, mp.training_metrics.auc
+    if abs(auc_k - auc_p) > 1e-4:
+        raise AssertionError(f"hier training AUC {auc_k} vs plain {auc_p}")
+    if abs(auc_k - exact_auc) > 0.01:
+        raise AssertionError(f"hier training AUC {auc_k} vs the exact "
+                             f"search's {exact_auc}: more than 0.01 apart")
+    log(f"hier train vs plain route on the card: the first tree's splits "
+        f"agree at all {levels} levels ({agree[0][0]} thresholds differ "
+        f"across a structural tie); {same}/{ntrees} trees agree "
+        f"({bitwise} with every threshold bitwise; first difference: "
+        f"{first_diff}); predictions max rel "
+        f"diff {pred_rel:.3e}; training AUC {auc_k:.6f} vs {auc_p:.6f} "
+        f"(exact search {exact_auc:.6f}); logloss "
+        f"{m.training_metrics.logloss:.6f} vs "
+        f"{mp.training_metrics.logloss:.6f}")
+    publish_check("trained-xgboost-hier", m, fr, cols, batcher, p_k)
+
+    m2 = XGBoost(ntrees=ntrees, **BENCH_CFG, **HIER).train(fr)
+    again = [split_agreement(a, b, codes, edges, nbins, hist)[0]
+             for a, b in zip(m.output["trees"], m2.output["trees"])]
+    p_2 = m2.predict(fr).vec("YES").to_numpy()
+    log(f"hier determinism: a second kernel train agrees with the first on "
+        f"{sum(a is not None for a in again)}/{ntrees} trees "
+        f"({sum(a == 0 for a in again)} with every threshold bitwise); "
+        f"predictions max rel diff "
+        f"{float(np.max(np.abs(p_2 - p_k) / np.abs(p_k))):.3e}")
+    return launches, ntrees
+
+
+def work_fine(c, leaf, sel, W, nbins, hist):
+    """Bytes and f32 adds one fine-histogram launch needs: every leaf id,
+    the codes and stats of the rows whose leaf is in range, sel, the
+    output once; 3 adds per (row, feature, k) slot that lands."""
+    L, F, K = sel.shape
+    valid = int(((leaf >= 0) & (leaf < L)).sum())
+    _, ok = hist.fine_slots(c, leaf, sel, W, nbins)
+    nbytes = 4 * leaf.numel() + valid * (F * c.element_size() + 12) \
+        + sel.numel() * 4 + 3 * L * F * K * W * 4
+    return nbytes, 3 * int(ok.sum())
+
+
+def time_hier_kernels(fh, hu, hist, label):
+    """Phase 12: device time of each level's fine_hist launch, its plain
+    version, the one-call index_add_ on its precomputed slots, its bound;
+    and of the coarse hist_uniform launches.  Returns per-tree sums
+    [ms, plain, bound, index_add_, bytes, ops] for each."""
+    import torch
+    tot = {"fine_hist": [0.0, 0.0, 0.0, 0.0, 0, 0],
+           "coarse hist": [0.0, 0.0, 0.0, 0.0, 0, 0]}
+    for i, ((c, leaf, st, sel, W, nbins), (cc, pl, cst, L, B)) in \
+            enumerate(zip(fh, hu)):
+        Lf, F, K = sel.shape
+        ms = cuda_ms(lambda: hist.fine_hist(c, leaf, st, sel, W, nbins))
+        plain = cuda_ms(lambda: hist.fine_hist_torch(c, leaf, st, sel, W,
+                                                     nbins), reps=10)
+        idx, ok = hist.fine_slots(c, leaf, sel, W, nbins)
+        fidx = idx[ok]
+        src = st[:, None, None, :].expand(3, F, K, -1)[:, ok]
+        out = torch.zeros((3, Lf * F * K * W), device=c.device)
+        lib = cuda_ms(lambda: out.index_add_(1, fidx, src))
+        del idx, ok, src
+        nbytes, ops = work_fine(c, leaf, sel, W, nbins, hist)
+        bnd, _ = bound(nbytes, ops)
+        cms = cuda_ms(lambda: hist.hist_uniform(cc, pl, cst, L, B))
+        cplain = cuda_ms(lambda: hist.hist_uniform_torch(cc, pl, cst, L, B),
+                         reps=10)
+        lf = pl.long()
+        cok = ((lf >= 0) & (lf < L))[None, :].expand_as(cc)
+        cidx = ((lf[None, :] * F + torch.arange(F, device=c.device)[:, None])
+                * B + cc.long())[cok]
+        cout = torch.zeros((3, L * F * B), device=c.device)
+        csrc = cst[:, None, :].expand(3, F, -1)[:, cok]
+        clib = cuda_ms(lambda: cout.index_add_(1, cidx, csrc))
+        cbytes, cops = work_hist(cc, pl, L, F * B, F)
+        cbnd, _ = bound(cbytes, cops)
+        for k, v in (("fine_hist", (ms, plain, bnd, lib, nbytes, ops)),
+                     ("coarse hist", (cms, cplain, cbnd, clib, cbytes,
+                                      cops))):
+            for j in range(6):
+                tot[k][j] += v[j]
+        log(f"hier times {label} level {i} (L={Lf}, n={c.shape[1]}, "
+            f"landing slots {ops // 3}): fine_hist {ms:.4f} ms (plain "
+            f"{plain:.4f}, index_add_ {lib:.4f}, bound {bnd:.5f}); coarse "
+            f"hist_uniform at B={B}, L={L} {cms:.4f} ms (plain "
+            f"{cplain:.4f}, index_add_ {clib:.4f}, bound {cbnd:.5f})")
+    return tot
+
 
 
 def main() -> dict:
@@ -641,7 +1028,8 @@ def main() -> dict:
     from h2o3_tpu_torch.serving import batcher, kernel
 
     # ----------------------------------------------------------- 2 build
-    kernels = [kernel.TRAVERSE, hist.HIST, hist.SPLIT_RECORDS]
+    kernels = [kernel.TRAVERSE, hist.HIST, hist.SPLIT_RECORDS,
+               hist.FINE_HIST]
     t0 = time.perf_counter()
     native.build_all(kernels)
     log(f"build: {len(kernels)} kernel(s) in "
@@ -811,9 +1199,12 @@ def main() -> dict:
     train_err = check_train_kernels(hv, sr, hist, dev)
 
     # ---------------------------------------------------------- 8 train
-    kernels_train = [hist.HIST, hist.SPLIT_RECORDS]
-    _, tlaunch, ntrees = train_phase(cols, types, domains, kernels_train,
-                                     XGBoost, Frame, batcher, hist, card)
+    kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.FINE_HIST]
+    _, tlaunch, ntrees, exact_auc = train_phase(
+        cols, types, domains, kernels_train, XGBoost, Frame, batcher, hist,
+        card)
+    if tlaunch["fine_hist"] != 0:
+        raise AssertionError("the exact search launched fine_hist")
 
     # ---------------------------------------------------- 9 train times
     tot = time_train_kernels(hv, sr, hist, "1M rows")
@@ -843,8 +1234,56 @@ def main() -> dict:
         })
     del hv, sr
 
-    # ------------------------------------------------------ 10 headline
-    fr10 = headline(XGBoost, Frame, card)
+    # ------------------------------------------------- 10 hier kernels
+    fh, hu = capture_hier_levels(fr1, XGBoost, hist)
+    fine_err, coarse_err = check_hier_kernels(fh, hu, hist, dev)
+
+    # ---------------------------------------------------- 11 hier train
+    hlaunch, hntrees = train_hier_phase(fr1, cols, kernels_train, XGBoost,
+                                        batcher, hist, fh[0][0], exact_auc,
+                                        card)
+
+    # ---------------------------------------------------- 12 hier times
+    htot = time_hier_kernels(fh, hu, hist, "1M rows")
+    log(f"hier times per tree at 1M rows (sum of the {len(fh)} level "
+        f"launches) {card}: " + "; ".join(
+            f"{k} {v[0]:.4f} ms (plain {v[1]:.4f}, bound {v[2]:.5f}, "
+            f"index_add_ {v[3]:.4f})" for k, v in htot.items())
+        + f"; launches per tree "
+        f"{ {k: v / hntrees for k, v in hlaunch.items()} }")
+    v = htot["fine_hist"]
+    rows.append({
+        "name": "fine_hist", "route": "cuda",
+        "source": "h2o3_tpu_torch/csrc/fine_hist.cu",
+        "replaces": "h2o3_tpu/models/tree/hist.py:1130",
+        "launches": hlaunch["fine_hist"], "max_abs_err": fine_err,
+        "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+        "bound_by": bound(v[4], v[5])[1], "library_ms": v[3],
+    })
+    v = htot["coarse hist"]
+    rows.append({
+        "name": "hist (hier coarse pass)", "route": "cuda",
+        "source": "h2o3_tpu_torch/csrc/hist.cu",
+        "replaces": "h2o3_tpu/models/tree/hist.py:80",
+        "launches": hlaunch["hist"], "max_abs_err": coarse_err,
+        "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+        "bound_by": bound(v[4], v[5])[1], "library_ms": v[3],
+    })
+    del fh, hu, fr1
+
+    # ----------------------------------------------------- 13 headlines
+    t0 = time.perf_counter()
+    cols, types, domains = make_airlines_like(10_000_000)
+    fr10 = Frame.from_numpy(cols, types=types, domains=domains)
+    del cols
+    torch.cuda.synchronize()
+    log(f"headline frame: {fr10.nrows} rows made and on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    exact_tps = headline(XGBoost, fr10, card, "auto")
+    hier_tps = headline(XGBoost, fr10, card, "hier")
+    log(f"headlines at {fr10.nrows} rows {card}: exact search "
+        f"{exact_tps:.3f} trees/s, hierarchical search {hier_tps:.3f} "
+        f"trees/s")
     hv10, sr10 = capture_levels(fr10, XGBoost, hist)
     del fr10
     time_train_kernels(hv10, sr10, hist, "10M rows")

@@ -29,7 +29,8 @@ from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
                      make_tree_scan_fn, record_effective_depth,
                      resolve_hist_layout, resolve_hist_mode,
                      resolve_split_mode, resolve_tree_program,
-                     run_hist_crosscheck, run_split_crosscheck, traverse)
+                     run_hist_crosscheck, run_split_crosscheck, traverse,
+                     use_hier_split_search)
 
 _LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
 
@@ -82,9 +83,10 @@ class GBM(SharedTree):
             edges_matrix(binned.edges, p.nbins)).to(dev)
         N = codes.shape[1]
         Fw = binned.nfeatures
+        hier = use_hier_split_search(p)
         hist_mode = resolve_hist_mode(p)
-        split_mode = resolve_split_mode(p)
-        hist_layout = resolve_hist_layout(p)
+        split_mode = resolve_split_mode(p, hier=hier)
+        hist_layout = resolve_hist_layout(p, hier=hier)
         tree_program = resolve_tree_program(p)
         seed = p.effective_seed()
 
@@ -94,6 +96,7 @@ class GBM(SharedTree):
         model.output["binning"] = {"nbins": p.nbins}
         model.output["nclass_trees"] = 1
         model.output["tree_program"] = tree_program
+        model.output["split_search"] = "hier" if hier else "exact"
         record_effective_depth(model, p, Fw, N, hist_layout=hist_layout)
 
         F = f0.to(torch.float32).expand(N).clone()
@@ -112,8 +115,9 @@ class GBM(SharedTree):
                       gamma=p.gamma, min_child_weight=p.min_child_weight,
                       hist_layout=hist_layout)
         if hist_mode == "check":
-            # the crosscheck on the real first-tree gradients, then
-            # training proceeds on the subtraction path
+            # the crosscheck on the real first-tree gradients (the exact
+            # search, also when training takes the hierarchical one),
+            # then training proceeds on the subtraction path
             g0, h0 = dist.grad_hess(y, F)
             run_hist_crosscheck(codes, g0 * w, h0 * w, w, edges_mat, seed,
                                 **common)
@@ -129,7 +133,7 @@ class GBM(SharedTree):
             dist, p.max_depth, p.nbins, Fw, N, p.sample_rate,
             p.col_sample_rate_per_tree, bin_counts=binned.bin_counts,
             hist_mode=hist_mode, split_mode=split_mode,
-            hist_layout=hist_layout, device=dev)
+            hist_layout=hist_layout, device=dev, hier=hier)
         model.output["hist_kernel"] = \
             "varbin" if scan_fn.build.use_varbin else "uniform"
         scalars = (p.reg_lambda, p.min_rows, p.min_split_improvement,

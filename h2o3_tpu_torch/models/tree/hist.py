@@ -18,7 +18,15 @@ version:
 * ``split_records`` -> ``csrc/split_records.cu`` (JAX
   ``_make_pallas_split_records``); plain version ``_split_records_torch``
   (the JAX package's ``_split_records_xla`` with its prefix sums taken in
-  sequential order).
+  sequential order);
+* ``fine_hist`` -> ``csrc/fine_hist.cu`` (JAX ``_make_pallas_fine_hist``):
+  the fine bins inside the K super-bins the hierarchical split search
+  chose per (leaf, feature); plain version ``fine_hist_torch``, one
+  ``index_add_``.
+
+The hierarchical search around it (``select_superbins``,
+``best_splits_hier``) is plain torch: the JAX package computes it outside
+any kernel too.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
 version for CPU tensors.  The JAX package's one-hot matmul lookups (``table_lookup``) were a TPU
@@ -43,11 +51,15 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 HIST = native.Kernel("hist", {
-    "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I, _P,
-                     _L, _L, _L, _P), _I),
+    "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I, _I,
+                     _P, _L, _L, _L, _P), _I),
 })
 SPLIT_RECORDS = native.Kernel("split_records", {
     "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
+})
+FINE_HIST = native.Kernel("fine_hist", {
+    "fine_hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _I, _I, _I, _I, _I,
+                          _P, _I, _I, _I, _I, _P, _P), _I),
 })
 
 _REC_PLANES = 12
@@ -154,18 +166,22 @@ def offset_codes(codes: torch.Tensor, bin_counts, nbins: int) -> torch.Tensor:
     return out.to(torch.int16 if Q8 < 32_000 else torch.int32)
 
 
-def hist_tiles(layout: HistLayout, L: int,
-               budget: int = HIST_SMEM_BUDGET) -> Tuple[np.ndarray, int]:
+def hist_tiles(layout: HistLayout, L: int, budget: int = HIST_SMEM_BUDGET,
+               planes: int = 3) -> Tuple[np.ndarray, int]:
     """Cut the [Q, L] output into tiles of (contiguous feature range) x
     (leaf range) of at most ``budget`` bytes of shared memory.
 
     The leaf range is the largest even split of L at which the widest
     feature segment fits; features are then packed greedily at that
     width.  Returns ([T, 8] int32 rows fa, fb, qa, qn, l0, ln, use_smem,
-    0) and the shared-memory bytes of the largest tile.  A feature whose
-    segment alone exceeds the budget at one leaf gets a tile with
-    use_smem = 0 (global atomics)."""
-    per_q = 3 * 4                                  # (g, h, w) f32 per bin
+    copies) and the shared-memory bytes of the largest block.  A feature
+    whose segment alone exceeds the budget at one leaf gets a tile with
+    use_smem = 0 (global atomics).  A tile far under the budget is kept
+    in ``copies`` side by side, up to one per warp of the block (the
+    kernel sums them at the end): fewer collisions on a hot bin, and
+    fewer rows rounded into each f32 partial.  Each bin holds ``planes``
+    f32 sums: (g, h, w), and |g| with planes = 4."""
+    per_q = planes * 4
     widest = max(layout.qlen)
     lt_max = budget // (per_q * widest)
     groups = max(1, -(-L // max(lt_max, 1)))
@@ -182,20 +198,23 @@ def hist_tiles(layout: HistLayout, L: int,
         qn = layout.qstart[fb - 1] + layout.qlen[fb - 1] - qa
         smem = int(qn * Lt * per_q <= budget)
         for l0 in range(0, L, Lt):
-            tiles.append((fa, fb, qa, qn, l0, min(Lt, L - l0), smem, 0))
+            ln = min(Lt, L - l0)
+            copies = max(1, min(_HIST_THREADS // 32,
+                                budget // (qn * ln * per_q))) if smem else 1
+            tiles.append((fa, fb, qa, qn, l0, ln, smem, copies))
         fa = fb
     arr = np.asarray(tiles, np.int32)
     used = arr[:, 6] == 1
-    smem_bytes = int((arr[used, 3] * arr[used, 5]).max() * per_q) \
-        if used.any() else 0
+    smem_bytes = int((arr[used, 3] * arr[used, 5] * arr[used, 7]).max()
+                     * per_q) if used.any() else 0
     return arr, smem_bytes
 
 
 @functools.lru_cache(maxsize=None)
-def _device_meta(layout: HistLayout, L: int, device: str):
+def _device_meta(layout: HistLayout, L: int, device: str, planes: int = 3):
     """The layout's [3, F] feature table and its [T, 8] tiles on the
-    device, uploaded once per (layout, L, device)."""
-    tiles, smem = hist_tiles(layout, L)
+    device, uploaded once per (layout, L, device, planes)."""
+    tiles, smem = hist_tiles(layout, L, planes=planes)
     meta = np.asarray([layout.code_off, layout.qstart, layout.qlen],
                       np.int32)
     dev = torch.device(device)
@@ -240,12 +259,12 @@ def _check_hist_operands(codes, leaf, stats):
 
 
 def _launch_hist(codes, leaf, stats, L: int, layout: HistLayout,
-                 out: torch.Tensor, strides) -> None:
+                 out: torch.Tensor, strides, planes: int = 3) -> None:
     """Launch ``csrc/hist.cu`` adding the level histogram into ``out``
-    (zeroed by the caller) through ``strides`` = (s, l, q)."""
+    (f64, zeroed by the caller) through ``strides`` = (s, l, q)."""
     dev = codes.device
     n = codes.shape[1]
-    meta, tiles, n_tiles, smem = _device_meta(layout, L, str(dev))
+    meta, tiles, n_tiles, smem = _device_meta(layout, L, str(dev), planes)
     if n == 0:
         return
     rpb = _rows_per_block(n, n_tiles, smem, str(dev))
@@ -255,46 +274,54 @@ def _launch_hist(codes, leaf, stats, L: int, layout: HistLayout,
             codes.data_ptr(), codes.element_size(), codes.stride(0),
             leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
             meta.data_ptr(), layout.F, tiles.data_ptr(), n_tiles, n, rpb,
-            smem, out.data_ptr(), strides[0], strides[1], strides[2],
+            smem, planes, out.data_ptr(), strides[0], strides[1], strides[2],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
     HIST.count()
 
 
-def hist_uniform_torch(codes, leaf, stats, L: int, B: int) -> torch.Tensor:
+def hist_uniform_torch(codes, leaf, stats, L: int, B: int,
+                       planes: int = 3) -> torch.Tensor:
     """Plain torch level histogram on the uniform axis: one
     ``index_add_`` over the flattened (leaf, feature, bin) index.
-    codes [F, n], leaf [n], stats [3, n] -> H [3, L, F, B] in the stats'
-    dtype (f64 stats give the reference the f32 sums are measured by)."""
+    codes [F, n], leaf [n], stats [3, n] -> H [planes, L, F, B] in the
+    stats' dtype (f64 stats give the reference the f32 sums are measured
+    by); planes = 4 adds Σ|g| as plane 3."""
     F, n = codes.shape
     dev = codes.device
+    if planes == 4:
+        stats = torch.cat([stats, stats[:1].abs()])
     c = codes.long()
     lf = leaf.long()
     ok = ((lf >= 0) & (lf < L))[None, :] & (c >= 0) & (c < B)
     idx = (lf[None, :] * F + torch.arange(F, device=dev)[:, None]) * B + c
-    src = stats[:, None, :].expand(3, F, n)
-    out = torch.zeros((3, L * F * B), dtype=stats.dtype, device=dev)
+    src = stats[:, None, :].expand(planes, F, n)
+    out = torch.zeros((planes, L * F * B), dtype=stats.dtype, device=dev)
     out.index_add_(1, idx[ok], src[:, ok])
-    return out.view(3, L, F, B)
+    return out.view(planes, L, F, B)
 
 
-def hist_uniform(codes, leaf, stats, L: int, B: int) -> torch.Tensor:
-    """Level histogram on the uniform bin axis -> H [3, L, F, B].
+def hist_uniform(codes, leaf, stats, L: int, B: int,
+                 planes: int = 3) -> torch.Tensor:
+    """Level histogram on the uniform bin axis -> H [planes, L, F, B].
 
     codes [F, n] int16/int32 in [0, B), leaf [n] int32 (rows outside
-    [0, L) add nothing), stats [3, n] f32 = (g, h, w).  CUDA tensors
-    launch ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU tensors
-    take ``hist_uniform_torch``."""
+    [0, L) add nothing), stats [3, n] f32 = (g, h, w); ``planes=4`` adds
+    Σ|g| as plane 3, as the JAX ``make_hist_fn(..., planes=4)``.  CUDA
+    tensors launch ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU
+    tensors take ``hist_uniform_torch``."""
     _check_hist_operands(codes, leaf, stats)
+    if planes not in (3, 4):
+        raise ValueError(f"planes={planes}: use 3 or 4")
     if not _on_cuda(codes, "histogram"):
-        return hist_uniform_torch(codes, leaf, stats, L, B)
+        return hist_uniform_torch(codes, leaf, stats, L, B, planes)
     F = codes.shape[0]
-    out = torch.zeros((3, L, F * B), dtype=torch.float32,
+    out = torch.zeros((planes, L, F * B), dtype=torch.float64,
                       device=codes.device)
     _launch_hist(codes, leaf, stats, L, uniform_layout(F, B), out,
-                 (L * F * B, F * B, 1))
-    return out.view(3, L, F, B)
+                 (L * F * B, F * B, 1), planes)
+    return out.view(planes, L, F, B).float()
 
 
 def hist_varbin_torch(gcodes, leaf, stats, L: int, layout: HistLayout
@@ -329,10 +356,10 @@ def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple,
     layout = packed_layout(tuple(bin_counts), B)
     if not _on_cuda(gcodes, "histogram"):
         return hist_varbin_torch(gcodes, leaf, stats, L, layout)
-    out = torch.zeros((layout.Q, 3 * L), dtype=torch.float32,
+    out = torch.zeros((layout.Q, 3 * L), dtype=torch.float64,
                       device=gcodes.device)
     _launch_hist(gcodes, leaf, stats, L, layout, out, (1, 3, 3 * L))
-    return out
+    return out.float()
 
 
 def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
@@ -419,6 +446,121 @@ def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
                      carry)
 
     fn.stacked = level
+    return fn
+
+
+# ------------------------------------------- hierarchical search: histograms
+
+def superbin_geometry(nbins: int) -> Tuple[int, int]:
+    """(S, W): S super-bins of W fine bins each, as the JAX package's
+    ``make_build_tree_fn`` cuts them (S = 16 from 128 bins up, else 8)."""
+    S = 16 if nbins >= 128 else 8
+    return S, -(-nbins // S)
+
+
+def coarse_codes(codes: torch.Tensor, nbins: int) -> torch.Tensor:
+    """codes [F, N] (NA == nbins) -> super-bin ids, NA -> S; int16."""
+    S, W = superbin_geometry(nbins)
+    return torch.where(codes >= nbins, S, codes // W).to(torch.int16)
+
+
+@functools.lru_cache(maxsize=None)
+def _fine_meta(L: int, F: int, K: int, W: int, device: str):
+    """The fine histogram's tiles on the device and its shared memory:
+    ``hist_tiles`` over F segments of K*W slots, plus the largest tile's
+    [leaves, features, K] slice of sel."""
+    tiles, smem = hist_tiles(uniform_layout(F, K * W), L)
+    sel_bytes = int((tiles[:, 5] * (tiles[:, 1] - tiles[:, 0])).max()) \
+        * K * 4
+    return (torch.from_numpy(tiles).to(torch.device(device)),
+            int(tiles.shape[0]), smem + sel_bytes)
+
+
+def fine_slots(codes, leaf, sel, W: int, nbins: int):
+    """Each (feature, k, row)'s flat output slot ((l*F + f)*K + k)*W + t
+    and whether it lands: the row's leaf l is in [0, L), its code is a
+    regular bin and falls on sel[l, f, k]'s super-bin.  [F, K, n] each."""
+    L, F, K = sel.shape
+    dev = codes.device
+    c = codes.long()                                           # [F, n]
+    lf = leaf.long()
+    lc = lf.clamp(0, L - 1)
+    s_of = sel.long()[lc].permute(1, 2, 0)                     # [F, K, n]
+    ok = (s_of == (c // W)[:, None, :]) \
+        & ((c >= 0) & (c < nbins))[:, None, :] \
+        & ((lf >= 0) & (lf < L))[None, None, :]
+    f_ix = torch.arange(F, device=dev)[:, None, None]
+    k_ix = torch.arange(K, device=dev)[None, :, None]
+    idx = ((lc[None, None, :] * F + f_ix) * K + k_ix) * W \
+        + (c % W)[:, None, :]
+    return idx, ok
+
+
+def fine_hist_torch(codes, leaf, stats, sel, W: int, nbins: int
+                    ) -> torch.Tensor:
+    """Plain torch fine histogram: one ``index_add_`` over the flattened
+    (leaf, feature, k, t) slot.  codes [F, n], leaf [n], stats [3, n],
+    sel [L, F, K] -> H [3, L, F, K, W] in the stats' dtype; slot
+    (l, f, k, t) sums the rows with leaf l and code sel[l, f, k] * W + t.
+    NA rows (code >= nbins) and rows whose leaf is outside [0, L) add
+    nothing."""
+    L, F, K = sel.shape
+    idx, ok = fine_slots(codes, leaf, sel, W, nbins)
+    src = stats[:, None, None, :].expand(3, F, K, codes.shape[1])
+    out = torch.zeros((3, L * F * K * W), dtype=stats.dtype,
+                      device=codes.device)
+    out.index_add_(1, idx[ok], src[:, ok])
+    return out.view(3, L, F, K, W)
+
+
+def fine_hist(codes, leaf, stats, sel, W: int, nbins: int) -> torch.Tensor:
+    """Fine histogram of the K chosen super-bins -> H [3, L, F, K, W].
+
+    codes [F, n] int16/int32 raw bin codes (NA == nbins), leaf [n] int32,
+    stats [3, n] f32 = (g, h, w), sel [L, F, K] int32 super-bin ids.
+    CUDA tensors launch ``csrc/fine_hist.cu`` (counted in
+    ``FINE_HIST.launches``); CPU tensors take ``fine_hist_torch``."""
+    _check_hist_operands(codes, leaf, stats)
+    if sel.dim() != 3 or sel.shape[1] != codes.shape[0] \
+            or sel.dtype != torch.int32:
+        raise ValueError(f"sel must be an [L, {codes.shape[0]}, K] int32 "
+                         f"tensor, got {tuple(sel.shape)} {sel.dtype}")
+    if sel.device != codes.device:
+        raise ValueError(f"sel is on {sel.device}, codes on {codes.device}")
+    if not _on_cuda(codes, "fine histogram"):
+        return fine_hist_torch(codes, leaf, stats, sel, W, nbins)
+    L, F, K = sel.shape
+    dev = codes.device
+    sel = sel.contiguous()
+    out = torch.zeros((3, L, F, K, W), dtype=torch.float64, device=dev)
+    n = codes.shape[1]
+    tiles, n_tiles, smem = _fine_meta(L, F, K, W, str(dev))
+    if n == 0:
+        return out.float()
+    rpb = _rows_per_block(n, n_tiles, smem, str(dev))
+    lib = FINE_HIST.lib()
+    with torch.cuda.device(dev):
+        rc = lib.fine_hist_launch(
+            codes.data_ptr(), codes.element_size(), codes.stride(0),
+            leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
+            sel.data_ptr(), L, F, K, W, nbins, tiles.data_ptr(), n_tiles,
+            n, rpb, smem, out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"fine_hist kernel launch failed: CUDA error {rc}")
+    FINE_HIST.count()
+    return out.float()
+
+
+def make_fine_hist_fn(L: int, F: int, W: int, K: int, nbins: int):
+    """The level-facing fine histogram (the JAX package's
+    ``make_fine_hist_fn`` on one device, so no psum):
+    ``fn(codes, leaf, stats, sel) -> H [3, L, F, K, W]``."""
+    def fn(codes, leaf, stats, sel):
+        if tuple(sel.shape) != (L, F, K) or codes.shape[0] != F:
+            raise ValueError(f"fine histogram built for sel [{L}, {F}, "
+                             f"{K}], got {tuple(sel.shape)}")
+        return fine_hist(codes, leaf, stats, sel, W, nbins)
     return fn
 
 
@@ -596,6 +738,168 @@ def best_splits(Hist, nbins: int, reg_lambda, min_rows,
     rec = _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha,
                                gamma, min_child_weight)
     return finish_splits(rec, min_rows, min_split_improvement, feat_mask)
+
+
+# ----------------------------------------- hierarchical search: split choice
+
+def coarse_totals(Hc, reg_lambda, reg_alpha):
+    """Per-(leaf, feature) prefix sums over the S super-bins, the NA
+    sums, the totals (NA included) and the parent score of a coarse
+    histogram Hc [3, L, F, S+1]; prefix sums in sequential f32 order."""
+    cum = _cumsum_seq(Hc[:3, ..., :-1])
+    cums = (cum[0], cum[1], cum[2])
+    nas = (Hc[0, ..., -1], Hc[1, ..., -1], Hc[2, ..., -1])
+    tots = tuple(c[..., -1] + na for c, na in zip(cums, nas))
+    parent = _score(tots[0], tots[1], reg_lambda, reg_alpha)
+    return cums, nas, tots, parent
+
+
+def _gain_with_na(glx, hlx, clx, nas, tots, parent, reg_lambda, reg_alpha,
+                  gamma, min_rows, min_child_weight):
+    """Split gain at candidate left sums (NA excluded), maxed over the
+    two NA directions: the one formula of super-bin selection and the
+    refined search.  Returns (gain, na_left, NA-resolved left g, h, c)."""
+    totG, totH, totC = tots
+    gna, hna, cna = (x[..., None] for x in nas)
+
+    def gain_dir(gl, hl, cl):
+        gr = totG[..., None] - gl
+        hr = totH[..., None] - hl
+        cr = totC[..., None] - cl
+        gn = 0.5 * (_score(gl, hl, reg_lambda, reg_alpha)
+                    + _score(gr, hr, reg_lambda, reg_alpha)
+                    - parent[..., None]) - gamma
+        ok = (cl >= min_rows) & (cr >= min_rows) & \
+            (hl >= min_child_weight) & (hr >= min_child_weight)
+        return torch.where(ok, gn, -torch.inf)
+
+    gL = gain_dir(glx + gna, hlx + hna, clx + cna)
+    gR = gain_dir(glx, hlx, clx)
+    na_left = gL >= gR
+    gain = torch.maximum(gL, gR)
+    gl = torch.where(na_left, glx + gna, glx)
+    hl = torch.where(na_left, hlx + hna, hlx)
+    cl = torch.where(na_left, clx + cna, clx)
+    return gain, na_left, gl, hl, cl
+
+
+def _top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest f32 values along the last axis, in
+    ``jax.lax.top_k``'s order: IEEE total order (+0 above -0, a NaN by
+    its sign) and ties to the lower index.  ``torch.topk`` promises no
+    order for ties, so this is a stable descending sort of the values'
+    total-order integer keys."""
+    bits = x.contiguous().view(torch.int32)
+    key = bits ^ ((bits >> 31) & 0x7FFFFFFF)
+    return torch.sort(key, dim=-1, descending=True,
+                      stable=True).indices[..., :k]
+
+
+def select_superbins(Hc, nbins: int, W: int, K: int, reg_lambda, reg_alpha,
+                     gamma, min_rows, min_child_weight, feat_mask=None,
+                     coarse=None):
+    """The K super-bins per (leaf, feature) to refine: the two touching
+    each of the top ceil(K/2) coarse boundaries by exact gain (the JAX
+    package's ``select_superbins``).  Hc [3, L, F, S+1] -> (sel [L, F, K]
+    int32, the boundary gains [L, F, S-1]).  ``coarse`` is
+    ``coarse_totals(Hc, reg_lambda, reg_alpha)`` when the caller has it."""
+    cums, nas, tots, parent = coarse or coarse_totals(Hc, reg_lambda,
+                                                      reg_alpha)
+    S = cums[0].shape[-1]
+    bgain = _gain_with_na(cums[0][..., :-1], cums[1][..., :-1],
+                          cums[2][..., :-1], nas, tots, parent, reg_lambda,
+                          reg_alpha, gamma, min_rows, min_child_weight)[0]
+    if feat_mask is not None:
+        m = feat_mask if feat_mask.dim() == 2 else feat_mask[None, :]
+        bgain = torch.where(m[..., None], bgain, -torch.inf)
+    nb = max(1, (K + 1) // 2)
+    top_b = _top_k_indices(bgain, nb)                          # [L, F, nb]
+    # boundary s touches super-bins s and s+1
+    pairs = torch.stack([top_b, torch.clamp_max(top_b + 1, S - 1)], dim=-1)
+    sel = pairs.reshape(*top_b.shape[:-1], 2 * nb)[..., :K]
+    return sel.to(torch.int32), bgain
+
+
+def hier_candidates(Hc, Hf, sel, nbins: int, W: int, reg_lambda,
+                    min_rows, feat_mask=None, reg_alpha=0.0, gamma=0.0,
+                    min_child_weight=0.0, coarse=None):
+    """Every candidate split of the hierarchical search, per leaf: the
+    coarse boundaries of all features, then the fine boundaries inside
+    the K refined super-bins, flattened feature-major in that order.
+    Returns ([L, n] columns gain, na_left, NA-resolved left g, h, c,
+    feat, bin; and the per-(leaf, feature) totals g, h, c).  ``coarse``
+    as in ``select_superbins``."""
+    cums, nas, tots, parent = coarse or coarse_totals(Hc, reg_lambda,
+                                                      reg_alpha)
+    cumG, cumH, cumC = cums
+    G, Hs, C = Hc[0, ..., :-1], Hc[1, ..., :-1], Hc[2, ..., :-1]
+    L, F, S = G.shape
+    K = sel.shape[-1]
+    dev = Hc.device
+    if feat_mask is not None:
+        fmask = feat_mask if feat_mask.dim() == 2 else feat_mask[None, :]
+    else:
+        fmask = torch.ones((L, F), dtype=torch.bool, device=dev)
+
+    def eval_cands(glx, hlx, clx, allowed):
+        gain, na_left, gl, hl, cl = _gain_with_na(
+            glx, hlx, clx, nas, tots, parent, reg_lambda, reg_alpha,
+            gamma, min_rows, min_child_weight)
+        gain = torch.where(allowed & fmask[..., None], gain, -torch.inf)
+        return [gain, na_left, gl, hl, cl]
+
+    # (a) coarse boundaries: split after super-bin s, s in 0..S-2
+    bins_a = (torch.arange(S - 1, dtype=torch.int32, device=dev) + 1) * W - 1
+    res_a = eval_cands(cumG[..., :-1], cumH[..., :-1], cumC[..., :-1],
+                       (bins_a <= nbins - 2)[None, None, :])
+    feat_ix = torch.arange(F, dtype=torch.int32, device=dev)[None, :, None]
+    res_a += [feat_ix.expand(L, F, S - 1), bins_a.expand(L, F, S - 1)]
+
+    # (b) fine boundaries inside the refined super-bins
+    pre = [(cum - x).gather(-1, sel.long())
+           for cum, x in ((cumG, G), (cumH, Hs), (cumC, C))]   # [L, F, K]
+    cumf = _cumsum_seq(Hf)                                  # [3, L, F, K, W]
+    bins_f = (sel[..., None] * W + torch.arange(
+        W, dtype=torch.int32, device=dev)).reshape(L, F, K * W)
+    res_f = eval_cands(
+        *[(p[..., None] + cf).reshape(L, F, K * W)
+          for p, cf in zip(pre, cumf)], bins_f <= nbins - 2)
+    res_f += [feat_ix.expand(L, F, K * W), bins_f]
+    cols = [torch.cat([a.reshape(L, -1), f.reshape(L, -1)], dim=1)
+            for a, f in zip(res_a, res_f)]
+    return cols, tots
+
+
+def best_splits_hier(Hc, Hf, sel, ub, nbins: int, W: int, reg_lambda,
+                     min_rows, min_split_improvement, feat_mask=None,
+                     reg_alpha=0.0, gamma=0.0, min_child_weight=0.0,
+                     coarse=None):
+    """Best split per leaf from the coarse Hc [3, L, F, S+1] and fine
+    Hf [3, L, F, K, W] histograms (the JAX package's
+    ``best_splits_hier``): the first maximal gain over
+    ``hier_candidates`` (NaN counts as the maximum), so a coarse boundary
+    that reappears as a fine slot wins a tie.  Returns ``best_splits``'
+    tuple and a placeholder; ``ub`` is unused, as there.  ``coarse`` as
+    in ``select_superbins``."""
+    cols, (totG, totH, totC) = hier_candidates(
+        Hc, Hf, sel, nbins, W, reg_lambda, min_rows, feat_mask, reg_alpha,
+        gamma, min_child_weight, coarse)
+    best = torch.argmax(cols[0], dim=1)[:, None]
+    best_gain, na_left, gl, hl, cl, feat, bin_ = \
+        (c.gather(1, best)[:, 0] for c in cols)
+    fl = feat.long()[:, None]
+    ftot, htot, ctot = (t.gather(1, fl)[:, 0] for t in (totG, totH, totC))
+    valid = torch.isfinite(best_gain) & \
+        (best_gain > min_split_improvement) & \
+        (totC >= 2 * min_rows).any(-1)
+    gr, hr, cr = ftot - gl, htot - hl, ctot - cl
+    zero = torch.zeros((), dtype=gr.dtype, device=gr.device)
+    children = torch.stack(
+        [torch.where(valid, gl, ftot), torch.where(valid, hl, htot),
+         torch.where(valid, cl, ctot), torch.where(valid, gr, zero),
+         torch.where(valid, hr, zero), torch.where(valid, cr, zero)], dim=1)
+    return (feat, bin_, na_left, best_gain, valid, children,
+            torch.zeros((), dtype=torch.bool, device=gr.device))
 
 
 # --------------------------------------------------------------- partition

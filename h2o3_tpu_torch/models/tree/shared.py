@@ -4,7 +4,10 @@ scoring — the level path of ``h2o3_tpu/models/tree/shared.py``
 
 A tree grows level by level: histogram (``hist.make_subtract_level_fn``
 or the full rebuild) -> split search (``hist.fused_best_splits`` or the
-``best_splits`` oracle) -> threshold lookup -> ``hist.partition``; the
+``best_splits`` oracle) -> threshold lookup -> ``hist.partition``; under
+``split_search="hier"`` the histogram and split search are the
+hierarchical pair instead (a coarse super-bin histogram, the fine
+histogram of the chosen super-bins, ``hist.best_splits_hier``); the
 last level's child sums give the Newton leaf values without another pass
 over the rows.  A grown tree is per-level arrays (feature, threshold, NA
 direction, valid) plus leaf values, all on the device; the ensemble
@@ -14,9 +17,8 @@ gathers.
 The port builds the dense layout, one tree at a time, as a Python loop of
 levels (``tree_program="level"``): what the JAX package trains with
 ``H2O3_TPU_AUTOTUNE=off``.  Its other build programs (the batched K-tree
-build, node-sparse deep levels, the whole-tree scan, EFB, monotone
-constraints and the hierarchical split search) wait for later slices and
-raise when asked for.
+build, node-sparse deep levels, the whole-tree scan, EFB and monotone
+constraints) wait for later slices and raise when asked for.
 """
 
 from __future__ import annotations
@@ -72,20 +74,21 @@ class SharedTreeParameters(Parameters):
     hist_layout: str = "auto"
     # "level" (and "auto"); the whole-tree scan program is not ported yet
     tree_program: str = "auto"
-    # not ported yet: any value but these raises
+    # "hier" takes the hierarchical search (a coarse super-bin histogram,
+    # then the fine bins of the FINE_K best super-bins per (leaf,
+    # feature)); anything else, "auto" included, the exact full-bin search
     split_search: str = "auto"
     monotone_constraints: Optional[dict] = None
 
 
 _LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
+# super-bins refined per (leaf, feature) by the hierarchical search: the
+# JAX package's make_build_tree_fn default, which GBM.train never changes
+FINE_K = 2
 
 
 def check_tree_params(p) -> None:
     """Raise on the tree options the port has not ported yet."""
-    if str(p.split_search).lower() == "hier":
-        raise NotImplementedError(
-            "split_search='hier' needs the fine histogram kernel, which is "
-            f"not ported yet ({_LATER}; ROADMAP Queue 2)")
     if p.monotone_constraints:
         raise NotImplementedError(
             f"monotone_constraints are not ported yet ({_LATER})")
@@ -262,20 +265,32 @@ def resolve_hist_mode(params) -> str:
     return mode
 
 
-def resolve_split_mode(params) -> str:
+def use_hier_split_search(params) -> bool:
+    """Whether the hierarchical split search runs: only on request
+    (``split_search="hier"``); "auto" is the exact search, as in the JAX
+    package."""
+    return getattr(params, "split_search", "auto") == "hier"
+
+
+def resolve_split_mode(params, hier: bool = False) -> str:
+    """"auto" is "fused"; the hierarchical search has no fused path, so
+    under it every mode but "separate" becomes "separate" (the JAX
+    package's resolver: its split crosscheck does not run there)."""
     mode = str(getattr(params, "split_mode", "auto")).lower()
     if mode == "auto":
-        return "fused"
+        mode = "fused"
     if mode not in ("fused", "separate", "check"):
         raise ValueError(
             f"split_mode={mode!r}: use auto | fused | separate | check")
-    return mode
+    return "separate" if hier else mode
 
 
-def resolve_hist_layout(params) -> str:
+def resolve_hist_layout(params, hier: bool = False) -> str:
+    """"auto" or "dense" (the hierarchical search takes "dense", as the
+    JAX package's node-sparse levels do not compose with it)."""
     layout = str(getattr(params, "hist_layout", "auto")).lower()
     if layout in ("auto", "dense"):
-        return layout
+        return "dense" if hier else layout
     if layout in ("sparse", "check"):
         raise NotImplementedError(
             f"hist_layout={layout!r}: node-sparse deep levels are not "
@@ -315,7 +330,7 @@ def varbin_kernel_engages(bin_counts, nbins: int, F: int,
 def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                        bin_counts=None, hist_mode: str = "subtract",
                        split_mode: str = "fused", hist_layout: str = "auto",
-                       device="cpu"):
+                       device="cpu", hier: bool = False):
     """A function that grows one tree on the device (the JAX package's
     ``make_build_tree_fn`` with nk=1, the dense layout and
     tree_program="level").
@@ -326,20 +341,67 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     (feat, thr, na_left, valid), leaf values [2^depth], covers, the final
     leaf of every row).  ``gen`` draws the per-split column samples when
     col_sample_rate < 1; ``hcodes`` are the packed codes when the varbin
-    layout engages (computed once per chunk by the caller, or here)."""
+    layout engages, or the super-bin codes under ``hier`` (computed once
+    per chunk by the caller, or here).
+
+    ``hier=True`` takes the hierarchical split search (JAX
+    ``shared.py:929-1055``): per level a coarse histogram over the S
+    super-bins (``hist_uniform`` at B = S+1; below the root the left
+    children from all rows, the right ones as the previous level's coarse
+    histogram minus the left, h/w clamped at 0), ``select_superbins``,
+    the fine histogram of the ``FINE_K`` chosen super-bins
+    (``fine_hist``) and ``best_splits_hier``.  ``hist_mode`` does not
+    apply to it, and it takes ``split_mode="separate"``."""
     if hist_mode not in ("subtract", "full"):
         raise ValueError(f"hist_mode={hist_mode!r}: use 'subtract' or "
                          "'full' here ('check' is resolved by GBM._fit)")
     if split_mode not in ("separate", "fused"):
         raise ValueError(f"split_mode={split_mode!r}: use 'separate' or "
                          "'fused' here ('check' is resolved by GBM._fit)")
+    if hier and split_mode == "fused":
+        raise ValueError("split_mode='fused' does not compose with the "
+                         "hierarchical search; GBM.train downgrades it "
+                         "to 'separate'")
     B = nbins + 1
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
                                     hist_layout)
-    use_varbin = varbin_kernel_engages(bin_counts, nbins, F, device)
+    use_varbin = not hier and varbin_kernel_engages(bin_counts, nbins, F,
+                                                    device)
     bc = tuple(bin_counts) if use_varbin else None
-    level_fns = [hist.make_subtract_level_fn(d, F, B, bin_counts=bc)
-                 for d in range(max_depth)]
+    level_fns = [] if hier else [
+        hist.make_subtract_level_fn(d, F, B, bin_counts=bc)
+        for d in range(max_depth)]
+    if hier:
+        S, W = hist.superbin_geometry(nbins)
+        fine_fns = [hist.make_fine_hist_fn(2 ** d, F, W, FINE_K, nbins)
+                    for d in range(max_depth)]
+
+    def hier_level(d, codes, ccodes, leaf, stats, Hc_prev, mask, scal):
+        """One level's split by the hierarchical search; returns the
+        split tuple and the level's coarse histogram (the next level's
+        parent)."""
+        reg_lambda, min_rows, msi, reg_alpha, gamma, mcw = scal
+        L = 2 ** d
+        if d == 0:
+            Hc = hist.hist_uniform(ccodes, leaf, stats, 1, S + 1)
+        else:
+            # the left children over all rows: a right child's rows carry
+            # leaf -1 and add nothing, the same sums as the JAX package's
+            # stats masked to 0 on them
+            pleaf = torch.where((leaf & 1) == 0, leaf >> 1, -1)
+            Hcl = hist.hist_uniform(ccodes, pleaf, stats, L // 2, S + 1)
+            Hcr = Hc_prev - Hcl
+            Hcr[1:].clamp_min_(0.0)
+            Hc = torch.stack([Hcl, Hcr], dim=2).reshape(3, L, F, S + 1)
+        coarse = hist.coarse_totals(Hc, reg_lambda, reg_alpha)
+        sel, ub = hist.select_superbins(Hc, nbins, W, FINE_K, reg_lambda,
+                                        reg_alpha, gamma, min_rows, mcw,
+                                        mask, coarse=coarse)
+        Hf = fine_fns[d](codes, leaf, stats, sel)
+        split = hist.best_splits_hier(Hc, Hf, sel, ub, nbins, W, reg_lambda,
+                                      min_rows, msi, mask, reg_alpha, gamma,
+                                      mcw, coarse=coarse)[:6]
+        return split, Hc
 
     def build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
               min_split_improvement, learn_rate, col_sample_rate,
@@ -347,9 +409,13 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         dev = codes.device
         N = codes.shape[1]
         stats = torch.stack([g, h, w]).to(torch.float32)
-        if use_varbin and hcodes is None:
+        if hier and hcodes is None:
+            hcodes = hist.coarse_codes(codes, nbins)
+        elif use_varbin and hcodes is None:
             hcodes = hist.offset_codes(codes, bc, nbins)
         lcodes = hcodes if use_varbin else codes
+        scal = (reg_lambda, min_rows, min_split_improvement, reg_alpha,
+                gamma, min_child_weight)
         leaf = torch.zeros(N, dtype=torch.int32, device=dev)
         levels = []
         alive = None
@@ -366,21 +432,21 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
             if tree_mask is not None:
                 mask = tree_mask[None, :].expand(L, F) if mask is None \
                     else mask & tree_mask[None, :]
-            if hist_mode == "subtract":
-                H, carry = level_fns[d].stacked(lcodes, leaf, stats, carry)
+            if hier:
+                split, carry = hier_level(d, codes, hcodes, leaf, stats,
+                                          carry, mask, scal)
             else:
-                H = hist.local_hist(lcodes, leaf, stats, L, F, B, bc)
-            if split_mode == "fused":
-                feat, bin_, na_left, gain, valid, children = \
-                    hist.fused_best_splits(
-                        H, nbins, reg_lambda, min_rows,
-                        min_split_improvement, mask, reg_alpha, gamma,
-                        min_child_weight)
-            else:
-                feat, bin_, na_left, gain, valid, children = \
-                    hist.best_splits(H, nbins, reg_lambda, min_rows,
-                                     min_split_improvement, mask,
-                                     reg_alpha, gamma, min_child_weight)
+                if hist_mode == "subtract":
+                    H, carry = level_fns[d].stacked(lcodes, leaf, stats,
+                                                    carry)
+                else:
+                    H = hist.local_hist(lcodes, leaf, stats, L, F, B, bc)
+                split_fn = hist.fused_best_splits if split_mode == "fused" \
+                    else hist.best_splits
+                split = split_fn(H, nbins, reg_lambda, min_rows,
+                                 min_split_improvement, mask, reg_alpha,
+                                 gamma, min_child_weight)
+            feat, bin_, na_left, gain, valid, children = split
             if d > 0:
                 # terminality: a dead node's descendants stay dead, and
                 # their child stats collapse to "all rows left"
@@ -422,23 +488,32 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                       n_padded: int, sample_rate: float,
                       col_sample_rate_per_tree: float, bin_counts=None,
                       hist_mode: str = "subtract", split_mode: str = "fused",
-                      hist_layout: str = "auto", device="cpu"):
+                      hist_layout: str = "auto", device="cpu",
+                      hier: bool = False):
     """A chunk of boosting rounds (the JAX package's ``make_tree_scan_fn``
     as a plain loop over the chunk's trees): gradients -> row and column
     samples -> grow -> F update.  Returns ``scan_fn(codes, y, w, F0,
     edges_mat, gen, nchunk, reg_lambda, min_rows, min_split_improvement,
     learn_rate, col_sample_rate, reg_alpha, gamma, min_child_weight) ->
-    (F, StackedTrees of the chunk)``."""
+    (F, StackedTrees of the chunk)``.  The hierarchical search builds
+    with split_mode="separate" and the dense layout, as there."""
+    if hier:
+        split_mode, hist_layout = "separate", "dense"
     bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode=split_mode,
-                               hist_layout=hist_layout, device=device)
+                               hist_layout=hist_layout, device=device,
+                               hier=hier)
 
     def scan_fn(codes, y, w, F0, edges_mat, gen, nchunk, reg_lambda,
                 min_rows, min_split_improvement, learn_rate,
                 col_sample_rate, reg_alpha, gamma, min_child_weight):
-        hcodes = hist.offset_codes(codes, bt_fn.bin_counts, nbins) \
-            if bt_fn.use_varbin else None
+        if hier:
+            hcodes = hist.coarse_codes(codes, nbins)
+        elif bt_fn.use_varbin:
+            hcodes = hist.offset_codes(codes, bt_fn.bin_counts, nbins)
+        else:
+            hcodes = None
         Fc = F0
         trees = []
         for _ in range(nchunk):

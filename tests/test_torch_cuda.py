@@ -1,7 +1,8 @@
-"""The port's CUDA kernels (traversal, level histograms, split records)
-against their plain torch versions, and a small train against the CPU
-plain route, on the card.  Every test here needs a CUDA device and nvcc;
-without them it skips.  On a CUDA machine run them with:
+"""The port's CUDA kernels (traversal, level histograms, split records,
+the fine histogram of the hierarchical search) against their plain torch
+versions, and small trains against the CPU plain route, on the card.
+Every test here needs a CUDA device and nvcc; without them it skips.  On
+a CUDA machine run them with:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
@@ -101,7 +102,8 @@ def _assert_hist_close(got, want, integer):
         assert torch.equal(got, want)
         return
     for s in range(3):
-        a, b = (got[s], want[s]) if want.dim() == 4 else \
+        # dense [3, ...] planes, or hist_varbin's packed [Q8, 3L]
+        a, b = (got[s], want[s]) if want.dim() != 2 else \
             (got[:, s::3], want[:, s::3])
         scale = max(float(b.abs().sum()), 1.0)
         err = float((a.double() - b).abs().max())
@@ -214,3 +216,139 @@ def test_small_train_splits_match_cpu_plain_route(cuda):
                                           tb.thr[d].numpy()[vb])
         np.testing.assert_allclose(ta.values.cpu().numpy(),
                                    tb.values.numpy(), rtol=1e-4, atol=1e-6)
+
+
+# ------------------------------------- the hierarchical search's kernels
+
+# (nbins, L, F, K, n): the bench geometry (S = 16, W = 16) at the deepest
+# level and at the root with a ragged n; nbins = 61, W = 8 puts the NA
+# code on slot 5 of super-bin 7 (it must not land); K = 3 lets two
+# selected super-bins coincide
+_FINE_CASES = [(256, 32, 8, 2, 1_000_003), (256, 1, 8, 2, 999_983),
+               (61, 4, 5, 2, 200_001), (32, 16, 3, 3, 77_777),
+               (1024, 8, 11, 2, 20_000)]
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("nbins,L,F,K,n", _FINE_CASES)
+def test_fine_hist_equals_plain(cuda, nbins, L, F, K, n, integer):
+    rng = np.random.default_rng(nbins + L * 7 + n % 101)
+    S, W = hist.superbin_geometry(nbins)
+    _, codes, leaf, st = _hist_inputs(rng, F, nbins, L, n, 0.05, integer,
+                                      cuda)
+    sel_np = rng.integers(0, S, (L, F, K)).astype(np.int32)
+    sel_np[:, 0, 0] = S - 1         # the super-bin the NA code aliases into
+    sel = torch.from_numpy(sel_np).to(cuda)
+    before = hist.FINE_HIST.launches
+    got = hist.fine_hist(codes, leaf, st, sel, W, nbins)
+    want = hist.fine_hist_torch(codes, leaf, st if integer else st.double(),
+                                sel, W, nbins)
+    torch.cuda.synchronize()
+    assert hist.FINE_HIST.launches == before + 1
+    assert got.shape == (3, L, F, K, W)
+    _assert_hist_close(got, want, integer)
+    if integer:
+        cpu = hist.fine_hist_torch(codes.cpu(), leaf.cpu(), st.cpu(),
+                                   sel.cpu(), W, nbins)
+        np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+    g16 = codes.to(torch.int16)
+    if integer and int(codes.max()) < 32_000:
+        assert torch.equal(hist.fine_hist(g16, leaf, st, sel, W, nbins), got)
+
+
+def test_fine_hist_rejects_mixed_devices(cuda):
+    rng = np.random.default_rng(5)
+    _, codes, leaf, st = _hist_inputs(rng, 3, 32, 2, 1000, 0.0, True, cuda)
+    sel = torch.zeros((2, 3, 2), dtype=torch.int32)
+    with pytest.raises(ValueError, match="sel is on"):
+        hist.fine_hist(codes, leaf, st, sel, 4, 32)
+    with pytest.raises(ValueError, match="leaf is on"):
+        hist.fine_hist(codes, leaf.cpu(), st, sel.to(cuda), 4, 32)
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("F,nbins,L,n", [(8, 16, 1, 1_000_003),
+                                         (8, 16, 16, 500_001),
+                                         (5, 64, 8, 77_777)])
+def test_hist_uniform_planes4_equals_plain(cuda, F, nbins, L, n, integer):
+    rng = np.random.default_rng(F * 13 + L + n % 83)
+    _, codes, leaf, st = _hist_inputs(rng, F, nbins, L, n, 0.05, integer,
+                                      cuda)
+    before = hist.HIST.launches
+    got = hist.hist_uniform(codes, leaf, st, L, nbins + 1, planes=4)
+    want = hist.hist_uniform_torch(codes, leaf,
+                                   st if integer else st.double(), L,
+                                   nbins + 1, planes=4)
+    torch.cuda.synchronize()
+    assert hist.HIST.launches == before + 1
+    assert got.shape == (4, L, F, nbins + 1)
+    _assert_hist_close(got[:3], want[:3], integer)
+    _assert_hist_close(got[3:].expand(3, -1, -1, -1),
+                       want[3:].expand(3, -1, -1, -1), integer)
+    three = hist.hist_uniform(codes, leaf, st, L, nbins + 1)
+    if integer:
+        assert torch.equal(got[:3], three)
+
+
+def test_small_hier_train_matches_cpu_plain_route(cuda):
+    """Three hierarchical-search trees on the card (coarse hist and fine
+    hist kernels) against the same train on the CPU through the plain
+    versions: the same valid flags, features and NA directions, and the
+    same partition of the rows at every level, so a threshold differs
+    only across a structural tie (no row of the node between the two)."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree import binning
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    rng = np.random.default_rng(4)
+    n = 20_000
+    x0 = rng.normal(size=n).astype(np.float32)
+    x0[rng.random(n) < 0.05] = np.nan
+    cols = {"x0": x0, "x1": rng.normal(size=n).astype(np.float32),
+            "c": rng.integers(0, 30, n),
+            "y": np.where(np.nan_to_num(x0) + 0.5 * rng.normal(size=n)
+                          > 0.2, "a", "b").astype(object)}
+    types, domains = {"c": "cat"}, {"c": [str(i) for i in range(30)]}
+    cfg = dict(response_column="y", max_depth=4, nbins=64, seed=1, ntrees=3,
+               score_tree_interval=10 ** 9, split_search="hier")
+    models = {}
+    fine0, split0 = hist.FINE_HIST.launches, hist.SPLIT_RECORDS.launches
+    for dev in ("cuda", "cpu"):
+        fr = Frame.from_numpy(cols, types=types, domains=domains, device=dev)
+        models[dev] = XGBoost(device=dev, **cfg).train(fr)
+    assert hist.FINE_HIST.launches == fine0 + 3 * 4
+    assert hist.SPLIT_RECORDS.launches == split0
+    a, b = models["cuda"], models["cpu"]
+    # each level's rows, routed by the CPU tree: a threshold may differ
+    # only where both trees' bins send every row of the node alike
+    fr = Frame.from_numpy(cols, types=types, domains=domains, device="cpu")
+    binned = binning.fit_bins(fr, ["x0", "x1", "c"], nbins=64, seed=1)
+    for ea, eb in zip(binned.edges, b.output["edges"]):
+        np.testing.assert_array_equal(ea, eb)
+    codes = binned.codes
+    edges = torch.from_numpy(binning.edges_matrix(binned.edges, 64))
+    ties = 0
+    for ta, tb in zip(a.output["trees"], b.output["trees"]):
+        leaf = torch.zeros(n, dtype=torch.int32)
+        for d in range(len(ta.feat)):
+            va, vb = ta.valid[d].cpu().numpy(), tb.valid[d].numpy()
+            np.testing.assert_array_equal(va, vb)
+            for nm in ("feat", "na_left"):
+                np.testing.assert_array_equal(
+                    getattr(ta, nm)[d].cpu().numpy()[va],
+                    getattr(tb, nm)[d].numpy()[vb])
+            feat, nal, valid = tb.feat[d], tb.na_left[d], tb.valid[d]
+            rows = edges[feat.long()]
+            la, lb = (hist.partition(codes, leaf, feat, (
+                rows == thr[:, None]).int().argmax(1).to(torch.int32), nal,
+                valid, 64) for thr in (ta.thr[d].cpu(), tb.thr[d]))
+            assert torch.equal(la, lb), f"level {d} routes differently"
+            ties += int((ta.thr[d].cpu() != tb.thr[d])[valid].sum())
+            leaf = lb
+        np.testing.assert_allclose(ta.values.cpu().numpy(),
+                                   tb.values.numpy(), rtol=1e-4, atol=1e-6)
+    assert ties <= 2, ties
+    pa = a.predict(Frame.from_numpy(cols, types=types, domains=domains,
+                                    device="cuda")).vec("a").to_numpy()
+    pb = b.predict(Frame.from_numpy(cols, types=types, domains=domains,
+                                    device="cpu")).vec("a").to_numpy()
+    np.testing.assert_allclose(pa, pb, rtol=1e-4)
