@@ -6,7 +6,11 @@ Phases (any failure exits non-zero and prints no result line):
 
 1. device  — the card's name and power limit (nvidia-smi) and torch's name;
 2. build   — every CUDA kernel of the port, one nvcc per source, all
-             started together, from the sources in this checkout;
+             started together, from the sources in this checkout; the
+             atomic opcodes of the two histogram libraries
+             (``cuobjdump -sass``: native ATOMS.ADD, no compare-and-swap
+             loop) and of a probe of one shared f32, u32 and u64 add and
+             one global u64 add (``PROBE``);
 3. models  — the serving profile: a binomial GBM-shaped export of 300
              trees x depth 10 over 32 features (~85% of heap nodes
              split, leaf values x0.1) and a multinomial K=3 group of 50
@@ -29,34 +33,37 @@ Phases (any failure exits non-zero and prints no result line):
              are captured; ``hist_uniform``, ``hist_varbin`` and
              ``split_records`` are held against their plain versions on
              them (and on a ragged row count and L = 1, 8, 32):
-             histograms bitwise on integer-valued stats and to 1e-5 of
-             each plane's total on the real bernoulli stats, records
+             the fixed-point histograms bitwise on integer-valued stats
+             and on the real bernoulli stats, a second launch bitwise the
+             first, each plane within 1e-5 of its total from this
+             script's own f64 sums (the distance printed); records
              bitwise;
 8. train   — launch counts set to 0, then
              ``XGBoost(max_depth=6, nbins=256, seed=1, ntrees=20)`` trains
              on the 1M-row frame on the card: ``hist`` and
              ``split_records`` must each launch trees x levels times.  The
-             same train with the three wrappers swapped for their plain
-             versions on the card (the histograms summed in f64, rounded
-             to f32: see ``train_plain``) must give the same splits at every
-             level of the first tree, predictions to rtol 1e-4 and the
-             training AUC to 1e-4.  The model is then published and a
-             256-row batch answered by ``predict_rows`` must equal
-             ``m.predict``.  A second kernel train reports whether f32
-             atomics left the trees bitwise identical;
+             same train through plain torch on the card (the histograms
+             this script's own f64 ``index_add_``, rounded to f32: see
+             ``train_plain``) must give the same splits at every level of
+             the first tree, predictions to rtol 1e-4 and the training
+             AUC to 1e-4.  The model is then published and a 256-row
+             batch answered by ``predict_rows`` must equal ``m.predict``.
+             A second kernel train must give bitwise identical trees and
+             leaf values;
 9. train times — each training kernel's device time per tree (the six
              captured level launches) beside its bound, its plain
-             version and, for the histograms, the one ``index_add_`` call
-             that computes the same sums;
+             version and, for the histograms, the one int64
+             ``index_add_`` call that computes the same sums;
 10. hier kernels — the same train with ``split_search="hier"`` (the
              hierarchical split search) captures one tree's level inputs;
              ``fine_hist`` is held against its plain version on them, on
              a ragged row count, with rows of leaf -1 and on the
              nbins = 61 geometry whose NA code aliases into a fine slot
-             (bitwise on integer-valued stats, within 1e-5 of each
-             plane's total of the f64 plain version on the real ones);
-             so is the coarse pass's ``hist_uniform`` on its captured
-             levels, with the 3 planes the path launches and with 4;
+             (bitwise on integer-valued and on the real stats, a second
+             launch bitwise the first, within 1e-5 of each plane's total
+             of the f64 sums); so is the coarse pass's ``hist_uniform``
+             on its captured levels, with the 3 planes the path launches
+             and with 4;
 11. hier train — launch counts set to 0, then the 20-tree hier train at
              1M rows: ``fine_hist`` and ``hist`` must each launch trees x
              levels times and ``split_records`` never.  The same train
@@ -67,25 +74,34 @@ Phases (any failure exits non-zero and prints no result line):
              histograms), predictions to rtol 1e-4 and the training AUC
              to 1e-4; the AUC must lie within 0.01 of the exact search's;
              the model published must answer like ``m.predict``; a
-             second kernel train reports how far f32 atomics moved it;
+             second kernel train must give bitwise identical trees and
+             leaf values;
 12. hier times — ``fine_hist`` per captured level and per tree beside
-             its bound, its plain version and the one ``index_add_``
-             call on its precomputed slots; the coarse ``hist_uniform``
-             launches beside theirs;
+             its bound, its plain version and the one int64
+             ``index_add_`` call on its precomputed slots; the coarse
+             ``hist_uniform`` launches beside theirs;
 13. headlines — the bench protocol at its default 10,000,000 rows, for
              the exact and then the hierarchical search: a 20-tree
              warmup train, then trees/s of a 50-tree train, with a
              torch.profiler breakdown of a 10-tree train and the host's
              cost of one small torch op before and after (``host_op_us``),
              which with the device operations per tree bounds the wall a
-             launch-bound train can reach; then the exact search's kernel
-             times on a captured 10M tree.
+             launch-bound train can reach; then the kernel times of both
+             searches (CUDA events) on a captured 10M-row tree of each.
+
+Phases 12 and 13 also time the three histogram paths of their captured
+trees (1M and 10M rows) in turns with the tiles without copies (which
+must give the same sums) and, given ``--other DIR``, with the histogram
+kernels of the h2o3_tpu_torch package under DIR.
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
 
-Usage: python3 chip_smoke.py        (one CUDA card, nvcc on PATH or
-                                     under $CUDA_HOME/bin)
+Usage: python3 chip_smoke.py [--other DIR]   (one CUDA card, nvcc on
+                                              PATH or under $CUDA_HOME/bin)
+
+e.g. ``mkdir _ab_old && git archive <rev> h2o3_tpu_torch | tar -x -C
+_ab_old`` and ``--other _ab_old`` times that version's histograms.
 """
 
 from __future__ import annotations
@@ -190,6 +206,74 @@ def batch(rng, B: int, F: int) -> np.ndarray:
     return X
 
 
+def sass_atomics(lib_path: str, native) -> dict:
+    """Counts of the atomic opcodes in a built library's machine code
+    (``cuobjdump -sass``, from the CUDA toolkit beside nvcc): what each
+    kernel's adds compiled to.  A compare-and-swap loop shows as
+    ATOMS.CAST.SPIN."""
+    import collections
+    import re
+    import shutil
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(native.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    ops = collections.Counter(re.findall(
+        r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", sass))
+    return dict(sorted(ops.items()))
+
+
+# one atomic add per kernel: what each kind compiles to on sm_90a
+PROBE = r"""
+#define SH(T, NAME)                                                       \
+  extern "C" __global__ void NAME(T* out, const T* in, const int* idx) { \
+    __shared__ T s[1024];                                               \
+    s[threadIdx.x] = (T)0;                                              \
+    __syncthreads();                                                    \
+    atomicAdd(&s[idx[threadIdx.x] & 1023], in[threadIdx.x]);            \
+    __syncthreads();                                                    \
+    out[threadIdx.x] = s[threadIdx.x];                                  \
+  }
+SH(float, shared_f32)
+SH(unsigned int, shared_u32)
+SH(unsigned long long, shared_u64)
+extern "C" __global__ void global_u64(unsigned long long* out,
+                                      const unsigned long long* in) {
+  atomicAdd(out + (threadIdx.x & 7), in[threadIdx.x]);
+}
+"""
+
+
+def probe_sass(native) -> dict:
+    """What a shared f32, u32 and u64 ``atomicAdd`` and a global u64 one
+    compile to (``PROBE`` through the kernels' nvcc target, then
+    ``cuobjdump -sass``): {kernel: (atomic opcodes, a branch back?)}.  A
+    compare-and-swap loop shows as ATOMS.CAST.SPIN and a branch back."""
+    import re
+    import shutil
+    import tempfile
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.path.dirname(native.nvcc_path()), "cuobjdump")
+    with tempfile.TemporaryDirectory() as tmp:
+        src, cubin = os.path.join(tmp, "probe.cu"), os.path.join(
+            tmp, "probe.cubin")
+        with open(src, "w") as f:
+            f.write(PROBE)
+        subprocess.run([native.nvcc_path(), "-gencode",
+                        "arch=compute_90a,code=sm_90a", "-O3", "-cubin",
+                        "-o", cubin, src], check=True, timeout=300,
+                       capture_output=True)
+        sass = subprocess.run([tool, "-sass", cubin], capture_output=True,
+                              text=True, timeout=120, check=True).stdout
+    out = {}
+    for fn in re.split(r"\n\s*Function : ", sass)[1:]:
+        ops = sorted(set(re.findall(
+            r"\b((?:ATOMS|ATOMG|ATOM|REDG|RED)\.[A-Z0-9_.]+)", fn)))
+        out[fn.split("\n", 1)[0].strip()] = (
+            ops, len(re.findall(r"\bBRA\b", fn)) > 1)
+    return out
+
+
 def cuda_ms(fn, reps: int = REPS, spin: bool = True) -> float:
     """Median time of one call between two CUDA events, over ``reps``.
 
@@ -248,15 +332,40 @@ def traverse_work(planes, X, depth):
 # ------------------------------------------------------------ training
 
 def plane_err(got, want, planes, nplanes=3):
-    """max |got - want| and the largest such error relative to its plane's
-    total |sum|; ``planes`` picks plane s of a histogram."""
-    err, rel = 0.0, 0.0
+    """Each plane's max |got - want|, the largest such error relative to
+    its plane's total |sum|, and the largest in units of the f32 spacing
+    at ``want`` (an f32 result can be no nearer than half of one);
+    ``planes`` picks plane s of a histogram."""
+    import torch
+    errs, rel, ulps = [], 0.0, 0.0
     for s in range(nplanes):
-        a, b = planes(got, s), planes(want, s)
-        e = float((a - b).abs().max())
-        err = max(err, e)
-        rel = max(rel, e / max(float(b.abs().sum()), 1.0))
-    return err, rel
+        a, b = planes(got, s).double(), planes(want, s)
+        diff = (a - b).abs()
+        errs.append(float(diff.max()))
+        rel = max(rel, errs[-1] / max(float(b.abs().sum()), 1.0))
+        w = b.float().abs()
+        ulp = (torch.nextafter(w, torch.full_like(w, float("inf"))) - w)
+        ulps = max(ulps, float((diff / ulp.double()).max()))
+    return errs, rel, ulps
+
+
+def max_diff(a, b) -> float:
+    """max |a - b| of two f32 tensors: 0 where they hold the same bits
+    (equal infinities and NaNs included), inf where a non-finite entry
+    differs; 0.0 when bitwise equal."""
+    import torch
+    same = a.contiguous().view(torch.int32) == b.contiguous().view(
+        torch.int32)
+    d = (a.double() - b.double()).abs()
+    d = torch.where(d.isnan(), float("inf"), d)
+    return float(torch.where(same, 0.0, d).max()) if d.numel() else 0.0
+
+
+def same_bits(a, b) -> bool:
+    """Bitwise equal f32 tensors (NaNs with the same bits included)."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 def dense_plane(h, s):
@@ -269,14 +378,15 @@ def packed_plane(h, s):
 
 def capture_levels(fr, XGBoost, hist):
     """Train one tree with the histogram and records wrappers watched:
-    the inputs each level gave ``hist_varbin`` and ``split_records``."""
+    the inputs each level gave ``hist_varbin`` (with the tree's
+    fixed-point scale) and ``split_records``."""
     hv, sr = [], []
     real_hv, real_sr = hist.hist_varbin, hist.split_records
 
-    def spy_hv(gcodes, leaf, stats, L, bc, B):
+    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
         hv.append((gcodes.clone(), leaf.clone(), stats.clone(), L,
-                   tuple(bc), B))
-        return real_hv(gcodes, leaf, stats, L, bc, B)
+                   tuple(bc), B, scale))
+        return real_hv(gcodes, leaf, stats, L, bc, B, scale)
 
     def spy_sr(Hist, nbins, *args, **kw):
         sr.append((Hist.clone(), nbins, args))
@@ -290,33 +400,88 @@ def capture_levels(fr, XGBoost, hist):
     return hv, sr
 
 
+def f64_uniform(codes, leaf, stats, L, B, planes=3):
+    """This script's own f64 level histogram on the uniform axis, one f64
+    ``index_add_`` and no fixed point: the oracle the kernels' sums are
+    measured by, independent of the port's plain versions.  [planes, L,
+    F, B] f64; planes = 4 adds the |g| plane."""
+    import torch
+    F, n = codes.shape
+    dev = codes.device
+    st = stats.double()
+    if planes == 4:
+        st = torch.cat([st, st[:1].abs()])
+    c = codes.long()
+    lf = leaf.long()
+    ok = ((lf >= 0) & (lf < L))[None, :] & (c >= 0) & (c < B)
+    idx = (lf[None, :] * F + torch.arange(F, device=dev)[:, None]) * B + c
+    out = torch.zeros((planes, L * F * B), dtype=torch.float64, device=dev)
+    out.index_add_(1, idx[ok], st[:, None, :].expand(planes, F, n)[:, ok])
+    return out.view(planes, L, F, B)
+
+
+def f64_varbin(gcodes, leaf, stats, L, layout):
+    """The same on the packed axis: [Q8, 3L] f64, column 3 l + s."""
+    import torch
+    F, n = gcodes.shape
+    dev = gcodes.device
+    q = gcodes.long()
+    lf = leaf.long()
+    lo = torch.as_tensor(layout.qstart, device=dev)[:, None]
+    hi = lo + torch.as_tensor(layout.qlen, device=dev)[:, None]
+    ok = ((lf >= 0) & (lf < L))[None, :] & (q >= lo) & (q < hi)
+    out = torch.zeros((layout.Q * L, 3), dtype=torch.float64, device=dev)
+    out.index_add_(0, (q * L + lf[None, :])[ok],
+                   stats.double().t()[None].expand(F, n, 3)[ok])
+    return out.view(layout.Q, 3 * L)
+
+
+def f64_fine(codes, leaf, stats, sel, W, nbins):
+    """The same for the fine histogram: [3, L, F, K, W] f64, slot (l, f,
+    k, t) summing the rows of leaf l whose regular code is sel[l, f, k] *
+    W + t."""
+    import torch
+    L, F, K = sel.shape
+    dev = codes.device
+    c = codes.long().t()                                       # [n, F]
+    lf = leaf.long()
+    lc = lf.clamp(0, L - 1)
+    hit = (sel.long()[lc] == (c // W)[:, :, None]) \
+        & ((c >= 0) & (c < nbins))[:, :, None] \
+        & ((lf >= 0) & (lf < L))[:, None, None]                # [n, F, K]
+    idx = ((lc[:, None, None] * F + torch.arange(F, device=dev)[None, :,
+                                                                None]) * K
+           + torch.arange(K, device=dev)[None, None, :]) * W \
+        + (c % W)[:, :, None]
+    st = stats.double()[:, :, None, None].expand(3, c.shape[0], F, K)
+    out = torch.zeros((3, L * F * K * W), dtype=torch.float64, device=dev)
+    out.index_add_(1, idx[hit], st[:, hit])
+    return out.view(3, L, F, K, W)
+
+
 def train_plain(fr, XGBoost, hist, ntrees, **extra):
     """The same train with ``hist_varbin``, ``hist_uniform``,
-    ``split_records`` and ``fine_hist`` swapped for their plain torch
-    versions on the card: the route the kernels' training is held
-    against.  The plain histograms sum the stats in f64 and round to f32:
-    ``index_add_`` on f32 keeps one accumulator per slot, which drifts by
-    units over 1M rows (by ~1,000 on a coarse super-bin that holds every
-    row of day_of_week), in another way each run, and parent - child
-    subtractions carry that into the deep levels' splits."""
+    ``split_records`` and ``fine_hist`` swapped for plain torch on the
+    card: the route the kernels' training is held against.  Its
+    histograms are this script's own f64 ``index_add_`` (``f64_uniform``,
+    ``f64_varbin``, ``f64_fine``) rounded to f32, not the port's
+    fixed-point plain versions: an oracle independent of the arithmetic
+    under test."""
     real = (hist.hist_varbin, hist.hist_uniform, hist.split_records,
             hist.fine_hist)
 
-    def varbin(gcodes, leaf, stats, L, bc, B):
-        return hist.hist_varbin_torch(gcodes, leaf, stats.double(), L,
-                                      hist.packed_layout(tuple(bc), B)
-                                      ).float()
+    def varbin(gcodes, leaf, stats, L, bc, B, scale=None):
+        return f64_varbin(gcodes, leaf, stats, L,
+                          hist.packed_layout(tuple(bc), B)).float()
 
-    def uniform(codes, leaf, stats, L, B, planes=3):
-        return hist.hist_uniform_torch(codes, leaf, stats.double(), L, B,
-                                       planes).float()
+    def uniform(codes, leaf, stats, L, B, planes=3, scale=None):
+        return f64_uniform(codes, leaf, stats, L, B, planes).float()
 
     def records(Hist, nbins, *args):
         return hist._split_records_torch(Hist, *args)
 
-    def fine(codes, leaf, stats, sel, W, nbins):
-        return hist.fine_hist_torch(codes, leaf, stats.double(), sel, W,
-                                    nbins).float()
+    def fine(codes, leaf, stats, sel, W, nbins, scale=None):
+        return f64_fine(codes, leaf, stats, sel, W, nbins).float()
 
     (hist.hist_varbin, hist.hist_uniform, hist.split_records,
      hist.fine_hist) = varbin, uniform, records, fine
@@ -348,76 +513,79 @@ def int_stats(n, gen, dev):
 
 def check_train_kernels(hv, sr, hist, dev):
     """Phase 7: every training kernel against its plain version on the
-    card, on the captured bench levels and on synthetic ones.  Returns
-    the largest absolute difference seen (real-valued stats)."""
+    card, on the captured bench levels (with the tree's fixed-point
+    scale) and on synthetic ones: the histograms bitwise on integer-valued
+    and on the real bernoulli stats, a second launch bitwise the first,
+    and each plane's distance from this script's f64 sums; raises on any
+    difference.  Returns the largest max|kernel - plain| measured for
+    each kernel (0.0 while they agree bitwise)."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
-    max_err = plain_err = 0.0
-    g0, _, st0, _, bc, B = hv[0]
+    f64_err, f64_ulps = [0.0, 0.0, 0.0], 0.0
+    kdiff = {"hist": 0.0, "split_records": 0.0}
+    g0, _, st0, _, bc, B, _ = hv[0]
     nbins = B - 1
     layout = hist.packed_layout(bc, B)
-    cases = [(g, leaf, st, L, "level %d" % i)
-             for i, (g, leaf, st, L, _, _) in enumerate(hv)]
+    cases = [(g, leaf, st, L, scale, "level %d" % i)
+             for i, (g, leaf, st, L, _, _, scale) in enumerate(hv)]
     n0 = g0.shape[1]
     for L in (1, 8, 32):
         leaf = torch.randint(0, L, (n0,), generator=gen, device=dev,
                              dtype=torch.int32)
-        cases.append((g0, leaf, st0, L, f"L={L}"))
+        cases.append((g0, leaf, st0, L, None, f"L={L}"))
         rag = n0 - 17                  # a ragged row count
-        cases.append((g0[:, :rag], leaf[:rag], st0[:, :rag], L,
+        cases.append((g0[:, :rag], leaf[:rag], st0[:, :rag], L, None,
                       f"L={L} n={rag}"))
-    for g, leaf, st, L, what in cases:
+    for g, leaf, st, L, scale, what in cases:
         g = g.contiguous()
         n = g.shape[1]
         raw = raw_codes(g, bc, nbins, hist)
-        for stats, exact in ((int_stats(n, gen, dev), True),
-                             (st.contiguous(), False)):
-            pv = hist.hist_varbin(g, leaf, stats, L, bc, B)
-            pu = hist.hist_uniform(raw, leaf, stats, L, B)
-            # integer stats: the plain version in f32 (every sum exact);
-            # real stats: the plain version in f64, the reference both
-            # f32 orders are measured by
-            st_ref = stats if exact else stats.double()
-            pv_ref = hist.hist_varbin_torch(g, leaf, st_ref, L, layout)
-            pu_ref = hist.hist_uniform_torch(raw, leaf, st_ref, L, B)
+        for stats, sc, kind in ((int_stats(n, gen, dev), None, "integer"),
+                                (st.contiguous(), scale, "real")):
+            pv = hist.hist_varbin(g, leaf, stats, L, bc, B, sc)
+            pv2 = hist.hist_varbin(g, leaf, stats, L, bc, B, sc)
+            pu = hist.hist_uniform(raw, leaf, stats, L, B, scale=sc)
+            pv_ref = hist.hist_varbin_torch(g, leaf, stats, L, layout, sc)
+            pu_ref = hist.hist_uniform_torch(raw, leaf, stats, L, B,
+                                             scale=sc)
             torch.cuda.synchronize()
-            for name, a, b, planes in (("hist_varbin", pv, pv_ref,
-                                        packed_plane),
-                                       ("hist_uniform", pu, pu_ref,
-                                        dense_plane)):
-                if exact:
-                    if not torch.equal(a, b):
-                        raise AssertionError(
-                            f"{name} != plain on integer stats ({what})")
-                    continue
-                err, rel = plane_err(a.double(), b, planes)
-                max_err = max(max_err, err)
+            kdiff["hist"] = max(kdiff["hist"], max_diff(pv, pv_ref),
+                                max_diff(pu, pu_ref))
+            for name, a, b in (("hist_varbin", pv, pv_ref),
+                               ("hist_varbin, a second launch", pv2, pv),
+                               ("hist_uniform", pu, pu_ref),
+                               ("hist_varbin expanded vs hist_uniform",
+                                hist.expand_varbin(pv, bc, L, B), pu)):
+                if not same_bits(a, b):
+                    raise AssertionError(
+                        f"{name} != plain on {kind} stats ({what}): "
+                        f"max|diff| {max_diff(a, b):.3e}")
+            if kind == "real":
+                errs, rel, ulps = plane_err(
+                    pv, f64_varbin(g, leaf, stats, L, layout), packed_plane)
+                f64_err = [max(x, y) for x, y in zip(f64_err, errs)]
+                f64_ulps = max(f64_ulps, ulps)
                 if rel > 1e-5:
                     raise AssertionError(
-                        f"{name} vs its plain version in f64 ({what}): "
-                        f"max|diff| {err:.3e} = {rel:.3e} of its plane's "
-                        f"total > 1e-5")
-            if not exact:
-                f32 = hist.hist_varbin_torch(g, leaf, stats, L, layout)
-                perr, _ = plane_err(f32.double(), pv_ref, packed_plane)
-                plain_err = max(plain_err, perr)
-            dense = hist.expand_varbin(pv, bc, L, B)
-            if exact and not torch.equal(dense, pu):
-                raise AssertionError(f"varbin expanded != uniform ({what})")
+                        f"hist_varbin vs the f64 sums ({what}): "
+                        f"{rel:.3e} of its plane's total > 1e-5")
     log(f"kernel check hist: hist_varbin and hist_uniform equal their "
-        f"plain versions bitwise on integer-valued stats and, on the "
-        f"bench's bernoulli stats, the plain version in f64 within 1e-5 "
-        f"of each plane's total (max|diff| {max_err:.3e}; the f32 plain "
-        f"version's own max|diff| to f64: {plain_err:.3e}), over "
-        f"{len(cases)} cases: the "
-        f"{len(hv)} captured levels of a bench tree (n = {n0}) and "
-        f"L = 1, 8, 32 at n = {n0} and a ragged n = {n0 - 17}")
+        f"fixed-point plain versions bitwise, on integer-valued stats and "
+        f"on the bench's bernoulli stats, a second launch bitwise the "
+        f"first, the packed layout expanded bitwise the uniform one, over "
+        f"{len(cases)} cases: the {len(hv)} captured levels of a bench "
+        f"tree (n = {n0}, the tree's scale) and L = 1, 8, 32 at n = {n0} "
+        f"and a ragged n = {n0 - 17}; max|diff| from the f64 sums per "
+        f"plane (g, h, w): " + ", ".join(f"{e:.3e}" for e in f64_err)
+        + f", at most {f64_ulps:.4f} f32 spacings of the f64 sum")
     for i, (H, nbins_, args) in enumerate(sr):
         for Hc, what in ((H, "real"), (H.round(), "integer-valued")):
             got = hist.split_records(Hc, nbins_, *args)
             want = hist._split_records_torch(Hc, *args)
             torch.cuda.synchronize()
+            kdiff["split_records"] = max(kdiff["split_records"],
+                                         max_diff(got, want))
             if not torch.equal(got, want):
                 a = got.view(torch.int32).long()
                 b = want.view(torch.int32).long()
@@ -428,7 +596,7 @@ def check_train_kernels(hv, sr, hist, dev):
     log(f"kernel check split_records: bitwise equal to its plain version "
         f"on the {len(sr)} captured levels' H and on their integer-valued "
         f"rounding")
-    return max_err
+    return kdiff
 
 
 def work_hist(g, leaf, L, Q, F):
@@ -463,29 +631,34 @@ def time_train_kernels(hv, sr, hist, label):
     tot = {"hist": [0.0, 0.0, 0.0, 0.0, 0, 0], "hist_uniform":
            [0.0, 0.0, 0.0, 0.0, 0, 0], "split_records":
            [0.0, 0.0, 0.0, 0.0, 0, 0]}
-    for i, (g, leaf, st, L, bc, B) in enumerate(hv):
+    for i, (g, leaf, st, L, bc, B, sc) in enumerate(hv):
         layout = hist.packed_layout(bc, B)
         F = g.shape[0]
         raw = raw_codes(g, bc, B - 1, hist)
-        ms = cuda_ms(lambda: hist.hist_varbin(g, leaf, st, L, bc, B))
+        ms = cuda_ms(lambda: hist.hist_varbin(g, leaf, st, L, bc, B, sc))
         plain = cuda_ms(lambda: hist.hist_varbin_torch(g, leaf, st, L,
-                                                       layout), reps=20)
-        ums = cuda_ms(lambda: hist.hist_uniform(raw, leaf, st, L, B))
-        uplain = cuda_ms(lambda: hist.hist_uniform_torch(raw, leaf, st, L,
-                                                         B), reps=20)
-        # the yardstick: the one index_add_ that computes the same sums,
-        # its index and source prepared outside the timed call
+                                                       layout, sc), reps=20)
+        ums = cuda_ms(lambda: hist.hist_uniform(raw, leaf, st, L, B,
+                                                scale=sc))
+        uplain = cuda_ms(lambda: hist.hist_uniform_torch(
+            raw, leaf, st, L, B, scale=sc), reps=20)
+        # the yardstick: the one int64 index_add_ that computes the same
+        # fixed-point sums, its index and quantised source prepared
+        # outside the timed call
+        qs = hist.quantize(st, sc)
         q = g.long()
         lf = leaf.long()
         ok = ((lf >= 0) & (lf < L))[None, :].expand_as(q)
         idx = (q * L + lf[None, :])[ok]
-        src = st.t()[None].expand(F, -1, 3)[ok]
-        out = torch.zeros((layout.Q * L, 3), device=g.device)
+        src = qs.t()[None].expand(F, -1, 3)[ok]
+        out = torch.zeros((layout.Q * L, 3), dtype=torch.int64,
+                          device=g.device)
         lib = cuda_ms(lambda: out.index_add_(0, idx, src))
         uidx = ((lf[None, :] * F + torch.arange(F, device=g.device)[:, None])
                 * B + raw.long())[ok]
-        uout = torch.zeros((3, L * F * B), device=g.device)
-        usrc = st[:, None, :].expand(3, F, -1)[:, ok]
+        uout = torch.zeros((3, L * F * B), dtype=torch.int64,
+                           device=g.device)
+        usrc = qs[:, None, :].expand(3, F, -1)[:, ok]
         ulib = cuda_ms(lambda: uout.index_add_(1, uidx, usrc))
         nbytes, ops = work_hist(g, leaf, L, layout.Q, F)
         bnd, _ = bound(nbytes, ops)
@@ -576,15 +749,33 @@ def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
         f"{mp.training_metrics.logloss:.6f}")
 
     m2 = XGBoost(ntrees=ntrees, **BENCH_CFG).train(fr)
-    bitwise = all(torch.equal(x, y) for lv1, lv2 in zip(
-        st.levels, m2.output["stacked"].levels) for x, y in zip(lv1, lv2)) \
-        and torch.equal(st.values, m2.output["stacked"].values)
-    log(f"determinism: a second kernel train gave "
-        f"{'bitwise identical' if bitwise else 'NOT bitwise identical'} "
-        f"trees (f32 atomics sum in a run-dependent order)")
+    check_deterministic(m, m2, "exact")
 
     publish_check("trained-xgboost", m, fr, cols, batcher, p_k)
     return fr, launches, ntrees, auc_k
+
+
+def check_deterministic(m, m2, search):
+    """A second kernel train must give bitwise the first one's trees
+    (feature, threshold, NA direction, valid at every level) and leaf
+    values: the histograms sum in int64 fixed point, so nothing on the
+    path depends on the order of the atomics."""
+    import torch
+    a, b = m.output["stacked"], m2.output["stacked"]
+    for d, (lv1, lv2) in enumerate(zip(a.levels, b.levels)):
+        for nm, x, y in zip(("feat", "thr", "na_left", "valid"), lv1, lv2):
+            same = same_bits(x, y) if x.is_floating_point() \
+                else torch.equal(x, y)
+            if not same:
+                raise AssertionError(
+                    f"{search} search: a second kernel train differs on "
+                    f"{nm} at level {d}")
+    if not same_bits(a.values, b.values):
+        raise AssertionError(f"{search} search: a second kernel train gave "
+                             f"other leaf values")
+    log(f"determinism {search}: a second kernel train gave bitwise "
+        f"identical trees and leaf values ({a.ntrees} trees x "
+        f"{a.depth} levels)")
 
 
 def publish_check(name, m, fr, cols, batcher, p_k):
@@ -696,17 +887,18 @@ def capture_hier_levels(fr, XGBoost, hist):
     """Train one hierarchical-search tree with ``fine_hist`` and
     ``hist_uniform`` watched: the inputs each level gave them (the fine
     histogram's raw codes, leaf, stats, sel, W, nbins; the coarse pass's
-    super-bin codes, parent ids, stats, L, B)."""
+    super-bin codes, parent ids, stats, L, B; each with the tree's
+    fixed-point scale)."""
     fh, hu = [], []
     real_fh, real_hu = hist.fine_hist, hist.hist_uniform
 
-    def spy_fh(codes, leaf, stats, sel, W, nbins):
-        fh.append((codes, leaf, stats, sel.clone(), W, nbins))
-        return real_fh(codes, leaf, stats, sel, W, nbins)
+    def spy_fh(codes, leaf, stats, sel, W, nbins, scale=None):
+        fh.append((codes, leaf, stats, sel.clone(), W, nbins, scale))
+        return real_fh(codes, leaf, stats, sel, W, nbins, scale)
 
-    def spy_hu(codes, leaf, stats, L, B, planes=3):
-        hu.append((codes, leaf, stats, L, B))
-        return real_hu(codes, leaf, stats, L, B, planes)
+    def spy_hu(codes, leaf, stats, L, B, planes=3, scale=None):
+        hu.append((codes, leaf, stats, L, B, scale))
+        return real_hu(codes, leaf, stats, L, B, planes, scale)
 
     hist.fine_hist, hist.hist_uniform = spy_fh, spy_hu
     try:
@@ -719,22 +911,26 @@ def capture_hier_levels(fr, XGBoost, hist):
 def check_hier_kernels(fh, hu, hist, dev):
     """Phase 10: ``fine_hist`` and the coarse pass's ``hist_uniform``
     (with 3 planes, as the hier path launches it, and with 4) against
-    their plain versions on the card.  Returns the largest absolute
-    differences from the f64 plain versions on the real stats of
-    fine_hist and of the 3-plane coarse launches."""
+    their plain versions on the card: bitwise on integer-valued and on
+    the real stats, a second launch bitwise the first, each plane's
+    distance from this script's f64 sums logged; raises on any
+    difference.  Returns the largest max|kernel - plain| measured for
+    ``fine_hist`` and for the coarse pass with 3 planes (0.0 while they
+    agree bitwise)."""
     import torch
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
-    codes, leaf_d, st, sel_d, W, nbins = fh[-1]
+    kdiff = {"fine_hist": 0.0, "coarse hist": 0.0}
+    codes, leaf_d, st, sel_d, W, nbins, _ = fh[-1]
     n0 = codes.shape[1]
-    cases = [(c, lf, s, sel, w, nb, f"level {i}")
-             for i, (c, lf, s, sel, w, nb) in enumerate(fh)]
+    cases = [(c, lf, s, sel, w, nb, sc, f"level {i}")
+             for i, (c, lf, s, sel, w, nb, sc) in enumerate(fh)]
     rag = n0 - 17                      # a ragged row count
     cases.append((codes[:, :rag], leaf_d[:rag], st[:, :rag], sel_d, W,
-                  nbins, f"level {len(fh) - 1} n={rag}"))
+                  nbins, None, f"level {len(fh) - 1} n={rag}"))
     minus = torch.rand(n0, generator=gen, device=dev) < 0.1
     cases.append((codes, torch.where(minus, -1, leaf_d), st, sel_d, W,
-                  nbins, "leaf -1 on a tenth of the rows"))
+                  nbins, None, "leaf -1 on a tenth of the rows"))
     # nbins = 61 (S = 8, W = 8): the NA code 61 is slot 5 of super-bin 7,
     # which every (leaf, feature) selects as its first super-bin
     nb61 = 61
@@ -746,82 +942,88 @@ def check_hier_kernels(fh, hu, hist, dev):
     s61 = torch.randint(0, S61, (4, 8, 2), generator=gen, device=dev,
                         dtype=torch.int32)
     s61[:, :, 0] = S61 - 1
-    cases.append((c61, l61, st, s61, W61, nb61, "NA alias nbins=61"))
-    max_err = plain_err = 0.0
-    for c, lf, s, sel, w, nb, what in cases:
+    cases.append((c61, l61, st, s61, W61, nb61, None, "NA alias nbins=61"))
+    fine_err, fine_ulps = [0.0, 0.0, 0.0], 0.0
+    for c, lf, s, sel, w, nb, sc, what in cases:
         n = c.shape[1]
-        for stats, exact in ((int_stats(n, gen, dev), True),
-                             (s.contiguous(), False)):
-            got = hist.fine_hist(c, lf, stats, sel, w, nb)
-            ref = hist.fine_hist_torch(c, lf, stats if exact
-                                       else stats.double(), sel, w, nb)
+        for stats, scale, kind in ((int_stats(n, gen, dev), None,
+                                    "integer"), (s.contiguous(), sc, "real")):
+            got = hist.fine_hist(c, lf, stats, sel, w, nb, scale)
+            again = hist.fine_hist(c, lf, stats, sel, w, nb, scale)
+            ref = hist.fine_hist_torch(c, lf, stats, sel, w, nb, scale)
             torch.cuda.synchronize()
+            kdiff["fine_hist"] = max(kdiff["fine_hist"], max_diff(got, ref))
             if nb == nb61 and bool((got[:, :, :, 0, 5] != 0).any()):
                 raise AssertionError("fine_hist landed the NA code in the "
                                      "slot it aliases")
-            if exact:
-                if not torch.equal(got, ref):
+            for name, a, b in (("fine_hist", got, ref),
+                               ("fine_hist, a second launch", again, got)):
+                if not same_bits(a, b):
                     raise AssertionError(
-                        f"fine_hist != plain on integer stats ({what})")
-                continue
-            err, rel = plane_err(got.double(), ref, dense_plane)
-            max_err = max(max_err, err)
-            if rel > 1e-5:
-                raise AssertionError(
-                    f"fine_hist vs its plain version in f64 ({what}): "
-                    f"max|diff| {err:.3e} = {rel:.3e} of its plane's total "
-                    f"> 1e-5")
-            f32 = hist.fine_hist_torch(c, lf, stats, sel, w, nb)
-            perr, _ = plane_err(f32.double(), ref, dense_plane)
-            plain_err = max(plain_err, perr)
-    log(f"kernel check fine_hist: equal to its plain version bitwise on "
-        f"integer-valued stats and, on the bench's bernoulli stats, the "
-        f"plain version in f64 within 1e-5 of each plane's total "
-        f"(max|diff| {max_err:.3e}; the f32 plain version's own max|diff| "
-        f"to f64: {plain_err:.3e}), over {len(cases)} cases: the "
-        f"{len(fh)} captured levels of a hier bench tree (n = {n0}, "
-        f"W = {W}, K = {sel_d.shape[-1]}), a ragged n = {rag}, leaf -1 "
-        f"rows and the nbins = 61 NA-alias geometry")
-    # the hier path's own coarse launches (planes = 3: B = S+1, parent ids
-    # with the right children's rows at leaf -1), and the |g| plane
-    coarse_err = 0.0
-    for planes in (3, 4):
-        p_err = p_plain = 0.0
-        for i, (c, lf, s, L, B) in enumerate(hu):
-            n = c.shape[1]
-            for stats, exact in ((int_stats(n, gen, dev), True),
-                                 (s.contiguous(), False)):
-                got = hist.hist_uniform(c, lf, stats, L, B, planes)
-                ref = hist.hist_uniform_torch(c, lf, stats if exact
-                                              else stats.double(), L, B,
-                                              planes)
-                torch.cuda.synchronize()
-                if exact:
-                    if not torch.equal(got, ref):
-                        raise AssertionError(
-                            f"hist_uniform(planes={planes}) != plain on "
-                            f"integer stats (coarse level {i})")
-                    continue
-                err, rel = plane_err(got.double(), ref, dense_plane, planes)
-                p_err = max(p_err, err)
+                        f"{name} != plain on {kind} stats ({what}): "
+                        f"max|diff| {max_diff(a, b):.3e}")
+            if kind == "real":
+                errs, rel, ulps = plane_err(
+                    got, f64_fine(c, lf, stats, sel, w, nb), dense_plane)
+                fine_err = [max(x, y) for x, y in zip(fine_err, errs)]
+                fine_ulps = max(fine_ulps, ulps)
                 if rel > 1e-5:
                     raise AssertionError(
-                        f"hist_uniform(planes={planes}) vs f64 plain "
-                        f"(coarse level {i}): {rel:.3e} of its plane's "
-                        f"total > 1e-5")
-                f32 = hist.hist_uniform_torch(c, lf, stats, L, B, planes)
-                p_plain = max(p_plain, plane_err(f32.double(), ref,
-                                                 dense_plane, planes)[0])
-        if planes == 3:
-            coarse_err = p_err
+                        f"fine_hist vs the f64 sums ({what}): {rel:.3e} of "
+                        f"its plane's total > 1e-5")
+    log(f"kernel check fine_hist: equal to its fixed-point plain version "
+        f"bitwise on integer-valued stats and on the bench's bernoulli "
+        f"stats, a second launch bitwise the first, over {len(cases)} "
+        f"cases: the {len(fh)} captured levels of a hier bench tree (n = "
+        f"{n0}, W = {W}, K = {sel_d.shape[-1]}, the tree's scale), a "
+        f"ragged n = {rag}, leaf -1 rows and the nbins = 61 NA-alias "
+        f"geometry; max|diff| from the f64 sums per plane (g, h, w): "
+        + ", ".join(f"{e:.3e}" for e in fine_err)
+        + f", at most {fine_ulps:.4f} f32 spacings of the f64 sum")
+    # the hier path's own coarse launches (planes = 3: B = S+1, parent ids
+    # with the right children's rows at leaf -1), and the |g| plane
+    for planes in (3, 4):
+        p_err, p_ulps = [0.0] * planes, 0.0
+        for i, (c, lf, s, L, B, sc) in enumerate(hu):
+            n = c.shape[1]
+            for stats, scale, kind in ((int_stats(n, gen, dev), None,
+                                        "integer"),
+                                       (s.contiguous(), sc, "real")):
+                got = hist.hist_uniform(c, lf, stats, L, B, planes, scale)
+                again = hist.hist_uniform(c, lf, stats, L, B, planes, scale)
+                ref = hist.hist_uniform_torch(c, lf, stats, L, B, planes,
+                                              scale)
+                torch.cuda.synchronize()
+                if planes == 3:
+                    kdiff["coarse hist"] = max(kdiff["coarse hist"],
+                                               max_diff(got, ref))
+                for name, a, b in (("", got, ref),
+                                   (", a second launch", again, got)):
+                    if not same_bits(a, b):
+                        raise AssertionError(
+                            f"hist_uniform(planes={planes}){name} != plain "
+                            f"on {kind} stats (coarse level {i}): max|diff|"
+                            f" {max_diff(a, b):.3e}")
+                if kind == "real":
+                    errs, rel, ulps = plane_err(
+                        got, f64_uniform(c, lf, stats, L, B, planes),
+                        dense_plane, planes)
+                    p_err = [max(x, y) for x, y in zip(p_err, errs)]
+                    p_ulps = max(p_ulps, ulps)
+                    if rel > 1e-5:
+                        raise AssertionError(
+                            f"hist_uniform(planes={planes}) vs the f64 sums"
+                            f" (coarse level {i}): {rel:.3e} of its "
+                            f"plane's total > 1e-5")
         log(f"kernel check hist_uniform(planes={planes}): equal to its "
-            f"plain version bitwise on integer-valued stats and within 1e-5 "
-            f"of each of the {planes} planes' totals of the f64 plain "
-            f"version (max|diff| {p_err:.3e}; the f32 plain version's own "
-            f"max|diff| to f64: {p_plain:.3e}) on the {len(hu)} captured "
-            f"coarse levels of the hier path (B = {hu[0][4]}, L = "
-            f"{[h[3] for h in hu]})")
-    return max_err, coarse_err
+            f"fixed-point plain version bitwise on integer-valued and on "
+            f"the real stats, a second launch bitwise the first, on the "
+            f"{len(hu)} captured coarse levels of the hier path (B = "
+            f"{hu[0][4]}, L = {[h[3] for h in hu]}, the tree's scale); "
+            f"max|diff| from the f64 sums per plane: "
+            + ", ".join(f"{e:.3e}" for e in p_err)
+            + f", at most {p_ulps:.4f} f32 spacings of the f64 sum")
+    return kdiff
 
 
 def split_agreement(ta, tb, codes, edges, nbins, hist):
@@ -931,14 +1133,7 @@ def train_hier_phase(fr, cols, kernels, XGBoost, batcher, hist, codes,
     publish_check("trained-xgboost-hier", m, fr, cols, batcher, p_k)
 
     m2 = XGBoost(ntrees=ntrees, **BENCH_CFG, **HIER).train(fr)
-    again = [split_agreement(a, b, codes, edges, nbins, hist)[0]
-             for a, b in zip(m.output["trees"], m2.output["trees"])]
-    p_2 = m2.predict(fr).vec("YES").to_numpy()
-    log(f"hier determinism: a second kernel train agrees with the first on "
-        f"{sum(a is not None for a in again)}/{ntrees} trees "
-        f"({sum(a == 0 for a in again)} with every threshold bitwise); "
-        f"predictions max rel diff "
-        f"{float(np.max(np.abs(p_2 - p_k) / np.abs(p_k))):.3e}")
+    check_deterministic(m, m2, "hier")
     return launches, ntrees
 
 
@@ -955,36 +1150,41 @@ def work_fine(c, leaf, sel, W, nbins, hist):
 
 
 def time_hier_kernels(fh, hu, hist, label):
-    """Phase 12: device time of each level's fine_hist launch, its plain
-    version, the one-call index_add_ on its precomputed slots, its bound;
-    and of the coarse hist_uniform launches.  Returns per-tree sums
-    [ms, plain, bound, index_add_, bytes, ops] for each."""
+    """Phase 12 (and 13 at 10M rows): device time of each level's
+    fine_hist launch, its plain version, the one-call int64 index_add_ on
+    its precomputed slots and quantised stats, its bound; and of the
+    coarse hist_uniform launches.  Returns per-tree sums [ms, plain,
+    bound, index_add_, bytes, ops] for each."""
     import torch
     tot = {"fine_hist": [0.0, 0.0, 0.0, 0.0, 0, 0],
            "coarse hist": [0.0, 0.0, 0.0, 0.0, 0, 0]}
-    for i, ((c, leaf, st, sel, W, nbins), (cc, pl, cst, L, B)) in \
+    for i, ((c, leaf, st, sel, W, nbins, sc), (cc, pl, cst, L, B, csc)) in \
             enumerate(zip(fh, hu)):
         Lf, F, K = sel.shape
-        ms = cuda_ms(lambda: hist.fine_hist(c, leaf, st, sel, W, nbins))
+        ms = cuda_ms(lambda: hist.fine_hist(c, leaf, st, sel, W, nbins, sc))
         plain = cuda_ms(lambda: hist.fine_hist_torch(c, leaf, st, sel, W,
-                                                     nbins), reps=10)
+                                                     nbins, sc), reps=10)
         idx, ok = hist.fine_slots(c, leaf, sel, W, nbins)
         fidx = idx[ok]
-        src = st[:, None, None, :].expand(3, F, K, -1)[:, ok]
-        out = torch.zeros((3, Lf * F * K * W), device=c.device)
+        src = hist.quantize(st, sc)[:, None, None, :].expand(
+            3, F, K, -1)[:, ok]
+        out = torch.zeros((3, Lf * F * K * W), dtype=torch.int64,
+                          device=c.device)
         lib = cuda_ms(lambda: out.index_add_(1, fidx, src))
         del idx, ok, src
         nbytes, ops = work_fine(c, leaf, sel, W, nbins, hist)
         bnd, _ = bound(nbytes, ops)
-        cms = cuda_ms(lambda: hist.hist_uniform(cc, pl, cst, L, B))
-        cplain = cuda_ms(lambda: hist.hist_uniform_torch(cc, pl, cst, L, B),
-                         reps=10)
+        cms = cuda_ms(lambda: hist.hist_uniform(cc, pl, cst, L, B,
+                                                scale=csc))
+        cplain = cuda_ms(lambda: hist.hist_uniform_torch(cc, pl, cst, L, B,
+                                                         scale=csc), reps=10)
         lf = pl.long()
         cok = ((lf >= 0) & (lf < L))[None, :].expand_as(cc)
         cidx = ((lf[None, :] * F + torch.arange(F, device=c.device)[:, None])
                 * B + cc.long())[cok]
-        cout = torch.zeros((3, L * F * B), device=c.device)
-        csrc = cst[:, None, :].expand(3, F, -1)[:, cok]
+        cout = torch.zeros((3, L * F * B), dtype=torch.int64,
+                           device=c.device)
+        csrc = hist.quantize(cst, csc)[:, None, :].expand(3, F, -1)[:, cok]
         clib = cuda_ms(lambda: cout.index_add_(1, cidx, csrc))
         cbytes, cops = work_hist(cc, pl, L, F * B, F)
         cbnd, _ = bound(cbytes, cops)
@@ -1002,7 +1202,113 @@ def time_hier_kernels(fh, hu, hist, label):
 
 
 
+def load_other(path: str):
+    """Another version of the ``h2o3_tpu_torch`` package, the one under
+    ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
+    .gitignore lists it), imported as ``other_h2o3_tpu_torch`` with its
+    own sources and build directory; returns its tree ``hist`` module,
+    its histogram kernels built."""
+    import importlib
+    import importlib.util
+    name = "other_h2o3_tpu_torch"
+    pkg = os.path.join(os.path.abspath(path), "h2o3_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(pkg, "__init__.py"),
+        submodule_search_locations=[pkg])
+    sys.modules[name] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sys.modules[name])
+    other = importlib.import_module(f"{name}.models.tree.hist")
+    importlib.import_module(f"{name}.native").build_all(
+        [other.HIST, other.FINE_HIST])
+    return other
+
+
+def one_copy(hist):
+    """A ``hist_turns`` setup: the histogram tiles without copies."""
+    def setup():
+        keep = hist.MAX_COPIES
+
+        def swap(n):
+            hist.MAX_COPIES = n
+            hist._device_meta.cache_clear()
+            hist._fine_meta.cache_clear()
+        swap(1)
+        return lambda: swap(keep)
+    return setup
+
+
+def hist_turns(hv, hu, fh, variants, reps=30):
+    """Device ms per tree (the sum of its captured level launches) of the
+    three histogram paths, ``hist_varbin`` on the exact levels ``hv`` and
+    the coarse ``hist_uniform`` and ``fine_hist`` on the hier levels
+    ``hu``, ``fh``, under each variant in turns: every launch timed
+    (``cuda_ms``) under the variants in order, then in reverse order
+    (A, B, B, A for two), the two passes averaged.  ``variants`` are (tag,
+    hist module, setup or None); ``setup()`` swaps the variant in and
+    returns its undo.  A version's wrapper gets the tree's fixed-point
+    scale where it takes one.  Returns ({path: {tag: ms}}, {path: {tag:
+    max|diff| from the first variant's sums}})."""
+    import inspect
+
+    def call(mod, fn, *a, scale):
+        f = getattr(mod, fn)
+        kw = {"scale": scale} if "scale" in inspect.signature(
+            f).parameters else {}
+        return lambda: f(*a, **kw)
+
+    launches = [("hist_varbin (exact levels)",
+                 lambda m, a=(g, lf, st, L, bc, B), sc=sc:
+                 call(m, "hist_varbin", *a, scale=sc))
+                for g, lf, st, L, bc, B, sc in hv]
+    launches += [("hist_uniform (hier coarse pass)",
+                  lambda m, a=(c, lf, st, L, B), sc=sc:
+                  call(m, "hist_uniform", *a, scale=sc))
+                 for c, lf, st, L, B, sc in hu]
+    launches += [("fine_hist",
+                  lambda m, a=(c, lf, st, sel, W, nb), sc=sc:
+                  call(m, "fine_hist", *a, scale=sc))
+                 for c, lf, st, sel, W, nb, sc in fh]
+    ms, diff, first = {}, {}, {}
+    for tag, mod, setup in list(variants) + list(reversed(variants)):
+        undo = setup() if setup else None
+        try:
+            for i, (path, make) in enumerate(launches):
+                fn = make(mod)
+                out = fn()
+                d = diff.setdefault(path, {})
+                d[tag] = max(d.get(tag, 0.0),
+                             max_diff(out, first.setdefault(i, out)))
+                t = ms.setdefault(path, {})
+                t[tag] = t.get(tag, 0.0) + cuda_ms(fn, reps) / 2
+        finally:
+            if undo:
+                undo()
+    return ms, diff
+
+
+def log_turns(hv, hu, fh, variants, label, card):
+    """``hist_turns`` logged per path; raises if the tiles without copies
+    give other sums."""
+    ms, diff = hist_turns(hv, hu, fh, variants)
+    for path, t in ms.items():
+        if diff[path]["one copy per tile"] != 0.0:
+            raise AssertionError(f"{path}: the tiles without copies give "
+                                 f"other sums")
+        log(f"in turns per tree at {label} {card}: {path}: " + "; ".join(
+            f"{tag} {v:.4f} ms" + (f" (max|diff| {diff[path][tag]:.3e})"
+                                   if tag != "this" else "")
+            for tag, v in t.items()))
+
+
 def main() -> dict:
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="GPU smoke of h2o3_tpu_torch (see the module notes)")
+    ap.add_argument("--other", metavar="DIR",
+                    help="also time the histogram kernels of the "
+                         "h2o3_tpu_torch package under DIR in turns with "
+                         "this checkout's (phases 12 and 13)")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device: nothing to run")
@@ -1038,6 +1344,22 @@ def main() -> dict:
         for line in k.build_log.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  ptxas[{k.name}]: {line.strip()}")
+    for k in (hist.HIST, hist.FINE_HIST):
+        ops = sass_atomics(k._lib_path(), native)
+        cas = sum(v for op, v in ops.items() if ".CAS" in op)
+        log(f"sass[{k.name}]: atomic opcodes (cuobjdump -sass, both code "
+            f"widths) {ops}: {cas} compare-and-swap loop(s); the shared "
+            f"64-bit adds are native 32-bit ATOMS.ADD pairs")
+    for fn, (ops, back) in sorted(probe_sass(native).items()):
+        log(f"sass probe {fn}: {ops}"
+            + ("; a branch back (a loop)" if back else ""))
+    # the histograms timed in turns (phases 12, 13): this checkout's
+    # tiles, the tiles without copies, and another version if given
+    variants = [("this", hist, None),
+                ("one copy per tile", hist, one_copy(hist))]
+    if args.other:
+        variants.append((f"other {args.other}", load_other(args.other),
+                         None))
 
     # ---------------------------------------------------------- 3 models
     rng = np.random.default_rng(7)
@@ -1196,7 +1518,7 @@ def main() -> dict:
     cols, types, domains = make_airlines_like(1_000_000)
     fr1 = Frame.from_numpy(cols, types=types, domains=domains)
     hv, sr = capture_levels(fr1, XGBoost, hist)
-    train_err = check_train_kernels(hv, sr, hist, dev)
+    kdiff = check_train_kernels(hv, sr, hist, dev)
 
     # ---------------------------------------------------------- 8 train
     kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.FINE_HIST]
@@ -1228,15 +1550,15 @@ def main() -> dict:
         rows.append({
             "name": kname, "route": "cuda", "source": src,
             "replaces": rep, "launches": tlaunch[kname],
-            "max_abs_err": train_err if kname == "hist" else 0.0,
+            "max_abs_err": kdiff[kname],
             "ms": v[0], "plain_ms": v[1], "bound_ms": bnd, "bound_by": by,
             "library_ms": v[3] if lib else None,
         })
-    del hv, sr
+    del sr
 
     # ------------------------------------------------- 10 hier kernels
     fh, hu = capture_hier_levels(fr1, XGBoost, hist)
-    fine_err, coarse_err = check_hier_kernels(fh, hu, hist, dev)
+    kdiff.update(check_hier_kernels(fh, hu, hist, dev))
 
     # ---------------------------------------------------- 11 hier train
     hlaunch, hntrees = train_hier_phase(fr1, cols, kernels_train, XGBoost,
@@ -1256,7 +1578,7 @@ def main() -> dict:
         "name": "fine_hist", "route": "cuda",
         "source": "h2o3_tpu_torch/csrc/fine_hist.cu",
         "replaces": "h2o3_tpu/models/tree/hist.py:1130",
-        "launches": hlaunch["fine_hist"], "max_abs_err": fine_err,
+        "launches": hlaunch["fine_hist"], "max_abs_err": kdiff["fine_hist"],
         "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
         "bound_by": bound(v[4], v[5])[1], "library_ms": v[3],
     })
@@ -1265,11 +1587,12 @@ def main() -> dict:
         "name": "hist (hier coarse pass)", "route": "cuda",
         "source": "h2o3_tpu_torch/csrc/hist.cu",
         "replaces": "h2o3_tpu/models/tree/hist.py:80",
-        "launches": hlaunch["hist"], "max_abs_err": coarse_err,
+        "launches": hlaunch["hist"], "max_abs_err": kdiff["coarse hist"],
         "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
         "bound_by": bound(v[4], v[5])[1], "library_ms": v[3],
     })
-    del fh, hu, fr1
+    log_turns(hv, hu, fh, variants, "1M rows", card)
+    del hv, fh, hu, fr1
 
     # ----------------------------------------------------- 13 headlines
     t0 = time.perf_counter()
@@ -1284,9 +1607,21 @@ def main() -> dict:
     log(f"headlines at {fr10.nrows} rows {card}: exact search "
         f"{exact_tps:.3f} trees/s, hierarchical search {hier_tps:.3f} "
         f"trees/s")
+    # the kernels per 10M-row tree, with CUDA events: one captured tree
+    # of each search
     hv10, sr10 = capture_levels(fr10, XGBoost, hist)
+    tot10 = time_train_kernels(hv10, sr10, hist, "10M rows")
+    del sr10
+    fh10, hu10 = capture_hier_levels(fr10, XGBoost, hist)
     del fr10
-    time_train_kernels(hv10, sr10, hist, "10M rows")
+    htot10 = time_hier_kernels(fh10, hu10, hist, "10M rows")
+    log(f"kernel times per 10M-row tree (CUDA events, sum of the 6 level "
+        f"launches of one captured tree) {card}: " + "; ".join(
+            f"{k} {v[0]:.4f} ms (plain {v[1]:.4f}, bound {v[2]:.5f}"
+            + (f", index_add_ {v[3]:.4f})" if k != "split_records" else ")")
+            for k, v in list(tot10.items()) + list(htot10.items())))
+    log_turns(hv10, hu10, fh10, variants, "10M rows", card)
+    del hv10, fh10, hu10
 
     return {
         "kernels": [traverse_row] + rows,

@@ -14,130 +14,97 @@
 // outside its feature's segment [qstart[f], qstart[f] + qlen[f]) and a
 // row whose leaf is outside [0, L) add nothing (the tail of a compacted
 // row prefix carries leaf -1).  The output is written through three
-// strides: hist_uniform's dense [3, L, F*B] and hist_varbin's packed
-// [Q8, 3L] (row q, column 3 l + s) are two stride sets of one body.
+// strides: hist_uniform's dense [planes, L, F*B] and hist_varbin's packed
+// [Q8, L, 3] (row q, column 3 l + s) are two stride sets of one body.
 //
 // Design.  On the TPU the histogram was a one-hot matmul on the MXU,
 // because a vector machine serializes scatters.  Hopper scatters well into
 // shared memory, so this is the classic privatised histogram (gpu_hist,
-// which the JAX package named as the design it replaced): each block takes
-// a range of rows and one TILE of the output, accumulates f32 atomics into
-// a zeroed copy of the tile in shared memory, and adds its non-zero
-// entries to the global output at the end with f64 atomics: the output is
-// an f64 buffer that the wrapper rounds to f32 once.  A slot of a
-// low-cardinality feature can hold every row (all 1M rows of day_of_week
-// in one super-bin of the hierarchical search's coarse pass); hundreds of
-// f32 block partials added in f32 drift there by units, in another way
-// each run, and parent - child subtractions carry the drift into the deep
-// levels' small nodes.
+// which the JAX package named as the design it replaced): the tile body
+// of hist_common.cuh, with integer fixed-point sums, so the histogram is
+// exact and the same run to run.  This file holds only its slot function.
 //
 // Tiling.  A whole level does not fit in shared memory: at depth 6 a
 // level histograms up to L = 32 leaf slots (16 parent slots on the
-// subtract path), 3 x 32 x 1,136 packed rows x 4 B = 436 KB for the bench
-// frame (789 KB on the uniform axis), against 227 KB a block can use.  The wrapper (models/tree/hist.py::hist_tiles)
-// cuts the output into tiles of a contiguous feature range x a leaf range,
-// each at most `smem_budget` bytes: the leaf range is the largest even
-// split of L that lets the widest feature segment fit, and features are
-// packed greedily into ranges at that leaf width, so the packed layout's
-// uneven segments fill tiles unevenly.  blockIdx.x is the tile and
-// blockIdx.y the row range: the tiles of one row range run side by side,
-// so the leaf and stat rows they all read come from L2 after the first.
-// A tile whose single feature does not fit even at one leaf is marked
-// use_smem = 0 and adds straight to global memory.  A tile far under the
-// budget gets `copies` (up to one per warp of the block) side by side:
-// warp w adds into copy w % copies, and the copies are summed at the end.
-// That divides the collisions on a hot word, and the rows that round
-// into one f32 partial, by the number of copies.
+// subtract path), 3 x 16 x 1,136 packed rows x 8 B = 436 KB for the bench
+// frame, against 227 KB a block can use.  The wrapper
+// (models/tree/hist.py::hist_tiles) cuts the output into tiles of a
+// contiguous feature range x a leaf range, each at most `smem_budget`
+// bytes: the leaf range is the largest even split of L that lets the
+// widest feature segment fit, and features are packed greedily into
+// ranges at that leaf width.  blockIdx.x is the tile and blockIdx.y the
+// row range: the tiles of one row range run side by side, so the leaf and
+// stat rows they all read come from L2 after the first.  A tile whose
+// single feature does not fit even at one leaf is marked use_smem = 0 and
+// adds straight to global memory.
 //
-// What bounds it on this card: the atomics.  The bytes are small (codes
-// 2 B, leaf 4 B and stats 12 B per row, read once per tile), but every
-// (row, feature) does three shared-memory atomic adds, and rows of one
-// leaf with the same low-cardinality code (day_of_week has 7 bins) collide
-// on an address and serialize.  f32 atomics make the summation order, and
-// so the last bits of a block's partial sum, vary from run to run (their
-// f64 total seldom rounds to another f32): sums of integer-valued stats
-// are exact whatever the order.
+// What bounds it on this card: the shared-memory atomics, not the bytes.
+// Per 10M-row bench tree on an NVIDIA H100 80GB HBM3 at 700 W
+// (chip_smoke.py, CUDA events) it takes 1.95 ms on the exact levels
+// against a 0.24 ms byte bound (codes 2 B, leaf 4 B and stats 12 B per
+// row, the output once), and 2.73 ms as the hierarchical search's coarse
+// pass against 0.38 ms.  Every (row, feature) lands 3 (or 4) 64-bit adds,
+// each one or two native ATOMS.ADD (the f32 tile this replaced ran a
+// compare-and-swap loop per add and took 3.19 and 6.42 ms;
+// tools/hist_ab.py times the two in turns), and rows of one leaf with the
+// same low-cardinality code (day_of_week has 7 bins; on the coarse pass
+// four of the eight features put every row of a leaf in one super-bin)
+// land on one word, where the atomic unit serialises them.  The design's
+// answer is the lane-striped copies of hist_common.cuh, which cut the
+// coarse pass by a quarter; what is left is the adds themselves.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hist_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 512;
-constexpr int kTileInts = 8;   // fa, fb, qa, qn, l0, ln, use_smem, copies
+using hist_common::kThreads;
+using hist_common::kTileInts;
+using hist_common::u64;
+
+template <typename CodeT>
+struct BinSlots {
+  const CodeT* codes;
+  long long code_stride;
+  const int32_t* fmeta;          // [3, F]: code_off, qstart, qlen
+  int F, fa, fb;
+
+  template <class Emit>
+  __device__ __forceinline__ void each(int r, int, Emit emit) const {
+    for (int f = fa; f < fb; ++f) {
+      const int q = __ldg(fmeta + f) +
+                    (int)__ldg(codes + (long long)f * code_stride + r);
+      const int s0 = __ldg(fmeta + F + f);
+      if (q < s0 || q >= s0 + __ldg(fmeta + 2 * F + f)) continue;
+      emit(q);
+    }
+  }
+};
 
 template <typename CodeT>
 __global__ void __launch_bounds__(kThreads)
 hist_kernel(const CodeT* __restrict__ codes, long long code_stride,
             const int32_t* __restrict__ leaf,
             const float* __restrict__ stats, long long stat_stride,
+            const double* __restrict__ qscale,
             const int32_t* __restrict__ fmeta, int F,
             const int32_t* __restrict__ tiles, int n, int rows_per_block,
-            int planes, double* __restrict__ out, long long ss,
-            long long sl, long long sq) {
-  extern __shared__ float sh[];
-  const int32_t* t = tiles + (size_t)blockIdx.x * kTileInts;
-  const int fa = t[0], fb = t[1], qa = t[2], qn = t[3];
-  const int l0 = t[4], ln = t[5], use_smem = t[6], copies = t[7];
-  const int* code_off = fmeta;
-  const int* qstart = fmeta + F;
-  const int* qlen = fmeta + 2 * F;
-  const int size = qn * ln * planes;
-  float* mine = sh + ((threadIdx.x >> 5) % copies) * size;
-  const int r0 = blockIdx.y * rows_per_block;
-  const int r1 = min(n, r0 + rows_per_block);
-
-  if (use_smem) {
-    for (int i = threadIdx.x; i < copies * size; i += blockDim.x)
-      sh[i] = 0.0f;
-    __syncthreads();
-  }
-  for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
-    const int lf = __ldg(leaf + r) - l0;
-    if ((unsigned)lf >= (unsigned)ln) continue;
-    const float g = __ldg(stats + r);
-    const float h = __ldg(stats + stat_stride + r);
-    const float w = __ldg(stats + 2 * stat_stride + r);
-    for (int f = fa; f < fb; ++f) {
-      const int q = __ldg(code_off + f) +
-                    (int)__ldg(codes + (long long)f * code_stride + r);
-      const int s0 = __ldg(qstart + f);
-      if (q < s0 || q >= s0 + __ldg(qlen + f)) continue;
-      if (use_smem) {
-        float* p = mine + ((q - qa) * ln + lf) * planes;
-        atomicAdd(p, g);
-        atomicAdd(p + 1, h);
-        atomicAdd(p + 2, w);
-        if (planes == 4) atomicAdd(p + 3, fabsf(g));
-      } else {
-        double* o = out + (long long)q * sq + (long long)(lf + l0) * sl;
-        atomicAdd(o, (double)g);
-        atomicAdd(o + ss, (double)h);
-        atomicAdd(o + 2 * ss, (double)w);
-        if (planes == 4) atomicAdd(o + 3 * ss, (double)fabsf(g));
-      }
-    }
-  }
-  if (!use_smem) return;
-  __syncthreads();
-  for (int i = threadIdx.x; i < size; i += blockDim.x) {
-    double v = 0.0;
-    for (int c = 0; c < copies; ++c) v += sh[c * size + i];
-    if (v == 0.0) continue;         // the output starts at +0: adding 0 is a no-op
-    const int s = i % planes;
-    const int rest = i / planes;
-    const int l = rest % ln + l0;
-    const int q = rest / ln + qa;
-    atomicAdd(out + (long long)q * sq + (long long)l * sl + s * ss,
-              (double)v);
-  }
+            int planes, u64* __restrict__ out, long long ss, long long sl,
+            long long sq) {
+  extern __shared__ u64 sums[];
+  const hist_common::Tile t(tiles + (size_t)blockIdx.x * kTileInts);
+  const BinSlots<CodeT> slots{codes, code_stride, fmeta, F, t.fa, t.fb};
+  hist_common::tile_body(slots, t, sums, leaf, stats, stat_stride, qscale,
+                         planes, n, rows_per_block, out, ss, sl, sq);
 }
 
 template <typename CodeT>
 int launch(const void* codes, long long code_stride, const int32_t* leaf,
-           const float* stats, long long stat_stride, const int32_t* fmeta,
-           int F, const int32_t* tiles, int n_tiles, int n,
-           int rows_per_block, int smem_bytes, int planes, double* out,
+           const float* stats, long long stat_stride, const double* qscale,
+           const int32_t* fmeta, int F, const int32_t* tiles, int n_tiles,
+           int n, int rows_per_block, int smem_bytes, int planes, u64* out,
            long long ss, long long sl, long long sq, cudaStream_t stream) {
   auto kern = hist_kernel<CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -145,37 +112,41 @@ int launch(const void* codes, long long code_stride, const int32_t* leaf,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(n_tiles, (n + rows_per_block - 1) / rows_per_block);
   kern<<<grid, kThreads, smem_bytes, stream>>>(
-      (const CodeT*)codes, code_stride, leaf, stats, stat_stride, fmeta, F,
-      tiles, n, rows_per_block, planes, out, ss, sl, sq);
+      (const CodeT*)codes, code_stride, leaf, stats, stat_stride, qscale,
+      fmeta, F, tiles, n, rows_per_block, planes, out, ss, sl, sq);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 = launched).  The kernel
-// adds into `out` (f64), which the caller zeroes.  codes: [F, code_stride] of
-// int16 (code_bytes 2) or int32 (4); leaf: [n] int32; stats: [3,
-// stat_stride] f32; fmeta: [3, F] int32 (code_off, qstart, qlen); tiles:
-// [n_tiles, 8] int32; planes: 3, or 4 to add the |g| plane at 3 * ss.
-// Every pointer is a device pointer.
+// adds into `out` (int64 fixed point), which the caller zeroes and
+// dequantises.  codes: [F, code_stride] of int16 (code_bytes 2) or int32
+// (4); leaf: [n] int32; stats: [3, stat_stride] f32; qscale: [3] f64, each
+// stat plane's scale 2^s_p; fmeta: [3, F] int32 (code_off, qstart, qlen);
+// tiles: [n_tiles, 8] int32; planes: 3, or 4 to add the |g| plane at
+// 3 * ss.  Every pointer is a device pointer.
 extern "C" int hist_launch(const void* codes, int code_bytes,
                            long long code_stride, const int32_t* leaf,
                            const float* stats, long long stat_stride,
-                           const int32_t* fmeta, int F,
-                           const int32_t* tiles, int n_tiles, int n,
+                           const double* qscale, const int32_t* fmeta,
+                           int F, const int32_t* tiles, int n_tiles, int n,
                            int rows_per_block, int smem_bytes, int planes,
-                           double* out, long long ss, long long sl,
+                           long long* out, long long ss, long long sl,
                            long long sq, cudaStream_t stream) {
   if (n <= 0 || n_tiles <= 0) return (int)cudaSuccess;
   if (rows_per_block <= 0 || (planes != 3 && planes != 4))
     return (int)cudaErrorInvalidValue;
+  u64* o = reinterpret_cast<u64*>(out);
   if (code_bytes == 2)
     return launch<int16_t>(codes, code_stride, leaf, stats, stat_stride,
-                           fmeta, F, tiles, n_tiles, n, rows_per_block,
-                           smem_bytes, planes, out, ss, sl, sq, stream);
+                           qscale, fmeta, F, tiles, n_tiles, n,
+                           rows_per_block, smem_bytes, planes, o, ss, sl, sq,
+                           stream);
   if (code_bytes == 4)
     return launch<int32_t>(codes, code_stride, leaf, stats, stat_stride,
-                           fmeta, F, tiles, n_tiles, n, rows_per_block,
-                           smem_bytes, planes, out, ss, sl, sq, stream);
+                           qscale, fmeta, F, tiles, n_tiles, n,
+                           rows_per_block, smem_bytes, planes, o, ss, sl, sq,
+                           stream);
   return (int)cudaErrorInvalidValue;
 }

@@ -14,7 +14,8 @@ version:
 * ``hist_uniform`` / ``hist_varbin`` -> ``csrc/hist.cu``: the histogram
   on the uniform bin axis (JAX ``_make_pallas_hist``) and on the packed
   per-feature axis (JAX ``_make_pallas_varbin_hist``); plain versions
-  ``hist_uniform_torch`` / ``hist_varbin_torch``, one ``index_add_`` each;
+  ``hist_uniform_torch`` / ``hist_varbin_torch``, one int64 ``index_add_``
+  each;
 * ``split_records`` -> ``csrc/split_records.cu`` (JAX
   ``_make_pallas_split_records``); plain version ``_split_records_torch``
   (the JAX package's ``_split_records_xla`` with its prefix sums taken in
@@ -22,15 +23,20 @@ version:
 * ``fine_hist`` -> ``csrc/fine_hist.cu`` (JAX ``_make_pallas_fine_hist``):
   the fine bins inside the K super-bins the hierarchical split search
   chose per (leaf, feature); plain version ``fine_hist_torch``, one
-  ``index_add_``.
+  int64 ``index_add_``.
+
+The three histograms sum in int64 fixed point (``stat_scale``,
+``quantize``; ``csrc/hist_common.cuh`` holds the kernels' shared tile):
+their sums are exact, so each is bitwise the same on every run and
+bitwise its plain version, on any stats.
 
 The hierarchical search around it (``select_superbins``,
 ``best_splits_hier``) is plain torch: the JAX package computes it outside
 any kernel too.
 
 A wrapper launches its kernel for CUDA tensors and takes the plain
-version for CPU tensors.  The JAX package's one-hot matmul lookups (``table_lookup``) were a TPU
-workaround; here they are plain gathers.
+version for CPU tensors.  The JAX package's one-hot matmul lookups
+(``table_lookup``) were a TPU workaround; here they are plain gathers.
 """
 
 from __future__ import annotations
@@ -51,14 +57,14 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 HIST = native.Kernel("hist", {
-    "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _I, _P, _I, _I, _I, _I, _I,
-                     _P, _L, _L, _L, _P), _I),
+    "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _P, _I, _P, _I, _I, _I, _I,
+                     _I, _P, _L, _L, _L, _P), _I),
 })
 SPLIT_RECORDS = native.Kernel("split_records", {
     "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
 })
 FINE_HIST = native.Kernel("fine_hist", {
-    "fine_hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _I, _I, _I, _I, _I,
+    "fine_hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
                           _P, _I, _I, _I, _I, _P, _P), _I),
 })
 
@@ -67,6 +73,72 @@ _REC_PLANES = 12
 # then fit one SM (227 KB each at most)
 HIST_SMEM_BUDGET = 96 * 1024
 _HIST_THREADS = 512
+# a small tile's copies stop where four such blocks, a full SM of threads,
+# would no longer fit its shared memory
+_COPIES_SMEM = 227 * 1024 // 4
+# the most copies of a small tile, one per lane of a warp
+# (chip_smoke.py sets 1 to time the tiles without copies)
+MAX_COPIES = 32
+# bytes of one fixed-point sum in a histogram tile (int64)
+_SLOT_BYTES = 8
+
+
+# ------------------------------------------------- fixed-point arithmetic
+#
+# Every histogram sums its stats in int64 fixed point: plane p's values
+# are quantised once, round-half-even(x * 2^s_p), summed exactly (so in
+# any order, and the kernel and its plain version bitwise alike), and the
+# sum is dequantised once, int64 -> f64 -> x 2^-s_p -> f32.
+
+_SUM_BITS = 62
+
+
+def stat_scale(stats: torch.Tensor) -> torch.Tensor:
+    """The fixed-point scales of the stat planes [3, n]: a [2, 3] f64
+    tensor on the stats' device, row 0 each plane's 2^s_p, row 1 its
+    inverse 2^-s_p, or NaN where the plane holds a NaN or an infinity
+    (that plane's histograms are then NaN throughout).
+
+    s_p = 62 - e_p with sum_r |x_p,r| < 2^e_p (the plane's L1 norm, in
+    f64), so that the quantised rows' |values| add up to under 2^62 plus
+    n/2 of rounding: no slot, partial or total of a histogram over these
+    rows can leave int64.  A slot of k rows is then within k * 2^-(s_p+1)
+    <= k * sum|x_p| * 2^-62 of its exact sum before the one rounding to
+    f32.  Computed on the device: the host reads nothing.  Both powers of
+    two are built from their exponent bits, exactly."""
+    m = torch.linalg.vector_norm(stats, 1, dim=1, dtype=torch.float64)
+    finite = torch.isfinite(m)
+    _, e = torch.frexp(torch.where(finite, m, 0.0))
+    s = _SUM_BITS - e.long()
+    q = ((s + 1023) << 52).view(torch.float64)
+    inv = ((1023 - s) << 52).view(torch.float64)
+    return torch.stack([q, torch.where(finite, inv, torch.nan)])
+
+
+def quantize(stats: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """[3, n] stats -> their int64 fixed-point values round-half-even(x *
+    2^s_p) (``torch.round``, as ``__double2ll_rn`` in the kernels).  A
+    plane whose scale marks a non-finite stat quantises to 0: its
+    histogram is NaN whatever it sums."""
+    q = torch.round(stats.double() * scale[0][:, None])
+    return torch.where(torch.isfinite(scale[1])[:, None], q, 0.0).long()
+
+
+def _dequantize(sums: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
+    """int64 sums x their planes' 2^-s_p (broadcast) -> f32."""
+    return (sums.double() * inv).float()
+
+
+def _check_scale(scale, stats) -> torch.Tensor:
+    """The caller's scale (a ``stat_scale`` of the tree's stats), or this
+    call's own."""
+    if scale is None:
+        return stat_scale(stats)
+    if scale.shape != (2, 3) or scale.dtype != torch.float64 \
+            or scale.device != stats.device:
+        raise ValueError(f"scale must be stat_scale's [2, 3] f64 tensor on "
+                         f"{stats.device}")
+    return scale.contiguous()
 
 
 def _on_cuda(t: torch.Tensor, what: str) -> bool:
@@ -176,12 +248,15 @@ def hist_tiles(layout: HistLayout, L: int, budget: int = HIST_SMEM_BUDGET,
     width.  Returns ([T, 8] int32 rows fa, fb, qa, qn, l0, ln, use_smem,
     copies) and the shared-memory bytes of the largest block.  A feature
     whose segment alone exceeds the budget at one leaf gets a tile with
-    use_smem = 0 (global atomics).  A tile far under the budget is kept
-    in ``copies`` side by side, up to one per warp of the block (the
-    kernel sums them at the end): fewer collisions on a hot bin, and
-    fewer rows rounded into each f32 partial.  Each bin holds ``planes``
-    f32 sums: (g, h, w), and |g| with planes = 4."""
-    per_q = planes * 4
+    use_smem = 0 (global atomics).  A small tile is kept in ``copies``
+    side by side, the largest power of two up to ``MAX_COPIES`` whose
+    copies (each one slot longer, for the banks) stay within
+    ``_COPIES_SMEM``: lane l of a warp adds into copy l % copies and the
+    kernel sums them at the end, so fewer lanes of one add collide on a
+    hot bin.  Each bin holds
+    ``planes`` int64 fixed-point sums: (g, h, w), and |g| with
+    planes = 4."""
+    per_q = planes * _SLOT_BYTES
     widest = max(layout.qlen)
     lt_max = budget // (per_q * widest)
     groups = max(1, -(-L // max(lt_max, 1)))
@@ -199,14 +274,17 @@ def hist_tiles(layout: HistLayout, L: int, budget: int = HIST_SMEM_BUDGET,
         smem = int(qn * Lt * per_q <= budget)
         for l0 in range(0, L, Lt):
             ln = min(Lt, L - l0)
-            copies = max(1, min(_HIST_THREADS // 32,
-                                budget // (qn * ln * per_q))) if smem else 1
+            fit = _COPIES_SMEM // (qn * ln * per_q + _SLOT_BYTES)
+            copies = 1 << (min(MAX_COPIES, fit).bit_length() - 1) \
+                if smem and fit >= 2 else 1
             tiles.append((fa, fb, qa, qn, l0, ln, smem, copies))
         fa = fb
     arr = np.asarray(tiles, np.int32)
     used = arr[:, 6] == 1
-    smem_bytes = int((arr[used, 3] * arr[used, 5] * arr[used, 7]).max()
-                     * per_q) if used.any() else 0
+    cp = arr[used, 7]
+    smem_bytes = int((cp * (arr[used, 3] * arr[used, 5] * per_q
+                            + _SLOT_BYTES * (cp > 1))).max()) \
+        if used.any() else 0
     return arr, smem_bytes
 
 
@@ -258,10 +336,11 @@ def _check_hist_operands(codes, leaf, stats):
             raise ValueError(f"{name} rows must be contiguous")
 
 
-def _launch_hist(codes, leaf, stats, L: int, layout: HistLayout,
+def _launch_hist(codes, leaf, stats, scale, L: int, layout: HistLayout,
                  out: torch.Tensor, strides, planes: int = 3) -> None:
     """Launch ``csrc/hist.cu`` adding the level histogram into ``out``
-    (f64, zeroed by the caller) through ``strides`` = (s, l, q)."""
+    (int64 fixed point, zeroed by the caller) through ``strides`` = (s,
+    l, q)."""
     dev = codes.device
     n = codes.shape[1]
     meta, tiles, n_tiles, smem = _device_meta(layout, L, str(dev), planes)
@@ -273,93 +352,110 @@ def _launch_hist(codes, leaf, stats, L: int, layout: HistLayout,
         rc = lib.hist_launch(
             codes.data_ptr(), codes.element_size(), codes.stride(0),
             leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
-            meta.data_ptr(), layout.F, tiles.data_ptr(), n_tiles, n, rpb,
-            smem, planes, out.data_ptr(), strides[0], strides[1], strides[2],
+            scale.data_ptr(), meta.data_ptr(), layout.F, tiles.data_ptr(),
+            n_tiles, n, rpb, smem, planes, out.data_ptr(), strides[0],
+            strides[1], strides[2],
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
     HIST.count()
 
 
-def hist_uniform_torch(codes, leaf, stats, L: int, B: int,
-                       planes: int = 3) -> torch.Tensor:
-    """Plain torch level histogram on the uniform axis: one
-    ``index_add_`` over the flattened (leaf, feature, bin) index.
-    codes [F, n], leaf [n], stats [3, n] -> H [planes, L, F, B] in the
-    stats' dtype (f64 stats give the reference the f32 sums are measured
-    by); planes = 4 adds Σ|g| as plane 3."""
+def _plane_inv(scale, planes: int) -> torch.Tensor:
+    """[planes, 1, 1, 1] inverse scales of a dense histogram's planes: g,
+    h, w, and g's again for |g| (built on the device: an index list would
+    be a host-to-device copy, which waits for the stream)."""
+    inv = scale[1] if planes == 3 else torch.cat([scale[1], scale[1][:1]])
+    return inv.view(planes, 1, 1, 1)
+
+
+def hist_uniform_torch(codes, leaf, stats, L: int, B: int, planes: int = 3,
+                       scale=None) -> torch.Tensor:
+    """Plain torch level histogram on the uniform axis: the stats
+    quantised (``quantize``), one int64 ``index_add_`` over the flattened
+    (leaf, feature, bin) index, dequantised to f32.  codes [F, n], leaf
+    [n], stats [3, n] -> H [planes, L, F, B]; planes = 4 adds Σ|g| as
+    plane 3; ``scale`` is ``stat_scale(stats)`` unless given."""
     F, n = codes.shape
     dev = codes.device
+    scale = stat_scale(stats) if scale is None else scale
+    qs = quantize(stats, scale)
     if planes == 4:
-        stats = torch.cat([stats, stats[:1].abs()])
+        qs = torch.cat([qs, qs[:1].abs()])
     c = codes.long()
     lf = leaf.long()
     ok = ((lf >= 0) & (lf < L))[None, :] & (c >= 0) & (c < B)
     idx = (lf[None, :] * F + torch.arange(F, device=dev)[:, None]) * B + c
-    src = stats[:, None, :].expand(planes, F, n)
-    out = torch.zeros((planes, L * F * B), dtype=stats.dtype, device=dev)
+    src = qs[:, None, :].expand(planes, F, n)
+    out = torch.zeros((planes, L * F * B), dtype=torch.int64, device=dev)
     out.index_add_(1, idx[ok], src[:, ok])
-    return out.view(planes, L, F, B)
+    return _dequantize(out.view(planes, L, F, B), _plane_inv(scale, planes))
 
 
-def hist_uniform(codes, leaf, stats, L: int, B: int,
-                 planes: int = 3) -> torch.Tensor:
-    """Level histogram on the uniform bin axis -> H [planes, L, F, B].
+def hist_uniform(codes, leaf, stats, L: int, B: int, planes: int = 3,
+                 scale=None) -> torch.Tensor:
+    """Level histogram on the uniform bin axis -> H [planes, L, F, B] f32.
 
     codes [F, n] int16/int32 in [0, B), leaf [n] int32 (rows outside
     [0, L) add nothing), stats [3, n] f32 = (g, h, w); ``planes=4`` adds
-    Σ|g| as plane 3, as the JAX ``make_hist_fn(..., planes=4)``.  CUDA
-    tensors launch ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU
-    tensors take ``hist_uniform_torch``."""
+    Σ|g| as plane 3, as the JAX ``make_hist_fn(..., planes=4)``.  Sums
+    are int64 fixed point on ``scale`` (``stat_scale``; this call's own
+    when None): exact, the same on every run.  CUDA tensors launch
+    ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU tensors take
+    ``hist_uniform_torch``."""
     _check_hist_operands(codes, leaf, stats)
     if planes not in (3, 4):
         raise ValueError(f"planes={planes}: use 3 or 4")
+    scale = _check_scale(scale, stats)
     if not _on_cuda(codes, "histogram"):
-        return hist_uniform_torch(codes, leaf, stats, L, B, planes)
+        return hist_uniform_torch(codes, leaf, stats, L, B, planes, scale)
     F = codes.shape[0]
-    out = torch.zeros((planes, L, F * B), dtype=torch.float64,
+    out = torch.zeros((planes, L, F * B), dtype=torch.int64,
                       device=codes.device)
-    _launch_hist(codes, leaf, stats, L, uniform_layout(F, B), out,
+    _launch_hist(codes, leaf, stats, scale, L, uniform_layout(F, B), out,
                  (L * F * B, F * B, 1), planes)
-    return out.view(planes, L, F, B).float()
+    return _dequantize(out.view(planes, L, F, B), _plane_inv(scale, planes))
 
 
-def hist_varbin_torch(gcodes, leaf, stats, L: int, layout: HistLayout
-                      ) -> torch.Tensor:
-    """Plain torch level histogram on the packed axis: one ``index_add_``
-    over the flattened (packed bin, leaf) index.  gcodes [F, n]
-    (pre-offset), leaf [n], stats [3, n] -> [Q8, 3L], column 3 l + s, in
-    the stats' dtype."""
+def hist_varbin_torch(gcodes, leaf, stats, L: int, layout: HistLayout,
+                      scale=None) -> torch.Tensor:
+    """Plain torch level histogram on the packed axis: the stats
+    quantised, one int64 ``index_add_`` over the flattened (packed bin,
+    leaf) index, dequantised to f32.  gcodes [F, n] (pre-offset), leaf
+    [n], stats [3, n] -> [Q8, 3L], column 3 l + s."""
     F, n = gcodes.shape
     dev = gcodes.device
+    scale = stat_scale(stats) if scale is None else scale
+    qs = quantize(stats, scale)
     q = gcodes.long()
     lf = leaf.long()
     lo = torch.as_tensor(layout.qstart, device=dev)[:, None]
     hi = lo + torch.as_tensor(layout.qlen, device=dev)[:, None]
     ok = ((lf >= 0) & (lf < L))[None, :] & (q >= lo) & (q < hi)
     idx = q * L + lf[None, :]
-    src = stats.t()[None, :, :].expand(F, n, 3)
-    out = torch.zeros((layout.Q * L, 3), dtype=stats.dtype, device=dev)
+    src = qs.t()[None, :, :].expand(F, n, 3)
+    out = torch.zeros((layout.Q * L, 3), dtype=torch.int64, device=dev)
     out.index_add_(0, idx[ok], src[ok])
-    return out.view(layout.Q, 3 * L)
+    return _dequantize(out, scale[1]).view(layout.Q, 3 * L)
 
 
-def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple,
-                B: int) -> torch.Tensor:
-    """Level histogram on the packed per-feature axis -> [Q8, 3L]
+def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple, B: int,
+                scale=None) -> torch.Tensor:
+    """Level histogram on the packed per-feature axis -> [Q8, 3L] f32
     (row q, column 3 l + s; expand with ``expand_varbin``).
 
-    gcodes [F, n] are pre-offset packed ids (``offset_codes``).  CUDA
-    tensors launch ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU
-    tensors take ``hist_varbin_torch``."""
+    gcodes [F, n] are pre-offset packed ids (``offset_codes``); sums as in
+    ``hist_uniform``.  CUDA tensors launch ``csrc/hist.cu`` (counted in
+    ``HIST.launches``); CPU tensors take ``hist_varbin_torch``."""
     _check_hist_operands(gcodes, leaf, stats)
     layout = packed_layout(tuple(bin_counts), B)
+    scale = _check_scale(scale, stats)
     if not _on_cuda(gcodes, "histogram"):
-        return hist_varbin_torch(gcodes, leaf, stats, L, layout)
-    out = torch.zeros((layout.Q, 3 * L), dtype=torch.float64,
+        return hist_varbin_torch(gcodes, leaf, stats, L, layout, scale)
+    out = torch.zeros((layout.Q * L, 3), dtype=torch.int64,
                       device=gcodes.device)
-    _launch_hist(gcodes, leaf, stats, L, layout, out, (1, 3, 3 * L))
-    return out.float()
+    _launch_hist(gcodes, leaf, stats, scale, L, layout, out, (1, 3, 3 * L))
+    return _dequantize(out, scale[1]).view(layout.Q, 3 * L)
 
 
 def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
@@ -374,15 +470,16 @@ def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
 
 
 def local_hist(codes, leaf, stats, L: int, F: int, B: int,
-               bin_counts=None) -> torch.Tensor:
+               bin_counts=None, scale=None) -> torch.Tensor:
     """Level histogram in the dense [3, L, F, B] contract: the varbin
     layout when ``bin_counts`` is given (codes pre-offset), else the
     uniform one (the JAX package's ``make_hist_fn`` and
     ``make_varbin_hist_fn``; one device, so no psum)."""
     if bin_counts is not None:
-        packed = hist_varbin(codes, leaf, stats, L, tuple(bin_counts), B)
+        packed = hist_varbin(codes, leaf, stats, L, tuple(bin_counts), B,
+                             scale)
         return expand_varbin(packed, tuple(bin_counts), L, B)
-    return hist_uniform(codes, leaf, stats, L, B)
+    return hist_uniform(codes, leaf, stats, L, B, scale=scale)
 
 
 def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
@@ -398,16 +495,18 @@ def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
     Rows of the prefix past the compacted count carry leaf -1 and add
     nothing.  Returns ``fn(codes, leaf, g, h, w[, carry]) -> (H, carry)``
     where ``carry`` is the level's own histogram, the next level's
-    parent; ``fn.stacked(codes, leaf, stats, carry)`` takes the stats
-    already stacked as [3, n].
+    parent; ``fn.stacked(codes, leaf, stats, carry, scale)`` takes the
+    stats already stacked as [3, n] and the tree's ``stat_scale`` (by
+    default that of these stats, which the compacted prefix then shares).
     """
     bc = tuple(bin_counts) if bin_counts is not None else None
     Lp = 2 ** max(d - 1, 0)
     Lc = 2 ** d
 
-    def level(codes, leaf, stats, carry=None):
+    def level(codes, leaf, stats, carry=None, scale=None):
+        scale = stat_scale(stats) if scale is None else scale
         if d == 0:
-            H = local_hist(codes, leaf, stats, 1, F, B, bc)
+            H = local_hist(codes, leaf, stats, 1, F, B, bc, scale)
             return H, H
         if carry is None:
             raise ValueError(f"level {d} needs the previous level's carry")
@@ -432,7 +531,7 @@ def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
             0, target, torch.where(chosen, leaf >> 1, -1))
         st = torch.empty_like(stats).index_copy_(1, target, stats)
         Hs = local_hist(ccodes[:, :cap], pleaf[:cap], st[:, :cap], Lp, F,
-                        B, bc)                                     # [3,Lp,F,B]
+                        B, bc, scale)                              # [3,Lp,F,B]
         Ho = carry - Hs
         Ho[1:].clamp_min_(0.0)
         sl = small_is_left[None, :, None, None]
@@ -470,8 +569,8 @@ def _fine_meta(L: int, F: int, K: int, W: int, device: str):
     ``hist_tiles`` over F segments of K*W slots, plus the largest tile's
     [leaves, features, K] slice of sel."""
     tiles, smem = hist_tiles(uniform_layout(F, K * W), L)
-    sel_bytes = int((tiles[:, 5] * (tiles[:, 1] - tiles[:, 0])).max()) \
-        * K * 4
+    sel_ints = int((tiles[:, 5] * (tiles[:, 1] - tiles[:, 0])).max()) * K
+    sel_bytes = -(-sel_ints * 4 // _SLOT_BYTES) * _SLOT_BYTES   # aligned
     return (torch.from_numpy(tiles).to(torch.device(device)),
             int(tiles.shape[0]), smem + sel_bytes)
 
@@ -496,30 +595,35 @@ def fine_slots(codes, leaf, sel, W: int, nbins: int):
     return idx, ok
 
 
-def fine_hist_torch(codes, leaf, stats, sel, W: int, nbins: int
-                    ) -> torch.Tensor:
-    """Plain torch fine histogram: one ``index_add_`` over the flattened
-    (leaf, feature, k, t) slot.  codes [F, n], leaf [n], stats [3, n],
-    sel [L, F, K] -> H [3, L, F, K, W] in the stats' dtype; slot
-    (l, f, k, t) sums the rows with leaf l and code sel[l, f, k] * W + t.
-    NA rows (code >= nbins) and rows whose leaf is outside [0, L) add
-    nothing."""
+def fine_hist_torch(codes, leaf, stats, sel, W: int, nbins: int,
+                    scale=None) -> torch.Tensor:
+    """Plain torch fine histogram: the stats quantised, one int64
+    ``index_add_`` over the flattened (leaf, feature, k, t) slot,
+    dequantised to f32.  codes [F, n], leaf [n], stats [3, n], sel
+    [L, F, K] -> H [3, L, F, K, W]; slot (l, f, k, t) sums the rows with
+    leaf l and code sel[l, f, k] * W + t.  NA rows (code >= nbins) and
+    rows whose leaf is outside [0, L) add nothing."""
     L, F, K = sel.shape
+    scale = stat_scale(stats) if scale is None else scale
+    qs = quantize(stats, scale)
     idx, ok = fine_slots(codes, leaf, sel, W, nbins)
-    src = stats[:, None, None, :].expand(3, F, K, codes.shape[1])
-    out = torch.zeros((3, L * F * K * W), dtype=stats.dtype,
+    src = qs[:, None, None, :].expand(3, F, K, codes.shape[1])
+    out = torch.zeros((3, L * F * K * W), dtype=torch.int64,
                       device=codes.device)
     out.index_add_(1, idx[ok], src[:, ok])
-    return out.view(3, L, F, K, W)
+    return _dequantize(out.view(3, L, F, K, W),
+                       scale[1].view(3, 1, 1, 1, 1))
 
 
-def fine_hist(codes, leaf, stats, sel, W: int, nbins: int) -> torch.Tensor:
-    """Fine histogram of the K chosen super-bins -> H [3, L, F, K, W].
+def fine_hist(codes, leaf, stats, sel, W: int, nbins: int,
+              scale=None) -> torch.Tensor:
+    """Fine histogram of the K chosen super-bins -> H [3, L, F, K, W] f32.
 
     codes [F, n] int16/int32 raw bin codes (NA == nbins), leaf [n] int32,
-    stats [3, n] f32 = (g, h, w), sel [L, F, K] int32 super-bin ids.
-    CUDA tensors launch ``csrc/fine_hist.cu`` (counted in
-    ``FINE_HIST.launches``); CPU tensors take ``fine_hist_torch``."""
+    stats [3, n] f32 = (g, h, w), sel [L, F, K] int32 super-bin ids; sums
+    as in ``hist_uniform``.  CUDA tensors launch ``csrc/fine_hist.cu``
+    (counted in ``FINE_HIST.launches``); CPU tensors take
+    ``fine_hist_torch``."""
     _check_hist_operands(codes, leaf, stats)
     if sel.dim() != 3 or sel.shape[1] != codes.shape[0] \
             or sel.dtype != torch.int32:
@@ -527,40 +631,41 @@ def fine_hist(codes, leaf, stats, sel, W: int, nbins: int) -> torch.Tensor:
                          f"tensor, got {tuple(sel.shape)} {sel.dtype}")
     if sel.device != codes.device:
         raise ValueError(f"sel is on {sel.device}, codes on {codes.device}")
+    scale = _check_scale(scale, stats)
     if not _on_cuda(codes, "fine histogram"):
-        return fine_hist_torch(codes, leaf, stats, sel, W, nbins)
+        return fine_hist_torch(codes, leaf, stats, sel, W, nbins, scale)
     L, F, K = sel.shape
     dev = codes.device
     sel = sel.contiguous()
-    out = torch.zeros((3, L, F, K, W), dtype=torch.float64, device=dev)
+    out = torch.zeros((3, L, F, K, W), dtype=torch.int64, device=dev)
     n = codes.shape[1]
     tiles, n_tiles, smem = _fine_meta(L, F, K, W, str(dev))
-    if n == 0:
-        return out.float()
-    rpb = _rows_per_block(n, n_tiles, smem, str(dev))
-    lib = FINE_HIST.lib()
-    with torch.cuda.device(dev):
-        rc = lib.fine_hist_launch(
-            codes.data_ptr(), codes.element_size(), codes.stride(0),
-            leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
-            sel.data_ptr(), L, F, K, W, nbins, tiles.data_ptr(), n_tiles,
-            n, rpb, smem, out.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"fine_hist kernel launch failed: CUDA error {rc}")
-    FINE_HIST.count()
-    return out.float()
+    if n > 0:
+        rpb = _rows_per_block(n, n_tiles, smem, str(dev))
+        lib = FINE_HIST.lib()
+        with torch.cuda.device(dev):
+            rc = lib.fine_hist_launch(
+                codes.data_ptr(), codes.element_size(), codes.stride(0),
+                leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
+                scale.data_ptr(), sel.data_ptr(), L, F, K, W, nbins,
+                tiles.data_ptr(), n_tiles, n, rpb, smem, out.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(f"fine_hist kernel launch failed: CUDA "
+                               f"error {rc}")
+        FINE_HIST.count()
+    return _dequantize(out, scale[1].view(3, 1, 1, 1, 1))
 
 
 def make_fine_hist_fn(L: int, F: int, W: int, K: int, nbins: int):
     """The level-facing fine histogram (the JAX package's
     ``make_fine_hist_fn`` on one device, so no psum):
-    ``fn(codes, leaf, stats, sel) -> H [3, L, F, K, W]``."""
-    def fn(codes, leaf, stats, sel):
+    ``fn(codes, leaf, stats, sel, scale=None) -> H [3, L, F, K, W]``."""
+    def fn(codes, leaf, stats, sel, scale=None):
         if tuple(sel.shape) != (L, F, K) or codes.shape[0] != F:
             raise ValueError(f"fine histogram built for sel [{L}, {F}, "
                              f"{K}], got {tuple(sel.shape)}")
-        return fine_hist(codes, leaf, stats, sel, W, nbins)
+        return fine_hist(codes, leaf, stats, sel, W, nbins, scale)
     return fn
 
 
@@ -832,8 +937,7 @@ def hier_candidates(Hc, Hf, sel, nbins: int, W: int, reg_lambda,
     cums, nas, tots, parent = coarse or coarse_totals(Hc, reg_lambda,
                                                       reg_alpha)
     cumG, cumH, cumC = cums
-    G, Hs, C = Hc[0, ..., :-1], Hc[1, ..., :-1], Hc[2, ..., :-1]
-    L, F, S = G.shape
+    L, F, S = cumG.shape
     K = sel.shape[-1]
     dev = Hc.device
     if feat_mask is not None:
@@ -855,9 +959,14 @@ def hier_candidates(Hc, Hf, sel, nbins: int, W: int, reg_lambda,
     feat_ix = torch.arange(F, dtype=torch.int32, device=dev)[None, :, None]
     res_a += [feat_ix.expand(L, F, S - 1), bins_a.expand(L, F, S - 1)]
 
-    # (b) fine boundaries inside the refined super-bins
-    pre = [(cum - x).gather(-1, sel.long())
-           for cum, x in ((cumG, G), (cumH, Hs), (cumC, C))]   # [L, F, K]
+    # (b) fine boundaries inside the refined super-bins.  A refined
+    # super-bin's prefix is the coarse prefix before it (0 for the first):
+    # the very value its left coarse boundary is scored with, so a fine
+    # slot with no row before it in its super-bin ties that boundary
+    # exactly and the first maximal gain, the boundary, wins as it does in
+    # exact arithmetic.  The JAX package takes cum - x, one rounding more.
+    pre = [torch.nn.functional.pad(cum[..., :-1], (1, 0)).gather(
+        -1, sel.long()) for cum in (cumG, cumH, cumC)]         # [L, F, K]
     cumf = _cumsum_seq(Hf)                                  # [3, L, F, K, W]
     bins_f = (sel[..., None] * W + torch.arange(
         W, dtype=torch.int32, device=dev)).reshape(L, F, K * W)

@@ -33,6 +33,7 @@ import torch
 from ...frame.frame import Frame
 from ...frame.vec import T_CAT
 from ...runtime.config import config
+from ...runtime.device import resolve_device
 from ..base import Model, ModelBuilder, Parameters
 from ..datainfo import DataInfo
 from ..scorekeeper import stop_early
@@ -330,7 +331,7 @@ def varbin_kernel_engages(bin_counts, nbins: int, F: int,
 def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                        bin_counts=None, hist_mode: str = "subtract",
                        split_mode: str = "fused", hist_layout: str = "auto",
-                       device="cpu", hier: bool = False):
+                       device=None, hier: bool = False):
     """A function that grows one tree on the device (the JAX package's
     ``make_build_tree_fn`` with nk=1, the dense layout and
     tree_program="level").
@@ -351,7 +352,12 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     histogram minus the left, h/w clamped at 0), ``select_superbins``,
     the fine histogram of the ``FINE_K`` chosen super-bins
     (``fine_hist``) and ``best_splits_hier``.  ``hist_mode`` does not
-    apply to it, and it takes ``split_mode="separate"``."""
+    apply to it, and it takes ``split_mode="separate"``.
+
+    ``device`` (``cuda`` unless given, raising without CUDA) decides the
+    histogram layout (``varbin_kernel_engages``).  Every histogram of a
+    tree sums on one fixed-point scale, ``hist.stat_scale`` of its stats,
+    computed once on the device."""
     if hist_mode not in ("subtract", "full"):
         raise ValueError(f"hist_mode={hist_mode!r}: use 'subtract' or "
                          "'full' here ('check' is resolved by GBM._fit)")
@@ -365,6 +371,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     B = nbins + 1
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
                                     hist_layout)
+    device = resolve_device(device)
     use_varbin = not hier and varbin_kernel_engages(bin_counts, nbins, F,
                                                     device)
     bc = tuple(bin_counts) if use_varbin else None
@@ -376,20 +383,23 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         fine_fns = [hist.make_fine_hist_fn(2 ** d, F, W, FINE_K, nbins)
                     for d in range(max_depth)]
 
-    def hier_level(d, codes, ccodes, leaf, stats, Hc_prev, mask, scal):
+    def hier_level(d, codes, ccodes, leaf, stats, scale, Hc_prev, mask,
+                   scal):
         """One level's split by the hierarchical search; returns the
         split tuple and the level's coarse histogram (the next level's
         parent)."""
         reg_lambda, min_rows, msi, reg_alpha, gamma, mcw = scal
         L = 2 ** d
         if d == 0:
-            Hc = hist.hist_uniform(ccodes, leaf, stats, 1, S + 1)
+            Hc = hist.hist_uniform(ccodes, leaf, stats, 1, S + 1,
+                                   scale=scale)
         else:
             # the left children over all rows: a right child's rows carry
             # leaf -1 and add nothing, the same sums as the JAX package's
             # stats masked to 0 on them
             pleaf = torch.where((leaf & 1) == 0, leaf >> 1, -1)
-            Hcl = hist.hist_uniform(ccodes, pleaf, stats, L // 2, S + 1)
+            Hcl = hist.hist_uniform(ccodes, pleaf, stats, L // 2, S + 1,
+                                    scale=scale)
             Hcr = Hc_prev - Hcl
             Hcr[1:].clamp_min_(0.0)
             Hc = torch.stack([Hcl, Hcr], dim=2).reshape(3, L, F, S + 1)
@@ -397,7 +407,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         sel, ub = hist.select_superbins(Hc, nbins, W, FINE_K, reg_lambda,
                                         reg_alpha, gamma, min_rows, mcw,
                                         mask, coarse=coarse)
-        Hf = fine_fns[d](codes, leaf, stats, sel)
+        Hf = fine_fns[d](codes, leaf, stats, sel, scale)
         split = hist.best_splits_hier(Hc, Hf, sel, ub, nbins, W, reg_lambda,
                                       min_rows, msi, mask, reg_alpha, gamma,
                                       mcw, coarse=coarse)[:6]
@@ -409,6 +419,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         dev = codes.device
         N = codes.shape[1]
         stats = torch.stack([g, h, w]).to(torch.float32)
+        scale = hist.stat_scale(stats)
         if hier and hcodes is None:
             hcodes = hist.coarse_codes(codes, nbins)
         elif use_varbin and hcodes is None:
@@ -434,13 +445,14 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                     else mask & tree_mask[None, :]
             if hier:
                 split, carry = hier_level(d, codes, hcodes, leaf, stats,
-                                          carry, mask, scal)
+                                          scale, carry, mask, scal)
             else:
                 if hist_mode == "subtract":
                     H, carry = level_fns[d].stacked(lcodes, leaf, stats,
-                                                    carry)
+                                                    carry, scale)
                 else:
-                    H = hist.local_hist(lcodes, leaf, stats, L, F, B, bc)
+                    H = hist.local_hist(lcodes, leaf, stats, L, F, B, bc,
+                                        scale)
                 split_fn = hist.fused_best_splits if split_mode == "fused" \
                     else hist.best_splits
                 split = split_fn(H, nbins, reg_lambda, min_rows,
@@ -488,7 +500,7 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                       n_padded: int, sample_rate: float,
                       col_sample_rate_per_tree: float, bin_counts=None,
                       hist_mode: str = "subtract", split_mode: str = "fused",
-                      hist_layout: str = "auto", device="cpu",
+                      hist_layout: str = "auto", device=None,
                       hier: bool = False):
     """A chunk of boosting rounds (the JAX package's ``make_tree_scan_fn``
     as a plain loop over the chunk's trees): gradients -> row and column

@@ -3,9 +3,11 @@
 Each ``csrc/<name>.cu`` exposes its kernels through a plain C interface.
 At first use it is compiled with ``nvcc`` for Hopper (``sm_90a``) into
 ``_build/lib<name>-<hash>.so`` and loaded with ``ctypes``; no PyTorch
-header is compiled, so a build takes seconds.  The hash of the source
-names the library, so an edited source rebuilds and a stale library is
-never loaded.  A failed build raises: there is no fallback.
+header is compiled, so a build takes seconds.  The hash of the source,
+of every header it includes with ``#include "..."`` (the kernels share
+``csrc/hist_common.cuh``) and of the flags names the library, so an
+edited source or header rebuilds and a stale library is never loaded.
+A failed build raises: there is no fallback.
 """
 
 from __future__ import annotations
@@ -14,10 +16,11 @@ import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
-from typing import Dict, Iterable, Optional, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG, "csrc")
@@ -26,6 +29,29 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # no --use_fast_math: the kernels compare floats and route NaNs exactly
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+_LOCAL_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.M)
+
+
+def source_files(source: str) -> List[str]:
+    """``source`` and every header it includes with ``#include "..."``,
+    transitively (resolved beside the including file), in include order;
+    the files whose bytes decide the built library."""
+    files: List[str] = []
+
+    def visit(path: str) -> None:
+        path = os.path.normpath(path)
+        if path in files:
+            return
+        files.append(path)
+        with open(path, "rb") as f:
+            text = f.read()
+        for name in _LOCAL_INCLUDE.findall(text):
+            visit(os.path.join(os.path.dirname(path), name.decode()))
+
+    visit(source)
+    return files
 
 
 def nvcc_path() -> str:
@@ -60,10 +86,12 @@ class Kernel:
             self.launches += 1
 
     def _lib_path(self) -> str:
-        with open(self.source, "rb") as f:
-            digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS)
-                                    .encode()).hexdigest()[:16]
-        return os.path.join(BUILD_DIR, f"lib{self.name}-{digest}.so")
+        h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        for path in source_files(self.source):
+            with open(path, "rb") as f:
+                h.update(os.path.basename(path).encode() + b"\0" + f.read())
+        return os.path.join(BUILD_DIR,
+                            f"lib{self.name}-{h.hexdigest()[:16]}.so")
 
     def _start_build(self):
         """Start nvcc unless the library is built; returns the pending

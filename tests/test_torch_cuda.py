@@ -93,21 +93,17 @@ def _hist_inputs(rng, F, nbins, L, n, nan_share, integer, dev):
     return bin_counts, t[0], t[1], t[2]
 
 
-def _assert_hist_close(got, want, integer):
-    """Integer-valued stats: bitwise (every sum exact).  Real stats:
-    ``want`` is the plain version in f64, and the kernel's f32 sums (in
-    a run-dependent atomic order) lie within 1e-5 of each plane's total
-    of it."""
-    if integer:
-        assert torch.equal(got, want)
-        return
-    for s in range(3):
-        # dense [3, ...] planes, or hist_varbin's packed [Q8, 3L]
-        a, b = (got[s], want[s]) if want.dim() != 2 else \
-            (got[:, s::3], want[:, s::3])
-        scale = max(float(b.abs().sum()), 1.0)
-        err = float((a.double() - b).abs().max())
-        assert err <= 1e-5 * scale, (s, err, scale)
+def _assert_bitwise(got, *wants):
+    """The histograms sum in int64 fixed point, exactly: a kernel launch
+    equals its plain version (on the card and on the CPU) and a second
+    launch bit for bit, on integer-valued and on real stats alike."""
+    for want in wants:
+        np.testing.assert_array_equal(got.cpu().numpy().view(np.int32),
+                                      want.cpu().numpy().view(np.int32))
+
+
+def _cpu(*ts):
+    return [t.cpu() for t in ts]
 
 
 _HIST_CASES = [(8, 256, 1, 1_000_003), (8, 256, 32, 500_001),
@@ -123,13 +119,13 @@ def test_hist_uniform_equals_plain(cuda, F, nbins, L, n, integer):
                                       cuda)
     before = hist.HIST.launches
     got = hist.hist_uniform(codes, leaf, st, L, nbins + 1)
-    want = hist.hist_uniform_torch(codes, leaf,
-                                   st if integer else st.double(), L,
-                                   nbins + 1)
+    again = hist.hist_uniform(codes, leaf, st, L, nbins + 1)
+    want = hist.hist_uniform_torch(codes, leaf, st, L, nbins + 1)
+    cpu = hist.hist_uniform_torch(*_cpu(codes, leaf, st), L, nbins + 1)
     torch.cuda.synchronize()
-    assert hist.HIST.launches == before + 1
+    assert hist.HIST.launches == before + 2
     assert got.shape == (3, L, F, nbins + 1)
-    _assert_hist_close(got, want, integer)
+    _assert_bitwise(got, want, again, cpu)
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -142,16 +138,16 @@ def test_hist_varbin_equals_plain(cuda, F, nbins, L, n, integer):
     layout = hist.packed_layout(bc, nbins + 1)
     before = hist.HIST.launches
     got = hist.hist_varbin(g, leaf, st, L, bc, nbins + 1)
-    want = hist.hist_varbin_torch(g, leaf, st if integer else st.double(),
-                                  L, layout)
+    again = hist.hist_varbin(g, leaf, st, L, bc, nbins + 1)
+    want = hist.hist_varbin_torch(g, leaf, st, L, layout)
+    cpu = hist.hist_varbin_torch(*_cpu(g, leaf, st), L, layout)
     torch.cuda.synchronize()
-    assert hist.HIST.launches == before + 1
-    _assert_hist_close(got, want, integer)
+    assert hist.HIST.launches == before + 2
+    _assert_bitwise(got, want, again, cpu)
+    # the packed layout sums the same quantised values: the same dense H
     dense = hist.expand_varbin(got, bc, L, nbins + 1)
-    ref = hist.hist_uniform_torch(codes, leaf,
-                                  st if integer else st.double(), L,
-                                  nbins + 1)
-    _assert_hist_close(dense, ref, integer)
+    _assert_bitwise(dense, hist.hist_uniform_torch(codes, leaf, st, L,
+                                                   nbins + 1))
 
 
 @pytest.mark.parametrize("integer", [True, False])
@@ -241,19 +237,16 @@ def test_fine_hist_equals_plain(cuda, nbins, L, F, K, n, integer):
     sel = torch.from_numpy(sel_np).to(cuda)
     before = hist.FINE_HIST.launches
     got = hist.fine_hist(codes, leaf, st, sel, W, nbins)
-    want = hist.fine_hist_torch(codes, leaf, st if integer else st.double(),
-                                sel, W, nbins)
+    again = hist.fine_hist(codes, leaf, st, sel, W, nbins)
+    want = hist.fine_hist_torch(codes, leaf, st, sel, W, nbins)
+    cpu = hist.fine_hist_torch(*_cpu(codes, leaf, st, sel), W, nbins)
     torch.cuda.synchronize()
-    assert hist.FINE_HIST.launches == before + 1
+    assert hist.FINE_HIST.launches == before + 2
     assert got.shape == (3, L, F, K, W)
-    _assert_hist_close(got, want, integer)
-    if integer:
-        cpu = hist.fine_hist_torch(codes.cpu(), leaf.cpu(), st.cpu(),
-                                   sel.cpu(), W, nbins)
-        np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+    _assert_bitwise(got, want, again, cpu)
     g16 = codes.to(torch.int16)
-    if integer and int(codes.max()) < 32_000:
-        assert torch.equal(hist.fine_hist(g16, leaf, st, sel, W, nbins), got)
+    if int(codes.max()) < 32_000:
+        _assert_bitwise(hist.fine_hist(g16, leaf, st, sel, W, nbins), got)
 
 
 def test_fine_hist_rejects_mixed_devices(cuda):
@@ -276,18 +269,44 @@ def test_hist_uniform_planes4_equals_plain(cuda, F, nbins, L, n, integer):
                                       cuda)
     before = hist.HIST.launches
     got = hist.hist_uniform(codes, leaf, st, L, nbins + 1, planes=4)
-    want = hist.hist_uniform_torch(codes, leaf,
-                                   st if integer else st.double(), L,
-                                   nbins + 1, planes=4)
+    again = hist.hist_uniform(codes, leaf, st, L, nbins + 1, planes=4)
+    want = hist.hist_uniform_torch(codes, leaf, st, L, nbins + 1, planes=4)
+    cpu = hist.hist_uniform_torch(*_cpu(codes, leaf, st), L, nbins + 1,
+                                  planes=4)
     torch.cuda.synchronize()
-    assert hist.HIST.launches == before + 1
+    assert hist.HIST.launches == before + 2
     assert got.shape == (4, L, F, nbins + 1)
-    _assert_hist_close(got[:3], want[:3], integer)
-    _assert_hist_close(got[3:].expand(3, -1, -1, -1),
-                       want[3:].expand(3, -1, -1, -1), integer)
+    _assert_bitwise(got, want, again, cpu)
     three = hist.hist_uniform(codes, leaf, st, L, nbins + 1)
-    if integer:
-        assert torch.equal(got[:3], three)
+    _assert_bitwise(got[:3], three)
+
+
+@pytest.mark.parametrize("bad", [float("nan"), float("inf")])
+def test_histograms_non_finite_stat_equal_plain(cuda, bad):
+    """A non-finite stat makes its plane NaN throughout in each kernel, as
+    in its plain version; the other planes are unchanged, bitwise."""
+    rng = np.random.default_rng(21)
+    nbins, L, F, n = 256, 8, 8, 100_003
+    S, W = hist.superbin_geometry(nbins)
+    bc, codes, leaf, st = _hist_inputs(rng, F, nbins, L, n, 0.05, False,
+                                       cuda)
+    st[2, 777] = bad
+    sel = torch.from_numpy(rng.integers(0, S, (L, F, 2)).astype(
+        np.int32)).to(cuda)
+    g = hist.offset_codes(codes, bc, nbins)
+    layout = hist.packed_layout(bc, nbins + 1)
+    got = [hist.hist_uniform(codes, leaf, st, L, nbins + 1, planes=4),
+           hist.hist_varbin(g, leaf, st, L, bc, nbins + 1),
+           hist.fine_hist(codes, leaf, st, sel, W, nbins)]
+    want = [hist.hist_uniform_torch(codes, leaf, st, L, nbins + 1, 4),
+            hist.hist_varbin_torch(g, leaf, st, L, layout),
+            hist.fine_hist_torch(codes, leaf, st, sel, W, nbins)]
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    assert torch.isnan(got[0][2]).all() and torch.isfinite(got[0][:2]).all()
+    assert torch.isnan(got[1][:, 2::3]).all()
+    assert torch.isnan(got[2][2]).all() and torch.isfinite(got[2][:2]).all()
 
 
 def test_small_hier_train_matches_cpu_plain_route(cuda):

@@ -13,14 +13,19 @@ per shard before its psum, and its einsum contracts in another order, so
 histogram sums agree bitwise only where the stats are integer-valued
 (every partial sum is then exact) and to 1e-5 of each plane's total
 otherwise; the search functions are bitwise on integer-valued
-histograms.  In a train, one structural tie is left to f32 noise in
-either package: two candidate bins of one feature with no row of the
-node between them split the node's rows the same way, so their gains
-are equal in exact arithmetic and each package keeps the one its
-rounding puts first (a coarse boundary and a fine slot are summed from
-different histograms).  The slice test checks every threshold bitwise
-except at such verified ties, and there the two packages send every row
-the same way.
+histograms.  The port's histograms are int64 fixed point (exact sums
+of the stats rounded on a power-of-two scale), bitwise an independent
+numpy implementation of that contract.  In a train, a structural tie
+can be left to f32 noise in either package: two candidate bins of one
+feature with no row of the node between them split the node's rows the
+same way, so their gains are equal in exact arithmetic and each package
+keeps the one its rounding puts first.  (The port scores a fine slot
+from the coarse prefix before its super-bin, the value the boundary
+before it is scored with, so a tie across that boundary is exact there
+and the first candidate wins, as in exact arithmetic; the slice's
+trees then match the JAX package's thresholds bitwise.)  The slice test
+checks every threshold bitwise except at verified ties on valid nodes,
+and there the two packages send every row the same way.
 """
 
 import numpy as np
@@ -118,6 +123,69 @@ def test_fine_hist_vs_einsum_and_pallas(nbins, L, F, K, integer):
         assert (got[:, 0, 0, 0, :5] != 0).any()
 
 
+def _np_fixed_point(st):
+    """An independent numpy reading of the fixed-point contract (as in
+    tests/test_torch_training.py): the int64 stats rounded half to even
+    on each plane's scale 2^s, sum|x| * 2^s < 2^62, and the inverse
+    scales (NaN for a plane with a non-finite stat)."""
+    m = np.abs(st.astype(np.float64)).sum(axis=1)
+    finite = np.isfinite(m)
+    e = np.frexp(np.where(finite, m, 0.0))[1]
+    s = 62 - e
+    q = np.rint(st.astype(np.float64) * np.ldexp(1.0, s)[:, None])
+    q = np.where(finite[:, None], q, 0.0).astype(np.int64)
+    return q, np.where(finite, np.ldexp(1.0, -s), np.nan)
+
+
+@pytest.mark.parametrize("nbins,L,F,K", _FINE)
+def test_fine_hist_plain_equals_numpy_fixed_point(nbins, L, F, K):
+    """On real-valued stats the quantised ``fine_hist_torch`` is bitwise a
+    numpy int64 loop over (row, feature, k) of the same contract."""
+    n = 1999
+    W, codes, leaf, st, sel = _fine_case(7 * nbins + L, nbins, L, F, K, n,
+                                         False)
+    st[0] *= 37.0
+    q, inv = _np_fixed_point(st)
+    H = np.zeros((3, L, F, K, W), np.int64)
+    for r in range(n):
+        if not 0 <= leaf[r] < L:
+            continue
+        for f in range(F):
+            c = codes[f, r]
+            for k in range(K):
+                if c < nbins and sel[leaf[r], f, k] == c // W:
+                    H[:, leaf[r], f, k, c % W] += q[:, r]
+    want = (H.astype(np.float64) * inv[:, None, None, None, None]).astype(
+        np.float32)
+    got = hist.fine_hist(*_t(codes, leaf, st, sel), W, nbins).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf])
+def test_fine_hist_non_finite_stat_is_never_finite(bad):
+    """As for the level histograms: a NaN or infinite stat makes its plane
+    non-finite throughout in the JAX package's einsum program, and NaN
+    throughout in the port, whose non-finite slots cover the Pallas
+    kernel's; the other planes keep their sums."""
+    nbins, L, F, K, n = 61, 4, 5, 2, 2048
+    W, codes, leaf, st, sel = _fine_case(5, nbins, L, F, K, n, False)
+    for row_leaf in (1, -1):
+        s2, lf2 = st.copy(), leaf.copy()
+        s2[0, 9], lf2[9] = bad, row_leaf
+        got = hist.fine_hist(*_t(codes, lf2, s2, sel), W, nbins).numpy()
+        jargs = (jnp.asarray(codes), jnp.asarray(lf2),
+                 *map(jnp.asarray, s2), jnp.asarray(sel))
+        einsum = np.asarray(jhist.make_fine_hist_fn(
+            L, F, W, K, nbins, n, force_impl="einsum")(*jargs))
+        pallas = np.asarray(jhist.make_fine_hist_fn(
+            L, F, W, K, nbins, n, force_impl="pallas_interpret",
+            precision="f32")(*jargs))
+        assert not np.isfinite(einsum[0]).any()
+        assert np.isnan(got[0]).all()
+        assert np.isnan(got[0][~np.isfinite(pallas[0])]).all()
+        _close(got[1:], einsum[1:], False)
+
+
 def test_fine_hist_rejects_bad_operands():
     W, codes, leaf, st, sel = _fine_case(1, 61, 4, 5, 2, 64, True)
     c, lf, s, sl = _t(codes, leaf, st, sel)
@@ -131,7 +199,10 @@ def test_fine_hist_rejects_bad_operands():
 
 def test_fine_tiles_fit_shared_memory():
     """The fine kernel's tiles cover the [F*K*W, L] output once and each
-    block's sums plus its slice of sel fit two blocks per SM."""
+    block's sums (three 8-byte int64 fixed-point sums per slot) plus its
+    slice of sel fit two blocks per SM; a small tile keeps as many
+    lane-striped copies (a power of two, at most 32, each one slot longer)
+    as fit a quarter of an SM."""
     for nbins in (32, 61, 256, 1024):
         S, W = hist.superbin_geometry(nbins)
         for F, K in ((8, 2), (3, 3), (40, 2)):
@@ -142,11 +213,16 @@ def test_fine_tiles_fit_shared_memory():
                 for fa, fb, qa, qn, l0, ln, use_smem, copies in tiles:
                     assert (qa, qn) == (fa * K * W, (fb - fa) * K * W)
                     seen[qa:qa + qn, l0:l0 + ln] += 1
-                    assert use_smem == 1 and 1 <= copies <= 16
-                    assert copies * qn * ln * 12 <= hist.HIST_SMEM_BUDGET
-                    # one copy per warp, or as many as the budget holds
-                    assert copies == 16 or \
-                        (copies + 1) * qn * ln * 12 > hist.HIST_SMEM_BUDGET
+                    assert use_smem == 1 and 1 <= copies <= 32
+                    assert copies & (copies - 1) == 0
+                    per = qn * ln * 24
+                    assert per <= hist.HIST_SMEM_BUDGET
+                    if copies > 1:
+                        assert copies * (per + 8) <= hist._COPIES_SMEM
+                    # one copy per lane, or as many as fit: twice as many
+                    # would not
+                    assert copies == 32 or \
+                        2 * copies * (per + 8) > hist._COPIES_SMEM
                 assert (seen == 1).all() and n_tiles == len(tiles)
                 assert smem <= 227 * 1024 // 2
 
@@ -174,6 +250,28 @@ def test_hist_uniform_planes4_vs_einsum_and_pallas(L, integer):
     _close(got, pallas, integer)
     with pytest.raises(ValueError, match="planes"):
         hist.hist_uniform(*_t(codes, leaf, st), L, B, planes=5)
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_hist_uniform_planes4_plain_equals_numpy_fixed_point(L):
+    """The |g| plane sums |round(g * 2^s_g)| on g's scale: bitwise an
+    independent numpy int64 sum on real-valued stats."""
+    n, F, B = 3001, 5, 17
+    rng = np.random.default_rng(60 + L)
+    codes = rng.integers(0, B, (F, n)).astype(np.int32)
+    leaf = rng.integers(-1, L, n).astype(np.int32)
+    st = _stats(rng, n, False)
+    q, inv = _np_fixed_point(st)
+    q = np.concatenate([q, np.abs(q[:1])])
+    H = np.zeros((4, L, F, B), np.int64)
+    for f in range(F):
+        ok = leaf >= 0
+        for p in range(4):
+            np.add.at(H[p], (leaf[ok], f, codes[f][ok]), q[p][ok])
+    want = (H.astype(np.float64)
+            * inv[[0, 1, 2, 0]][:, None, None, None]).astype(np.float32)
+    got = hist.hist_uniform(*_t(codes, leaf, st), L, B, planes=4).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
 
 
 # --------------------------------------------------- (c) the search

@@ -13,7 +13,10 @@ subtract path orients and sums per shard and psums the shard
 histograms, and its einsum contracts in another order, so histogram sums
 agree bitwise only where the stats are integer-valued (every partial sum
 is then exact — the trick of tests/test_mesh_hier.py) and to 1e-5 of each
-plane's total otherwise.
+plane's total otherwise.  The port's histograms are int64 fixed point
+(each stat rounded once onto a power-of-two scale, every sum exact): on
+real-valued stats they are bitwise an independent numpy implementation
+of that contract.
 """
 
 import numpy as np
@@ -145,23 +148,208 @@ def test_hist_varbin_vs_pallas_and_dense(L, integer):
     _close(dense, ref, integer)
 
 
+def _np_fixed_point(st):
+    """An independent numpy reading of the fixed-point contract: each
+    plane's scale 2^s with sum|x| * 2^s < 2^62, the stats rounded
+    half to even to int64, and each plane's inverse scale (NaN where the
+    plane holds a non-finite stat)."""
+    m = np.abs(st.astype(np.float64)).sum(axis=1)
+    finite = np.isfinite(m)
+    e = np.frexp(np.where(finite, m, 0.0))[1]            # m < 2^e
+    s = 62 - e
+    q = np.rint(st.astype(np.float64) * np.ldexp(1.0, s)[:, None])
+    q = np.where(finite[:, None], q, 0.0).astype(np.int64)
+    return q, np.where(finite, np.ldexp(1.0, -s), np.nan)
+
+
+def _np_uniform_hist(codes, leaf, st, L, B, planes=3):
+    """[planes, L, F, B]: np.add.at of the int64 fixed-point stats, then
+    int64 -> f64 -> x 2^-s -> f32."""
+    F, n = codes.shape
+    q, inv = _np_fixed_point(st)
+    if planes == 4:
+        q, inv = np.concatenate([q, np.abs(q[:1])]), inv[[0, 1, 2, 0]]
+    H = np.zeros((planes, L, F, B), np.int64)
+    for f in range(F):
+        ok = (leaf >= 0) & (leaf < L) & (codes[f] >= 0) & (codes[f] < B)
+        for p in range(planes):
+            np.add.at(H[p], (leaf[ok], f, codes[f][ok]), q[p][ok])
+    return (H.astype(np.float64) * inv[:, None, None, None]).astype(
+        np.float32)
+
+
+@pytest.mark.parametrize("L", [1, 4])
+def test_hist_plain_versions_equal_numpy_fixed_point(L):
+    """The quantised plain versions, on real-valued stats, are bitwise an
+    independent numpy int64 implementation of the same contract, and the
+    packed layout expands to the uniform histogram bitwise (both sum the
+    same quantised values exactly)."""
+    n, F, nbins = 3001, 5, 64
+    B = nbins + 1
+    bc, codes, leaf, st = _hist_case(40 + L, n, F, nbins, L, False)
+    leaf[::7] = -1
+    st[0] *= 1e3                     # planes of unlike magnitudes
+    want = _np_uniform_hist(codes, leaf, st, L, B)
+    t = [torch.from_numpy(a) for a in (codes, leaf, st)]
+    got = hist.hist_uniform(*t, L, B).numpy()
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    g = hist.offset_codes(t[0], bc, nbins)
+    dense = hist.local_hist(g, t[1], t[2], L, F, B, bin_counts=bc).numpy()
+    np.testing.assert_array_equal(dense.view(np.int32),
+                                  want.view(np.int32))
+
+
+def test_hist_scale_bound_and_integer_stats():
+    """The scale puts the largest possible slot (every row, all of one
+    sign, in one slot) just under 2^62: it does not wrap, for n a power
+    of two and for one row more; integer-valued stats stay exact; a
+    caller's scale of more rows gives the same sums."""
+    for n in (4096, 4097):
+        for m in (np.float32(1.0), np.float32(0.75),
+                  np.nextafter(np.float32(2.0), np.float32(0))):
+            st = np.stack([np.full(n, -m), np.full(n, m),
+                           np.ones(n)]).astype(np.float32)
+            t = torch.from_numpy(st)
+            scale = hist.stat_scale(t)
+            q = hist.quantize(t, scale)
+            total = q.abs().sum(dim=1)
+            assert (total < 2 ** 62).all() and (total >= 2 ** 60).all()
+            codes = torch.zeros((2, n), dtype=torch.int32)
+            leaf = torch.zeros(n, dtype=torch.int32)
+            H = hist.hist_uniform(codes, leaf, t, 1, 3, planes=4).numpy()
+            exact = np.float32(n * np.float64(m))
+            assert H[0, 0, 0, 0] == -exact and H[1, 0, 0, 0] == exact
+            assert H[3, 0, 0, 0] == exact and H[2, 0, 0, 0] == n
+    rng = np.random.default_rng(9)
+    n = 5000
+    codes = rng.integers(0, 9, (3, n)).astype(np.int32)
+    leaf = rng.integers(0, 2, n).astype(np.int32)
+    st = np.stack([rng.integers(-2 ** 20, 2 ** 20, n),
+                   rng.integers(0, 2 ** 21, n),
+                   rng.integers(0, 2, n)]).astype(np.float32)
+    want = np.zeros((3, 2, 3, 9), np.int64)
+    for f in range(3):
+        for p in range(3):
+            np.add.at(want[p], (leaf, f, codes[f]), st[p].astype(np.int64))
+    t = [torch.from_numpy(a) for a in (codes, leaf, st)]
+    got = hist.hist_uniform(*t, 2, 9)
+    np.testing.assert_array_equal(got.numpy(), want.astype(np.float32))
+    wide = hist.stat_scale(torch.from_numpy(np.tile(st, 8)))
+    assert (wide[0] < hist.stat_scale(t[2])[0]).all()
+    np.testing.assert_array_equal(
+        hist.hist_uniform(*t, 2, 9, scale=wide).numpy(), got.numpy())
+    with pytest.raises(ValueError, match="scale"):
+        hist.hist_uniform(*t, 2, 9, scale=wide.float())
+
+
+@pytest.mark.parametrize("case", ["weights", "outlier"])
+def test_hist_wide_range_stats_small_leaf(case):
+    """Stats over many magnitudes on the one scale of their tree: a
+    weights column spanning 1e-4 to 1e3 (g, h and w all weighted), or a
+    gaussian g with one residual of 1e6.  Rows of leaf -1 stand for the
+    rest of the tree: they set the scale but land in no slot.  A small
+    leaf holds 12 rows of the smallest stats.  Every slot of k rows is
+    within k * 2^-(s+1) plus half an f32 spacing of its f64 sum; the
+    small leaf's slots are within one f32 spacing of it, as the JAX
+    einsum's are; the whole histogram is within the f32 tolerance of the
+    einsum."""
+    rng = np.random.default_rng(31)
+    n, F, nbins, L = 20000, 3, 16, 4
+    B = nbins + 1
+    codes = rng.integers(0, B, (F, n)).astype(np.int32)
+    leaf = rng.integers(-1, L - 1, n).astype(np.int32)
+    small = rng.choice(n, 12, replace=False)
+    leaf[small] = L - 1
+    p = rng.random(n)
+    g, h = p - (rng.random(n) < p), p * (1 - p)
+    if case == "weights":
+        w = 10.0 ** rng.uniform(-4, 3, n)
+        w[small] = 10.0 ** rng.uniform(-4, -3, small.size)
+        st = np.stack([w * g, w * h, w])
+    else:
+        g = rng.normal(size=n)
+        g[small] *= 1e-4
+        g[np.flatnonzero(leaf == 0)[0]] = 1e6
+        st = np.stack([g, np.ones(n), np.ones(n)])
+    st = st.astype(np.float32)
+    t = [torch.from_numpy(a) for a in (codes, leaf, st)]
+    got = hist.hist_uniform(*t, L, B).numpy()
+    inv = hist.stat_scale(t[2])[1].numpy()                # 2^-s
+    truth = np.zeros((3, L, F, B))
+    k = np.zeros((L, F, B))
+    mag = np.zeros((3, L, F, B))
+    ok = leaf >= 0
+    for f in range(F):
+        at = (leaf[ok], f, codes[f][ok])
+        np.add.at(k, at, 1.0)
+        for q in range(3):
+            np.add.at(truth[q], at, st[q][ok].astype(np.float64))
+            np.add.at(mag[q], at, np.abs(st[q][ok]).astype(np.float64))
+    err = np.abs(got - truth)
+    bound = (k * 0.5 * inv[:, None, None, None]
+             + 0.5 * np.spacing(np.abs(got)) + 2.0 ** -50 * mag)
+    assert (err <= bound).all()
+    einsum = np.asarray(jhist.make_hist_fn(L, F, B, n, force_impl="einsum")(
+        jnp.asarray(codes), jnp.asarray(leaf), *map(jnp.asarray, st)))
+    _close(got, einsum, False)
+    want = truth[:, L - 1].astype(np.float32)
+    np.testing.assert_array_max_ulp(got[:, L - 1], want, maxulp=1)
+    np.testing.assert_array_max_ulp(einsum[:, L - 1], want, maxulp=1)
+
+
+@pytest.mark.parametrize("bad", [np.nan, np.inf, -np.inf])
+def test_hist_non_finite_stat_is_never_finite(bad):
+    """A NaN or infinite stat on any row, in or out of the level's leaves:
+    the JAX package's einsum program makes that plane non-finite
+    throughout, and so does the port (NaN; the Pallas kernel makes a
+    part of those slots non-finite, every one of them NaN here too); the
+    other planes keep their sums."""
+    n, F, nbins, L = 2048, 5, 64, 4
+    B = nbins + 1
+    bc, codes, leaf, st = _hist_case(77, n, F, nbins, L, False)
+    for row_leaf in (2, -1):
+        s2, lf2 = st.copy(), leaf.copy()
+        s2[1, 100], lf2[100] = bad, row_leaf
+        t = [torch.from_numpy(a) for a in (codes, lf2, s2)]
+        got = hist.local_hist(*t, L, F, B).numpy()
+        g = hist.offset_codes(t[0], bc, nbins)
+        packed = hist.local_hist(g, t[1], t[2], L, F, B,
+                                 bin_counts=bc).numpy()
+        jargs = (jnp.asarray(codes), jnp.asarray(lf2),
+                 *map(jnp.asarray, s2))
+        einsum = np.asarray(jhist.make_hist_fn(
+            L, F, B, n, force_impl="einsum")(*jargs))
+        pallas = np.asarray(jhist.make_hist_fn(
+            L, F, B, n, force_impl="pallas_interpret",
+            precision="f32")(*jargs))
+        assert not np.isfinite(einsum[1]).any()
+        for H in (got, packed):
+            assert np.isnan(H[1]).all()
+            assert np.isnan(H[1][~np.isfinite(pallas[1])]).all()
+            _close(H[[0, 2]], einsum[[0, 2]], False)
+        plain = hist.hist_uniform_torch(*t, L, B).numpy()
+        np.testing.assert_array_equal(plain, got)
+
+
 def test_hist_tiles_cover_the_output_once():
     """The kernel's tiles partition the [Q, L] output: every (packed bin,
-    leaf) in exactly one tile, each tile within the shared-memory budget
-    (or flagged for global atomics)."""
+    leaf) in exactly one tile, each tile of three 8-byte int64 sums per
+    (bin, leaf) within the shared-memory budget (or flagged for global
+    atomics)."""
     bc = (21, 12, 7, 256, 256, 22, 256, 256)           # the bench frame
     for layout in (hist.packed_layout(bc, 257), hist.uniform_layout(8, 257),
                    hist.uniform_layout(3, 20_000)):
         for L in (1, 2, 8, 32, 64, 256):
             tiles, smem = hist.hist_tiles(layout, L)
             seen = np.zeros((layout.Q, L), np.int32)
-            for fa, fb, qa, qn, l0, ln, use_smem, _ in tiles:
+            for fa, fb, qa, qn, l0, ln, use_smem, copies in tiles:
                 seen[qa:qa + qn, l0:l0 + ln] += 1
                 assert qa == layout.qstart[fa]
                 assert qa + qn == layout.qstart[fb - 1] + layout.qlen[fb - 1]
                 if use_smem:
-                    assert qn * ln * 12 <= hist.HIST_SMEM_BUDGET
-                    assert qn * ln * 12 <= smem
+                    assert qn * ln * 24 <= hist.HIST_SMEM_BUDGET
+                    assert copies * (qn * ln * 24 + 8 * (copies > 1)) \
+                        <= smem
             assert (seen == 1).all()
 
 
@@ -475,6 +663,32 @@ def test_gaussian_gbm_matches_jax():
                    (jm.validation_metrics, m.validation_metrics)):
         assert abs(ma.rmse - mb.rmse) <= 1e-5 * ma.rmse
         assert abs(ma.r2 - mb.r2) <= 1e-5
+
+
+def test_builders_default_to_the_card(monkeypatch):
+    """``make_build_tree_fn`` and ``make_tree_scan_fn`` resolve an omitted
+    device like the entry points: ``cuda``, where the packed histogram
+    layout engages on the bench frame's bin counts; without CUDA they
+    raise instead of taking the CPU's uniform layout."""
+    from h2o3_tpu_torch.models.distributions import make_distribution
+    from h2o3_tpu_torch.models.tree import shared
+    bc = (21, 12, 7, 256, 256, 22, 256, 256)
+    args = (6, 256, 8, 4096)
+    dist = make_distribution("bernoulli")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shared.make_build_tree_fn(*args, bin_counts=bc)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shared.make_tree_scan_fn(dist, *args, 1.0, 1.0, bin_counts=bc)
+    assert not shared.make_build_tree_fn(*args, bin_counts=bc,
+                                         device="cpu").use_varbin
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert shared.make_build_tree_fn(*args, bin_counts=bc).use_varbin
+    assert shared.make_tree_scan_fn(dist, *args, 1.0, 1.0,
+                                    bin_counts=bc).build.use_varbin
+    assert not shared.make_tree_scan_fn(dist, *args, 1.0, 1.0,
+                                        bin_counts=bc,
+                                        device="cpu").build.use_varbin
 
 
 def test_device_cluster_one_shard():
