@@ -15,10 +15,12 @@ Phases (any failure exits non-zero and prints no result line):
              trees x depth 10 over 32 features (~85% of heap nodes
              split, leaf values x0.1) and a multinomial K=3 group of 50
              trees per class at depth 6, from np.random.default_rng(7);
-4. kernels — each kernel's wrapper against its plain torch version on
-             the card at the shapes the serving path gives it (B=256,
-             2% NaN cells): bitwise equal leaves, and score_mode="check"
-             against the numpy ScoringModel;
+4. kernels — the traversal against its plain torch version on the
+             card for both models at B = 1, 8, 37, 256 and 1024 (2% NaN
+             cells), and for the multinomial group also at 600,000 rows
+             (more row tiles than a grid's y dimension holds): bitwise
+             equal leaves, and score_mode="check" against the numpy
+             ScoringModel;
 5. serve   — launch counts set to 0, then publish("smoke", model) and
              8 client threads x 50 single-row predict_rows requests
              through the MicroBatcher (max_batch=256, tick 1 ms); every
@@ -27,7 +29,11 @@ Phases (any failure exits non-zero and prints no result line):
 6. times   — each kernel and its plain version timed with CUDA events
              (median of 50 launches) beside the least time the card
              could take for the same work (bytes over 3.35 TB/s, f32
-             operations over 67 TFLOP/s: the H100 SXM data sheet);
+             operations over 67 TFLOP/s: the H100 SXM data sheet); the
+             traversal's sector reckoning, and the traversal of both
+             models at B = 1, 8, 64, 256, 1024 and the serve phase's
+             mean batch (in turns with the other version's kernel, given
+             ``--other``);
 7. train kernels — on the bench frame (``make_airlines_like``, the draws
              of bench.py) at 1,000,000 rows, the level inputs of one tree
              are captured; ``hist_uniform``, ``hist_varbin`` and
@@ -37,7 +43,10 @@ Phases (any failure exits non-zero and prints no result line):
              and on the real bernoulli stats, a second launch bitwise the
              first, each plane within 1e-5 of its total from this
              script's own f64 sums (the distance printed); records
-             bitwise;
+             bitwise on the levels and on the edge cases of their block
+             argmax (NaN planes, every gain -inf, ties of two bins in one
+             thread, in one warp and across warps, nbins = 2, 31, 32,
+             33, 256), a second launch bitwise the first;
 8. train   — launch counts set to 0, then
              ``XGBoost(max_depth=6, nbins=256, seed=1, ntrees=20)`` trains
              on the 1M-row frame on the card: ``hist`` and
@@ -81,18 +90,24 @@ Phases (any failure exits non-zero and prints no result line):
              ``index_add_`` call on its precomputed slots; the coarse
              ``hist_uniform`` launches beside theirs;
 13. headlines — the bench protocol at its default 10,000,000 rows, for
-             the exact and then the hierarchical search: a 20-tree
-             warmup train, then trees/s of a 50-tree train, with a
+             the exact search (given ``--other``, in turns with that
+             version's train) and then the
+             hierarchical search: a 20-tree warmup train, then trees/s
+             of a 50-tree train, with a
              torch.profiler breakdown of a 10-tree train and the host's
              cost of one small torch op before and after (``host_op_us``),
              which with the device operations per tree bounds the wall a
              launch-bound train can reach; then the kernel times of both
-             searches (CUDA events) on a captured 10M-row tree of each.
+             searches (CUDA events) on a captured 10M-row tree of each,
+             its records bitwise their plain version.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
 must give the same sums) and, given ``--other DIR``, with the histogram
-kernels of the h2o3_tpu_torch package under DIR.
+kernels of the h2o3_tpu_torch package under DIR; phases 9 and 13 time
+``split_records`` per captured tree, and phase 6 the traversal, in
+turns with that package's (which must give the same records and
+leaves).
 
 The line before the last is the ``{"kernels": [...]}`` JSON; the last line
 is ``{"ok": true, "device": {...}}``.
@@ -101,7 +116,8 @@ Usage: python3 chip_smoke.py [--other DIR]   (one CUDA card, nvcc on
                                               PATH or under $CUDA_HOME/bin)
 
 e.g. ``mkdir _ab_old && git archive <rev> h2o3_tpu_torch | tar -x -C
-_ab_old`` and ``--other _ab_old`` times that version's histograms.
+_ab_old`` and ``--other _ab_old`` times that version's four training and
+serving kernels.
 """
 
 from __future__ import annotations
@@ -120,6 +136,10 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 REPS = 50
 SPIN_CYCLES = 20_000_000         # ~10 ms of device clock
+# the batch sizes of the traversal's checks and of its turns
+TRAVERSE_BATCHES = (1, 8, 37, 256, 1024)
+LARGE_BATCH = 600_000
+TURN_BATCHES = (1, 8, 64, 256, 1024)
 
 
 def log(msg: str) -> None:
@@ -329,6 +349,42 @@ def traverse_work(planes, X, depth):
     return nbytes, steps, n_nodes
 
 
+def traverse_turns(scorers, rng, F, mean_batch, kernel, other, card):
+    """Phase 6: the traversal of both serving models at ``TURN_BATCHES``
+    and at the serve phase's mean batch: the kernel (as the scorer calls
+    it) and, given ``other``, that version's kernel in turns (the device
+    ms of one launch); raises unless both give bitwise the same leaves.
+    The other wrapper gets the record plane where it takes one, else
+    pack.py's two planes."""
+    import inspect
+    import torch
+    nb = max(1, int(round(mean_batch)))
+    for k, ps in scorers.items():
+        variants = [("this kernel", lambda X, ps=ps: lambda: kernel.traverse(
+            ps._d_nodes, ps._d_roots, X, ps.depth), None)]
+        if other:
+            okernel = other[2]
+            nodes = (ps._d_nodes,) if "nodes" in inspect.signature(
+                okernel.traverse).parameters else tuple(
+                    p.contiguous() for p in kernel.planes(ps._d_nodes))
+            variants.append((other[0], lambda X, ps=ps, nodes=nodes:
+                             lambda: okernel.traverse(
+                                 *nodes, ps._d_roots, X, ps.depth), None))
+        batches = sorted(set(TURN_BATCHES) | {nb})
+        launches = [(b, lambda f, X=batch(rng, b, F): f(
+            torch.from_numpy(X).cuda())) for b in batches]
+        ms, diff = turns(launches, variants)
+        for b in batches:
+            if any(v != 0.0 for v in diff[b].values()):
+                raise AssertionError(f"traverse variants differ on {k} at "
+                                     f"B={b}: {diff[b]}")
+            log(f"traverse in turns on {k} at B={b}"
+                + (f" (the serve phase's mean batch, {mean_batch:.2f} rows)"
+                   if b == nb else "")
+                + f" {card}, device ms of one launch: " + "; ".join(
+                    f"{tag} {v:.4f}" for tag, v in ms[b].items()))
+
+
 # ------------------------------------------------------------ training
 
 def plane_err(got, want, planes, nplanes=3):
@@ -359,13 +415,6 @@ def max_diff(a, b) -> float:
     d = (a.double() - b.double()).abs()
     d = torch.where(d.isnan(), float("inf"), d)
     return float(torch.where(same, 0.0, d).max()) if d.numel() else 0.0
-
-
-def same_bits(a, b) -> bool:
-    """Bitwise equal f32 tensors (NaNs with the same bits included)."""
-    import torch
-    return a.shape == b.shape and torch.equal(
-        a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
 
 
 def dense_plane(h, s):
@@ -520,6 +569,7 @@ def check_train_kernels(hv, sr, hist, dev):
     difference.  Returns the largest max|kernel - plain| measured for
     each kernel (0.0 while they agree bitwise)."""
     import torch
+    from h2o3_tpu_torch.testing import same_bits
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
     f64_err, f64_ulps = [0.0, 0.0, 0.0], 0.0
@@ -579,24 +629,90 @@ def check_train_kernels(hv, sr, hist, dev):
         f"and a ragged n = {n0 - 17}; max|diff| from the f64 sums per "
         f"plane (g, h, w): " + ", ".join(f"{e:.3e}" for e in f64_err)
         + f", at most {f64_ulps:.4f} f32 spacings of the f64 sum")
+    kdiff["split_records"] = check_records(sr, hist, "1M-row")
+    kdiff["split_records"] = max(kdiff["split_records"],
+                                 check_records_cases(hist, dev))
+    return kdiff
+
+
+def check_records(sr, hist, label):
+    """``split_records`` against its plain version on captured levels: on
+    the real H and on its integer-valued rounding, bitwise, and a second
+    launch bitwise the first; raises on any difference.  Returns the
+    largest max|kernel - plain| (0.0 while bitwise)."""
+    import torch
+    from h2o3_tpu_torch.testing import same_bits
+    worst = 0.0
     for i, (H, nbins_, args) in enumerate(sr):
         for Hc, what in ((H, "real"), (H.round(), "integer-valued")):
             got = hist.split_records(Hc, nbins_, *args)
+            again = hist.split_records(Hc, nbins_, *args)
             want = hist._split_records_torch(Hc, *args)
             torch.cuda.synchronize()
-            kdiff["split_records"] = max(kdiff["split_records"],
-                                         max_diff(got, want))
-            if not torch.equal(got, want):
+            worst = max(worst, max_diff(got, want))
+            if not (same_bits(got, want) and same_bits(again, got)):
                 a = got.view(torch.int32).long()
                 b = want.view(torch.int32).long()
                 ulp = int((a - b).abs().max())
                 raise AssertionError(
-                    f"split_records != plain on {what} H at level {i}: "
-                    f"max {ulp} ulp")
+                    f"split_records != plain (or a second launch) on {what}"
+                    f" H at {label} level {i}: max {ulp} ulp")
     log(f"kernel check split_records: bitwise equal to its plain version "
-        f"on the {len(sr)} captured levels' H and on their integer-valued "
-        f"rounding")
-    return kdiff
+        f"on the {len(sr)} captured {label} levels' H and on their "
+        f"integer-valued rounding; a second launch bitwise the first")
+    return worst
+
+
+def check_records_cases(hist, dev):
+    """``split_records`` against its plain version on the card on the
+    edge cases of its block argmax: NaN planes (a non-finite stat), every
+    gain -inf (min_rows out of reach), ties of two bins in one thread
+    (bins 3 and 259), in one warp (3 and 35, 3 and 20) and across warps
+    (10 and 245), and nbins = 2, 31, 32, 33, 256; bitwise (NaN bits
+    included), a second launch bitwise the first, the tie won by its first
+    bin.  Returns the largest max|kernel - plain|."""
+    import torch
+    from h2o3_tpu_torch.testing import same_bits, tie_hist
+    rng = np.random.default_rng(13)
+    prm = (1.0, 1.0, 0.0, 0.0, 1.0)
+    cases = []
+    for nbins in (2, 31, 32, 33, 256):
+        B = nbins + 1
+        H = np.stack([rng.normal(size=(7, 8, B)) * 3,
+                      rng.random((7, 8, B)) * 5,
+                      rng.integers(0, 40, (7, 8, B))]).astype(np.float32)
+        cases.append((f"nbins={nbins}", H, nbins, prm, None))
+    H256 = cases[-1][1]
+    for p, name in enumerate("ghw"):
+        H = H256.copy()
+        H[p] = np.nan
+        cases.append((f"NaN {name} plane", H, 256, prm, None))
+    cases.append(("every gain -inf", H256, 256, (1.0, 1e9, 0.0, 0.0, 1.0),
+                  0))
+    for a, b in ((3, 259), (3, 35), (3, 20), (10, 245)):
+        cases.append((f"tie of bins {a} and {b}", tie_hist(a, b, 3, 5),
+                      a + b + 2, prm, a))
+    worst = 0.0
+    for what, Hn, nbins, args, want_bin in cases:
+        H = torch.from_numpy(Hn).to(dev)
+        got = hist.split_records(H, nbins, *args)
+        again = hist.split_records(H, nbins, *args)
+        want = hist._split_records_torch(H, *args)
+        torch.cuda.synchronize()
+        worst = max(worst, max_diff(got, want))
+        if not (same_bits(got, want) and same_bits(again, got)):
+            raise AssertionError(f"split_records != plain (or a second "
+                                 f"launch) bitwise on {what}: max|diff| "
+                                 f"{max_diff(got, want):.3e}")
+        if want_bin is not None and not bool((got[..., 1] == want_bin)
+                                             .all()):
+            raise AssertionError(f"split_records on {what}: bin "
+                                 f"{got[..., 1].unique().tolist()}, "
+                                 f"expected {want_bin}")
+    log("kernel check split_records cases: bitwise equal to its plain "
+        "version (NaN bits included), a second launch bitwise the first, "
+        "on " + "; ".join(c[0] for c in cases))
+    return worst
 
 
 def work_hist(g, leaf, L, Q, F):
@@ -761,6 +877,7 @@ def check_deterministic(m, m2, search):
     values: the histograms sum in int64 fixed point, so nothing on the
     path depends on the order of the atomics."""
     import torch
+    from h2o3_tpu_torch.testing import same_bits
     a, b = m.output["stacked"], m2.output["stacked"]
     for d, (lv1, lv2) in enumerate(zip(a.levels, b.levels)):
         for nm, x, y in zip(("feat", "thr", "na_left", "valid"), lv1, lv2):
@@ -822,11 +939,12 @@ def host_op_us(n: int = 4000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def headline(XGBoost, fr, card, search):
+def headline(XGBoost, fr, card, search, tag=""):
     """Phase 13: the bench protocol at 10M rows with ``split_search =
-    search``, and a profile."""
+    search``, and a profile; ``tag`` names another version's package."""
     import torch
     n = fr.nrows
+    who = search + tag
     probe_us = host_op_us()
     cfg = dict(BENCH_CFG, split_search=search)
     t0 = time.perf_counter()
@@ -837,7 +955,7 @@ def headline(XGBoost, fr, card, search):
     m = XGBoost(ntrees=50, **cfg).train(fr)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    log(f"headline {search}: bench_trees protocol, {n} rows, "
+    log(f"headline {who}: bench_trees protocol, {n} rows, "
         f"XGBoost(max_depth=6, nbins=256, split_search={search!r}): "
         f"20-tree warmup {warm:.3f} s, then 50 trees in {dt:.3f} s = "
         f"{50 / dt:.3f} trees/s; training AUC "
@@ -853,7 +971,7 @@ def headline(XGBoost, fr, card, search):
             and e.self_device_time_total > 0]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     if busy <= 0:
-        log(f"profile {search}: no device time in the trace: not "
+        log(f"profile {who}: no device time in the trace: not "
             "measured")
     else:
         # the profiler slows the host, so the wall time per tree is the
@@ -862,13 +980,13 @@ def headline(XGBoost, fr, card, search):
         per_tree = sum(e.count for e in kern) / nprof
         probe_after = host_op_us()
         kern.sort(key=lambda e: -e.self_device_time_total)
-        log(f"host {search}: {per_tree:g} device operations per tree; a "
+        log(f"host {who}: {per_tree:g} device operations per tree; a "
             f"small torch op costs the host {probe_us:.2f} us before the "
             f"headline and {probe_after:.2f} us after it, so the launches "
             f"alone hold a tree for {per_tree * probe_us / 1e3:.2f}-"
             f"{per_tree * probe_after / 1e3:.2f} ms of its "
             f"{wall_tree:.2f} ms of wall")
-        log(f"profile {search} of a {nprof}-tree train at {n} rows: "
+        log(f"profile {who} of a {nprof}-tree train at {n} rows: "
             f"device busy "
             f"{busy / nprof:.2f} ms per tree against {wall_tree:.2f} ms of "
             f"wall per tree unprofiled: idle share "
@@ -918,6 +1036,7 @@ def check_hier_kernels(fh, hu, hist, dev):
     ``fine_hist`` and for the coarse pass with 3 planes (0.0 while they
     agree bitwise)."""
     import torch
+    from h2o3_tpu_torch.testing import same_bits
     gen = torch.Generator(device=dev)
     gen.manual_seed(12)
     kdiff = {"fine_hist": 0.0, "coarse hist": 0.0}
@@ -1206,8 +1325,8 @@ def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
     .gitignore lists it), imported as ``other_h2o3_tpu_torch`` with its
-    own sources and build directory; returns its tree ``hist`` module,
-    its histogram kernels built."""
+    own sources and build directory; returns its tree ``hist`` module and
+    its ``serving.kernel`` module, their four kernels built."""
     import importlib
     import importlib.util
     name = "other_h2o3_tpu_torch"
@@ -1218,9 +1337,10 @@ def load_other(path: str):
     sys.modules[name] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(sys.modules[name])
     other = importlib.import_module(f"{name}.models.tree.hist")
+    okernel = importlib.import_module(f"{name}.serving.kernel")
     importlib.import_module(f"{name}.native").build_all(
-        [other.HIST, other.FINE_HIST])
-    return other
+        [other.HIST, other.FINE_HIST, other.SPLIT_RECORDS, okernel.TRAVERSE])
+    return other, okernel
 
 
 def one_copy(hist):
@@ -1237,17 +1357,39 @@ def one_copy(hist):
     return setup
 
 
-def hist_turns(hv, hu, fh, variants, reps=30):
+def turns(launches, variants, reps=30):
+    """Device ms of ``launches`` under each variant in turns: every launch
+    timed (``cuda_ms``) under the variants in order, then in reverse order
+    (A, B, B, A for two), the two passes averaged, the launches of one
+    path summed.  ``launches`` are (path, make): ``make(obj)`` returns the
+    call; ``variants`` are (tag, obj, setup or None), where ``setup()``
+    swaps the variant in and returns its undo.  Returns ({path: {tag:
+    ms}}, {path: {tag: max|diff| from the first variant's output}})."""
+    ms, diff, first = {}, {}, {}
+    for tag, obj, setup in list(variants) + list(reversed(variants)):
+        undo = setup() if setup else None
+        try:
+            for i, (path, make) in enumerate(launches):
+                fn = make(obj)
+                out = fn()
+                d = diff.setdefault(path, {})
+                d[tag] = max(d.get(tag, 0.0),
+                             max_diff(out, first.setdefault(i, out)))
+                t = ms.setdefault(path, {})
+                t[tag] = t.get(tag, 0.0) + cuda_ms(fn, reps) / 2
+        finally:
+            if undo:
+                undo()
+    return ms, diff
+
+
+def hist_turns(hv, hu, fh, variants):
     """Device ms per tree (the sum of its captured level launches) of the
     three histogram paths, ``hist_varbin`` on the exact levels ``hv`` and
     the coarse ``hist_uniform`` and ``fine_hist`` on the hier levels
-    ``hu``, ``fh``, under each variant in turns: every launch timed
-    (``cuda_ms``) under the variants in order, then in reverse order
-    (A, B, B, A for two), the two passes averaged.  ``variants`` are (tag,
-    hist module, setup or None); ``setup()`` swaps the variant in and
-    returns its undo.  A version's wrapper gets the tree's fixed-point
-    scale where it takes one.  Returns ({path: {tag: ms}}, {path: {tag:
-    max|diff| from the first variant's sums}})."""
+    ``hu``, ``fh``, under each variant (tag, hist module, setup) in turns.
+    A version's wrapper gets the tree's fixed-point scale where it takes
+    one."""
     import inspect
 
     def call(mod, fn, *a, scale):
@@ -1268,22 +1410,7 @@ def hist_turns(hv, hu, fh, variants, reps=30):
                   lambda m, a=(c, lf, st, sel, W, nb), sc=sc:
                   call(m, "fine_hist", *a, scale=sc))
                  for c, lf, st, sel, W, nb, sc in fh]
-    ms, diff, first = {}, {}, {}
-    for tag, mod, setup in list(variants) + list(reversed(variants)):
-        undo = setup() if setup else None
-        try:
-            for i, (path, make) in enumerate(launches):
-                fn = make(mod)
-                out = fn()
-                d = diff.setdefault(path, {})
-                d[tag] = max(d.get(tag, 0.0),
-                             max_diff(out, first.setdefault(i, out)))
-                t = ms.setdefault(path, {})
-                t[tag] = t.get(tag, 0.0) + cuda_ms(fn, reps) / 2
-        finally:
-            if undo:
-                undo()
-    return ms, diff
+    return turns(launches, variants)
 
 
 def log_turns(hv, hu, fh, variants, label, card):
@@ -1300,14 +1427,29 @@ def log_turns(hv, hu, fh, variants, label, card):
             for tag, v in t.items()))
 
 
+def records_turns(sr, variants, label, card):
+    """``split_records`` per captured tree (the sum of its level launches)
+    of this checkout and each other version (tag, hist module) in turns;
+    raises unless every version gives bitwise the same records."""
+    launches = [("split_records", lambda m, H=H, nb=nb, a=a:
+                 lambda: m.split_records(H, nb, *a)) for H, nb, a in sr]
+    ms, diff = turns(launches, [(t, m, None) for t, m in variants])
+    if any(v != 0.0 for v in diff["split_records"].values()):
+        raise AssertionError(f"split_records versions differ: {diff}")
+    log(f"in turns per tree at {label} {card}: split_records over "
+        f"{len(sr)} level launches: " + "; ".join(
+            f"{tag} {v:.4f} ms" for tag, v in ms["split_records"].items()))
+    return ms["split_records"]
+
+
 def main() -> dict:
     import argparse
     ap = argparse.ArgumentParser(
         description="GPU smoke of h2o3_tpu_torch (see the module notes)")
     ap.add_argument("--other", metavar="DIR",
-                    help="also time the histogram kernels of the "
-                         "h2o3_tpu_torch package under DIR in turns with "
-                         "this checkout's (phases 12 and 13)")
+                    help="also time the kernels of the h2o3_tpu_torch "
+                         "package under DIR in turns with this "
+                         "checkout's (phases 6, 9, 12 and 13)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -1332,6 +1474,7 @@ def main() -> dict:
     from h2o3_tpu_torch.runtime import config as cfgmod
     from h2o3_tpu_torch.runtime import observability as obs
     from h2o3_tpu_torch.serving import batcher, kernel
+    from h2o3_tpu_torch.testing import same_bits
 
     # ----------------------------------------------------------- 2 build
     kernels = [kernel.TRAVERSE, hist.HIST, hist.SPLIT_RECORDS,
@@ -1357,9 +1500,10 @@ def main() -> dict:
     # tiles, the tiles without copies, and another version if given
     variants = [("this", hist, None),
                 ("one copy per tile", hist, one_copy(hist))]
+    other = None
     if args.other:
-        variants.append((f"other {args.other}", load_other(args.other),
-                         None))
+        other = (f"other {args.other}",) + load_other(args.other)
+        variants.append((other[0], other[1], None))
 
     # ---------------------------------------------------------- 3 models
     rng = np.random.default_rng(7)
@@ -1379,23 +1523,30 @@ def main() -> dict:
     # --------------------------------------------------------- 4 kernels
     max_err = 0.0
     for k, ps in scorers.items():
-        for rows in (B, 37):            # full buffer, ragged last tile
+        planes = (*kernel.planes(ps._d_nodes), ps._d_roots)
+        # the multinomial group also at more row tiles than a grid's y
+        # dimension holds (65,535 x 8 rows)
+        sizes = TRAVERSE_BATCHES + ((LARGE_BATCH,) if ps.n_class > 1
+                                    else ())
+        for rows in sizes:
             X = batch(rng, rows, F)
             Xd = torch.from_numpy(X).cuda()
-            planes = (ps._d_i32, ps._d_f32, ps._d_roots)
-            got = kernel.traverse(*planes, Xd, ps.depth)
+            got = kernel.traverse(ps._d_nodes, ps._d_roots, Xd, ps.depth)
             want = kernel.traverse_torch(*planes, Xd, ps.depth)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            err = max_diff(got, want)
             max_err = max(max_err, err)
-            if not torch.equal(got, want):
+            if not same_bits(got, want):
                 raise AssertionError(f"traverse kernel != plain on {k} "
                                      f"B={rows}: max|diff|={err:.3e}")
+            if rows == LARGE_BATCH:
+                continue
             out = ps.score(X, score_mode="check")
             if out.shape[0] != rows or not np.isfinite(out).all():
                 raise AssertionError(f"{k}: bad scores {out.shape}")
         log(f"kernel check {k}: traverse bitwise equal to traverse_torch "
-            f"(B={B} and B=37); score_mode=check passed")
+            f"at B = {sizes} (depth {ps.depth}); score_mode=check passed "
+            f"at B = {TRAVERSE_BATCHES}")
 
     # ----------------------------------------------------------- 5 serve
     os.environ["H2O3_TPU_SERVE_TICK_MS"] = "1"
@@ -1465,6 +1616,7 @@ def main() -> dict:
     phases = {ph: obs.histogram("serve_latency_seconds", phase=ph)
               for ph in ("queue", "device", "total")}
     sizes = obs.histogram("serve_batch_size")
+    mean_batch = sizes.sum / max(sizes.count, 1)
     log("serve breakdown: mean " + ", ".join(
         f"{ph} {h.sum / max(h.count, 1) * 1e3:.3f} ms"
         for ph, h in phases.items())
@@ -1481,14 +1633,15 @@ def main() -> dict:
 
     # ----------------------------------------------------------- 6 times
     ps = scorers["binomial_300x10"]
-    planes = (ps._d_i32, ps._d_f32, ps._d_roots)
+    planes = (*kernel.planes(ps._d_nodes), ps._d_roots)
     Xd = torch.from_numpy(batch(rng, B, F)).cuda()
-    ms = cuda_ms(lambda: kernel.traverse(*planes, Xd, ps.depth))
+    ms = cuda_ms(lambda: kernel.traverse(ps._d_nodes, ps._d_roots, Xd,
+                                         ps.depth))
     plain_ms = cuda_ms(lambda: kernel.traverse_torch(*planes, Xd,
                                                      ps.depth))
     score_ms = cuda_ms(lambda: ps.score_tensor(Xd))
-    host_ms = cuda_ms(lambda: kernel.traverse(*planes, Xd, ps.depth),
-                      spin=False)
+    host_ms = cuda_ms(lambda: kernel.traverse(ps._d_nodes, ps._d_roots, Xd,
+                                              ps.depth), spin=False)
     score_host_ms = cuda_ms(lambda: ps.score_tensor(Xd), spin=False)
     nbytes, steps, n_nodes = traverse_work(planes, Xd, ps.depth)
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1502,6 +1655,14 @@ def main() -> dict:
         f"bound {bound_ms:.6f} ms ({nbytes} B: {n_nodes} touched nodes x "
         f"8 B + roots + X + out, over 3.35 TB/s; {steps} f32 compares "
         f"over 67 TFLOP/s)")
+    visits = B * planes[2].numel() + steps     # records a descent reads
+    words = 2 * visits + B * planes[2].numel()
+    log(f"traverse sectors at B={B}: {steps} internal steps of "
+        f"{B * planes[2].numel()} (row, tree) descents; with trees on "
+        f"lanes, two planes read {words} words, each in its own 32-B "
+        f"sector: {words * 32 / 1e6:.1f} MB through L2 at most; one 8-B "
+        f"record a step: {visits * 32 / 1e6:.1f} MB")
+    traverse_turns(scorers, rng, F, mean_batch, kernel, other, card)
 
     traverse_row = {
         "name": "traverse", "route": "cuda",
@@ -1554,6 +1715,9 @@ def main() -> dict:
             "ms": v[0], "plain_ms": v[1], "bound_ms": bnd, "bound_by": by,
             "library_ms": v[3] if lib else None,
         })
+    if other:
+        rec_pair = [("this", hist), (other[0], other[1])]
+        records_turns(sr, rec_pair, "1M rows", card)
     del sr
 
     # ------------------------------------------------- 10 hier kernels
@@ -1598,11 +1762,34 @@ def main() -> dict:
     t0 = time.perf_counter()
     cols, types, domains = make_airlines_like(10_000_000)
     fr10 = Frame.from_numpy(cols, types=types, domains=domains)
+    if other:
+        import importlib
+        opkg = other[1].__name__.split(".")[0]
+        OXGBoost = importlib.import_module(
+            f"{opkg}.models.tree.xgboost").XGBoost
+        ofr10 = importlib.import_module(f"{opkg}.frame").Frame.from_numpy(
+            cols, types=types, domains=domains)
     del cols
     torch.cuda.synchronize()
     log(f"headline frame: {fr10.nrows} rows made and on the card in "
         f"{time.perf_counter() - t0:.2f} s")
-    exact_tps = headline(XGBoost, fr10, card, "auto")
+    # the exact headline; given another version, in turns with its train
+    # (this, other, other, this)
+    heads = [("", XGBoost, fr10)]
+    if other:
+        heads.append((f" [{other[0]}]", OXGBoost, ofr10))
+        heads += heads[::-1]
+    tps = {}
+    for tag, xgb, frame in heads:
+        tps.setdefault(tag, []).append(headline(xgb, frame, card, "auto",
+                                                tag))
+    exact_tps = float(np.mean(tps[""]))
+    if other:
+        log(f"exact headline in turns {card}: " + "; ".join(
+            f"{tag.strip(' []') or 'this'} " + " and ".join(
+                f"{v:.3f}" for v in t) + " trees/s"
+            for tag, t in tps.items()))
+        del ofr10
     hier_tps = headline(XGBoost, fr10, card, "hier")
     log(f"headlines at {fr10.nrows} rows {card}: exact search "
         f"{exact_tps:.3f} trees/s, hierarchical search {hier_tps:.3f} "
@@ -1610,7 +1797,10 @@ def main() -> dict:
     # the kernels per 10M-row tree, with CUDA events: one captured tree
     # of each search
     hv10, sr10 = capture_levels(fr10, XGBoost, hist)
+    check_records(sr10, hist, "10M-row")
     tot10 = time_train_kernels(hv10, sr10, hist, "10M rows")
+    if other:
+        records_turns(sr10, rec_pair, "10M rows", card)
     del sr10
     fh10, hu10 = capture_hier_levels(fr10, XGBoost, hist)
     del fr10

@@ -17,32 +17,57 @@
 //   gain, bin, na_left, GL, HL, CL (at the bin, NA excluded),
 //   g_na, h_na, c_na, totG, totH, totC.
 //
-// Design.  One thread per (leaf, feature) row walks its bins in order:
-// a first pass sums the regular bins for the totals, a second one carries
-// the prefix sums and evaluates both gains per bin.  The sequential f32
-// order is what the plain torch version (hist.py::_split_records_torch)
-// takes, and every operation below is the same IEEE operation in the same
-// order, written with round-to-nearest intrinsics so that no multiply-add
-// is contracted: the kernel is bitwise equal to its plain version on any
-// H.  (The TPU kernel's matmul prefix sums summed in another order; the
-// JAX package's records agree with these bitwise when H is integer-valued,
-// where every partial sum is exact.)
+// The contract: bitwise equal to the plain torch version
+// (hist.py::_split_records_torch) on any H.  Its prefix sums run in
+// sequential f32 order (bin 0, + bin 1, ...), and every operation below
+// is the same IEEE operation in the same order, written with
+// round-to-nearest intrinsics so that no multiply-add is contracted.  A
+// tree-shaped scan would reassociate the adds and change last bits, so
+// the prefix stays a chain.  (The TPU kernel's matmul prefix sums summed
+// in another order; the JAX package's records agree with these bitwise
+// when H is integer-valued, where every partial sum is exact.)
 //
-// What bounds it on this card: memory latency.  At the bench's deepest
-// level it reads only 3 x 256 rows x 257 bins x 4 B = 790 KB, but each
-// thread's walk is a chain of loop steps whose three loads land on a
-// different cache line for every lane of the warp, so a launch takes
-// ~0.2 ms where the bytes allow ~0.0002 ms.  A warp per row, loading the
-// row coalesced into shared memory, is the known cure (PERF.md).
+// What bounds it on this card: latency, not bytes.  The bench's deepest
+// level reads 3 x 256 rows x 257 bins x 4 B = 790 KB (0.24 us at
+// 3.35 TB/s); a launch is the launch itself, one coalesced load of a row,
+// its prefix chains of nbins - 1 dependent adds, and the gains, whose
+// IEEE divisions are a long dependent sequence per candidate bin.  A
+// first design gave each row to one thread, whose walks over its bins
+// loaded three floats a step from rows 1,028 B apart: ~2 x 257 dependent
+// global loads, ~0.22 ms a launch on an NVIDIA H100 80GB HBM3 at 700 W
+// (PERF.md); a warp per row, its lanes walking eight candidates each,
+// still spent much of a launch in those divisions, one candidate after
+// another.  Now:
+//   * one 256-thread block per (leaf, feature) row, so every level, the
+//     root's 8 rows too, spreads over blocks;
+//   * the block stages its row's three planes into shared memory with
+//     consecutive threads on consecutive addresses (one coalesced pass);
+//   * threads 0, 1, 2 carry the G, H and C chains in parallel, loading
+//     sixteen bins at once ahead of their adds and writing the inclusive
+//     prefix in place; the regular total is the last prefix, so a
+//     separate totals pass is not needed.  The chain is ~nbins f32 adds
+//     at their latency, under a microsecond for 256 bins;
+//   * thread j then evaluates the candidate bins b = j (mod 256) -- one
+//     each at the bench's 256 bins -- from the staged prefixes, keeping
+//     its own first best in ascending bin order;
+//   * five xor shuffles pick each warp's winner under the sequential
+//     scan's total order (a NaN gain above any number, else the larger
+//     gain, and on a tie -- +0 and -0, or -inf and -inf included -- the
+//     smaller bin), the eight warp winners meet in shared memory, and the
+//     thread that owns the winning bin writes the record from it.
 
+#include <climits>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kWarps = 8;                 // one row a block
+constexpr int kThreads = kWarps * 32;
 constexpr int kRecFields = 12;
+constexpr int kSmemDefault = 48 * 1024;
+constexpr int kSmemMax = 227 * 1024;
 
 __device__ __forceinline__ float nan_max(float a, float b) {
   // jnp.maximum / torch.maximum: NaN propagates
@@ -74,41 +99,80 @@ __device__ __forceinline__ float gain_dir(float gl, float hl, float cl,
   return ok ? g : -INFINITY;
 }
 
+// (ga, ba) comes before (gb, bb) in the order the sequential scan takes:
+// a NaN above any number, then the larger gain, then the smaller bin
+__device__ __forceinline__ bool before(float ga, int ba, float gb, int bb) {
+  const bool na = isnan(ga), nb = isnan(gb);
+  if (na != nb) return na;
+  if (!na && ga != gb) return ga > gb;
+  return ba < bb;
+}
+
+// inclusive prefix of x[0 .. n-1] in place, in sequential f32 order (bin
+// 0 kept as it is, NaN bits included); x is 16-byte aligned.  Sixteen
+// bins are loaded at once ahead of their adds
+__device__ __forceinline__ void prefix_chain(float* x, int n) {
+  float acc = 0.0f;
+  int b = 0;
+  for (; b + 16 <= n; b += 16) {
+    float4 v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      v[k] = *reinterpret_cast<const float4*>(x + b + 4 * k);
+    }
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      acc = (k == 0 && b == 0) ? v[k].x : __fadd_rn(acc, v[k].x);
+      v[k].x = acc;
+      acc = __fadd_rn(acc, v[k].y); v[k].y = acc;
+      acc = __fadd_rn(acc, v[k].z); v[k].z = acc;
+      acc = __fadd_rn(acc, v[k].w); v[k].w = acc;
+      *reinterpret_cast<float4*>(x + b + 4 * k) = v[k];
+    }
+  }
+  for (; b < n; ++b) {
+    acc = b == 0 ? x[0] : __fadd_rn(acc, x[b]);
+    x[b] = acc;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
-split_records_kernel(const float* __restrict__ hist, int LF, int B,
+split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
                      float lam, float alpha, float gamma, float min_rows,
                      float mcw, float* __restrict__ rec) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= LF) return;
+  extern __shared__ __align__(16) float smem[];  // [3][Bp], warp winners
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int row = blockIdx.x;
   const int nbins = B - 1;
   const size_t plane = (size_t)LF * B;
-  const float* G = hist + (size_t)row * B;
-  const float* Hh = G + plane;
-  const float* C = G + 2 * plane;
-  const float gna = G[nbins], hna = Hh[nbins], cna = C[nbins];
+  float* G = smem;
+  float* Hh = G + Bp;
+  float* C = Hh + Bp;
+  float* win_g = C + Bp;                            // [kWarps]
+  int* win_b = reinterpret_cast<int*>(win_g + kWarps);
 
-  float cg = G[0], ch = Hh[0], cc = C[0];
-  for (int b = 1; b < nbins; ++b) {
-    cg = __fadd_rn(cg, G[b]);
-    ch = __fadd_rn(ch, Hh[b]);
-    cc = __fadd_rn(cc, C[b]);
+  const float* src = hist + (size_t)row * B;
+  for (int b = tid; b < B; b += kThreads) {
+    G[b] = __ldg(src + b);
+    Hh[b] = __ldg(src + plane + b);
+    C[b] = __ldg(src + 2 * plane + b);
   }
-  const float totG = __fadd_rn(cg, gna);
-  const float totH = __fadd_rn(ch, hna);
-  const float totC = __fadd_rn(cc, cna);
+  __syncthreads();
+  if (tid < 3) prefix_chain(G + tid * Bp, nbins);
+  __syncthreads();
+
+  const float gna = G[nbins], hna = Hh[nbins], cna = C[nbins];
+  const float totG = __fadd_rn(G[nbins - 1], gna);
+  const float totH = __fadd_rn(Hh[nbins - 1], hna);
+  const float totC = __fadd_rn(C[nbins - 1], cna);
   const float parent = score(totG, totH, lam, alpha);
 
-  float best = 0.0f, bGL = 0.0f, bHL = 0.0f, bCL = 0.0f, bnal = 0.0f;
-  int bidx = 0;
-  float gl = 0.0f, hl = 0.0f, cl = 0.0f;
-  for (int b = 0; b <= nbins - 2; ++b) {
-    if (b == 0) {
-      gl = G[0]; hl = Hh[0]; cl = C[0];
-    } else {
-      gl = __fadd_rn(gl, G[b]);
-      hl = __fadd_rn(hl, Hh[b]);
-      cl = __fadd_rn(cl, C[b]);
-    }
+  // this thread's first best over its bins; a thread without a candidate
+  // keeps (-inf, INT_MAX), which loses every tie on the bin
+  float best = -INFINITY, bnal = 0.0f;
+  int bidx = INT_MAX;
+  for (int b = tid; b <= nbins - 2; b += kThreads) {
+    const float gl = G[b], hl = Hh[b], cl = C[b];
     const float gr = __fsub_rn(__fsub_rn(totG, gl), gna);
     const float hr = __fsub_rn(__fsub_rn(totH, hl), hna);
     const float cr = __fsub_rn(__fsub_rn(totC, cl), cna);
@@ -119,20 +183,49 @@ split_records_kernel(const float* __restrict__ hist, int LF, int B,
                               __fadd_rn(hr, hna), __fadd_rn(cr, cna),
                               parent, lam, alpha, gamma, min_rows, mcw);
     const float gain = nan_max(gL, gR);
-    const bool take = b == 0 || (isnan(gain) && !isnan(best)) ||
+    const bool take = bidx == INT_MAX || (isnan(gain) && !isnan(best)) ||
                       gain > best;
     if (take) {
       best = gain;
       bidx = b;
       bnal = (gL >= gR) ? 1.0f : 0.0f;
-      bGL = gl; bHL = hl; bCL = cl;
     }
   }
-  float* o = rec + (size_t)row * kRecFields;
-  o[0] = best; o[1] = (float)bidx; o[2] = bnal;
-  o[3] = bGL; o[4] = bHL; o[5] = bCL;
-  o[6] = gna; o[7] = hna; o[8] = cna;
-  o[9] = totG; o[10] = totH; o[11] = totC;
+  // the winner of the warp, then of the block: every thread ends with
+  // the same (gain, bin)
+  float g = best;
+  int bin = bidx;
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float og = __shfl_xor_sync(0xffffffffu, g, off);
+    const int ob = __shfl_xor_sync(0xffffffffu, bin, off);
+    if (before(og, ob, g, bin)) {
+      g = og;
+      bin = ob;
+    }
+  }
+  if (lane == 0) {
+    win_g[warp] = g;
+    win_b[warp] = bin;
+  }
+  __syncthreads();
+  g = win_g[0];
+  bin = win_b[0];
+#pragma unroll
+  for (int w = 1; w < kWarps; ++w) {
+    if (before(win_g[w], win_b[w], g, bin)) {
+      g = win_g[w];
+      bin = win_b[w];
+    }
+  }
+  // the winning bin is its thread's own first best (the same order)
+  if (bin == bidx) {
+    float* o = rec + (size_t)row * kRecFields;
+    o[0] = best; o[1] = (float)bidx; o[2] = bnal;
+    o[3] = G[bidx]; o[4] = Hh[bidx]; o[5] = C[bidx];
+    o[6] = gna; o[7] = hna; o[8] = cna;
+    o[9] = totG; o[10] = totH; o[11] = totC;
+  }
 }
 
 }  // namespace
@@ -145,8 +238,16 @@ extern "C" int split_records_launch(const float* hist, int LF, int B,
                                     cudaStream_t stream) {
   if (LF <= 0) return (int)cudaSuccess;
   if (B < 3) return (int)cudaErrorInvalidValue;
-  const int grid = (LF + kThreads - 1) / kThreads;
-  split_records_kernel<<<grid, kThreads, 0, stream>>>(
-      hist, LF, B, lam, alpha, gamma, min_rows, mcw, rec);
+  const int Bp = (B + 3) & ~3;         // 16-byte aligned planes
+  const size_t smem = (size_t)3 * Bp * sizeof(float) + 2 * kWarps * 4;
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_records_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  split_records_kernel<<<LF, kThreads, smem, stream>>>(
+      hist, LF, B, Bp, lam, alpha, gamma, min_rows, mcw, rec);
   return (int)cudaGetLastError();
 }

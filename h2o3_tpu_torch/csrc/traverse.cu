@@ -3,103 +3,111 @@
 // Replaces h2o3_tpu/serving/kernel.py::_make_pallas_traverse (the Pallas
 // TPU kernel) and computes what it computes: for every (row, tree) of a
 // request batch, a `depth`-step descent through the bitpacked ensemble of
-// serving/pack.py, then the f32 value of the node reached.
+// serving/pack.py, then the f32 value of the node reached.  The result is
+// a copied leaf value, bitwise equal to serving/kernel.py::traverse_torch.
 //
-// Node word (int32, read as uint32 so that >> 12 does not sign-extend):
+// Node record (int2, 8 bytes): .x the packed word, .y the threshold or
+// leaf value's bits -- pack.py's two planes side by side, interleaved
+// once when a model is published (serving/kernel.py::interleave), so a
+// descent step reads one 8-byte record where it read a word and a
+// threshold from two planes.  The word (read as uint32 so that >> 12
+// does not sign-extend):
 //   bits 0..9 feature id | bit 10 NA-goes-left | bit 11 leaf |
 //   bits 12..31 left-child delta (child = node + delta [+ 1 if right]).
 // A row goes right when x[feat] >= thr; a NaN goes right when NA-left is 0.
-// Leaves loop to themselves, so a thread may stop at the first leaf.
+// Leaves loop to themselves, so a descent stops at its first leaf.
 //
-// What bounds it on this card: dependent gathers.  Each of the `depth`
-// steps reads a node word and its threshold at an address that the
-// previous step computed, so a thread's time is a chain of `depth` cache
-// latencies, not bytes: a 300-tree depth-10 model packs into at most
-// 4.9 MB of node planes (every heap slot split; 1.1 MB for the serving
-// profile's 85%-split trees), which stay resident in the 50 MB L2
-// across requests.  The design keeps everything else off that chain and keeps
-// many chains in flight:
-//   * one thread per (row, tree) — tens of thousands of independent
-//     chains per batch hide each other's latency;
-//   * the block's rows of X are staged once in shared memory, so the
-//     feature read of each step is a shared-memory load, not a third
-//     global gather (F <= 1023, pack.py's limit: 8 rows x 1023 x 4 B
-//     = 32 KB of dynamic shared memory, under the 48 KB default);
-//   * node words and thresholds go through the read-only path (__ldg),
-//     and the threshold load is issued beside the word load (both
-//     depend only on the node index);
-//   * a thread stops at its leaf, so shallow paths of node-sparse
-//     trees do not pay for `depth` steps;
+// What bounds it on this card: latency, not bytes and not sectors.  A
+// batch needs well under a megabyte, and each step of a descent reads a
+// record at an address that the step before computed, so a launch lasts
+// about the launch itself plus its longest chain of dependent loads: on
+// an NVIDIA H100 80GB HBM3 at 700 W, ~0.008 ms at 1 row and at 256 rows
+// alike (PERF.md).  Halving the sectors of each step (one record, not two
+// planes) took ~15% off; putting rows on a warp's lanes (one tree a warp,
+// broadcast top nodes, a fraction of the sectors) ran slower, and copying
+// the trees' top levels into shared memory first gained 3-5% at a few
+// rows and nothing at 256, too little for a second path (PERF.md keeps
+// both designs' times).  So the design keeps the chains short and many:
+//   * trees on lanes, rows on warps: one thread per (row, tree), 32 trees
+//     of 8 rows a block, tens of thousands of independent chains at a
+//     full batch;
+//   * the block's rows of X sit in shared memory, so the feature read of
+//     a step is a shared-memory load, not a third global gather; the root
+//     and its record are loaded before the block waits for X, so those
+//     two dependent loads overlap the copy;
+//   * one 8-byte record a step, through the read-only path; a thread
+//     stops at its leaf;
 //   * the output is row-major [B, R] and a warp spans 32 neighbouring
 //     trees of one row, so each warp's store is one 128-byte line.
-// The last row tile may be ragged: rows >= B are masked, so B need not
-// be a multiple of the tile.
+// The last row tile may be ragged: rows >= B are masked.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTreesPerBlock = 32;   // threadIdx.x: one warp of trees
-constexpr int kRowsPerBlock = 8;     // threadIdx.y: rows staged in smem
-
 constexpr uint32_t kFeatMask = 0x3FFu;
 constexpr int kNaLeftBit = 10;
 constexpr int kLeafBit = 11;
 constexpr int kDeltaShift = 12;
 
-__global__ void __launch_bounds__(kTreesPerBlock * kRowsPerBlock)
-traverse_kernel(const int32_t* __restrict__ nodes_i32,
-                const float* __restrict__ nodes_f32,
-                const int32_t* __restrict__ roots,
-                const float* __restrict__ X,
-                float* __restrict__ out,
-                int B, int F, int R, int depth) {
-  extern __shared__ float xs[];      // [kRowsPerBlock, F]
+constexpr int kTrees = 32;           // threadIdx.x: one warp of trees
+constexpr int kRows = 8;             // threadIdx.y: rows of X in smem
 
-  const int row0 = blockIdx.x * kRowsPerBlock;
-  const int rows = min(kRowsPerBlock, B - row0);
-  const int tid = threadIdx.y * kTreesPerBlock + threadIdx.x;
+__global__ void __launch_bounds__(kTrees * kRows)
+traverse_kernel(const int2* __restrict__ nodes,
+                const int32_t* __restrict__ roots,
+                const float* __restrict__ X, float* __restrict__ out,
+                int B, int F, int R, int depth) {
+  extern __shared__ float xs[];                  // [kRows, F]
+  const int row0 = blockIdx.x * kRows;
+  const int rows = min(kRows, B - row0);
+  const int t = blockIdx.y * kTrees + threadIdx.x;
+
+  int node = 0;
+  int2 rec = make_int2(0, 0);
+  if (t < R) {
+    node = __ldg(roots + t);
+    rec = __ldg(nodes + node);
+  }
+  const int tid = threadIdx.y * kTrees + threadIdx.x;
   const float* xrow = X + (size_t)row0 * F;
-  for (int i = tid; i < rows * F; i += kTreesPerBlock * kRowsPerBlock) {
-    xs[i] = xrow[i];                 // the tile's rows are contiguous
+  for (int i = tid; i < rows * F; i += kTrees * kRows) {
+    xs[i] = __ldg(xrow + i);                     // the rows are contiguous
   }
   __syncthreads();
 
   const int r = threadIdx.y;
-  const int t = blockIdx.y * kTreesPerBlock + threadIdx.x;
   if (r >= rows || t >= R) return;
-
   const float* x = xs + r * F;
-  int node = __ldg(roots + t);
   for (int d = 0; d < depth; ++d) {
-    const uint32_t w = (uint32_t)__ldg(nodes_i32 + node);
-    const float thr = __ldg(nodes_f32 + node);
+    const uint32_t w = (uint32_t)rec.x;
     if (w & (1u << kLeafBit)) break;
     const float v = x[w & kFeatMask];
     const bool right = isnan(v) ? ((w >> kNaLeftBit) & 1u) == 0u
-                                : v >= thr;
+                                : v >= __int_as_float(rec.y);
     node += (int)(w >> kDeltaShift) + (int)right;
+    rec = __ldg(nodes + node);
   }
-  out[(size_t)(row0 + r) * R + t] = __ldg(nodes_f32 + node);
+  out[(size_t)(row0 + r) * R + t] = __int_as_float(rec.y);
 }
 
 }  // namespace
 
 // Launch on `stream`; returns cudaGetLastError() (0 = launched).  The
-// kernel does not synchronise.  Pointers are device pointers to
-// contiguous arrays: nodes_i32[N], nodes_f32[N], roots[R], X[B, F],
-// out[B, R].
-extern "C" int traverse_launch(const int* nodes_i32, const float* nodes_f32,
-                               const int* roots, const float* X, float* out,
-                               int B, int F, int R, int depth,
-                               cudaStream_t stream) {
+// kernel does not synchronise.  Device pointers to contiguous arrays:
+// nodes[N] int2 records (serving/kernel.py::interleave), roots[R],
+// X[B, F], out[B, R].
+extern "C" int traverse_launch(const void* nodes, const int* roots,
+                               const float* X, float* out, int B, int F,
+                               int R, int depth, cudaStream_t stream) {
   if (B <= 0 || R <= 0) return (int)cudaSuccess;
-  const dim3 block(kTreesPerBlock, kRowsPerBlock);
-  const dim3 grid((B + kRowsPerBlock - 1) / kRowsPerBlock,
-                  (R + kTreesPerBlock - 1) / kTreesPerBlock);
-  const size_t smem = (size_t)kRowsPerBlock * F * sizeof(float);
+  const dim3 block(kTrees, kRows);
+  // row tiles on grid.x (up to 2^31 - 1), tree groups on grid.y (up to
+  // 65,535: 2M trees), so a batch of any row count is one launch
+  const dim3 grid((B + kRows - 1) / kRows, (R + kTrees - 1) / kTrees);
+  const size_t smem = (size_t)kRows * F * sizeof(float);
   traverse_kernel<<<grid, block, smem, stream>>>(
-      nodes_i32, nodes_f32, roots, X, out, B, F, R, depth);
+      static_cast<const int2*>(nodes), roots, X, out, B, F, R, depth);
   return (int)cudaGetLastError();
 }

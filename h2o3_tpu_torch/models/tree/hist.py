@@ -458,13 +458,21 @@ def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple, B: int,
     return _dequantize(out, scale[1]).view(layout.Q, 3 * L)
 
 
+@functools.lru_cache(maxsize=None)
+def _qmap_device(bin_counts: tuple, B: int, device: str) -> torch.Tensor:
+    """``_qmap_dense`` on the device, uploaded once per (bin_counts, B,
+    device): a copy from pageable host memory waits for the stream, so
+    uploading it per call would hold the host once per level."""
+    return torch.from_numpy(_qmap_dense(bin_counts, B)).to(
+        torch.device(device))
+
+
 def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
                   B: int) -> torch.Tensor:
     """[Q8, 3L] packed histogram -> the dense [3, L, F, B] contract
     through the static qmap gather (hist.py:389-395 of the JAX package)."""
     F = len(bin_counts)
-    qd = torch.as_tensor(_qmap_dense(tuple(bin_counts), B),
-                         device=packed.device)
+    qd = _qmap_device(tuple(bin_counts), B, str(packed.device))
     H = packed.index_select(0, qd)                    # [F*B, 3L]
     return H.view(F, B, L, 3).permute(3, 2, 0, 1).contiguous()
 

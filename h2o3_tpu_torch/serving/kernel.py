@@ -10,9 +10,12 @@ run as plain torch on the same device.
 
 * a CUDA tensor launches the hand-written kernel ``csrc/traverse.cu``
   (the port of the JAX package's Pallas ``_make_pallas_traverse``), and
-  raises if it cannot be built or launched;
+  raises if it cannot be built or launched.  It reads each node as one
+  8-byte record, pack.py's two planes side by side (``interleave``);
+  ``PackedScorer`` builds that plane once at publish;
 * a CPU tensor runs ``traverse_torch``, the plain torch version of the
-  same descent (the port of ``_traverse_xla``).
+  same descent (the port of ``_traverse_xla``), on the record plane's
+  two columns (``planes``).
 
 ``PackedScorer.score(..., score_mode=...)``: ``"packed"`` runs the
 device program, ``"ref"`` the numpy ``ScoringModel`` walk, ``"check"``
@@ -37,7 +40,7 @@ _SCORE_MODES = ("packed", "ref", "check")
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 TRAVERSE = native.Kernel("traverse", {
-    "traverse_launch": ((_P, _P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
+    "traverse_launch": ((_P, _P, _P, _P, _I, _I, _I, _I, _P), _I),
 })
 
 
@@ -62,10 +65,23 @@ def traverse_torch(nodes_i32: torch.Tensor, nodes_f32: torch.Tensor,
     return torch.take(nodes_f32, node)
 
 
-def _check_operands(nodes_i32, nodes_f32, roots, X):
+def interleave(nodes_i32: torch.Tensor,
+               nodes_f32: torch.Tensor) -> torch.Tensor:
+    """The node record plane: ``[N, 2]`` int32, word and threshold (or
+    leaf value) bits side by side, one 8-byte record per node."""
+    return torch.stack([nodes_i32, nodes_f32.view(torch.int32)],
+                       dim=1).contiguous()
+
+
+def planes(nodes: torch.Tensor):
+    """The record plane's two columns as pack.py's planes (strided views,
+    no copy): the words ``[N]`` int32 and the thresholds ``[N]`` f32."""
+    return nodes[:, 0], nodes.view(torch.float32)[:, 1]
+
+
+def _check_operands(nodes, roots, X):
     dev = X.device
-    for name, t, dtype, ndim in (("nodes_i32", nodes_i32, torch.int32, 1),
-                                 ("nodes_f32", nodes_f32, torch.float32, 1),
+    for name, t, dtype, ndim in (("nodes", nodes, torch.int32, 2),
                                  ("roots", roots, torch.int32, 1),
                                  ("X", X, torch.float32, 2)):
         if t.device != dev:
@@ -75,25 +91,25 @@ def _check_operands(nodes_i32, nodes_f32, roots, X):
                              f"got {t.dim()}-d {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if nodes_i32.shape != nodes_f32.shape:
-        raise ValueError("node planes differ in length: "
-                         f"{nodes_i32.shape[0]} vs {nodes_f32.shape[0]}")
+    if nodes.shape[1] != 2:
+        raise ValueError("nodes must be the [N, 2] record plane "
+                         f"(interleave), got {tuple(nodes.shape)}")
     if X.shape[1] >= packmod.MAX_FEATURES:
         raise ValueError(f"X has {X.shape[1]} features; the packed layout "
                          f"holds < {packmod.MAX_FEATURES}")
 
 
-def traverse(nodes_i32: torch.Tensor, nodes_f32: torch.Tensor,
-             roots: torch.Tensor, X: torch.Tensor,
+def traverse(nodes: torch.Tensor, roots: torch.Tensor, X: torch.Tensor,
              depth: int) -> torch.Tensor:
-    """``[B, F]`` batch -> ``[B, R]`` leaf values, R = K*T trees.
+    """``[B, F]`` batch -> ``[B, R]`` leaf values, R = K*T trees, from the
+    ``[N, 2]`` record plane ``interleave(nodes_i32, nodes_f32)``.
 
-    CPU tensors take ``traverse_torch``; CUDA tensors launch the kernel
-    on the current stream (counted in ``TRAVERSE.launches``) or raise.
-    """
-    _check_operands(nodes_i32, nodes_f32, roots, X)
+    CPU tensors take ``traverse_torch`` on the plane's two columns; CUDA
+    tensors launch the kernel on the current stream (counted in
+    ``TRAVERSE.launches``) or raise."""
+    _check_operands(nodes, roots, X)
     if X.device.type == "cpu":
-        return traverse_torch(nodes_i32, nodes_f32, roots, X, depth)
+        return traverse_torch(*planes(nodes), roots, X, depth)
     if X.device.type != "cuda":
         raise ValueError(f"no traversal for device {X.device}")
     B, F = X.shape
@@ -104,8 +120,8 @@ def traverse(nodes_i32: torch.Tensor, nodes_f32: torch.Tensor,
     lib = TRAVERSE.lib()
     with torch.cuda.device(X.device):
         rc = lib.traverse_launch(
-            nodes_i32.data_ptr(), nodes_f32.data_ptr(), roots.data_ptr(),
-            X.data_ptr(), out.data_ptr(), B, F, R, int(depth),
+            nodes.data_ptr(), roots.data_ptr(), X.data_ptr(),
+            out.data_ptr(), B, F, R, int(depth),
             torch.cuda.current_stream(X.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"traverse kernel launch failed: CUDA error {rc}")
@@ -178,18 +194,19 @@ class PackedScorer:
         self.c_norm = float(meta.get("c_norm", 1.0))
         init = meta.get("init_score", 0.0)
         self._init = np.atleast_1d(np.asarray(init, np.float32))
-        # device residency: planes uploaded once, reused every launch
-        self._d_i32, self._d_f32, self._d_roots, self._d_init = (
-            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
-            for a in (self.packed.nodes_i32, self.packed.nodes_f32,
-                      self.packed.roots, self._init))
+        # device residency: the record plane and the roots uploaded once,
+        # reused every launch
+        i32, f32, roots = (torch.from_numpy(np.ascontiguousarray(a)) for a in (
+            self.packed.nodes_i32, self.packed.nodes_f32, self.packed.roots))
+        self._d_nodes, self._d_roots, self._d_init = (
+            t.to(self.device) for t in (interleave(i32, f32), roots,
+                                        torch.from_numpy(self._init)))
 
     # ------------------------------------------------------------ device
     def score_tensor(self, X: torch.Tensor) -> torch.Tensor:
         """``[B, F]`` f32 batch on ``self.device`` -> score matrix there:
         one traversal launch, then the class sum and the link."""
-        leaves = traverse(self._d_i32, self._d_f32, self._d_roots, X,
-                          self.depth)
+        leaves = traverse(self._d_nodes, self._d_roots, X, self.depth)
         K, T = self.n_class, self.ntrees
         sums = leaves.view(X.shape[0], K, T).sum(dim=2)
         return _postprocess(sums, self._d_init, self.family, K, self.avg,

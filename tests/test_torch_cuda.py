@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from h2o3_tpu_torch.serving import kernel, pack
+from h2o3_tpu_torch.testing import same_bits, tie_hist
 
 pytestmark = pytest.mark.cuda
 
@@ -42,15 +43,23 @@ def _planes(rng, T, depth, F, dev):
 
 @pytest.mark.parametrize("depth,T,F,B", [(0, 3, 4, 5), (3, 33, 7, 9),
                                          (6, 64, 40, 256), (10, 300, 32, 37),
-                                         (12, 5, 1023, 17)])
+                                         (12, 5, 1023, 17), (10, 300, 32, 1),
+                                         (10, 300, 32, 8), (10, 300, 32, 256),
+                                         (6, 150, 32, 1024),
+                                         (12, 9, 1023, 64),
+                                         (5, 3, 4, 600_000)])
 def test_kernel_bitwise_equals_plain(cuda, depth, T, F, B):
+    """The kernel on the record plane equals the plain descent on the two
+    planes bitwise, at batches from one row to a ragged 1,024, and at
+    600,000 rows: more row tiles (8 rows) than a grid's y dimension holds
+    (65,535), still one launch."""
     rng = np.random.default_rng(depth * 1000 + T)
     i32, f32, roots = _planes(rng, T, depth, F, cuda)
     X = rng.normal(size=(B, F)).astype(np.float32)
     X[rng.random((B, F)) < 0.1] = np.nan
     Xd = torch.from_numpy(X).to(cuda)
     before = kernel.TRAVERSE.launches
-    got = kernel.traverse(i32, f32, roots, Xd, depth)
+    got = kernel.traverse(kernel.interleave(i32, f32), roots, Xd, depth)
     want = kernel.traverse_torch(i32, f32, roots, Xd, depth)
     torch.cuda.synchronize()
     assert kernel.TRAVERSE.launches == before + 1
@@ -65,7 +74,8 @@ def test_kernel_rejects_mixed_devices(cuda):
     rng = np.random.default_rng(1)
     i32, f32, roots = _planes(rng, 2, 2, 3, cuda)
     with pytest.raises(ValueError, match="X on"):
-        kernel.traverse(i32, f32, roots, torch.zeros(4, 3), 2)
+        kernel.traverse(kernel.interleave(i32, f32), roots,
+                        torch.zeros(4, 3), 2)
 
 
 # ------------------------------------------------- training kernels
@@ -150,34 +160,69 @@ def test_hist_varbin_equals_plain(cuda, F, nbins, L, n, integer):
                                                    nbins + 1))
 
 
-@pytest.mark.parametrize("integer", [True, False])
-@pytest.mark.parametrize("L,F,nbins", [(1, 8, 256), (32, 8, 256),
-                                       (5, 3, 2), (64, 13, 33)])
-def test_split_records_equal_plain(cuda, L, F, nbins, integer):
-    rng = np.random.default_rng(L * 100 + F + nbins)
+def _records_hist(rng, L, F, nbins, kind):
     B = nbins + 1
-    if integer:
-        H = np.stack([rng.integers(-20, 21, (L, F, B)),
-                      rng.integers(0, 30, (L, F, B)),
-                      rng.integers(0, 40, (L, F, B))]).astype(np.float32)
-    else:
+    if kind.startswith("tie"):
+        a, b = (int(x) for x in kind.split("_")[1:])
+        return tie_hist(a, b, L, F)
+    if kind == "real":
         H = np.stack([rng.normal(size=(L, F, B)),
                       rng.random((L, F, B)) * 5,
                       rng.integers(0, 40, (L, F, B))]).astype(np.float32)
+    else:
+        H = np.stack([rng.integers(-20, 21, (L, F, B)),
+                      rng.integers(0, 30, (L, F, B)),
+                      rng.integers(0, 40, (L, F, B))]).astype(np.float32)
     H[:, :, :, rng.random(B) < 0.1] = 0.0          # empty bins
+    if kind.startswith("nan_"):
+        H["ghw".index(kind[4])] = np.nan           # a non-finite stat
+    return H
+
+
+# (L, F, nbins, kind): the bench's root and deepest level, nbins across
+# the warp width and at the launcher's smallest B = 3, edge cases of the
+# block argmax (NaN planes, every gain -inf via min_rows, ties of two bins
+# in one thread, in one warp and across warps)
+_RECORDS_CASES = [(1, 8, 256, "integer"), (32, 8, 256, "integer"),
+                  (1, 8, 256, "real"), (32, 8, 256, "real"),
+                  (5, 3, 2, "integer"), (5, 3, 2, "real"),
+                  (64, 13, 33, "integer"), (64, 13, 33, "real"),
+                  (7, 5, 31, "real"), (7, 5, 32, "real"),
+                  (33, 7, 1023, "real"), (4, 8, 256, "nan_g"),
+                  (4, 8, 256, "nan_h"), (4, 8, 256, "nan_w"),
+                  (3, 5, 256, "neg_inf"), (2, 3, 0, "tie_3_259"),
+                  (2, 3, 0, "tie_3_35"),
+                  (2, 3, 0, "tie_3_20"), (2, 3, 0, "tie_10_245")]
+
+
+@pytest.mark.parametrize("L,F,nbins,kind", _RECORDS_CASES)
+def test_split_records_equal_plain(cuda, L, F, nbins, kind):
+    rng = np.random.default_rng(L * 100 + F + nbins)
+    H = _records_hist(rng, L, F, nbins, kind)
+    nbins = H.shape[-1] - 1
     Hd = torch.from_numpy(H).to(cuda)
     for lam, mr, alpha, gamma, mcw in ((1.0, 1.0, 0.0, 0.0, 1.0),
                                        (0.0, 10.0, 0.5, 0.1, 0.0)):
+        if kind == "neg_inf":
+            mr = 1e9
         before = hist.SPLIT_RECORDS.launches
         got = hist.split_records(Hd, nbins, lam, mr, alpha, gamma, mcw)
+        again = hist.split_records(Hd, nbins, lam, mr, alpha, gamma, mcw)
         want = hist._split_records_torch(Hd, lam, mr, alpha, gamma, mcw)
         cpu = hist._split_records_torch(Hd.cpu(), lam, mr, alpha, gamma,
                                         mcw)
         torch.cuda.synchronize()
-        assert hist.SPLIT_RECORDS.launches == before + 1
-        # the same IEEE operations in the same order: bitwise on any H
-        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+        assert hist.SPLIT_RECORDS.launches == before + 2
+        # the same IEEE operations in the same order: bitwise on any H,
+        # NaN bits included, and a second launch bitwise the first
+        assert same_bits(got, want) and same_bits(again, got)
         np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+        if kind == "neg_inf":
+            assert (got[..., 0] == -torch.inf).all()
+            assert (got[..., 1] == 0).all()
+        if kind.startswith("tie"):
+            assert (got[..., 1] == 3 if kind != "tie_10_245"
+                    else got[..., 1] == 10).all()
 
 
 def test_small_train_splits_match_cpu_plain_route(cuda):

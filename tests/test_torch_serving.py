@@ -70,9 +70,9 @@ def test_traverse_bitwise_vs_xla_and_pallas(depth):
         np.testing.assert_array_equal(a, b)
         assert a.dtype == b.dtype
 
-    got = kernel.traverse(torch.from_numpy(i32), torch.from_numpy(f32),
-                          torch.from_numpy(roots), torch.from_numpy(X),
-                          depth).numpy()
+    nodes = kernel.interleave(torch.from_numpy(i32), torch.from_numpy(f32))
+    got = kernel.traverse(nodes, torch.from_numpy(roots),
+                          torch.from_numpy(X), depth).numpy()
     xla = np.asarray(jkernel._traverse_xla(i32, f32, roots, X, depth))
     pallas = np.asarray(jkernel._make_pallas_traverse(
         depth, T, F, 8, interpret=True)(i32, f32, roots, X))
@@ -97,16 +97,18 @@ def test_pack_ensemble_bitwise_multinomial():
 
 
 def test_traverse_rejects_bad_operands():
-    i32 = torch.zeros(3, dtype=torch.int32)
-    f32 = torch.zeros(3)
+    nodes = torch.zeros(3, 2, dtype=torch.int32)
     roots = torch.zeros(1, dtype=torch.int32)
     X = torch.zeros(2, 4)
-    with pytest.raises(ValueError, match="nodes_i32"):
-        kernel.traverse(i32.long(), f32, roots, X, 1)
+    with pytest.raises(ValueError, match="nodes"):
+        kernel.traverse(nodes.long(), roots, X, 1)
     with pytest.raises(ValueError, match="contiguous"):
-        kernel.traverse(i32, f32, roots, torch.zeros(4, 2).t(), 1)
-    with pytest.raises(ValueError, match="differ"):
-        kernel.traverse(i32, f32[:2], roots, X, 1)
+        kernel.traverse(nodes, roots, torch.zeros(4, 2).t(), 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernel.traverse(torch.zeros(2, 3, dtype=torch.int32).t(), roots,
+                        X, 1)
+    with pytest.raises(ValueError, match="record plane"):
+        kernel.traverse(torch.zeros(3, 3, dtype=torch.int32), roots, X, 1)
 
 
 # ------------------------------------------------- (b) carried-over models
@@ -294,6 +296,28 @@ def test_score_mode_knob_and_ref(synth_scorer):
         ps.score(X, score_mode="bogus")
     with pytest.raises(NotImplementedError, match="treeshap"):
         ps.ref.predict_contributions({"x0": [0.0]})
+
+
+def test_interleave_matches_the_two_planes(synth_scorer):
+    """The [N, 2] record plane holds each node's word and its threshold
+    (or leaf value) bits side by side, bitwise the two planes of pack.py,
+    and ``planes`` reads them back; the scorer builds it once at
+    publish."""
+    ps = synth_scorer
+    i32, f32 = ps.packed.nodes_i32, ps.packed.nodes_f32.copy()
+    f32[:3] = [np.nan, -0.0, np.inf]            # bits, not values
+    nodes = kernel.interleave(torch.from_numpy(i32), torch.from_numpy(f32))
+    assert nodes.dtype == torch.int32 and nodes.is_contiguous()
+    assert tuple(nodes.shape) == (ps.packed.n_nodes, 2)
+    np.testing.assert_array_equal(nodes[:, 0].numpy(), i32)
+    np.testing.assert_array_equal(nodes[:, 1].numpy(), f32.view(np.int32))
+    w, thr = kernel.planes(nodes)
+    np.testing.assert_array_equal(w.numpy(), i32)
+    np.testing.assert_array_equal(thr.numpy().view(np.int32),
+                                  f32.view(np.int32))
+    np.testing.assert_array_equal(
+        ps._d_nodes.numpy(),
+        np.stack([i32, ps.packed.nodes_f32.view(np.int32)], axis=1))
 
 
 def _wait_queued(mb, rows, timeout=10.0):

@@ -36,6 +36,7 @@ from h2o3_tpu_torch.frame import Frame
 from h2o3_tpu_torch.models.tree import binning, hist
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.serving import batcher
+from h2o3_tpu_torch.testing import tie_hist
 
 N_BIN = 4032          # a multiple of the JAX mesh's 64-row padding
 # the slice's frame: 3,904 rows (also a multiple of 64), chosen because
@@ -382,6 +383,27 @@ def test_subtract_levels(integer, varbin):
         _close(H.numpy(), jH, integer)
 
 
+def test_expand_varbin_caches_its_gather_map():
+    """The dense gather map goes to the device once per (bin_counts, B,
+    device): a second call reuses the cached tensor (no host-to-device copy
+    per level) and expands bitwise as the first."""
+    bc, B, L = (5, 3, 17, 1), 18, 3
+    Q = hist.packed_layout(bc, B).Q
+    packed = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(Q, 3 * L)).astype(np.float32))
+    hist._qmap_device.cache_clear()
+    first = hist.expand_varbin(packed, bc, L, B)
+    qd = hist._qmap_device(bc, B, "cpu")
+    again = hist.expand_varbin(packed, bc, L, B)
+    info = hist._qmap_device.cache_info()
+    assert (info.misses, info.hits) == (1, 2)
+    assert hist._qmap_device(bc, B, "cpu") is qd
+    assert torch.equal(first, again)
+    want = packed.numpy()[hist._qmap_dense(bc, B)].reshape(
+        len(bc), B, L, 3).transpose(3, 2, 0, 1)
+    np.testing.assert_array_equal(first.numpy(), want)
+
+
 # ---------------------------------------------------- (d) split records
 
 def _level_hist(seed, L, F, nbins, integer):
@@ -403,12 +425,38 @@ def _level_hist(seed, L, F, nbins, integer):
 _PARAMS = [(1.0, 1.0, 0.0, 0.0, 1.0), (0.0, 10.0, 0.5, 0.1, 0.0)]
 
 
+def _records_case(kind, prm):
+    """(H, nbins, params) of one records case: random H (integer or real
+    valued) at nbins = 31, or an edge case of the kernel's argmax on
+    integer-valued H: a plane made NaN by a non-finite stat, every gain
+    -inf (min_rows out of reach), a tie of bins 3 and 35 and one of bins
+    3 and 20, nbins = 2 and 33."""
+    if kind in ("integer", "real"):
+        integer = kind == "integer"
+        return _level_hist(3 + integer, 4, 5, 31, integer), 31, prm
+    if kind.startswith("nbins"):
+        nbins = int(kind[5:])
+        return _level_hist(17 + nbins, 4, 5, nbins, True), nbins, prm
+    if kind.startswith("tie"):
+        a, b = (int(x) for x in kind.split("_")[1:])
+        return tie_hist(a, b, 2, 3), a + b + 2, prm
+    H = _level_hist(19, 4, 5, 31, True)
+    if kind == "all_gains_neg_inf":
+        return H, 31, (prm[0], 1e9) + tuple(prm[2:])
+    H["gw".index(kind[4]) * 2] = np.nan        # nan_g_plane, nan_w_plane
+    return H, 31, prm
+
+
+_RECORDS_KINDS = [pytest.param("integer", id="True"),
+                  pytest.param("real", id="False"),
+                  "nan_g_plane", "nan_w_plane", "all_gains_neg_inf",
+                  "tie_3_35", "tie_3_20", "nbins2", "nbins33"]
+
+
 @pytest.mark.parametrize("prm", _PARAMS)
-@pytest.mark.parametrize("integer", [True, False])
-def test_split_records_vs_xla_and_pallas(integer, prm):
-    L, F, nbins = 4, 5, 31
-    H = _level_hist(3 + integer, L, F, nbins, integer)
-    lam, mr, alpha, gamma, mcw = prm
+@pytest.mark.parametrize("kind", _RECORDS_KINDS)
+def test_split_records_vs_xla_and_pallas(kind, prm):
+    H, nbins, (lam, mr, alpha, gamma, mcw) = _records_case(kind, prm)
     got = hist.split_records(torch.from_numpy(H), nbins, lam, mr, alpha,
                              gamma, mcw).numpy()
     xla = np.asarray(jhist._split_records_xla(jnp.asarray(H), lam, mr, alpha,
@@ -416,9 +464,21 @@ def test_split_records_vs_xla_and_pallas(integer, prm):
     pallas = np.asarray(jhist.split_records(
         jnp.asarray(H), nbins, lam, mr, alpha, gamma, mcw,
         force_impl="pallas_interpret"))
-    if integer:
+    if kind != "real":
+        # integer-valued H: every partial sum is exact on each side
         np.testing.assert_array_equal(got, xla)
-        np.testing.assert_array_equal(got, pallas)
+        if kind == "nan_g_plane":
+            # NaN gains: argmax takes the first NaN in the port and in
+            # _split_records_xla; the TPU kernel's `gain == max` never
+            # holds for a NaN max, so there it picks no bin
+            assert np.isnan(got[..., 0]).all()
+            assert (pallas[..., 1] == nbins + 1).all()
+        else:
+            np.testing.assert_array_equal(got, pallas)
+        if kind in ("all_gains_neg_inf", "nan_w_plane"):
+            assert (got[..., 0] == -np.inf).all() and (got[..., 1] == 0).all()
+        if kind.startswith("tie"):
+            assert (got[..., 1] == 3).all()     # the first of the two bins
         return
     # real H: the prefix sums run in another order on each side (JAX's
     # associative scan, the TPU kernel's matmul, the port's sequential
