@@ -101,6 +101,33 @@ Phases (any failure exits non-zero and prints no result line):
              searches (CUDA events) on a captured 10M-row tree of each,
              its records bitwise their plain version.
 
+14. multinomial kernels — on the bench frame at 1M rows with the 3-class
+             ``delay_class`` response (``h2o3_tpu_torch.testing``), the
+             level inputs of one round of K = 3 class trees are captured;
+             on each level the one K-batched ``hist`` launch (blockIdx.z =
+             tree, codes shared at the root, each tree's compacted prefix
+             below it, each tree on its own fixed-point scale) must equal
+             its plain version, a second launch and K launches of one tree
+             each, bitwise, on the packed and the uniform layout and on
+             integer-valued and the real softmax stats; the records of the
+             K*L flattened leaves bitwise their plain version;
+15. multinomial train — launch counts set to 0, then ``XGBoost(max_depth
+             =6, nbins=256, seed=1, ntrees=20)`` on ``delay_class`` at 1M
+             rows: ``hist`` and ``split_records`` must each launch rounds x
+             levels times, the counts of the single-class train, whatever
+             K; the K loop (``split_mode="separate"``) must give bitwise the
+             same trees and leaf values; the plain route on the card the
+             same first-round splits, probabilities to rtol 1e-4 and the
+             training logloss to 1e-4; a second train bitwise; the
+             published model must answer like ``m.predict``.  Then the
+             K-batched launch per round in turns with K single launches,
+             beside its plain version, the one ``index_add_`` and its bound;
+16. multinomial headline — at 10M rows a 20-round warmup, then rounds/s
+             and trees/s (K x rounds/s) of a timed 20-round train, batched
+             and as the K loop, each with a profile's device operations per
+             round and idle share; the K-batched launch per round in turns
+             with K single launches on a captured 10M-row round.
+
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
 must give the same sums) and, given ``--other DIR``, with the histogram
@@ -428,13 +455,19 @@ def packed_plane(h, s):
 def capture_levels(fr, XGBoost, hist):
     """Train one tree with the histogram and records wrappers watched:
     the inputs each level gave ``hist_varbin`` (with the tree's
-    fixed-point scale) and ``split_records``."""
+    fixed-point scale; a tree's own, also where the level launched it as
+    a batch of one) and ``split_records``."""
     hv, sr = [], []
     real_hv, real_sr = hist.hist_varbin, hist.split_records
 
     def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
-        hv.append((gcodes.clone(), leaf.clone(), stats.clone(), L,
-                   tuple(bc), B, scale))
+        # the one-tree subtract level launches as a batch of one
+        # (make_batched_level_fn's K = 1): keep the tree's own operands
+        one = (gcodes[0] if gcodes.dim() == 3 else gcodes, leaf[0],
+               stats[0], scale[0]) if leaf.dim() == 2 else \
+            (gcodes, leaf, stats, scale)
+        hv.append((one[0].clone(), one[1].clone(), one[2].clone(), L,
+                   tuple(bc), B, one[3]))
         return real_hv(gcodes, leaf, stats, L, bc, B, scale)
 
     def spy_sr(Hist, nbins, *args, **kw):
@@ -508,23 +541,35 @@ def f64_fine(codes, leaf, stats, sel, W, nbins):
     return out.view(3, L, F, K, W)
 
 
-def train_plain(fr, XGBoost, hist, ntrees, **extra):
+def per_tree(fn, codes, leaf, stats, *args):
+    """``fn`` of one tree, or stacked over the K trees of a batched call
+    (leaf [K, n]; codes [F, n] shared or [K, F, n] each tree's own)."""
+    import torch
+    if leaf.dim() == 1:
+        return fn(codes, leaf, stats, *args)
+    return torch.stack([fn(codes[k] if codes.dim() == 3 else codes,
+                           leaf[k], stats[k], *args)
+                        for k in range(leaf.shape[0])])
+
+
+def train_plain(fr, XGBoost, hist, ntrees, cfg=BENCH_CFG, **extra):
     """The same train with ``hist_varbin``, ``hist_uniform``,
     ``split_records`` and ``fine_hist`` swapped for plain torch on the
     card: the route the kernels' training is held against.  Its
     histograms are this script's own f64 ``index_add_`` (``f64_uniform``,
-    ``f64_varbin``, ``f64_fine``) rounded to f32, not the port's
-    fixed-point plain versions: an oracle independent of the arithmetic
-    under test."""
+    ``f64_varbin``, ``f64_fine``; tree by tree for a batched call) rounded
+    to f32, not the port's fixed-point plain versions: an oracle
+    independent of the arithmetic under test."""
     real = (hist.hist_varbin, hist.hist_uniform, hist.split_records,
             hist.fine_hist)
 
     def varbin(gcodes, leaf, stats, L, bc, B, scale=None):
-        return f64_varbin(gcodes, leaf, stats, L,
-                          hist.packed_layout(tuple(bc), B)).float()
+        return per_tree(f64_varbin, gcodes, leaf, stats, L,
+                        hist.packed_layout(tuple(bc), B)).float()
 
     def uniform(codes, leaf, stats, L, B, planes=3, scale=None):
-        return f64_uniform(codes, leaf, stats, L, B, planes).float()
+        return per_tree(f64_uniform, codes, leaf, stats, L, B,
+                        planes).float()
 
     def records(Hist, nbins, *args):
         return hist._split_records_torch(Hist, *args)
@@ -535,7 +580,7 @@ def train_plain(fr, XGBoost, hist, ntrees, **extra):
     (hist.hist_varbin, hist.hist_uniform, hist.split_records,
      hist.fine_hist) = varbin, uniform, records, fine
     try:
-        return XGBoost(ntrees=ntrees, **BENCH_CFG, **extra).train(fr)
+        return XGBoost(ntrees=ntrees, **cfg, **extra).train(fr)
     finally:
         (hist.hist_varbin, hist.hist_uniform, hist.split_records,
          hist.fine_hist) = real
@@ -867,44 +912,61 @@ def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
     m2 = XGBoost(ntrees=ntrees, **BENCH_CFG).train(fr)
     check_deterministic(m, m2, "exact")
 
-    publish_check("trained-xgboost", m, fr, cols, batcher, p_k)
+    publish_check("trained-xgboost", m, fr, cols, batcher)
     return fr, launches, ntrees, auc_k
 
 
 def check_deterministic(m, m2, search):
     """A second kernel train must give bitwise the first one's trees
-    (feature, threshold, NA direction, valid at every level) and leaf
-    values: the histograms sum in int64 fixed point, so nothing on the
-    path depends on the order of the atomics."""
+    (feature, threshold, NA direction, valid at every level of every
+    class) and leaf values: the histograms sum in int64 fixed point, so
+    nothing on the path depends on the order of the atomics."""
+    why = stacks_differ(m, m2)
+    if why:
+        raise AssertionError(f"{search} search: a second kernel train "
+                             f"differs on {why}")
+    a = as_stacks(m)
+    log(f"determinism {search}: a second kernel train gave bitwise "
+        f"identical trees and leaf values ({len(a)} x {a[0].ntrees} trees "
+        f"x {a[0].depth} levels)")
+
+
+def as_stacks(m):
+    """A model's per-class ``StackedTrees`` (one for a single class)."""
+    st = m.output["stacked"]
+    return st if isinstance(st, list) else [st]
+
+
+def stacks_differ(m, m2):
+    """None when two models hold bitwise the same trees (feature,
+    threshold, NA direction, valid at every level of every class) and
+    leaf values; else what differs first."""
     import torch
     from h2o3_tpu_torch.testing import same_bits
-    a, b = m.output["stacked"], m2.output["stacked"]
-    for d, (lv1, lv2) in enumerate(zip(a.levels, b.levels)):
-        for nm, x, y in zip(("feat", "thr", "na_left", "valid"), lv1, lv2):
-            same = same_bits(x, y) if x.is_floating_point() \
-                else torch.equal(x, y)
-            if not same:
-                raise AssertionError(
-                    f"{search} search: a second kernel train differs on "
-                    f"{nm} at level {d}")
-    if not same_bits(a.values, b.values):
-        raise AssertionError(f"{search} search: a second kernel train gave "
-                             f"other leaf values")
-    log(f"determinism {search}: a second kernel train gave bitwise "
-        f"identical trees and leaf values ({a.ntrees} trees x "
-        f"{a.depth} levels)")
+    for k, (a, b) in enumerate(zip(as_stacks(m), as_stacks(m2))):
+        for d, (lv1, lv2) in enumerate(zip(a.levels, b.levels)):
+            for nm, x, y in zip(("feat", "thr", "na_left", "valid"), lv1,
+                                lv2):
+                same = same_bits(x, y) if x.is_floating_point() \
+                    else torch.equal(x, y)
+                if not same:
+                    return f"{nm} at level {d} of class {k}"
+        if not same_bits(a.values, b.values):
+            return f"the leaf values of class {k}"
+    return None
 
 
-def publish_check(name, m, fr, cols, batcher, p_k):
+def publish_check(name, m, fr, cols, batcher):
     """Publish ``m`` into the serving plane; 256 rows answered by
-    ``predict_rows`` must equal ``m.predict``."""
+    ``predict_rows`` must equal ``m.predict``: every class's probability
+    and the labels."""
     rows = []
     for i in range(256):
         r = {}
         for k, v in cols.items():
             if k in ("carrier", "origin", "dest"):
                 r[k] = str(int(v[i]))
-            elif k != "dep_delayed_15min":
+            elif k not in ("dep_delayed_15min", "delay_class"):
                 r[k] = float(v[i])
         rows.append(r)
     try:
@@ -912,16 +974,18 @@ def publish_check(name, m, fr, cols, batcher, p_k):
         ans = ent.predict_rows(rows)
     finally:
         batcher.shutdown_all()
-    if not np.allclose(ans["probabilities"][:, 1], p_k[:256], rtol=1e-5,
-                       atol=1e-7):
+    dom = [str(d) for d in m.datainfo.response_domain]
+    pred = m.predict(fr)
+    probs = np.stack([pred.vec(c).to_numpy()[:256] for c in dom], axis=1)
+    if not np.allclose(ans["probabilities"], probs, rtol=1e-5, atol=1e-7):
         raise AssertionError(f"published model {name}'s answers differ "
                              "from m.predict")
-    labels = m.predict(fr).vec("predict").to_numpy()[:256]
-    if not (ans["predict"] == np.asarray(["NO", "YES"],
-                                         dtype=object)[labels]).all():
+    labels = pred.vec("predict").to_numpy()[:256]
+    if not (ans["predict"] == np.asarray(dom, dtype=object)[labels]).all():
         raise AssertionError(f"published model {name}'s labels differ")
     log(f"publish: the trained model {name}, published through "
-        "to_archive, answered 256 rows equal to m.predict (rtol 1e-5)")
+        f"to_archive, answered 256 rows equal to m.predict ({len(dom)} "
+        f"classes, rtol 1e-5)")
 
 
 def host_op_us(n: int = 4000) -> float:
@@ -939,9 +1003,34 @@ def host_op_us(n: int = 4000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
+def device_profile(train):
+    """One profiled ``train()``: its device kernels (``key_averages``
+    entries with device time, the largest first) and their busy ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if str(getattr(e, "device_type", "")).endswith("CUDA")
+            and e.self_device_time_total > 0]
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    return kern, sum(e.self_device_time_total for e in kern) / 1e3
+
+
+def idle_share(busy_ms, wall_s):
+    """1 - device busy / wall over the same train: the busy time from a
+    profiled train, the wall from the unprofiled train of the same size
+    (the profiler slows the host), so work done once per train falls in
+    both.  Not clamped: a negative share says the two trains differed."""
+    return 1 - busy_ms / (wall_s * 1e3) if busy_ms > 0 else float("nan")
+
+
 def headline(XGBoost, fr, card, search, tag=""):
     """Phase 13: the bench protocol at 10M rows with ``split_search =
-    search``, and a profile; ``tag`` names another version's package."""
+    search``, and a profile of a train of the same size; ``tag`` names
+    another version's package."""
     import torch
     n = fr.nrows
     who = search + tag
@@ -951,50 +1040,40 @@ def headline(XGBoost, fr, card, search, tag=""):
     XGBoost(ntrees=20, **cfg).train(fr)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
+    ntrees = 50
     t0 = time.perf_counter()
-    m = XGBoost(ntrees=50, **cfg).train(fr)
+    m = XGBoost(ntrees=ntrees, **cfg).train(fr)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     log(f"headline {who}: bench_trees protocol, {n} rows, "
         f"XGBoost(max_depth=6, nbins=256, split_search={search!r}): "
-        f"20-tree warmup {warm:.3f} s, then 50 trees in {dt:.3f} s = "
-        f"{50 / dt:.3f} trees/s; training AUC "
+        f"20-tree warmup {warm:.3f} s, then {ntrees} trees in {dt:.3f} s = "
+        f"{ntrees / dt:.3f} trees/s; training AUC "
         f"{m.training_metrics.auc:.6f} {card}")
-    from torch.profiler import ProfilerActivity, profile
-    nprof = 10
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        XGBoost(ntrees=nprof, **cfg).train(fr)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and e.self_device_time_total > 0]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    kern, busy = device_profile(lambda: XGBoost(ntrees=ntrees, **cfg)
+                                .train(fr))
     if busy <= 0:
         log(f"profile {who}: no device time in the trace: not "
             "measured")
     else:
-        # the profiler slows the host, so the wall time per tree is the
-        # unprofiled 50-tree train's; binning runs once in each train
-        wall_tree = dt / 50 * 1e3
-        per_tree = sum(e.count for e in kern) / nprof
+        wall_tree = dt / ntrees * 1e3
+        per_tree = sum(e.count for e in kern) / ntrees
         probe_after = host_op_us()
-        kern.sort(key=lambda e: -e.self_device_time_total)
         log(f"host {who}: {per_tree:g} device operations per tree; a "
             f"small torch op costs the host {probe_us:.2f} us before the "
             f"headline and {probe_after:.2f} us after it, so the launches "
             f"alone hold a tree for {per_tree * probe_us / 1e3:.2f}-"
             f"{per_tree * probe_after / 1e3:.2f} ms of its "
             f"{wall_tree:.2f} ms of wall")
-        log(f"profile {who} of a {nprof}-tree train at {n} rows: "
-            f"device busy "
-            f"{busy / nprof:.2f} ms per tree against {wall_tree:.2f} ms of "
-            f"wall per tree unprofiled: idle share "
-            f"{max(0.0, 1 - busy / nprof / wall_tree):.3f}; device ms per "
-            f"tree by kernel (launches per tree): " + "; ".join(
-                f"{e.key[:110]} {e.self_device_time_total / 1e3 / nprof:.3f}"
-                f" ({e.count / nprof:g})" for e in kern[:14]))
-    return 50 / dt
+        log(f"profile {who} of a {ntrees}-tree train at {n} rows: "
+            f"device busy {busy / ntrees:.2f} ms per tree against "
+            f"{wall_tree:.2f} ms of wall per tree of the unprofiled "
+            f"{ntrees}-tree train: idle share {idle_share(busy, dt):.3f}; "
+            f"device ms per tree by kernel (launches per tree): "
+            + "; ".join(
+                f"{e.key[:110]} {e.self_device_time_total / 1e3 / ntrees:.3f}"
+                f" ({e.count / ntrees:g})" for e in kern[:14]))
+    return ntrees / dt
 
 # ------------------------------------------------- the hierarchical search
 
@@ -1249,7 +1328,7 @@ def train_hier_phase(fr, cols, kernels, XGBoost, batcher, hist, codes,
         f"(exact search {exact_auc:.6f}); logloss "
         f"{m.training_metrics.logloss:.6f} vs "
         f"{mp.training_metrics.logloss:.6f}")
-    publish_check("trained-xgboost-hier", m, fr, cols, batcher, p_k)
+    publish_check("trained-xgboost-hier", m, fr, cols, batcher)
 
     m2 = XGBoost(ntrees=ntrees, **BENCH_CFG, **HIER).train(fr)
     check_deterministic(m, m2, "hier")
@@ -1319,6 +1398,338 @@ def time_hier_kernels(fh, hu, hist, label):
             f"{cplain:.4f}, index_add_ {clib:.4f}, bound {cbnd:.5f})")
     return tot
 
+
+
+# -------------------------------------------------------- multinomial
+
+K_CLASSES = 3
+MULTI_CFG = dict(response_column="delay_class",
+                 ignored_columns=["dep_delayed_15min"], max_depth=6,
+                 nbins=256, seed=1, score_tree_interval=10 ** 9)
+MULTI_ROUNDS = 20
+
+
+def multi_frame(n, Frame):
+    """The bench frame at ``n`` rows with the 3-class ``delay_class``
+    response (``h2o3_tpu_torch.testing.delay_class``); (cols, frame)."""
+    from h2o3_tpu_torch.testing import delay_class
+    cols, types, domains = make_airlines_like(n)
+    cols["delay_class"] = delay_class(cols)
+    return cols, Frame.from_numpy(cols, types=types, domains=domains)
+
+
+def capture_multi_levels(fr, XGBoost, hist):
+    """Train one multinomial round with the histogram and records wrappers
+    watched: the inputs each level's K-batched ``hist_varbin`` launch had
+    (codes shared at the root, each tree's compacted prefix below it;
+    leaf [K, n], stats [K, 3, n], the trees' [K, 2, 3] scales) and each
+    level's ``split_records`` (the K*L flattened leaves)."""
+    hv, sr = [], []
+    real_hv, real_sr = hist.hist_varbin, hist.split_records
+
+    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
+        if leaf.dim() == 2:
+            hv.append((gcodes, leaf, stats, L, tuple(bc), B, scale))
+        return real_hv(gcodes, leaf, stats, L, bc, B, scale)
+
+    def spy_sr(Hist, nbins, *args, **kw):
+        sr.append((Hist.clone(), nbins, args))
+        return real_sr(Hist, nbins, *args, **kw)
+
+    hist.hist_varbin, hist.split_records = spy_hv, spy_sr
+    try:
+        XGBoost(ntrees=1, **MULTI_CFG).train(fr)
+    finally:
+        hist.hist_varbin, hist.split_records = real_hv, real_sr
+    return hv, sr
+
+
+def tree_codes(codes, k):
+    """Tree k's codes of a batched call, contiguous."""
+    return (codes[k] if codes.dim() == 3 else codes).contiguous()
+
+
+def check_multi_kernels(hv, sr, hist, dev):
+    """Phase 14: the K-batched histogram launch on the captured levels of
+    a K = 3 round, on both layouts (the packed one the path launches, and
+    the uniform one on the same rows' raw codes): bitwise its plain
+    version, bitwise a second launch, and bitwise K launches of one tree
+    each, on integer-valued and on the real softmax stats (each tree on
+    its own scale); the records of the K*L flattened leaves bitwise their
+    plain version.  Returns the largest max|kernel - plain|."""
+    import torch
+    from h2o3_tpu_torch.testing import same_bits
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    worst = 0.0
+    for i, (g, leaf, st, L, bc, B, scale) in enumerate(hv):
+        K, _, n = st.shape
+        layout = hist.packed_layout(bc, B)
+        raw = raw_codes(g, bc, B - 1, hist)
+        ints = torch.stack([int_stats(n, gen, dev) for _ in range(K)])
+        for stats, sc, kind in ((ints, None, "integer"),
+                                (st, scale, "real")):
+            scs = hist.stat_scale(stats) if sc is None else sc
+            pv = hist.hist_varbin(g, leaf, stats, L, bc, B, scs)
+            pv2 = hist.hist_varbin(g, leaf, stats, L, bc, B, scs)
+            pv_ref = hist.hist_varbin_torch(g, leaf, stats, L, layout, scs)
+            pv_one = torch.stack([hist.hist_varbin(
+                tree_codes(g, k), leaf[k], stats[k], L, bc, B, scs[k])
+                for k in range(K)])
+            pu = hist.hist_uniform(raw, leaf, stats, L, B, scale=scs)
+            pu_ref = hist.hist_uniform_torch(raw, leaf, stats, L, B,
+                                             scale=scs)
+            pu_one = torch.stack([hist.hist_uniform(
+                tree_codes(raw, k), leaf[k], stats[k], L, B, scale=scs[k])
+                for k in range(K)])
+            torch.cuda.synchronize()
+            worst = max(worst, max_diff(pv, pv_ref), max_diff(pu, pu_ref))
+            for name, a, b in (
+                    ("hist_varbin (K-batched) vs plain", pv, pv_ref),
+                    ("hist_varbin (K-batched), a second launch", pv2, pv),
+                    ("hist_varbin (K-batched) vs K single launches", pv,
+                     pv_one),
+                    ("hist_uniform (K-batched) vs plain", pu, pu_ref),
+                    ("hist_uniform (K-batched) vs K single launches", pu,
+                     pu_one),
+                    ("the packed layout expanded vs the uniform one",
+                     hist.expand_varbin(pv, bc, L, B), pu)):
+                if not same_bits(a, b):
+                    raise AssertionError(
+                        f"{name} on {kind} stats (level {i}): max|diff| "
+                        f"{max_diff(a, b):.3e}")
+    shapes = [(tuple(g.shape), tuple(leaf.shape)) for g, leaf, *_ in hv]
+    log(f"kernel check hist (K-batched, K={K}): on the {len(hv)} captured "
+        f"levels of a multinomial round (codes, leaf shapes {shapes}), "
+        f"both layouts, integer-valued and softmax stats on each tree's "
+        f"own scale: one launch bitwise its plain version, bitwise a "
+        f"second launch and bitwise {K} launches of one tree each")
+    return max(worst, check_records(sr, hist, f"K={K} 1M-row"))
+
+
+def work_multi(g, leaf, L, Q, F):
+    """Bytes and adds of one K-batched launch: every tree's leaf ids, the
+    stats of its rows in [0, L) and its packed output; the codes of those
+    rows once per tree where each tree has its own [K, F, n] prefix, and
+    once in all where the trees share the root's [F, n] codes (stride 0),
+    for the rows some tree reads."""
+    ok = (leaf >= 0) & (leaf < L)
+    valid = int(ok.sum())
+    code_rows = valid if g.dim() == 3 else int(ok.any(0).sum())
+    nbytes = 4 * leaf.numel() + 12 * valid \
+        + code_rows * F * g.element_size() + leaf.shape[0] * Q * 3 * L * 4
+    return nbytes, 3 * F * valid
+
+
+def time_multi_kernels(hv, hist, label, card, turns_reps=30):
+    """Device ms per round (the sum of its captured level launches) of
+    the K-batched launch, in turns with the K launches of one tree each
+    (batched, single, single, batched), its plain version, the one int64
+    ``index_add_`` computing the same sums (k folded into the index) and
+    its bound.  Returns [ms, plain, bound, index_add_, bytes, ops,
+    single ms]."""
+    import torch
+    tot = [0.0, 0.0, 0.0, 0.0, 0, 0, 0.0]
+    for i, (g, leaf, st, L, bc, B, sc) in enumerate(hv):
+        K, _, n = st.shape
+        layout = hist.packed_layout(bc, B)
+        F = g.shape[-2]
+
+        def batched():
+            return hist.hist_varbin(g, leaf, st, L, bc, B, sc)
+        ones = [(tree_codes(g, k), leaf[k], st[k], sc[k]) for k in range(K)]
+
+        def single():
+            return [hist.hist_varbin(c, lf, s, L, bc, B, sk)
+                    for c, lf, s, sk in ones]
+        b1 = cuda_ms(batched, turns_reps)
+        s1 = cuda_ms(single, turns_reps)
+        s2 = cuda_ms(single, turns_reps)
+        b2 = cuda_ms(batched, turns_reps)
+        ms, one = (b1 + b2) / 2, (s1 + s2) / 2
+        plain = cuda_ms(lambda: hist.hist_varbin_torch(g, leaf, st, L,
+                                                       layout, sc), reps=10)
+        qs = hist.quantize(st, sc)                             # [K, 3, n]
+        q = g.long() if g.dim() == 3 else g.long()[None]
+        lf = leaf.long()
+        ok = ((lf >= 0) & (lf < L))[:, None, :].expand(K, F, n)
+        kq = torch.arange(K, device=g.device)[:, None, None] * layout.Q + q
+        idx = (kq * L + lf[:, None, :]).expand(K, F, n)[ok]
+        src = qs.transpose(1, 2)[:, None].expand(K, F, n, 3)[ok]
+        out = torch.zeros((K * layout.Q * L, 3), dtype=torch.int64,
+                          device=g.device)
+        lib = cuda_ms(lambda: out.index_add_(0, idx, src))
+        del idx, src, kq, ok
+        nbytes, ops = work_multi(g, leaf, L, layout.Q, F)
+        bnd, _ = bound(nbytes, ops)
+        for j, v in enumerate((ms, plain, bnd, lib, nbytes, ops, one)):
+            tot[j] += v
+        log(f"multinomial times {label} level {i} (K={K}, L={L}, n={n}) "
+            f"{card}: K-batched hist_varbin {ms:.4f} ms in turns with "
+            f"{K} single launches {one:.4f} ms (b {b1:.4f}, s {s1:.4f}, "
+            f"s {s2:.4f}, b {b2:.4f}); plain {plain:.4f}, index_add_ "
+            f"{lib:.4f}, bound {bnd:.5f}")
+    log(f"multinomial times per round at {label} (sum of the {len(hv)} "
+        f"level launches) {card}: K-batched hist {tot[0]:.4f} ms, {K} "
+        f"single launches {tot[6]:.4f} ms; plain {tot[1]:.4f}, index_add_ "
+        f"{tot[3]:.4f}, bound {tot[2]:.5f}")
+    return tot
+
+
+def multi_class_probs(m, fr):
+    """``m.predict``'s class probabilities [n, K], in domain order."""
+    dom = [str(d) for d in m.datainfo.response_domain]
+    pred = m.predict(fr)
+    return np.stack([pred.vec(c).to_numpy() for c in dom], axis=1)
+
+
+def train_multi_phase(fr, cols, kernels, XGBoost, batcher, hist, card):
+    """Phase 15: the multinomial training path (K = 3 class trees a
+    round in one batched build), counted; bitwise its K loop
+    (split_mode="separate"); against the plain route; a second train
+    bitwise; published.  Returns the main path's launch counts."""
+    import torch
+    n = len(cols["year"])
+    rounds = MULTI_ROUNDS
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = XGBoost(ntrees=rounds, **MULTI_CFG).train(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    st = as_stacks(m)
+    levels = st[0].depth
+    if len(st) != K_CLASSES or m.output["hist_kernel"] != "varbin":
+        raise AssertionError(f"the multinomial train grew {len(st)} class "
+                             f"stacks on the {m.output['hist_kernel']} "
+                             f"layout; expected {K_CLASSES}, varbin")
+    want = {"hist": rounds * levels, "split_records": rounds * levels,
+            "fine_hist": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"multinomial train launches {launches}; "
+                             f"expected rounds x levels, whatever K: {want}")
+    log(f"multinomial train: XGBoost(max_depth=6, nbins=256, ntrees="
+        f"{rounds}) on {n} rows, response delay_class (K = {K_CLASSES}), "
+        f"in {train_s:.3f} s {card}; launches {launches} = {rounds} rounds "
+        f"x {levels} levels for hist and split_records, the launches of "
+        f"the single-class train")
+
+    for k in kernels:
+        k.launches = 0
+    ms = XGBoost(ntrees=rounds, split_mode="separate", **MULTI_CFG).train(fr)
+    torch.cuda.synchronize()
+    sep_launches = {k.name: k.launches for k in kernels}
+    why = stacks_differ(m, ms)
+    if why:
+        raise AssertionError(f"the batched multinomial train and its K "
+                             f"loop (split_mode='separate') differ on {why}")
+    log(f"multinomial K loop (split_mode='separate', {K_CLASSES} single "
+        f"builds a round, plain records): bitwise the batched train's "
+        f"trees and leaf values; launches {sep_launches}")
+
+    plain_from = {k.name: k.launches for k in kernels}
+    mp = train_plain(fr, XGBoost, hist, rounds, cfg=MULTI_CFG)
+    if {k.name: k.launches for k in kernels} != plain_from:
+        raise AssertionError("the plain-route multinomial train launched a "
+                             "kernel")
+    for k, (a, b) in enumerate(zip(m.output["trees"][0],
+                                   mp.output["trees"][0])):
+        for d in range(levels):
+            for name in ("feat", "na_left", "valid", "thr"):
+                if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                    raise AssertionError(
+                        f"kernel and plain-route multinomial trains differ "
+                        f"on {name} at level {d} of class {k}'s first tree")
+    p_k, p_p = multi_class_probs(m, fr), multi_class_probs(mp, fr)
+    if not (np.isfinite(p_k).all() and p_k.shape == (n, K_CLASSES)
+            and np.allclose(p_k.sum(axis=1), 1.0, atol=1e-5)):
+        raise AssertionError("multinomial probabilities are not finite "
+                             "rows summing to 1")
+    pred_rel = float(np.max(np.abs(p_k - p_p) / np.abs(p_p)))
+    if not np.allclose(p_k, p_p, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"multinomial probabilities differ from the "
+                             f"plain route: max rel {pred_rel:.3e} > 1e-4")
+    ll_k, ll_p = m.training_metrics.logloss, mp.training_metrics.logloss
+    if abs(ll_k - ll_p) > 1e-4:
+        raise AssertionError(f"multinomial training logloss {ll_k} vs plain "
+                             f"{ll_p}")
+    same = sum(stacks_differ_round(m, mp, t) is None for t in range(rounds))
+    mt = m.training_metrics
+    log(f"multinomial train vs plain route on the card: the first round's "
+        f"{K_CLASSES} trees equal at all {levels} levels; {same}/{rounds} "
+        f"rounds with equal splits; probabilities max rel diff "
+        f"{pred_rel:.3e}; training logloss {ll_k:.6f} vs {ll_p:.6f}; mean "
+        f"per-class error {mt.mean_per_class_error:.6f}, accuracy "
+        f"{mt.accuracy:.6f}")
+
+    m2 = XGBoost(ntrees=rounds, **MULTI_CFG).train(fr)
+    check_deterministic(m, m2, "multinomial")
+    publish_check("trained-xgboost-multinomial", m, fr, cols, batcher)
+    return launches
+
+
+def stacks_differ_round(m, m2, t):
+    """None when round t's class trees have the same splits in both."""
+    import torch
+    for a, b in zip(m.output["trees"][t], m2.output["trees"][t]):
+        for name in ("feat", "na_left", "valid", "thr"):
+            for x, y in zip(getattr(a, name), getattr(b, name)):
+                if not torch.equal(x, y):
+                    return name
+    return None
+
+
+def headline_multi(XGBoost, fr, card):
+    """Phase 16: the multinomial train at 10M rows: a 20-round warmup,
+    then rounds/s and trees/s (K x rounds/s) of a timed 20-round train,
+    batched and with split_mode="separate" (the K loop), each with the
+    device operations per round and idle share of a profiled 20-round
+    train."""
+    import torch
+    n = fr.nrows
+    out = {}
+    rounds = MULTI_ROUNDS
+    t0 = time.perf_counter()
+    XGBoost(ntrees=rounds, **MULTI_CFG).train(fr)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    for mode in ("fused", "separate"):
+        cfg = dict(MULTI_CFG, split_mode=mode)
+        probe_us = host_op_us()
+        t0 = time.perf_counter()
+        m = XGBoost(ntrees=rounds, **cfg).train(fr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        rps = rounds / dt
+        mt = m.training_metrics
+        log(f"headline multinomial {mode}: {n} rows, XGBoost(max_depth=6, "
+            f"nbins=256), delay_class (K = {K_CLASSES}): "
+            + (f"{rounds}-round warmup {warm:.3f} s, then "
+               if mode == "fused" else "")
+            + f"{rounds} rounds in {dt:.3f} s = {rps:.3f} rounds/s = "
+            f"{K_CLASSES * rps:.3f} trees/s; training logloss "
+            f"{mt.logloss:.6f}, accuracy {mt.accuracy:.6f} {card}")
+        kern, busy = device_profile(lambda: XGBoost(ntrees=rounds, **cfg)
+                                    .train(fr))
+        ops = sum(e.count for e in kern) / rounds
+        idle = idle_share(busy, dt)
+        if busy <= 0:
+            log(f"profile multinomial {mode}: no device time in the trace: "
+                "not measured")
+        else:
+            log(f"profile multinomial {mode} of a {rounds}-round train at "
+                f"{n} rows: {ops:g} device operations per round (a small "
+                f"torch op costs the host {probe_us:.2f} us); device busy "
+                f"{busy / rounds:.2f} ms per round against "
+                f"{dt / rounds * 1e3:.2f} ms of wall per round of the "
+                f"unprofiled {rounds}-round train: idle share {idle:.3f}; "
+                f"device ms per round by kernel (launches per round): "
+                + "; ".join(f"{e.key[:110]} "
+                            f"{e.self_device_time_total / 1e3 / rounds:.3f} "
+                            f"({e.count / rounds:g})" for e in kern[:12]))
+        out[mode] = (rps, ops, idle)
+    return out
 
 
 def load_other(path: str):
@@ -1758,6 +2169,28 @@ def main() -> dict:
     log_turns(hv, hu, fh, variants, "1M rows", card)
     del hv, fh, hu, fr1
 
+    # ------------------------------------------ 14 multinomial kernels
+    mcols, frm1 = multi_frame(1_000_000, Frame)
+    mhv, msr = capture_multi_levels(frm1, XGBoost, hist)
+    kdiff["hist (K-batched)"] = check_multi_kernels(mhv, msr, hist, dev)
+    del msr
+
+    # --------------------------------------------- 15 multinomial train
+    mlaunch = train_multi_phase(
+        frm1, mcols, kernels_train, XGBoost, batcher, hist, card)
+    mtot = time_multi_kernels(mhv, hist, "1M rows", card)
+    rows.append({
+        "name": f"hist (K-batched, K={K_CLASSES})", "route": "cuda",
+        "source": "h2o3_tpu_torch/csrc/hist.cu",
+        "replaces": "h2o3_tpu/models/tree/hist.py:637 (vmapped "
+                    "h2o3_tpu/models/tree/hist.py:256; "
+                    "h2o3_tpu/models/tree/hist.py:80)",
+        "launches": mlaunch["hist"], "max_abs_err": kdiff["hist (K-batched)"],
+        "ms": mtot[0], "plain_ms": mtot[1], "bound_ms": mtot[2],
+        "bound_by": bound(mtot[4], mtot[5])[1], "library_ms": mtot[3],
+    })
+    del mhv, frm1, mcols
+
     # ----------------------------------------------------- 13 headlines
     t0 = time.perf_counter()
     cols, types, domains = make_airlines_like(10_000_000)
@@ -1812,6 +2245,22 @@ def main() -> dict:
             for k, v in list(tot10.items()) + list(htot10.items())))
     log_turns(hv10, hu10, fh10, variants, "10M rows", card)
     del hv10, fh10, hu10
+
+    # ---------------------------------------- 16 multinomial headline
+    _, frm10 = multi_frame(10_000_000, Frame)
+    mh = headline_multi(XGBoost, frm10, card)
+    mhv10, _ = capture_multi_levels(frm10, XGBoost, hist)
+    del frm10
+    mtot10 = time_multi_kernels(mhv10, hist, "10M rows", card)
+    del mhv10
+    (rps, ops, idle), (srps, sops, sidle) = mh["fused"], mh["separate"]
+    log(f"multinomial headline at 10M rows {card}: batched "
+        f"{K_CLASSES * rps:.3f} trees/s ({rps:.3f} rounds/s, {ops:g} device "
+        f"ops per round, idle share {idle:.3f}); K loop "
+        f"{K_CLASSES * srps:.3f} trees/s ({srps:.3f} rounds/s, {sops:g} "
+        f"ops per round, idle share {sidle:.3f}); K-batched hist "
+        f"{mtot10[0]:.4f} ms per round against {mtot10[6]:.4f} ms for "
+        f"{K_CLASSES} single launches (bound {mtot10[2]:.5f})")
 
     return {
         "kernels": [traverse_row] + rows,

@@ -38,6 +38,17 @@
 // single feature does not fit even at one leaf is marked use_smem = 0 and
 // adds straight to global memory.
 //
+// The K axis.  A multinomial round grows K class trees, level by level;
+// the JAX package vmaps the level histogram over them
+// (_make_batched_level_fn, hist.py:637), which Pallas lowers to one
+// pallas_call with K prepended to the grid.  Here blockIdx.z is the tree:
+// each tree has its own leaf ids, stats, fixed-point scales and output,
+// and its own codes below the root (its compacted row prefix), while at
+// the root all K trees read one code plane (stride 0, no K copies).  A
+// tree's histogram is bitwise the one a launch of that tree alone gives:
+// the same tiles and the same exact integer sums.  So one launch serves a
+// whole level of all K trees, whatever K is.
+//
 // What bounds it on this card: the shared-memory atomics, not the bytes.
 // Per 10M-row bench tree on an NVIDIA H100 80GB HBM3 at 700 W
 // (chip_smoke.py, CUDA events) it takes 1.95 ms on the exact levels
@@ -83,8 +94,20 @@ struct BinSlots {
   }
 };
 
+// Per-tree strides of the K axis (blockIdx.z = tree k): tree k reads
+// codes + k * code, leaf + k * leaf, stats + k * stat, its scales at
+// qscale + k * scale, and adds into out + k * out.  code is 0 where the K
+// trees share one [F, n] code plane (the root level); K = 1 takes all 0.
+struct TreeStrides {
+  long long code, leaf, stat, scale, out;
+};
+
+// Three blocks of 512 threads an SM: at most 42 registers a thread.  The
+// per-tree pointers of the K axis took the kernel from 40 registers to 56
+// (two blocks an SM), which cost a 10M-row tree 18% (PERF.md);
+// with this bound ptxas recomputes the offsets instead of holding them.
 template <typename CodeT>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 3)
 hist_kernel(const CodeT* __restrict__ codes, long long code_stride,
             const int32_t* __restrict__ leaf,
             const float* __restrict__ stats, long long stat_stride,
@@ -92,8 +115,14 @@ hist_kernel(const CodeT* __restrict__ codes, long long code_stride,
             const int32_t* __restrict__ fmeta, int F,
             const int32_t* __restrict__ tiles, int n, int rows_per_block,
             int planes, u64* __restrict__ out, long long ss, long long sl,
-            long long sq) {
+            long long sq, TreeStrides kst) {
   extern __shared__ u64 sums[];
+  const long long k = blockIdx.z;
+  codes += k * kst.code;
+  leaf += k * kst.leaf;
+  stats += k * kst.stat;
+  qscale += k * kst.scale;
+  out += k * kst.out;
   const hist_common::Tile t(tiles + (size_t)blockIdx.x * kTileInts);
   const BinSlots<CodeT> slots{codes, code_stride, fmeta, F, t.fa, t.fb};
   hist_common::tile_body(slots, t, sums, leaf, stats, stat_stride, qscale,
@@ -105,15 +134,16 @@ int launch(const void* codes, long long code_stride, const int32_t* leaf,
            const float* stats, long long stat_stride, const double* qscale,
            const int32_t* fmeta, int F, const int32_t* tiles, int n_tiles,
            int n, int rows_per_block, int smem_bytes, int planes, u64* out,
-           long long ss, long long sl, long long sq, cudaStream_t stream) {
+           long long ss, long long sl, long long sq, int K, TreeStrides kst,
+           cudaStream_t stream) {
   auto kern = hist_kernel<CodeT>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid(n_tiles, (n + rows_per_block - 1) / rows_per_block);
+  const dim3 grid(n_tiles, (n + rows_per_block - 1) / rows_per_block, K);
   kern<<<grid, kThreads, smem_bytes, stream>>>(
       (const CodeT*)codes, code_stride, leaf, stats, stat_stride, qscale,
-      fmeta, F, tiles, n, rows_per_block, planes, out, ss, sl, sq);
+      fmeta, F, tiles, n, rows_per_block, planes, out, ss, sl, sq, kst);
   return (int)cudaGetLastError();
 }
 
@@ -125,7 +155,10 @@ int launch(const void* codes, long long code_stride, const int32_t* leaf,
 // (4); leaf: [n] int32; stats: [3, stat_stride] f32; qscale: [3] f64, each
 // stat plane's scale 2^s_p; fmeta: [3, F] int32 (code_off, qstart, qlen);
 // tiles: [n_tiles, 8] int32; planes: 3, or 4 to add the |g| plane at
-// 3 * ss.  Every pointer is a device pointer.
+// 3 * ss.  K trees (K >= 1) in one launch: tree k's codes, leaf, stats,
+// scales and output lie k * (code_k, leaf_k, stat_k, scale_k, out_k)
+// elements further on (code_k = 0: the trees share the codes).  Every
+// pointer is a device pointer.
 extern "C" int hist_launch(const void* codes, int code_bytes,
                            long long code_stride, const int32_t* leaf,
                            const float* stats, long long stat_stride,
@@ -133,20 +166,25 @@ extern "C" int hist_launch(const void* codes, int code_bytes,
                            int F, const int32_t* tiles, int n_tiles, int n,
                            int rows_per_block, int smem_bytes, int planes,
                            long long* out, long long ss, long long sl,
-                           long long sq, cudaStream_t stream) {
-  if (n <= 0 || n_tiles <= 0) return (int)cudaSuccess;
-  if (rows_per_block <= 0 || (planes != 3 && planes != 4))
+                           long long sq, int K, long long code_k,
+                           long long leaf_k, long long stat_k,
+                           long long scale_k, long long out_k,
+                           cudaStream_t stream) {
+  if (n <= 0 || n_tiles <= 0 || K == 0) return (int)cudaSuccess;
+  if (rows_per_block <= 0 || (planes != 3 && planes != 4) || K < 0 ||
+      K > 65535)
     return (int)cudaErrorInvalidValue;
   u64* o = reinterpret_cast<u64*>(out);
+  const TreeStrides kst{code_k, leaf_k, stat_k, scale_k, out_k};
   if (code_bytes == 2)
     return launch<int16_t>(codes, code_stride, leaf, stats, stat_stride,
                            qscale, fmeta, F, tiles, n_tiles, n,
                            rows_per_block, smem_bytes, planes, o, ss, sl, sq,
-                           stream);
+                           K, kst, stream);
   if (code_bytes == 4)
     return launch<int32_t>(codes, code_stride, leaf, stats, stat_stride,
                            qscale, fmeta, F, tiles, n_tiles, n,
                            rows_per_block, smem_bytes, planes, o, ss, sl, sq,
-                           stream);
+                           K, kst, stream);
   return (int)cudaErrorInvalidValue;
 }

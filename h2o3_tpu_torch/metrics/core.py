@@ -1,16 +1,20 @@
-"""Model metrics: binomial and regression — the port of those families of
+"""Model metrics: binomial, multinomial and regression — the port of
 ``h2o3_tpu/metrics/core.py`` (hex/ModelMetrics*, hex/AUC2.java).
 
 Each family is one pass over the (prediction, response, weight) rows on
-their device, then a small host-side epilogue.  The binomial AUC uses the
-JAX package's 400-bin weighted histograms of P(class 1) — here one
-``bincount`` per class instead of its one-hot matmul — and the same
-trapezoid over the descending-threshold ROC polyline.
+their device, fetched to the host in one copy, then a small host-side
+epilogue.  The binomial AUC uses the JAX package's 400-bin weighted
+histograms of P(class 1) — here one ``bincount`` per class instead of its
+one-hot matmul — and the same trapezoid over the descending-threshold ROC
+polyline.  The multinomial confusion matrix and hit ratios are weighted
+one-hot products (a [K, n] x [n, K] and an [n] x [n, K] matmul), reduced
+without atomics on K or K*K slots.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional
 
 import numpy as np
@@ -37,7 +41,7 @@ def _binomial_sums(p1, y, w, nbins: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class ConfusionMatrix:
-    """2x2 confusion matrix at a threshold, rows = actual."""
+    """2x2 (at a threshold) or KxK confusion matrix, rows = actual."""
     table: np.ndarray
     domain: List[str]
 
@@ -116,6 +120,80 @@ def binomial_metrics(p1, y, w, domain: Optional[List[str]] = None
         thresholds=thresholds, tps=tps, fps=fps)
 
 
+def _multinomial_sums(probs, y, w, K: int) -> np.ndarray:
+    """(logloss_sum, se_sum, wsum, the weighted KxK confusion matrix
+    (actual, predicted) flattened, the weight of each rank of the true
+    class) in one host fetch; sums in f64."""
+    yi = y.long().clamp(0, K - 1)
+    wd = w.double()
+    p_true = probs.gather(1, yi[:, None])[:, 0].clamp(1e-15, 1.0)
+    ll = -(wd * torch.log(p_true.double())).sum()
+    pred = torch.argmax(probs, dim=1)          # the first maximum, as jnp
+    hot = functools.partial(torch.nn.functional.one_hot, num_classes=K)
+    onehot = hot(yi)
+    # (actual, predicted): each true class's weighted one-hot predictions
+    cm = ((onehot.double() * wd[:, None]).T @ hot(pred).double()).view(-1)
+    se = (wd * ((probs - onehot.to(probs.dtype)) ** 2).sum(dim=1)
+          .double()).sum()
+    # hit ratios: the rank of the true class in the reference's stable
+    # jnp.argsort(-probs): the classes more probable than it, then the
+    # equally probable ones of a lower index (no sort of the rows)
+    p_y = probs.gather(1, yi[:, None])
+    lower = torch.arange(K, device=probs.device)[None, :] < yi[:, None]
+    ranks = ((probs > p_y) | ((probs == p_y) & lower)).sum(dim=1)
+    topk = wd @ hot(ranks).double()
+    return torch.cat([torch.stack([ll, se, wd.sum()]), cm, topk]) \
+        .cpu().numpy()
+
+
+@dataclasses.dataclass
+class ModelMetricsMultinomial:
+    nobs: float
+    logloss: float
+    mse: float
+    rmse: float
+    mean_per_class_error: float
+    accuracy: float
+    domain: List[str]
+    cm: ConfusionMatrix
+    hit_ratios: np.ndarray
+
+    def confusion_matrix(self) -> ConfusionMatrix:
+        return self.cm
+
+    def describe(self) -> dict:
+        return {"logloss": self.logloss, "rmse": self.rmse,
+                "mean_per_class_error": self.mean_per_class_error,
+                "accuracy": self.accuracy}
+
+
+def multinomial_metrics(probs, y, w, domain: List[str]
+                        ) -> ModelMetricsMultinomial:
+    """Multinomial metrics from class probabilities [n, K], class codes
+    and weights: logloss (p clipped to [1e-15, 1]), mse/rmse against the
+    one-hot, the weighted confusion matrix, the mean per-class error over
+    the classes that occur, accuracy, and the hit ratios (the weight whose
+    true class ranks within the top k, cumulated)."""
+    k = len(domain)
+    packed = _multinomial_sums(probs, y, w, k)
+    ll, se, wsum = packed[:3]
+    cm = packed[3: 3 + k * k].reshape(k, k)
+    topk = packed[3 + k * k:]
+    n = float(wsum)
+    row = cm.sum(axis=1)
+    diag = np.diag(cm)
+    per_class = np.where(row > 0, 1 - diag / np.maximum(row, 1e-12), 0.0)
+    return ModelMetricsMultinomial(
+        nobs=n, logloss=float(ll) / max(n, 1e-12),
+        mse=float(se) / max(n, 1e-12),
+        rmse=float(np.sqrt(float(se) / max(n, 1e-12))),
+        mean_per_class_error=float(per_class[row > 0].mean())
+        if (row > 0).any() else 0.0,
+        accuracy=float(diag.sum() / max(n, 1e-12)),
+        domain=list(domain), cm=ConfusionMatrix(cm, list(domain)),
+        hit_ratios=np.cumsum(topk) / max(n, 1e-12))
+
+
 @dataclasses.dataclass
 class ModelMetricsRegression:
     nobs: float
@@ -153,12 +231,12 @@ def regression_metrics(pred, y, w) -> ModelMetricsRegression:
 
 def make_metrics(di, raw, y, w):
     """Dispatch on the DataInfo's response type — the BigScore metric
-    step.  Multinomial responses wait for their slice."""
+    step: binomial on P(class 1), multinomial on the [n, K]
+    probabilities, regression on the predictions."""
     if di.is_classifier:
         dom = [str(d) for d in di.response_domain]
         if len(dom) != 2:
-            raise NotImplementedError(
-                "multinomial metrics are not ported yet (ROADMAP Queue 1)")
+            return multinomial_metrics(raw, y, w, domain=dom)
         p1 = raw[:, 1] if raw.ndim == 2 else raw
         return binomial_metrics(p1, y, w, domain=dom)
     pred = raw[:, 0] if raw.ndim == 2 else raw

@@ -1,10 +1,13 @@
-"""Loss distributions for gradient boosting — the bernoulli and gaussian
-part of ``h2o3_tpu/models/distributions.py`` (hex/Distribution.java).
+"""Loss distributions for gradient boosting — the bernoulli, gaussian and
+multinomial part of ``h2o3_tpu/models/distributions.py``
+(hex/Distribution.java).
 
 Each distribution gives the per-row gradient and hessian of the loss in
 the raw score F, the initial score and the inverse link, as one
-elementwise torch pass on the rows' device.  The other families of the
-JAX package wait for a later slice.
+elementwise torch pass on the rows' device; multinomial's gradients are
+the softmax over K class-major scores, on which GBM grows K class trees
+a round (``shared.make_multinomial_scan_fn``).  The other families of
+the JAX package wait for a later slice.
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ from __future__ import annotations
 import torch
 
 _LATER = ("poisson", "gamma", "tweedie", "laplace", "quantile", "huber",
-          "multinomial", "custom")
+          "custom")
 
 
 class Distribution:
@@ -57,6 +60,17 @@ class Bernoulli(Distribution):
                           + (1 - y) * torch.log1p(-p))).sum()
 
 
+class Multinomial(Distribution):
+    """K class trees a round (GBM's multinomial scan) on the softmax
+    gradients of class-major [K, N] scores against the one-hot response
+    Y1 [K, N]: g = P - Y1, h = max(P (1 - P), 1e-10)."""
+    name = "multinomial"
+
+    def grad_hess(self, Y1, f):
+        p = torch.softmax(f, dim=0)
+        return p - Y1, (p * (1 - p)).clamp_min(1e-10)
+
+
 def make_distribution(name: str, nclasses: int = 1, **kw) -> Distribution:
     if kw.get("custom_distribution_func") is not None:
         name = "custom"
@@ -72,9 +86,11 @@ def make_distribution(name: str, nclasses: int = 1, **kw) -> Distribution:
         return Bernoulli()
     if name == "gaussian":
         return Gaussian()
+    if name == "multinomial":
+        return Multinomial()
     if name in _LATER:
         raise NotImplementedError(
             f"distribution {name!r} is not ported yet: h2o3_tpu_torch has "
-            "bernoulli and gaussian so far (ROADMAP Queue 1, 'Rest of the "
-            "tree family')")
+            "bernoulli, gaussian and multinomial so far (ROADMAP Queue 1, "
+            "'Rest of the tree family')")
     raise ValueError(f"unknown distribution {name!r}")

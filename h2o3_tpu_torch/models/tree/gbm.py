@@ -1,12 +1,14 @@
-"""GBM: gradient boosting on the level kernels — the single-class path of
+"""GBM: gradient boosting on the level kernels — the gbtree path of
 ``h2o3_tpu/models/tree/gbm.py`` (hex/tree/gbm/GBM.java).
 
 Per boosting round: gradients of the loss (``distributions``), one tree
 grown level by level (``shared.make_build_tree_fn``), the Newton leaf
-values added to the scores F.  Rounds run in chunks that end on the
-scoring intervals (``shared.chunk_schedule``); training metrics come from
-F, with no second pass over the ensemble.  Multinomial responses and the
-DART booster wait for a later slice and raise.
+values added to the scores F.  A response of K > 2 classes grows K class
+trees a round on the softmax gradients (``shared.make_multinomial_scan_fn``:
+one batched build of the K trees, GBM.java buildNextKTrees).  Rounds run in
+chunks that end on the scoring intervals (``shared.chunk_schedule``);
+training metrics come from F, with no second pass over the ensemble.  The
+DART booster waits for a later slice and raises.
 """
 
 from __future__ import annotations
@@ -26,11 +28,11 @@ from ..scorekeeper import metric_direction
 from .binning import edges_matrix, fit_bins
 from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
                      StackedTrees, TreeList, chunk_schedule,
-                     make_tree_scan_fn, record_effective_depth,
-                     resolve_hist_layout, resolve_hist_mode,
-                     resolve_split_mode, resolve_tree_program,
-                     run_hist_crosscheck, run_split_crosscheck, traverse,
-                     use_hier_split_search)
+                     make_multinomial_scan_fn, make_tree_scan_fn,
+                     record_effective_depth, resolve_hist_layout,
+                     resolve_hist_mode, resolve_split_mode,
+                     resolve_tree_program, run_hist_crosscheck,
+                     run_split_crosscheck, traverse, use_hier_split_search)
 
 _LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
 
@@ -45,6 +47,8 @@ class GBMModel(SharedTreeModel):
 
     def _predict_raw(self, X: torch.Tensor) -> torch.Tensor:
         F = self._raw_scores(X)
+        if self.output.get("nclass_trees", 1) > 1:
+            return torch.softmax(F, dim=1)
         dist = make_distribution(self.output["distribution"],
                                  nclasses=self.datainfo.nclasses)
         if self.datainfo.is_classifier:
@@ -63,17 +67,17 @@ class GBM(SharedTree):
     def _fit(self, job: Job, frame: Frame, di: DataInfo,
              valid: Optional[Frame]) -> GBMModel:
         p: GBMParameters = self.params
-        if di.is_classifier and di.nclasses > 2:
-            raise NotImplementedError(
-                f"multinomial GBM/XGBoost is not ported yet ({_LATER}: "
-                "batched K trees)")
+        K = di.nclasses if di.is_classifier and di.nclasses > 2 else 1
         if getattr(p, "booster", "gbtree") == "dart":
             raise NotImplementedError(
                 f"booster='dart' is not ported yet ({_LATER})")
         dev = frame.device
         dist = make_distribution(p.distribution, nclasses=di.nclasses)
+        if (K > 1) != (dist.name == "multinomial"):
+            raise ValueError(
+                f"distribution {dist.name!r} does not fit a response of "
+                f"{di.nclasses} classes")
         y, w = di.response(frame), di.weights(frame)
-        y, f0 = self._prep_targets(y, w, dist)
         binned = fit_bins(frame, [s.name for s in di.specs], nbins=p.nbins,
                           seed=p.effective_seed(),
                           weights=w if p.weights_column else None,
@@ -86,7 +90,7 @@ class GBM(SharedTree):
         hier = use_hier_split_search(p)
         hist_mode = resolve_hist_mode(p)
         split_mode = resolve_split_mode(p, hier=hier)
-        hist_layout = resolve_hist_layout(p, hier=hier)
+        hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, hier=hier)
         tree_program = resolve_tree_program(p)
         seed = p.effective_seed()
 
@@ -94,18 +98,33 @@ class GBM(SharedTree):
                                  p, di)
         model.output["distribution"] = dist.name
         model.output["binning"] = {"nbins": p.nbins}
-        model.output["nclass_trees"] = 1
+        model.output["nclass_trees"] = K
         model.output["tree_program"] = tree_program
         model.output["split_search"] = "hier" if hier else "exact"
-        record_effective_depth(model, p, Fw, N, hist_layout=hist_layout)
+        record_effective_depth(model, p, Fw, N, hist_layout=hist_layout,
+                               nk=K)
 
-        F = f0.to(torch.float32).expand(N).clone()
-        init_host = float(f0)
+        if K > 1:
+            # class-major [K, N] one-hot response and scores; F0 the log
+            # of the weighted class prior
+            yi = y.long().clamp(0, K - 1)
+            target = torch.nn.functional.one_hot(yi, K).t().to(
+                torch.float32)
+            base = (w * target).sum(dim=1) / w.sum().clamp_min(1e-12)
+            init = torch.log(base.clamp(1e-10, 1.0)).to(torch.float32)
+            init_host = init.cpu().numpy()
+        else:
+            y, init = self._prep_targets(y, w, dist)
+            target, init_host = y, float(init)
+
+        def start(n):                 # the initial scores of n rows
+            f = init.to(torch.float32)
+            return f[..., None].expand(*f.shape, n).clone()
+        F = start(N)
         if valid is not None:
             Xv = model._design(valid)
             y_v, w_v = di.response(valid), di.weights(valid)
-            F_v = torch.full((Xv.shape[0],), init_host, dtype=torch.float32,
-                             device=dev)
+            F_v = start(Xv.shape[0])
 
         common = dict(max_depth=p.max_depth, nbins=p.nbins, F=Fw,
                       n_padded=N, bin_counts=binned.bin_counts,
@@ -114,43 +133,49 @@ class GBM(SharedTree):
                       learn_rate=p.learn_rate, reg_alpha=p.reg_alpha,
                       gamma=p.gamma, min_child_weight=p.min_child_weight,
                       hist_layout=hist_layout)
-        if hist_mode == "check":
-            # the crosscheck on the real first-tree gradients (the exact
-            # search, also when training takes the hierarchical one),
-            # then training proceeds on the subtraction path
-            g0, h0 = dist.grad_hess(y, F)
-            run_hist_crosscheck(codes, g0 * w, h0 * w, w, edges_mat, seed,
-                                **common)
-            hist_mode = "subtract"
-        if split_mode == "check":
-            g0, h0 = dist.grad_hess(y, F)
-            run_split_crosscheck(codes, g0 * w, h0 * w, w, edges_mat, seed,
-                                 hist_mode=hist_mode,
-                                 col_sample_rate=p.col_sample_rate, **common)
-            split_mode = "fused"
+        if hist_mode == "check" or split_mode == "check":
+            # the crosschecks on the real first-round gradients (the exact
+            # search, also when training takes the hierarchical one), with
+            # the K class trees of a multinomial round as one batched
+            # build; then training proceeds on the subtraction path and
+            # the fused split search
+            g0, h0 = dist.grad_hess(target, F)
+            kw = dict(common, nk=K)
+            if hist_mode == "check":
+                run_hist_crosscheck(codes, g0 * w, h0 * w, w, edges_mat,
+                                    seed, **kw)
+                hist_mode = "subtract"
+            if split_mode == "check":
+                run_split_crosscheck(codes, g0 * w, h0 * w, w, edges_mat,
+                                     seed, hist_mode=hist_mode,
+                                     col_sample_rate=p.col_sample_rate, **kw)
+                split_mode = "fused"
 
-        scan_fn = make_tree_scan_fn(
-            dist, p.max_depth, p.nbins, Fw, N, p.sample_rate,
-            p.col_sample_rate_per_tree, bin_counts=binned.bin_counts,
-            hist_mode=hist_mode, split_mode=split_mode,
-            hist_layout=hist_layout, device=dev, hier=hier)
+        scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate,
+                     p.col_sample_rate_per_tree)
+        scan_kw = dict(bin_counts=binned.bin_counts, hist_mode=hist_mode,
+                       split_mode=split_mode, hist_layout=hist_layout,
+                       device=dev, hier=hier)
+        scan_fn = make_multinomial_scan_fn(K, *scan_args, **scan_kw) \
+            if K > 1 else make_tree_scan_fn(dist, *scan_args, **scan_kw)
         model.output["hist_kernel"] = \
             "varbin" if scan_fn.build.use_varbin else "uniform"
         scalars = (p.reg_lambda, p.min_rows, p.min_split_improvement,
                    p.learn_rate, p.col_sample_rate, p.reg_alpha, p.gamma,
                    p.min_child_weight)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
         metric_name, maximize = metric_direction(p.stopping_metric,
                                                  di.is_classifier)
         history, chunks = [], []
-        for c, t_done, score_now in chunk_schedule(p.ntrees,
-                                                   p.score_tree_interval):
-            F, chunk = scan_fn(codes, y, w, F, edges_mat, gen, c, *scalars)
+        for chunk_no, (c, t_done, score_now) in enumerate(chunk_schedule(
+                p.ntrees, p.score_tree_interval)):
+            F, chunk = scan_fn(codes, target, w, F, edges_mat, seed,
+                               chunk_no, c, *scalars)
             chunks.append(chunk)
             job.update(t_done / p.ntrees, f"tree {t_done}/{p.ntrees}")
             if valid is not None:
-                F_v = F_v + traverse(chunk.levels, chunk.values, Xv)
+                F_v = F_v + (torch.stack([traverse(ck.levels, ck.values, Xv)
+                                          for ck in chunk]) if K > 1
+                             else traverse(chunk.levels, chunk.values, Xv))
             if not score_now:
                 continue
             vstate = (F_v, y_v, w_v) if valid is not None else None
@@ -158,15 +183,21 @@ class GBM(SharedTree):
                                     history, vstate, metric_name, maximize):
                 break
 
-        stacked = StackedTrees.concat(chunks)
-        model.output["stacked"] = stacked
+        if K > 1:
+            stacked = [StackedTrees.concat([ch[k] for ch in chunks])
+                       for k in range(K)]
+            ntrained = stacked[0].ntrees
+        else:
+            stacked = StackedTrees.concat(chunks)
+            ntrained = stacked.ntrees
         model.output["trees"] = TreeList(stacked)
+        model.output["stacked"] = stacked
         model.output["init_score"] = init_host
-        model.output["ntrees_trained"] = stacked.ntrees
+        model.output["ntrees_trained"] = ntrained
         model.output["edges"] = binned.edges
         model.scoring_history = history
         im = getattr(model, "_interval_metrics", None)
-        if im is not None and im[0] == stacked.ntrees:
+        if im is not None and im[0] == ntrained:
             model.training_metrics = im[1]
             if valid is not None:
                 model.validation_metrics = im[2]

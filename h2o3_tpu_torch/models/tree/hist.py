@@ -58,7 +58,7 @@ _F = ctypes.c_float
 
 HIST = native.Kernel("hist", {
     "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _P, _I, _P, _I, _I, _I, _I,
-                     _I, _P, _L, _L, _L, _P), _I),
+                     _I, _P, _L, _L, _L, _I, _L, _L, _L, _L, _L, _P), _I),
 })
 SPLIT_RECORDS = native.Kernel("split_records", {
     "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
@@ -97,7 +97,9 @@ def stat_scale(stats: torch.Tensor) -> torch.Tensor:
     """The fixed-point scales of the stat planes [3, n]: a [2, 3] f64
     tensor on the stats' device, row 0 each plane's 2^s_p, row 1 its
     inverse 2^-s_p, or NaN where the plane holds a NaN or an infinity
-    (that plane's histograms are then NaN throughout).
+    (that plane's histograms are then NaN throughout).  K trees' stats
+    [K, 3, n] give each tree its own scales, [K, 2, 3]: row by row what
+    K calls on the trees' [3, n] give.
 
     s_p = 62 - e_p with sum_r |x_p,r| < 2^e_p (the plane's L1 norm, in
     f64), so that the quantised rows' |values| add up to under 2^62 plus
@@ -106,22 +108,24 @@ def stat_scale(stats: torch.Tensor) -> torch.Tensor:
     <= k * sum|x_p| * 2^-62 of its exact sum before the one rounding to
     f32.  Computed on the device: the host reads nothing.  Both powers of
     two are built from their exponent bits, exactly."""
-    m = torch.linalg.vector_norm(stats, 1, dim=1, dtype=torch.float64)
+    m = torch.linalg.vector_norm(stats, 1, dim=-1, dtype=torch.float64)
     finite = torch.isfinite(m)
     _, e = torch.frexp(torch.where(finite, m, 0.0))
     s = _SUM_BITS - e.long()
     q = ((s + 1023) << 52).view(torch.float64)
     inv = ((1023 - s) << 52).view(torch.float64)
-    return torch.stack([q, torch.where(finite, inv, torch.nan)])
+    return torch.stack([q, torch.where(finite, inv, torch.nan)], dim=-2)
 
 
 def quantize(stats: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """[3, n] stats -> their int64 fixed-point values round-half-even(x *
-    2^s_p) (``torch.round``, as ``__double2ll_rn`` in the kernels).  A
-    plane whose scale marks a non-finite stat quantises to 0: its
-    histogram is NaN whatever it sums."""
-    q = torch.round(stats.double() * scale[0][:, None])
-    return torch.where(torch.isfinite(scale[1])[:, None], q, 0.0).long()
+    2^s_p) (``torch.round``, as ``__double2ll_rn`` in the kernels); [K, 3,
+    n] on K trees' [K, 2, 3] scales likewise.  A plane whose scale marks a
+    non-finite stat quantises to 0: its histogram is NaN whatever it
+    sums."""
+    q = torch.round(stats.double() * scale[..., 0, :, None])
+    return torch.where(torch.isfinite(scale[..., 1, :])[..., None], q,
+                       0.0).long()
 
 
 def _dequantize(sums: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
@@ -130,14 +134,15 @@ def _dequantize(sums: torch.Tensor, inv: torch.Tensor) -> torch.Tensor:
 
 
 def _check_scale(scale, stats) -> torch.Tensor:
-    """The caller's scale (a ``stat_scale`` of the tree's stats), or this
-    call's own."""
+    """The caller's scale (a ``stat_scale`` of the tree's stats, [2, 3],
+    or of K trees', [K, 2, 3]), or this call's own."""
     if scale is None:
         return stat_scale(stats)
-    if scale.shape != (2, 3) or scale.dtype != torch.float64 \
+    want = (*stats.shape[:-2], 2, 3)
+    if scale.shape != want or scale.dtype != torch.float64 \
             or scale.device != stats.device:
-        raise ValueError(f"scale must be stat_scale's [2, 3] f64 tensor on "
-                         f"{stats.device}")
+        raise ValueError(f"scale must be stat_scale's {list(want)} f64 "
+                         f"tensor on {stats.device}")
     return scale.contiguous()
 
 
@@ -306,55 +311,80 @@ def _sm_count(device: str) -> int:
         torch.device(device)).multi_processor_count
 
 
-def _rows_per_block(n: int, n_tiles: int, smem: int, device: str) -> int:
-    """Rows per block: enough blocks for two waves of the card, at least
-    2,048 rows a block, at most 65,535 row blocks (the grid's y limit)."""
+def _rows_per_block(n: int, n_tiles: int, smem: int, device: str,
+                    K: int = 1) -> int:
+    """Rows per block: enough blocks for two waves of the card over the
+    K trees of a launch, at least 2,048 rows a block, at most 65,535 row
+    blocks (the grid's y limit)."""
     per_sm = max(1, min(2048 // _HIST_THREADS,
                         (227 * 1024) // max(smem, 1)))
     target = 2 * _sm_count(device) * per_sm
-    chunks = max(1, min(-(-n // 2048), -(-target // n_tiles)))
+    chunks = max(1, min(-(-n // 2048), -(-target // (n_tiles * K))))
     rows = -(-n // chunks)
     return max(rows, -(-n // 65_535))
 
 
 # --------------------------------------------------- histogram: kernel path
+#
+# Every histogram wrapper takes one tree or K trees.  One tree: codes
+# [F, n], leaf [n], stats [3, n], scale [2, 3].  K trees (a multinomial
+# round's class trees, in one launch): leaf [K, n], stats [K, 3, n], scale
+# [K, 2, 3], and codes either [F, n], which the K trees share (read with
+# a stride of 0, never copied), or [K, F, n], each tree's own (a view may
+# stride its trees and features as it likes; each row must be
+# contiguous).  The output gains a leading K.
 
-def _check_hist_operands(codes, leaf, stats):
-    if codes.dim() != 2 or codes.dtype not in (torch.int16, torch.int32):
-        raise ValueError("codes must be a [F, n] int16/int32 tensor")
-    n = codes.shape[1]
-    if leaf.shape != (n,) or leaf.dtype != torch.int32:
-        raise ValueError("leaf must be an [n] int32 tensor")
-    if stats.dim() != 2 or stats.shape[0] != 3 or stats.shape[1] != n \
-            or stats.dtype != torch.float32:
-        raise ValueError("stats must be a [3, n] f32 tensor")
+def _check_hist_operands(codes, leaf, stats) -> int:
+    """Raise on operands the histograms do not take; returns K (0 for one
+    tree)."""
+    K = leaf.shape[0] if leaf.dim() == 2 else 0
+    lead = (K,) if K else ()
+    if codes.dim() not in (2, 3) or (codes.dim() == 3 and (
+            not K or codes.shape[0] != K)) \
+            or codes.dtype not in (torch.int16, torch.int32):
+        raise ValueError("codes must be a [F, n] (or, for K trees, "
+                         "[K, F, n]) int16/int32 tensor")
+    n = codes.shape[-1]
+    if leaf.shape != (*lead, n) or leaf.dtype != torch.int32:
+        raise ValueError(f"leaf must be an {list(lead) + [n]} int32 tensor")
+    if stats.shape != (*lead, 3, n) or stats.dtype != torch.float32:
+        raise ValueError(f"stats must be a {list(lead) + [3, n]} f32 tensor")
     for name, t in (("codes", codes), ("leaf", leaf), ("stats", stats)):
         if t.device != codes.device:
             raise ValueError(f"{name} is on {t.device}, codes on "
                              f"{codes.device}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} rows must be contiguous")
+    return K
 
 
 def _launch_hist(codes, leaf, stats, scale, L: int, layout: HistLayout,
                  out: torch.Tensor, strides, planes: int = 3) -> None:
-    """Launch ``csrc/hist.cu`` adding the level histogram into ``out``
-    (int64 fixed point, zeroed by the caller) through ``strides`` = (s,
-    l, q)."""
+    """Launch ``csrc/hist.cu`` adding the level histogram of one tree, or
+    of K trees (``leaf`` [K, n]), into ``out`` (int64 fixed point, zeroed
+    by the caller; tree k's at ``out[k]``) through ``strides`` = (s, l,
+    q)."""
     dev = codes.device
-    n = codes.shape[1]
+    n = codes.shape[-1]
     meta, tiles, n_tiles, smem = _device_meta(layout, L, str(dev), planes)
     if n == 0:
         return
-    rpb = _rows_per_block(n, n_tiles, smem, str(dev))
+    batched = leaf.dim() == 2
+    K = leaf.shape[0] if batched else 1
+
+    def kstride(t, dims):        # tree k's offset in elements; 0 if shared
+        return t.stride(0) if batched and t.dim() == dims else 0
+    rpb = _rows_per_block(n, n_tiles, smem, str(dev), K)
     lib = HIST.lib()
     with torch.cuda.device(dev):
         rc = lib.hist_launch(
-            codes.data_ptr(), codes.element_size(), codes.stride(0),
-            leaf.data_ptr(), stats.data_ptr(), stats.stride(0),
+            codes.data_ptr(), codes.element_size(), codes.stride(-2),
+            leaf.data_ptr(), stats.data_ptr(), stats.stride(-2),
             scale.data_ptr(), meta.data_ptr(), layout.F, tiles.data_ptr(),
             n_tiles, n, rpb, smem, planes, out.data_ptr(), strides[0],
-            strides[1], strides[2],
+            strides[1], strides[2], K, kstride(codes, 3), kstride(leaf, 2),
+            kstride(stats, 3), kstride(scale, 3),
+            kstride(out, out.dim()),
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
@@ -362,34 +392,59 @@ def _launch_hist(codes, leaf, stats, scale, L: int, layout: HistLayout,
 
 
 def _plane_inv(scale, planes: int) -> torch.Tensor:
-    """[planes, 1, 1, 1] inverse scales of a dense histogram's planes: g,
-    h, w, and g's again for |g| (built on the device: an index list would
-    be a host-to-device copy, which waits for the stream)."""
-    inv = scale[1] if planes == 3 else torch.cat([scale[1], scale[1][:1]])
-    return inv.view(planes, 1, 1, 1)
+    """[..., planes, 1, 1, 1] inverse scales of a dense histogram's planes
+    (one tree's, or K trees' with a leading K): g, h, w, and g's again for
+    |g| (built on the device: an index list would be a host-to-device
+    copy, which waits for the stream)."""
+    inv = scale[..., 1, :]
+    if planes == 4:
+        inv = torch.cat([inv, inv[..., :1]], dim=-1)
+    return inv[..., None, None, None]
+
+
+def _batch(leaf, stats, scale):
+    """One tree's leaf, stats and scale with a K of 1."""
+    if leaf.dim() == 2:
+        return leaf, stats, scale
+    return leaf[None], stats[None], scale[None]
+
+
+def _tree_codes(codes) -> torch.Tensor:
+    """[K, F, n] codes of the trees, or [1, F, n] for codes they share."""
+    return codes if codes.dim() == 3 else codes[None]
 
 
 def hist_uniform_torch(codes, leaf, stats, L: int, B: int, planes: int = 3,
                        scale=None) -> torch.Tensor:
     """Plain torch level histogram on the uniform axis: the stats
     quantised (``quantize``), one int64 ``index_add_`` over the flattened
-    (leaf, feature, bin) index, dequantised to f32.  codes [F, n], leaf
-    [n], stats [3, n] -> H [planes, L, F, B]; planes = 4 adds Σ|g| as
-    plane 3; ``scale`` is ``stat_scale(stats)`` unless given."""
-    F, n = codes.shape
-    dev = codes.device
+    (tree, leaf, feature, bin) index, dequantised to f32.  codes [F, n],
+    leaf [n], stats [3, n] -> H [planes, L, F, B] (K trees: H [K, planes,
+    L, F, B]); planes = 4 adds Σ|g| as plane 3; ``scale`` is
+    ``stat_scale(stats)`` unless given."""
+    single = leaf.dim() == 1
     scale = stat_scale(stats) if scale is None else scale
-    qs = quantize(stats, scale)
+    leaf, stats, scale = _batch(leaf, stats, scale)
+    K, _, n = stats.shape
+    F = codes.shape[-2]
+    dev = codes.device
+    qs = quantize(stats, scale)                                # [K, 3, n]
     if planes == 4:
-        qs = torch.cat([qs, qs[:1].abs()])
-    c = codes.long()
+        qs = torch.cat([qs, qs[:, :1].abs()], dim=1)
+    c = _tree_codes(codes).long()                              # [K|1, F, n]
     lf = leaf.long()
-    ok = ((lf >= 0) & (lf < L))[None, :] & (c >= 0) & (c < B)
-    idx = (lf[None, :] * F + torch.arange(F, device=dev)[:, None]) * B + c
-    src = qs[:, None, :].expand(planes, F, n)
-    out = torch.zeros((planes, L * F * B), dtype=torch.int64, device=dev)
-    out.index_add_(1, idx[ok], src[:, ok])
-    return _dequantize(out.view(planes, L, F, B), _plane_inv(scale, planes))
+    ok = ((lf >= 0) & (lf < L))[:, None, :] & (c >= 0) & (c < B)
+    kl = torch.arange(K, device=dev)[:, None] * L + lf         # [K, n]
+    idx = (kl[:, None, :] * F
+           + torch.arange(F, device=dev)[None, :, None]) * B + c
+    ok = ok.expand(K, F, n)
+    src = qs[:, :, None, :].expand(K, planes, F, n).transpose(0, 1)
+    out = torch.zeros((planes, K * L * F * B), dtype=torch.int64,
+                      device=dev)
+    out.index_add_(1, idx.expand(K, F, n)[ok], src[:, ok])
+    H = _dequantize(out.view(planes, K, L, F, B).transpose(0, 1),
+                    _plane_inv(scale, planes)).contiguous()
+    return H[0] if single else H
 
 
 def hist_uniform(codes, leaf, stats, L: int, B: int, planes: int = 3,
@@ -400,43 +455,54 @@ def hist_uniform(codes, leaf, stats, L: int, B: int, planes: int = 3,
     [0, L) add nothing), stats [3, n] f32 = (g, h, w); ``planes=4`` adds
     Σ|g| as plane 3, as the JAX ``make_hist_fn(..., planes=4)``.  Sums
     are int64 fixed point on ``scale`` (``stat_scale``; this call's own
-    when None): exact, the same on every run.  CUDA tensors launch
-    ``csrc/hist.cu`` (counted in ``HIST.launches``); CPU tensors take
-    ``hist_uniform_torch``."""
-    _check_hist_operands(codes, leaf, stats)
+    when None): exact, the same on every run.  K trees (leaf [K, n], see
+    above) give H [K, planes, L, F, B] from one launch, bitwise K calls of
+    one tree.  CUDA tensors launch ``csrc/hist.cu`` (counted in
+    ``HIST.launches``); CPU tensors take ``hist_uniform_torch``."""
+    K = _check_hist_operands(codes, leaf, stats)
     if planes not in (3, 4):
         raise ValueError(f"planes={planes}: use 3 or 4")
     scale = _check_scale(scale, stats)
     if not _on_cuda(codes, "histogram"):
         return hist_uniform_torch(codes, leaf, stats, L, B, planes, scale)
-    F = codes.shape[0]
-    out = torch.zeros((planes, L, F * B), dtype=torch.int64,
+    F = codes.shape[-2]
+    lead = (K,) if K else ()
+    out = torch.zeros((*lead, planes, L, F * B), dtype=torch.int64,
                       device=codes.device)
     _launch_hist(codes, leaf, stats, scale, L, uniform_layout(F, B), out,
                  (L * F * B, F * B, 1), planes)
-    return _dequantize(out.view(planes, L, F, B), _plane_inv(scale, planes))
+    return _dequantize(out.view(*lead, planes, L, F, B),
+                       _plane_inv(scale, planes))
 
 
 def hist_varbin_torch(gcodes, leaf, stats, L: int, layout: HistLayout,
                       scale=None) -> torch.Tensor:
     """Plain torch level histogram on the packed axis: the stats
-    quantised, one int64 ``index_add_`` over the flattened (packed bin,
-    leaf) index, dequantised to f32.  gcodes [F, n] (pre-offset), leaf
-    [n], stats [3, n] -> [Q8, 3L], column 3 l + s."""
-    F, n = gcodes.shape
-    dev = gcodes.device
+    quantised, one int64 ``index_add_`` over the flattened (tree, packed
+    bin, leaf) index, dequantised to f32.  gcodes [F, n] (pre-offset),
+    leaf [n], stats [3, n] -> [Q8, 3L], column 3 l + s (K trees: [K, Q8,
+    3L])."""
+    single = leaf.dim() == 1
     scale = stat_scale(stats) if scale is None else scale
-    qs = quantize(stats, scale)
-    q = gcodes.long()
+    leaf, stats, scale = _batch(leaf, stats, scale)
+    K, _, n = stats.shape
+    F = gcodes.shape[-2]
+    dev = gcodes.device
+    qs = quantize(stats, scale)                                # [K, 3, n]
+    q = _tree_codes(gcodes).long()                             # [K|1, F, n]
     lf = leaf.long()
     lo = torch.as_tensor(layout.qstart, device=dev)[:, None]
     hi = lo + torch.as_tensor(layout.qlen, device=dev)[:, None]
-    ok = ((lf >= 0) & (lf < L))[None, :] & (q >= lo) & (q < hi)
-    idx = q * L + lf[None, :]
-    src = qs.t()[None, :, :].expand(F, n, 3)
-    out = torch.zeros((layout.Q * L, 3), dtype=torch.int64, device=dev)
+    ok = (((lf >= 0) & (lf < L))[:, None, :] & (q >= lo) & (q < hi)) \
+        .expand(K, F, n)
+    kq = torch.arange(K, device=dev)[:, None, None] * layout.Q + q
+    idx = (kq * L + lf[:, None, :]).expand(K, F, n)
+    src = qs.transpose(1, 2)[:, None].expand(K, F, n, 3)
+    out = torch.zeros((K * layout.Q * L, 3), dtype=torch.int64, device=dev)
     out.index_add_(0, idx[ok], src[ok])
-    return _dequantize(out, scale[1]).view(layout.Q, 3 * L)
+    H = _dequantize(out.view(K, layout.Q * L, 3), scale[:, 1:2]) \
+        .view(K, layout.Q, 3 * L)
+    return H[0] if single else H
 
 
 def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple, B: int,
@@ -445,17 +511,19 @@ def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple, B: int,
     (row q, column 3 l + s; expand with ``expand_varbin``).
 
     gcodes [F, n] are pre-offset packed ids (``offset_codes``); sums as in
-    ``hist_uniform``.  CUDA tensors launch ``csrc/hist.cu`` (counted in
+    ``hist_uniform``, and K trees likewise give [K, Q8, 3L] from one
+    launch.  CUDA tensors launch ``csrc/hist.cu`` (counted in
     ``HIST.launches``); CPU tensors take ``hist_varbin_torch``."""
-    _check_hist_operands(gcodes, leaf, stats)
+    K = _check_hist_operands(gcodes, leaf, stats)
     layout = packed_layout(tuple(bin_counts), B)
     scale = _check_scale(scale, stats)
     if not _on_cuda(gcodes, "histogram"):
         return hist_varbin_torch(gcodes, leaf, stats, L, layout, scale)
-    out = torch.zeros((layout.Q * L, 3), dtype=torch.int64,
+    lead = (K,) if K else ()
+    out = torch.zeros((*lead, layout.Q * L, 3), dtype=torch.int64,
                       device=gcodes.device)
     _launch_hist(gcodes, leaf, stats, scale, L, layout, out, (1, 3, 3 * L))
-    return _dequantize(out, scale[1]).view(layout.Q, 3 * L)
+    return _dequantize(out, scale[..., 1:2, :]).view(*lead, layout.Q, 3 * L)
 
 
 @functools.lru_cache(maxsize=None)
@@ -470,19 +538,22 @@ def _qmap_device(bin_counts: tuple, B: int, device: str) -> torch.Tensor:
 def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
                   B: int) -> torch.Tensor:
     """[Q8, 3L] packed histogram -> the dense [3, L, F, B] contract
-    through the static qmap gather (hist.py:389-395 of the JAX package)."""
+    through the static qmap gather (hist.py:389-395 of the JAX package);
+    K trees' [K, Q8, 3L] -> [K, 3, L, F, B] through the same one gather."""
     F = len(bin_counts)
     qd = _qmap_device(tuple(bin_counts), B, str(packed.device))
-    H = packed.index_select(0, qd)                    # [F*B, 3L]
-    return H.view(F, B, L, 3).permute(3, 2, 0, 1).contiguous()
+    H = packed.index_select(-2, qd)                   # [..., F*B, 3L]
+    if packed.dim() == 2:
+        return H.view(F, B, L, 3).permute(3, 2, 0, 1).contiguous()
+    return H.view(-1, F, B, L, 3).permute(0, 4, 3, 1, 2).contiguous()
 
 
 def local_hist(codes, leaf, stats, L: int, F: int, B: int,
                bin_counts=None, scale=None) -> torch.Tensor:
-    """Level histogram in the dense [3, L, F, B] contract: the varbin
-    layout when ``bin_counts`` is given (codes pre-offset), else the
-    uniform one (the JAX package's ``make_hist_fn`` and
-    ``make_varbin_hist_fn``; one device, so no psum)."""
+    """Level histogram in the dense [3, L, F, B] contract (K trees: [K, 3,
+    L, F, B]): the varbin layout when ``bin_counts`` is given (codes
+    pre-offset), else the uniform one (the JAX package's ``make_hist_fn``
+    and ``make_varbin_hist_fn``; one device, so no psum)."""
     if bin_counts is not None:
         packed = hist_varbin(codes, leaf, stats, L, tuple(bin_counts), B,
                              scale)
@@ -490,23 +561,36 @@ def local_hist(codes, leaf, stats, L: int, F: int, B: int,
     return hist_uniform(codes, leaf, stats, L, B, scale=scale)
 
 
-def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
-    """Level-``d`` histogram by smaller-sibling compaction + parent
-    subtraction (the JAX package's ``make_subtract_level_fn``;
-    DHistogram / LightGBM / gpu_hist's halving).
+@functools.lru_cache(maxsize=None)
+def _tree_offsets(K: int, step: int, device: str) -> torch.Tensor:
+    """[K, 1] int32 k * step on the device, uploaded once."""
+    return (torch.arange(K, dtype=torch.int32) * step)[:, None].to(
+        torch.device(device))
 
-    Each parent's child with fewer rows is compacted into a dense prefix
-    of ``n // 2`` rows (a cumsum-positioned scatter: ``index_copy_`` of a
-    permutation that puts the chosen rows first), only that prefix is
-    histogrammed at the parent-slot geometry, and the larger sibling is
-    ``H_parent - H_small`` in f32 with its h/w planes clamped at 0.
-    Rows of the prefix past the compacted count carry leaf -1 and add
-    nothing.  Returns ``fn(codes, leaf, g, h, w[, carry]) -> (H, carry)``
-    where ``carry`` is the level's own histogram, the next level's
-    parent; ``fn.stacked(codes, leaf, stats, carry, scale)`` takes the
-    stats already stacked as [3, n] and the tree's ``stat_scale`` (by
-    default that of these stats, which the compacted prefix then shares).
-    """
+
+def make_batched_level_fn(d: int, K: int, F: int, B: int, bin_counts=None):
+    """Level-``d`` histograms of K trees in one histogram launch (the JAX
+    package's ``make_batched_level_fn``, hist.py:637, which vmaps the level
+    over K and lowers to one ``pallas_call``).
+
+    ``fn(codes, leaf, stats, carry=None, scale=None) -> (H, carry)``:
+    codes [F, n] shared by the trees (pre-offset under ``bin_counts``),
+    leaf [K, n], stats [K, 3, n], ``scale`` the trees' [K, 2, 3]
+    ``stat_scale`` (by default that of these stats), carry the previous
+    level's [K, 3, 2^(d-1), F, B]; H [K, 3, 2^d, F, B] is also the next
+    level's carry.  ``make_subtract_level_fn`` is its one-tree case.
+    Every tree picks its own smaller siblings (one
+    ``histc`` over k * 2^d + leaf counts all trees' children), and their
+    rows are compacted into a prefix of n // 2 + 1 rows per tree by one
+    scatter of row numbers and one gather of those rows' codes, leaves and
+    stats (only the chosen prefix is written, not a permutation of all
+    rows); one launch histograms the K prefixes and each larger sibling is
+    its parent minus the smaller in f32, h/w clamped at 0.  Every op runs
+    over [K, n] at once, so a level's op count does not grow with K.  The
+    histograms are exact integer sums, independent of row order: tree k's
+    H is bitwise ``make_subtract_level_fn`` on tree k alone.  The full
+    rebuild (``hist_mode="full"``, the crosscheck oracle) is
+    ``local_hist`` at 2^d leaves."""
     bc = tuple(bin_counts) if bin_counts is not None else None
     Lp = 2 ** max(d - 1, 0)
     Lc = 2 ** d
@@ -514,39 +598,74 @@ def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
     def level(codes, leaf, stats, carry=None, scale=None):
         scale = stat_scale(stats) if scale is None else scale
         if d == 0:
-            H = local_hist(codes, leaf, stats, 1, F, B, bc, scale)
+            H = local_hist(codes, leaf, stats, Lc, F, B, bc, scale)
             return H, H
         if carry is None:
             raise ValueError(f"level {d} needs the previous level's carry")
         n = codes.shape[1]
         cap = n // 2
         dev = codes.device
-        # rows per child: a shared-memory histogram of the leaf ids
-        # (exact in f64; bincount would sync the host for its length, and
-        # an index_add_ of ones piles every row's atomic on 2^d addresses)
-        cnt = torch.histc(leaf.double(), bins=Lc, min=0, max=Lc)
-        small_is_left = cnt[0::2] <= cnt[1::2]                     # [Lp]
+        # rows per child of every tree: one shared-memory histogram of
+        # k * Lc + leaf (exact in f64)
+        cnt = torch.histc((leaf + _tree_offsets(K, Lc, str(dev))).double(),
+                          bins=K * Lc, min=0, max=K * Lc).view(K, Lc)
+        small_is_left = cnt[:, 0::2] <= cnt[:, 1::2]                # [K, Lp]
         chosen_child = torch.stack([small_is_left, ~small_is_left],
-                                   dim=1).reshape(-1)              # [Lc]
-        chosen = chosen_child[leaf.long()]
-        # a permutation: the chosen rows, in order, to the prefix, every
-        # other row after them (distinct targets, so no write contention)
-        c_incl = torch.cumsum(chosen, dim=0)
-        row = torch.arange(n, device=dev)
-        target = torch.where(chosen, c_incl - 1, c_incl[-1] + row - c_incl)
-        ccodes = torch.empty_like(codes).index_copy_(1, target, codes)
-        pleaf = torch.empty_like(leaf).index_copy_(
-            0, target, torch.where(chosen, leaf >> 1, -1))
-        st = torch.empty_like(stats).index_copy_(1, target, stats)
-        Hs = local_hist(ccodes[:, :cap], pleaf[:cap], st[:, :cap], Lp, F,
-                        B, bc, scale)                              # [3,Lp,F,B]
+                                   dim=2).view(K, Lc)
+        chosen = chosen_child.gather(1, leaf.long())                # [K, n]
+        # each tree's running count of its chosen rows: one scan over the
+        # K*n flattened rows (a scan along a [K, n] row runs K blocks),
+        # less the count of the trees before it
+        c_flat = torch.cumsum(chosen.view(-1), dim=0).view(K, n)
+        c_incl = c_flat - torch.nn.functional.pad(c_flat[:-1, -1:], (0, 0,
+                                                                     1, 0))
+        # the chosen rows' numbers, in order, to each tree's prefix; every
+        # other row to the spare slot ``cap``.  Slots from a tree's count
+        # on (the spare one included) take leaf -1 and add nothing.
+        target = torch.where(chosen, c_incl - 1, cap)
+        rows = torch.zeros((K, cap + 1), dtype=torch.int64, device=dev) \
+            .scatter_(1, target, torch.arange(n, device=dev).expand(K, n))
+        kept = torch.arange(cap + 1, device=dev) < c_incl[:, -1:]
+        ccodes = codes.index_select(1, rows.view(-1)).view(
+            F, K, cap + 1).transpose(0, 1)                   # [K, F, cap+1]
+        pleaf = torch.where(kept, leaf.gather(1, rows) >> 1, -1)
+        st = stats.gather(2, rows[:, None, :].expand(K, 3, cap + 1))
+        Hs = local_hist(ccodes, pleaf, st, Lp, F, B, bc, scale)
         Ho = carry - Hs
-        Ho[1:].clamp_min_(0.0)
-        sl = small_is_left[None, :, None, None]
+        Ho[:, 1:].clamp_min_(0.0)
+        sl = small_is_left[:, None, :, None, None]
         Hl = torch.where(sl, Hs, Ho)
         Hr = torch.where(sl, Ho, Hs)
-        H = torch.stack([Hl, Hr], dim=2).reshape(3, Lc, F, B)
+        H = torch.stack([Hl, Hr], dim=3).view(K, 3, Lc, F, B)
         return H, H
+
+    return level
+
+
+def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
+    """Level-``d`` histogram by smaller-sibling compaction + parent
+    subtraction (the JAX package's ``make_subtract_level_fn``;
+    DHistogram / LightGBM / gpu_hist's halving): ``make_batched_level_fn``
+    for one tree.
+
+    Each parent's child with fewer rows is compacted into a dense prefix
+    of ``n // 2 + 1`` rows, only that prefix is histogrammed at the
+    parent-slot geometry, and the larger sibling is ``H_parent -
+    H_small`` in f32 with its h/w planes clamped at 0.  Rows of the prefix
+    past the compacted count carry leaf -1 and add nothing.  Returns
+    ``fn(codes, leaf, g, h, w[, carry]) -> (H, carry)`` where ``carry`` is
+    the level's own histogram, the next level's parent;
+    ``fn.stacked(codes, leaf, stats, carry, scale)`` takes the stats
+    already stacked as [3, n] and the tree's ``stat_scale`` (by default
+    that of these stats, which the compacted prefix then shares).
+    """
+    batched = make_batched_level_fn(d, 1, F, B, bin_counts)
+
+    def level(codes, leaf, stats, carry=None, scale=None):
+        scale = stat_scale(stats) if scale is None else scale
+        H, _ = batched(codes, leaf[None], stats[None],
+                       None if carry is None else carry[None], scale[None])
+        return H[0], H[0]
 
     def fn(codes, leaf, g, h, w, carry=None):
         return level(codes, leaf, torch.stack([g, h, w]).to(torch.float32),
@@ -842,6 +961,38 @@ def fused_best_splits(Hist, nbins: int, reg_lambda, min_rows,
     return finish_splits(rec, min_rows, min_split_improvement, feat_mask)
 
 
+def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
+                   min_split_improvement, feat_mask=None, reg_alpha=0.0,
+                   gamma=0.0, min_child_weight=0.0):
+    """Best split per leaf of K trees: H [K, 3, L, F, B] -> ``split_fn``'s
+    tuple (``fused_best_splits`` or ``best_splits``) with a leading K on
+    every field.  The K*L leaves flatten into one call, tree-major (row
+    k*L + l); the records and the feature argmax are row-local, so each
+    tree's result is bitwise its own call.  ``feat_mask`` is [K, L, F] or
+    [K, F]."""
+    K, _, L, F, B = HistK.shape
+    Hflat = HistK.transpose(0, 1).reshape(3, K * L, F, B)
+    fm = None
+    if feat_mask is not None:
+        fm = feat_mask if feat_mask.dim() == 3 else \
+            feat_mask[:, None, :].expand(K, L, F)
+        fm = fm.reshape(K * L, F)
+    out = split_fn(Hflat, nbins, reg_lambda, min_rows, min_split_improvement,
+                   fm, reg_alpha, gamma, min_child_weight)
+    return tuple(x.view(K, L, *x.shape[1:]) for x in out)
+
+
+def fused_best_splits_batched(HistK, nbins: int, reg_lambda, min_rows,
+                              min_split_improvement, feat_mask=None,
+                              reg_alpha=0.0, gamma=0.0,
+                              min_child_weight=0.0):
+    """The JAX package's ``fused_best_splits_batched`` (hist.py:1778):
+    ``batched_splits`` through one records launch over the K*L leaves."""
+    return batched_splits(fused_best_splits, HistK, nbins, reg_lambda,
+                          min_rows, min_split_improvement, feat_mask,
+                          reg_alpha, gamma, min_child_weight)
+
+
 def best_splits(Hist, nbins: int, reg_lambda, min_rows,
                 min_split_improvement, feat_mask=None, reg_alpha=0.0,
                 gamma=0.0, min_child_weight=0.0):
@@ -1026,12 +1177,13 @@ def partition(codes, leaf, feat, bin_, na_left, valid, na_bin: int):
 
     ``codes`` is feature-major [F, N].  Each row gathers its leaf's split
     (feature, bin, NA direction, valid) and its code of that feature; a
-    terminal (invalid) leaf routes every row left."""
+    terminal (invalid) leaf routes every row left.  K trees: leaf [K, N]
+    and the splits [K, L], over the one shared code plane."""
     li = leaf.long()
-    f = feat.long()[li]
-    b = bin_[li]
-    nl = na_left[li]
-    v = valid[li]
-    c = codes.gather(0, f[None, :])[0]
+    f = feat.long().gather(-1, li)
+    b = bin_.gather(-1, li)
+    nl = na_left.gather(-1, li)
+    v = valid.gather(-1, li)
+    c = codes.gather(0, f.view(-1, leaf.shape[-1])).view(f.shape)
     right = torch.where(c == na_bin, ~nl, c > b) & v
     return (2 * leaf + right.to(torch.int32)).to(torch.int32)

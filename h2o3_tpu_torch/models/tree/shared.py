@@ -2,7 +2,7 @@
 scoring — the level path of ``h2o3_tpu/models/tree/shared.py``
 (hex/tree/SharedTree.java buildLayer, DTree, CompressedTree).
 
-A tree grows level by level: histogram (``hist.make_subtract_level_fn``
+A tree grows level by level: histogram (``hist.make_batched_level_fn``
 or the full rebuild) -> split search (``hist.fused_best_splits`` or the
 ``best_splits`` oracle) -> threshold lookup -> ``hist.partition``; under
 ``split_search="hier"`` the histogram and split search are the
@@ -14,11 +14,17 @@ direction, valid) plus leaf values, all on the device; the ensemble
 stacks them per level (``StackedTrees``) and ``traverse`` walks them with
 gathers.
 
-The port builds the dense layout, one tree at a time, as a Python loop of
-levels (``tree_program="level"``): what the JAX package trains with
-``H2O3_TPU_AUTOTUNE=off``.  Its other build programs (the batched K-tree
-build, node-sparse deep levels, the whole-tree scan, EFB and monotone
-constraints) wait for later slices and raise when asked for.
+The port builds the dense layout as a Python loop of levels
+(``tree_program="level"``): what the JAX package trains with
+``H2O3_TPU_AUTOTUNE=off``.  A multinomial round grows its K class trees
+as one batched build (``make_build_tree_fn(nk=K)``: one histogram launch
+and one records launch per level for all K trees; one tree is the same
+level loop at K = 1), or as a loop of K single-tree builds (``split_mode="separate"``, the
+oracle it is bitwise).  Every tree's random draws come from generators
+keyed by (seed, chunk, tree, class) (``draw_generator``), so both paths
+draw the same.  The JAX package's other build programs (node-sparse deep
+levels, the whole-tree scan, EFB and monotone constraints) wait for
+later slices and raise when asked for.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ...runtime.config import config
 from ...runtime.device import resolve_device
 from ..base import Model, ModelBuilder, Parameters
 from ..datainfo import DataInfo
+from ..distributions import Multinomial
 from ..scorekeeper import stop_early
 from . import hist
 
@@ -69,9 +76,12 @@ class SharedTreeParameters(Parameters):
     # the first tree both ways, then trains "fused"; "auto" is "fused"
     split_mode: str = "auto"
     # "auto" and "dense" both build dense [2^d] levels on the port; they
-    # differ only in the depth cap, as in the JAX package (the dense
-    # layout stops where a level's histogram passes 64 MB, "auto" only
-    # where rows run out).  The node-sparse deep levels are not ported.
+    # differ only in the depth cap: "dense" stops where a level's
+    # histogram passes 64 MB (the JAX package's bound), "auto" where rows
+    # run out or a level's histograms pass AUTO_LEVEL_BUDGET (the JAX
+    # package grows node-sparse levels there, which are not ported yet).
+    # "auto" is "dense" under hist_mode="full" and the hierarchical
+    # search, as in the JAX package.
     hist_layout: str = "auto"
     # "level" (and "auto"); the whole-tree scan program is not ported yet
     tree_program: str = "auto"
@@ -164,19 +174,26 @@ class StackedTrees:
 
 
 class TreeList:
-    """Lazy list-of-``Tree`` view over a ``StackedTrees``."""
+    """Lazy list-of-``Tree`` view over a ``StackedTrees``, or, given the K
+    per-class stacks of a multinomial model, the per-round lists of its K
+    class trees (``trees[t][k]``, the JAX package's ``TreeListMulti``)."""
 
-    def __init__(self, stacked: StackedTrees):
+    def __init__(self, stacked):
         self._stacked = stacked
-        self._cache: Optional[List[Tree]] = None
+        self._cache: Optional[list] = None
 
-    def _mat(self) -> List[Tree]:
+    def _mat(self) -> list:
         if self._cache is None:
-            self._cache = self._stacked.to_tree_list()
+            if isinstance(self._stacked, StackedTrees):
+                self._cache = self._stacked.to_tree_list()
+            else:
+                per_class = [s.to_tree_list() for s in self._stacked]
+                self._cache = [list(t) for t in zip(*per_class)]
         return self._cache
 
     def __len__(self):
-        return self._stacked.ntrees
+        s = self._stacked
+        return (s if isinstance(s, StackedTrees) else s[0]).ntrees
 
     def __getitem__(self, i):
         return self._mat()[i]
@@ -228,31 +245,80 @@ def dense_mem_cap(nbins: int, F: int) -> int:
     return mem_cap
 
 
+# hist_layout="auto" grows a dense level only while the histograms that
+# level holds fit this many bytes.  The JAX package grows node-sparse
+# levels from depth 8 on, with a slot axis sized to a budget; until the
+# port has them (ROADMAP Queue 1 item 3) "auto" stops here.  A fixed
+# constant, not the free memory of the card at hand, so that a model's
+# depth never depends on the machine that trained it: 8 GiB, a tenth of
+# an H100's 80 GB, which leaves the rest to the rows, codes and scores.
+AUTO_LEVEL_BUDGET = 8 * 2 ** 30
+
+
+def level_bytes(d: int, nbins: int, F: int, nk: int = 1) -> int:
+    """Bytes of the histograms a dense subtract level d holds: the carry,
+    H, Hs, Ho, Hl and Hr, each counted as nk x [3, 2^d, F, nbins+1] f32
+    (nk class trees of one batched level)."""
+    return 6 * nk * 3 * 2 ** d * F * (nbins + 1) * 4
+
+
+def auto_depth_cap(nbins: int, F: int, nk: int = 1) -> int:
+    """Levels hist_layout="auto" grows: every one fits AUTO_LEVEL_BUDGET
+    (the root always)."""
+    depth = 1
+    while depth < 63 and level_bytes(depth, nbins, F, nk) \
+            <= AUTO_LEVEL_BUDGET:
+        depth += 1
+    return depth
+
+
+def row_depth_cap(n_padded: int) -> int:
+    """A balanced tree runs out of rows past log2(n) + 1 levels."""
+    return max(1, int(np.ceil(np.log2(max(n_padded, 2)))) + 1)
+
+
 def effective_max_depth(max_depth: int, nbins: int, F: int,
-                        n_padded: int, hist_layout: str = "dense") -> int:
-    """Depth cap shared by every consumer (same formula as the JAX
-    package): a balanced tree runs out of rows past log2(n) + 1 levels,
-    and hist_layout="dense" also stops where a level's histogram passes
-    64 MB ("auto" does not: the JAX package grows node-sparse levels
-    there, the port dense ones, which the card's memory holds)."""
-    row_cap = max(1, int(np.ceil(np.log2(max(n_padded, 2)))) + 1)
-    if hist_layout == "auto":
-        return max(1, min(max_depth, row_cap))
-    return max(1, min(max_depth, row_cap, dense_mem_cap(nbins, F)))
+                        n_padded: int, hist_layout: str = "dense",
+                        nk: int = 1) -> int:
+    """Depth cap shared by every consumer (the JAX package's formula, less
+    its node-sparse levels): a balanced tree runs out of rows past log2(n)
+    + 1 levels; hist_layout="dense" also stops where a level's histogram
+    passes 64 MB (``dense_mem_cap``), and "auto" where a level of ``nk``
+    trees passes ``AUTO_LEVEL_BUDGET`` (``auto_depth_cap``)."""
+    mem_cap = auto_depth_cap(nbins, F, nk) if hist_layout == "auto" \
+        else dense_mem_cap(nbins, F)
+    return max(1, min(max_depth, row_depth_cap(n_padded), mem_cap))
 
 
 def record_effective_depth(model, params, F: int, n_padded: int,
-                           hist_layout: str = "dense") -> int:
+                           hist_layout: str = "dense", nk: int = 1) -> int:
+    """Record the requested and the effective depth, and what caps it, in
+    ``model.output``; warn when a cap binds."""
     eff = effective_max_depth(params.max_depth, params.nbins, F, n_padded,
-                              hist_layout)
+                              hist_layout, nk)
     model.output["requested_max_depth"] = params.max_depth
     model.output["effective_max_depth"] = eff
     model.output["hist_layout"] = hist_layout
-    if eff < params.max_depth:
+    cap = None
+    if eff == params.max_depth:
+        pass
+    elif eff == row_depth_cap(n_padded):
+        cap, hint = "rows", "rows bound the tree"
+    elif hist_layout == "auto":
+        cap = f"auto level budget {AUTO_LEVEL_BUDGET} B"
+        hint = (f"a dense level of {nk} tree(s) would hold more than "
+                f"{AUTO_LEVEL_BUDGET} bytes of histograms; the port grows "
+                f"node-sparse levels in a later slice")
+    else:
+        cap = "dense level 64 MB"
+        hint = ("full-width [2^d] levels double histogram memory per "
+                "level; hist_layout='auto' lifts the 64 MB bound")
+    model.output["depth_cap"] = cap
+    if cap is not None:
         warnings.warn(
             f"max_depth={params.max_depth} is capped to {eff} on this frame "
-            f"({F} features x {params.nbins} bins x {n_padded} rows; "
-            f"hist_layout={hist_layout!r}).", stacklevel=3)
+            f"({hint}; {F} features x {params.nbins} bins x {n_padded} "
+            f"rows; hist_layout={hist_layout!r}).", stacklevel=3)
     return eff
 
 
@@ -286,12 +352,18 @@ def resolve_split_mode(params, hier: bool = False) -> str:
     return "separate" if hier else mode
 
 
-def resolve_hist_layout(params, hier: bool = False) -> str:
-    """"auto" or "dense" (the hierarchical search takes "dense", as the
-    JAX package's node-sparse levels do not compose with it)."""
+def resolve_hist_layout(params, *, hist_mode=None, hier: bool = False) -> str:
+    """"auto" or "dense".  As in the JAX package (shared.py:1555), "auto"
+    becomes "dense", and so takes the 64 MB cap, under the hierarchical
+    search and under hist_mode="full" (no carry to subtract from);
+    ``hist_mode`` is the resolved mode ("check" trains "subtract"), by
+    default ``resolve_hist_mode(params)``."""
     layout = str(getattr(params, "hist_layout", "auto")).lower()
-    if layout in ("auto", "dense"):
-        return "dense" if hier else layout
+    if layout == "dense":
+        return "dense"
+    if layout == "auto":
+        hm = hist_mode if hist_mode is not None else resolve_hist_mode(params)
+        return "dense" if hier or hm == "full" else "auto"
     if layout in ("sparse", "check"):
         raise NotImplementedError(
             f"hist_layout={layout!r}: node-sparse deep levels are not "
@@ -326,15 +398,98 @@ def varbin_kernel_engages(bin_counts, nbins: int, F: int,
     return sum(min(b, nbins) + 9 for b in bin_counts) < F * (nbins + 1)
 
 
+# ------------------------------------------------------------ random draws
+
+_M64 = (1 << 64) - 1
+# the stream of a round's row sample, shared by its class trees
+ROW_SAMPLE = -1
+
+
+def _splitmix64(x: int) -> int:
+    x = (x + 0x9E3779B97F4A7C15) & _M64
+    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _M64
+    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _M64
+    return x ^ (x >> 31)
+
+
+def draw_generator(seed: int, chunk: int, tree: int, stream: int,
+                   device) -> torch.Generator:
+    """The generator of one stream of a train's draws: class ``stream``'s
+    column draws for tree ``tree`` of chunk ``chunk`` (its tree mask, then
+    its per-split masks level by level; a single-class train is class 0),
+    or that round's row sample (``stream=ROW_SAMPLE``), which its class
+    trees share.  Seeded by a fixed integer mix (splitmix64) of (seed,
+    chunk, tree, stream), the structure of the JAX package's fold_in keys
+    (shared.py:2165-2191): every tree draws the same whichever path grows
+    it and in whatever order, the batched build level by level across the
+    K trees, the K loop tree by tree."""
+    h = _splitmix64(int(seed) & _M64)
+    for v in (chunk, tree, stream + 1):
+        h = _splitmix64(h ^ (int(v) & _M64))
+    gen = torch.Generator(device=torch.device(device))
+    gen.manual_seed(h >> 1)
+    return gen
+
+
+def tree_column_mask(F: int, rate: float, gen) -> torch.Tensor:
+    """A tree's column sample: each feature kept with probability
+    ``rate``, feature 0 when none is."""
+    m = torch.rand((F,), generator=gen, device=gen.device) < rate
+    m[0] = m[0] | ~m.any()
+    return m
+
+
+def split_column_mask(L: int, F: int, rate: float, gen) -> torch.Tensor:
+    """A level's per-split column samples [L, F]: each kept with
+    probability ``rate``, feature 0 of a leaf that keeps none."""
+    ps = torch.rand((L, F), generator=gen, device=gen.device) < rate
+    anyf = ps.any(dim=1)
+    ps[:, 0] = (anyf & ps[:, 0]) | ~anyf
+    return ps
+
+
 # ------------------------------------------------------------ tree build
+
+def _collapse_dead(valid, alive, children):
+    """Terminality: a dead node's descendants stay dead, and their child
+    stats collapse to "all rows left".  [..., L] and [..., L, 6]."""
+    valid = valid & alive
+    gl, hl, cl, gr, hr, cr = children.unbind(-1)
+    zero = torch.zeros((), dtype=gr.dtype, device=gr.device)
+    return valid, torch.stack(
+        [torch.where(valid, gl, gl + gr), torch.where(valid, hl, hl + hr),
+         torch.where(valid, cl, cl + cr), torch.where(valid, gr, zero),
+         torch.where(valid, hr, zero), torch.where(valid, cr, zero)], dim=-1)
+
+
+def _pairs(x):
+    """[..., L, 2] -> [..., 2L]: each node's two children side by side."""
+    return x.reshape(*x.shape[:-2], -1)
+
+
+def _leaf_values(children, reg_lambda, reg_alpha, learn_rate):
+    """The Newton leaf values [..., 2^depth] (x learn_rate) and covers of
+    the last level's child sums [..., 2^(depth-1), 6]."""
+    gl, hl, cl, gr, hr, cr = children.unbind(-1)
+
+    def newton(gc, hc, cc):
+        return torch.where(cc > 0, hist.newton_value(gc, hc, reg_lambda,
+                                                     reg_alpha), 0.0)
+    vals = _pairs(torch.stack([newton(gl, hl, cl), newton(gr, hr, cr)],
+                              dim=-1))
+    vals = (vals * learn_rate).to(torch.float32)
+    cover = _pairs(torch.stack([cl, cr], dim=-1)).to(torch.float32)
+    return vals, cover
+
 
 def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                        bin_counts=None, hist_mode: str = "subtract",
                        split_mode: str = "fused", hist_layout: str = "auto",
-                       device=None, hier: bool = False):
+                       device=None, hier: bool = False, nk: int = 1):
     """A function that grows one tree on the device (the JAX package's
-    ``make_build_tree_fn`` with nk=1, the dense layout and
-    tree_program="level").
+    ``make_build_tree_fn`` with the dense layout and
+    tree_program="level"), or, with ``nk`` > 1, the K trees of a
+    multinomial round at once.
 
     ``build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
     min_split_improvement, learn_rate, col_sample_rate, tree_mask,
@@ -345,6 +500,16 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     layout engages, or the super-bin codes under ``hier`` (computed once
     per chunk by the caller, or here).
 
+    ``nk`` > 1 (the JAX package's ``nk`` branch, shared.py:768-911): g
+    and h are [K, N], w [N] (shared by the trees) or [K, N], ``gen`` a
+    list of K generators and ``tree_mask`` [K, F]; every result gains a
+    leading K.  One level loop grows all K trees, and one tree is its K =
+    1 case: per level one batched histogram (``hist.make_batched_level_fn``
+    or ``hist.local_hist``: one launch), one records launch over the K*L
+    leaves (``hist.batched_splits``) and one partition.  It takes
+    split_mode="fused"; tree k is bitwise a single build of tree k with
+    the same generator.
+
     ``hier=True`` takes the hierarchical split search (JAX
     ``shared.py:929-1055``): per level a coarse histogram over the S
     super-bins (``hist_uniform`` at B = S+1; below the root the left
@@ -352,7 +517,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     histogram minus the left, h/w clamped at 0), ``select_superbins``,
     the fine histogram of the ``FINE_K`` chosen super-bins
     (``fine_hist``) and ``best_splits_hier``.  ``hist_mode`` does not
-    apply to it, and it takes ``split_mode="separate"``.
+    apply to it, and it takes ``split_mode="separate"`` and one tree.
 
     ``device`` (``cuda`` unless given, raising without CUDA) decides the
     histogram layout (``varbin_kernel_engages``).  Every histogram of a
@@ -368,16 +533,22 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         raise ValueError("split_mode='fused' does not compose with the "
                          "hierarchical search; GBM.train downgrades it "
                          "to 'separate'")
+    if nk > 1 and (hier or split_mode != "fused"):
+        raise ValueError("the batched K-tree build takes split_mode="
+                         "'fused' and the exact search; the K loop of "
+                         "single builds serves the others")
     B = nbins + 1
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
-                                    hist_layout)
+                                    hist_layout, nk)
     device = resolve_device(device)
     use_varbin = not hier and varbin_kernel_engages(bin_counts, nbins, F,
                                                     device)
     bc = tuple(bin_counts) if use_varbin else None
     level_fns = [] if hier else [
-        hist.make_subtract_level_fn(d, F, B, bin_counts=bc)
+        hist.make_batched_level_fn(d, nk, F, B, bin_counts=bc)
         for d in range(max_depth)]
+    split_fn = hist.fused_best_splits if split_mode == "fused" \
+        else hist.best_splits
     if hier:
         S, W = hist.superbin_geometry(nbins)
         fine_fns = [hist.make_fine_hist_fn(2 ** d, F, W, FINE_K, nbins)
@@ -413,13 +584,14 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                                       mcw, coarse=coarse)[:6]
         return split, Hc
 
-    def build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
-              min_split_improvement, learn_rate, col_sample_rate,
-              tree_mask, reg_alpha, gamma, min_child_weight, hcodes=None):
-        dev = codes.device
+    def grow(codes, stats, gens, tree_mask, edges_mat, reg_lambda, min_rows,
+             min_split_improvement, learn_rate, col_sample_rate, reg_alpha,
+             gamma, min_child_weight, hcodes):
+        """The level loop over K = len(gens) trees: stats [K, 3, N],
+        tree_mask [K, F]; every result has a leading K."""
+        K = len(gens)
         N = codes.shape[1]
-        stats = torch.stack([g, h, w]).to(torch.float32)
-        scale = hist.stat_scale(stats)
+        scale = hist.stat_scale(stats)                       # [K, 2, 3]
         if hier and hcodes is None:
             hcodes = hist.coarse_codes(codes, nbins)
         elif use_varbin and hcodes is None:
@@ -427,7 +599,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         lcodes = hcodes if use_varbin else codes
         scal = (reg_lambda, min_rows, min_split_improvement, reg_alpha,
                 gamma, min_child_weight)
-        leaf = torch.zeros(N, dtype=torch.int32, device=dev)
+        leaf = torch.zeros((K, N), dtype=torch.int32, device=codes.device)
         levels = []
         alive = None
         carry = None
@@ -435,65 +607,81 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
             L = 2 ** d
             mask = None
             if col_sample_rate < 1.0:
-                ps = torch.rand((L, F), generator=gen, device=dev) \
-                    < col_sample_rate
-                anyf = ps.any(dim=1)
-                ps[:, 0] = (anyf & ps[:, 0]) | ~anyf
-                mask = ps
+                # each tree's own draws, in the order a single build of
+                # it draws them
+                mask = torch.stack([split_column_mask(L, F, col_sample_rate,
+                                                      gk) for gk in gens])
             if tree_mask is not None:
-                mask = tree_mask[None, :].expand(L, F) if mask is None \
-                    else mask & tree_mask[None, :]
+                mask = tree_mask[:, None, :].expand(K, L, F) \
+                    if mask is None else mask & tree_mask[:, None, :]
             if hier:
-                split, carry = hier_level(d, codes, hcodes, leaf, stats,
-                                          scale, carry, mask, scal)
+                split, carry = hier_level(
+                    d, codes, hcodes, leaf[0], stats[0], scale[0], carry,
+                    None if mask is None else mask[0], scal)
+                split = tuple(x[None] for x in split)
             else:
                 if hist_mode == "subtract":
-                    H, carry = level_fns[d].stacked(lcodes, leaf, stats,
-                                                    carry, scale)
+                    H, carry = level_fns[d](lcodes, leaf, stats, carry,
+                                            scale)
                 else:
                     H = hist.local_hist(lcodes, leaf, stats, L, F, B, bc,
                                         scale)
-                split_fn = hist.fused_best_splits if split_mode == "fused" \
-                    else hist.best_splits
-                split = split_fn(H, nbins, reg_lambda, min_rows,
-                                 min_split_improvement, mask, reg_alpha,
-                                 gamma, min_child_weight)
+                split = hist.batched_splits(
+                    split_fn, H, nbins, reg_lambda, min_rows,
+                    min_split_improvement, mask, reg_alpha, gamma,
+                    min_child_weight)
             feat, bin_, na_left, gain, valid, children = split
             if d > 0:
-                # terminality: a dead node's descendants stay dead, and
-                # their child stats collapse to "all rows left"
-                valid = valid & alive
-                gl, hl, cl2 = children[:, 0], children[:, 1], children[:, 2]
-                gr, hr, cr2 = children[:, 3], children[:, 4], children[:, 5]
-                zero = torch.zeros((), dtype=gr.dtype, device=dev)
-                children = torch.stack(
-                    [torch.where(valid, gl, gl + gr),
-                     torch.where(valid, hl, hl + hr),
-                     torch.where(valid, cl2, cl2 + cr2),
-                     torch.where(valid, gr, zero),
-                     torch.where(valid, hr, zero),
-                     torch.where(valid, cr2, zero)], dim=1)
-            alive = torch.stack([valid, valid], dim=1).reshape(-1)
+                valid, children = _collapse_dead(valid, alive, children)
+            alive = _pairs(torch.stack([valid, valid], dim=-1))
             thr = edges_mat[feat.long(), bin_.clamp(0, nbins - 1).long()]
             leaf = hist.partition(codes, leaf, feat, bin_, na_left, valid,
                                   nbins)
             levels.append((feat, thr, na_left, valid))
-        gl, hl, cl = children[:, 0], children[:, 1], children[:, 2]
-        gr, hr, cr = children[:, 3], children[:, 4], children[:, 5]
-
-        def newton(gc, hc, cc):
-            return torch.where(cc > 0, hist.newton_value(gc, hc, reg_lambda,
-                                                         reg_alpha), 0.0)
-        vals = torch.stack([newton(gl, hl, cl), newton(gr, hr, cr)],
-                           dim=1).reshape(-1)
-        vals = (vals * learn_rate).to(torch.float32)
-        cover = torch.stack([cl, cr], dim=1).reshape(-1).to(torch.float32)
+        vals, cover = _leaf_values(children, reg_lambda, reg_alpha,
+                                   learn_rate)
         return levels, vals, cover, leaf
+
+    def build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
+              min_split_improvement, learn_rate, col_sample_rate,
+              tree_mask, reg_alpha, gamma, min_child_weight, hcodes=None):
+        scal = (reg_lambda, min_rows, min_split_improvement, learn_rate,
+                col_sample_rate, reg_alpha, gamma, min_child_weight, hcodes)
+        if nk > 1:
+            stats = torch.stack([g, h, w.expand_as(g)], dim=1) \
+                .to(torch.float32)
+            return grow(codes, stats, gen, tree_mask, edges_mat, *scal)
+        stats = torch.stack([g, h, w]).to(torch.float32)[None]
+        levels, vals, cover, leaf = grow(
+            codes, stats, [gen], None if tree_mask is None
+            else tree_mask[None], edges_mat, *scal)
+        return ([tuple(x[0] for x in lv) for lv in levels], vals[0],
+                cover[0], leaf[0])
 
     build.max_depth = max_depth
     build.use_varbin = use_varbin
     build.bin_counts = bc
+    build.nk = nk
     return build
+
+
+def _scan_codes(bt_fn, codes, nbins: int, hier: bool):
+    """The codes a chunk's levels read besides the raw ones, made once per
+    chunk: super-bin codes under ``hier``, packed ones under varbin."""
+    if hier:
+        return hist.coarse_codes(codes, nbins)
+    if bt_fn.use_varbin:
+        return hist.offset_codes(codes, bt_fn.bin_counts, nbins)
+    return None
+
+
+def _row_sample(w, sample_rate: float, seed, chunk_no: int, t: int):
+    """Round t's row weights: ``w`` times its row sample."""
+    if sample_rate >= 1.0:
+        return w
+    gen = draw_generator(seed, chunk_no, t, ROW_SAMPLE, w.device)
+    return w * (torch.rand(w.shape, generator=gen, device=w.device)
+                < sample_rate)
 
 
 def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
@@ -505,10 +693,12 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
     """A chunk of boosting rounds (the JAX package's ``make_tree_scan_fn``
     as a plain loop over the chunk's trees): gradients -> row and column
     samples -> grow -> F update.  Returns ``scan_fn(codes, y, w, F0,
-    edges_mat, gen, nchunk, reg_lambda, min_rows, min_split_improvement,
-    learn_rate, col_sample_rate, reg_alpha, gamma, min_child_weight) ->
-    (F, StackedTrees of the chunk)``.  The hierarchical search builds
-    with split_mode="separate" and the dense layout, as there."""
+    edges_mat, seed, chunk_no, nchunk, reg_lambda, min_rows,
+    min_split_improvement, learn_rate, col_sample_rate, reg_alpha, gamma,
+    min_child_weight) -> (F, StackedTrees of the chunk)``; tree t of chunk
+    ``chunk_no`` draws from ``draw_generator(seed, chunk_no, t, ...)``,
+    class 0.  The hierarchical search builds with split_mode="separate"
+    and the dense layout, as there."""
     if hier:
         split_mode, hist_layout = "separate", "dense"
     bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
@@ -517,30 +707,18 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                                hist_layout=hist_layout, device=device,
                                hier=hier)
 
-    def scan_fn(codes, y, w, F0, edges_mat, gen, nchunk, reg_lambda,
-                min_rows, min_split_improvement, learn_rate,
+    def scan_fn(codes, y, w, F0, edges_mat, seed, chunk_no, nchunk,
+                reg_lambda, min_rows, min_split_improvement, learn_rate,
                 col_sample_rate, reg_alpha, gamma, min_child_weight):
-        if hier:
-            hcodes = hist.coarse_codes(codes, nbins)
-        elif bt_fn.use_varbin:
-            hcodes = hist.offset_codes(codes, bt_fn.bin_counts, nbins)
-        else:
-            hcodes = None
+        hcodes = _scan_codes(bt_fn, codes, nbins, hier)
         Fc = F0
         trees = []
-        for _ in range(nchunk):
+        for t in range(nchunk):
             g0, h0 = dist.grad_hess(y, Fc)
-            wv = w
-            if sample_rate < 1.0:
-                keep = torch.rand(w.shape, generator=gen,
-                                  device=w.device) < sample_rate
-                wv = w * keep
-            tm = None
-            if col_sample_rate_per_tree < 1.0:
-                m = torch.rand((F,), generator=gen, device=w.device) \
-                    < col_sample_rate_per_tree
-                m[0] = m[0] | ~m.any()
-                tm = m
+            wv = _row_sample(w, sample_rate, seed, chunk_no, t)
+            gen = draw_generator(seed, chunk_no, t, 0, w.device)
+            tm = tree_column_mask(F, col_sample_rate_per_tree, gen) \
+                if col_sample_rate_per_tree < 1.0 else None
             levels, vals, cover, leaf = bt_fn(
                 codes, g0 * wv, h0 * wv, wv, edges_mat, gen, reg_lambda,
                 min_rows, min_split_improvement, learn_rate,
@@ -554,6 +732,91 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
         return Fc, StackedTrees.from_trees(trees)
 
     scan_fn.build = bt_fn
+    return scan_fn
+
+
+_MULTINOMIAL = Multinomial()
+
+
+def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
+                             n_padded: int, sample_rate: float,
+                             col_sample_rate_per_tree: float,
+                             bin_counts=None, hist_mode: str = "subtract",
+                             split_mode: str = "fused",
+                             hist_layout: str = "auto", device=None,
+                             hier: bool = False):
+    """A chunk of multinomial rounds of K class trees (the JAX package's
+    ``make_multinomial_scan_fn``, shared.py:2108, as a plain loop): per
+    round the softmax gradients g = P - Y1, h = max(P (1 - P), 1e-10),
+    one row sample shared by the K trees, a column mask and per-split
+    draws per class, and the K trees.
+
+    ``split_mode="fused"`` grows them as one batched build
+    (``make_build_tree_fn(nk=K)``: one histogram and one records launch
+    per level whatever K is); ``"separate"`` loops over K single builds
+    with the plain records, the oracle the batched path is bitwise (the
+    same generators, ``draw_generator``).  The hierarchical search takes
+    the K loop, as there.
+
+    Returns ``scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
+    reg_lambda, min_rows, min_split_improvement, learn_rate,
+    col_sample_rate, reg_alpha, gamma, min_child_weight) -> (F, [K
+    StackedTrees of the chunk, one per class])``; Y1 [K, N] is the
+    one-hot response, F0 and F the [K, N] scores, class-major."""
+    if hier:
+        split_mode, hist_layout = "separate", "dense"
+    # one depth for both paths: the batched level's budget counts K trees
+    max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
+                                    hist_layout, K)
+    batched = split_mode == "fused" and K > 1
+    bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
+                               bin_counts=bin_counts, hist_mode=hist_mode,
+                               split_mode=split_mode,
+                               hist_layout=hist_layout, device=device,
+                               hier=hier, nk=K if batched else 1)
+
+    def scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
+                reg_lambda, min_rows, min_split_improvement, learn_rate,
+                col_sample_rate, reg_alpha, gamma, min_child_weight):
+        hcodes = _scan_codes(bt_fn, codes, nbins, hier)
+        scal = (reg_lambda, min_rows, min_split_improvement, learn_rate,
+                col_sample_rate)
+        reg = (reg_alpha, gamma, min_child_weight)
+        Fc = F0
+        rounds = []
+        for t in range(nchunk):
+            g, h = _MULTINOMIAL.grad_hess(Y1, Fc)
+            wv = _row_sample(w, sample_rate, seed, chunk_no, t)
+            gens = [draw_generator(seed, chunk_no, t, k, w.device)
+                    for k in range(K)]
+            tms = [tree_column_mask(F, col_sample_rate_per_tree, gk)
+                   for gk in gens] if col_sample_rate_per_tree < 1.0 \
+                else None
+            if batched:
+                levels, vals, cover, leaf = bt_fn(
+                    codes, g * wv, h * wv, wv, edges_mat, gens, *scal,
+                    torch.stack(tms) if tms else None, *reg, hcodes=hcodes)
+                Fc = Fc + vals.gather(1, leaf.long())
+            else:
+                per = [bt_fn(codes, g[k] * wv, h[k] * wv, wv, edges_mat,
+                             gens[k], *scal, tms[k] if tms else None, *reg,
+                             hcodes=hcodes) for k in range(K)]
+                levels = [tuple(torch.stack([p[0][d][i] for p in per])
+                                for i in range(4))
+                          for d in range(len(per[0][0]))]
+                vals, cover = (torch.stack([p[i] for p in per])
+                               for i in (1, 2))
+                Fc = Fc + torch.stack([p[1][p[3].long()] for p in per])
+            rounds.append((levels, vals, cover))
+        # per class k: the chunk's [T, 2^d] level stacks, as views
+        lv = [tuple(torch.stack([r[0][d][i] for r in rounds])
+                    for i in range(4)) for d in range(len(rounds[0][0]))]
+        vals, cover = (torch.stack([r[i] for r in rounds]) for i in (1, 2))
+        return Fc, [StackedTrees([tuple(x[:, k] for x in lvd) for lvd in lv],
+                                 vals[:, k], cover[:, k]) for k in range(K)]
+
+    scan_fn.build = bt_fn
+    scan_fn.max_depth = max_depth
     return scan_fn
 
 
@@ -572,13 +835,19 @@ def chunk_schedule(ntrees: int, score_tree_interval: int,
 
 # --------------------------------------------------------------- oracles
 
-def _grow_host(fn, codes, g, h, w, edges_mat, seed, scal, F):
+def _grow_host(fn, codes, g, h, w, edges_mat, seed, scal, nk: int = 1,
+               k: int = 0):
+    """Grow with ``fn`` on the draws of the train's first round (class
+    ``k``'s generator, or all ``nk`` classes' for a batched build); the
+    levels, leaf values and final leaves on the host, with a leading K
+    (of 1 for one tree)."""
     dev = codes.device
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(int(seed))
-    levels, vals, cover, leaf = fn(codes, g, h, w, edges_mat, gen, *scal)
-    return ([[t.cpu().numpy() for t in lv] for lv in levels],
-            vals.cpu().numpy(), leaf.cpu().numpy())
+    gens = [draw_generator(seed, 0, 0, c, dev) for c in range(k, k + nk)]
+    levels, vals, cover, leaf = fn(codes, g, h, w, edges_mat,
+                                   gens if nk > 1 else gens[0], *scal)
+    lead = (lambda t: t) if nk > 1 else (lambda t: t[None])
+    return ([[lead(t).cpu().numpy() for t in lv] for lv in levels],
+            lead(vals).cpu().numpy(), lead(leaf).cpu().numpy())
 
 
 def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
@@ -587,21 +856,24 @@ def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
                         reg_lambda=0.0, min_rows=1.0,
                         min_split_improvement=1e-5, learn_rate=0.1,
                         reg_alpha=0.0, gamma=0.0, min_child_weight=0.0,
-                        atol=1e-4):
+                        nk: int = 1, atol=1e-4):
     """The hist_mode="check" assert: grow one tree with the subtraction
     path and one with the full rebuild on the same inputs and raise
     AssertionError on any divergence of split structure, row routing or
-    leaf values (exactly tied gains are the one legitimate cause)."""
+    leaf values (exactly tied gains are the one legitimate cause).  ``nk``
+    > 1 checks the batched K-tree build (g and h [K, N]) at its own
+    geometry, both ways with the fused records, as the JAX package."""
     outs = {}
     scal = (reg_lambda, min_rows, min_split_improvement, learn_rate, 1.0,
             None, reg_alpha, gamma, min_child_weight)
     for mode in ("subtract", "full"):
         fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                 bin_counts=bin_counts, hist_mode=mode,
-                                split_mode="separate",
+                                split_mode="fused" if nk > 1 else "separate",
                                 hist_layout=hist_layout,
-                                device=codes.device)
-        outs[mode] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal, F)
+                                device=codes.device, nk=nk)
+        outs[mode] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal,
+                                nk)
     lv_s, v_s, leaf_s = outs["subtract"]
     lv_f, v_f, leaf_f = outs["full"]
     for d, (ls, lf) in enumerate(zip(lv_s, lv_f)):
@@ -629,24 +901,33 @@ def run_split_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
                          reg_lambda=0.0, min_rows=1.0,
                          min_split_improvement=1e-5, learn_rate=0.1,
                          col_sample_rate=1.0, reg_alpha=0.0, gamma=0.0,
-                         min_child_weight=0.0, atol=1e-4):
-    """The split_mode="check" assert: grow one tree with the fused
-    records path and one with the separate best_splits oracle on the same
-    inputs (same column draws) and raise on divergence.  A dead node's
-    stored split is arbitrary, so feature/NA/threshold compare only where
-    valid."""
+                         min_child_weight=0.0, nk: int = 1, atol=1e-4):
+    """The split_mode="check" assert: grow one round's tree, or its ``nk``
+    class trees (g and h [K, N]), with the fused path (batched when ``nk``
+    > 1) and with a loop of single builds on the separate best_splits
+    oracle, on the same inputs and draws, and raise on divergence.  A dead
+    node's stored split is arbitrary, so feature/NA/threshold compare only
+    where valid."""
     hm = hist_mode if hist_mode in ("subtract", "full") else "subtract"
     scal = (reg_lambda, min_rows, min_split_improvement, learn_rate,
             col_sample_rate, None, reg_alpha, gamma, min_child_weight)
-    outs = {}
-    for mode in ("separate", "fused"):
-        fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
-                                bin_counts=bin_counts, hist_mode=hm,
-                                split_mode=mode, hist_layout=hist_layout,
-                                device=codes.device)
-        outs[mode] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal, F)
-    lv_s, v_s, leaf_s = outs["separate"]
-    lv_f, v_f, leaf_f = outs["fused"]
+    # the K loop grows at the batched build's depth
+    max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
+                                    hist_layout, nk)
+    common = dict(bin_counts=bin_counts, hist_mode=hm,
+                  hist_layout=hist_layout, device=codes.device)
+    sep = make_build_tree_fn(max_depth, nbins, F, n_padded,
+                             split_mode="separate", **common)
+    fus = make_build_tree_fn(max_depth, nbins, F, n_padded,
+                             split_mode="fused", nk=nk, **common)
+    rows = (lambda x, k: x[k]) if nk > 1 else (lambda x, k: x)
+    per = [_grow_host(sep, codes, rows(g, k), rows(h, k), w, edges_mat,
+                      seed, scal, k=k) for k in range(nk)]
+    lv_s = [[np.concatenate([p[0][d][i] for p in per]) for i in range(4)]
+            for d in range(len(per[0][0]))]
+    v_s, leaf_s = (np.concatenate([p[i] for p in per]) for i in (1, 2))
+    lv_f, v_f, leaf_f = _grow_host(fus, codes, g, h, w, edges_mat, seed,
+                                   scal, nk)
     for d in range(len(lv_s)):
         valid_s = lv_s[d][3].astype(bool)
         if not np.array_equal(valid_s, lv_f[d][3].astype(bool)):
@@ -707,38 +988,57 @@ class SharedTreeModel(Model):
         return torch.stack(cols, dim=1)
 
     def _raw_scores(self, X: torch.Tensor) -> torch.Tensor:
+        """The raw scores [N], or [N, K] for K class-tree stacks (each
+        class's initial score plus its trees)."""
         st = self.output["stacked"]
-        return self.output["init_score"] + traverse(st.levels, st.values, X)
+        init = self.output["init_score"]
+        if self.output.get("nclass_trees", 1) == 1:
+            return init + traverse(st.levels, st.values, X)
+        return torch.stack([float(init[k]) + traverse(s.levels, s.values, X)
+                            for k, s in enumerate(st)], dim=1)
 
     def to_archive(self):
         """``(meta, arrays)`` in the portable archive layout that
         ``export.mojo.from_reference`` reads (the JAX package's
-        ``export/mojo.py::_extract`` for a single-class GBM/XGBoost):
-        ``feat_d``, ``thr_d``, ``na_left_d``, ``valid_d`` per level,
-        ``values``, ``covers``, and ``init_score`` in the metadata."""
+        ``export/mojo.py::_extract`` for GBM/XGBoost): ``feat_d``,
+        ``thr_d``, ``na_left_d``, ``valid_d`` per level, ``values``,
+        ``covers``, and ``init_score`` in the metadata; K class-tree stacks
+        as K groups of those arrays under the prefixes ``k0_``, ``k1_``,
+        ... with ``nclass_trees`` = K and one initial score per class."""
         di = self.datainfo
         st = self.output["stacked"]
+        K = self.output.get("nclass_trees", 1)
+        stacks = list(st) if K > 1 else [st]
         dist = self.output.get("distribution", "gaussian")
+        init = self.output["init_score"]
         meta = {
             "algo": self.algo, "format_version": 1,
             "datainfo": _datainfo_meta(di),
             "default_threshold": float(self.default_threshold())
             if di.is_classifier else 0.5,
-            "family": "tree", "tree_average": False, "nclass_trees": 1,
-            "depth": st.depth, "ntrees": st.ntrees,
+            "family": "tree", "tree_average": False, "nclass_trees": K,
+            "depth": stacks[0].depth, "ntrees": stacks[0].ntrees,
             "link": "log" if dist in ("poisson", "gamma", "tweedie")
             else "identity",
-            "init_score": float(self.output["init_score"]),
+            "init_score": [float(v) for v in np.asarray(init)] if K > 1
+            else float(init),
         }
         arrays = {}
-        for d, (feat, thr, na_left, valid) in enumerate(st.levels):
-            arrays[f"feat_{d}"] = feat.cpu().numpy().astype(np.int32)
-            arrays[f"thr_{d}"] = thr.cpu().numpy().astype(np.float32)
-            arrays[f"na_left_{d}"] = na_left.cpu().numpy().astype(bool)
-            arrays[f"valid_{d}"] = valid.cpu().numpy().astype(bool)
-        arrays["values"] = st.values.cpu().numpy().astype(np.float32)
-        if st.covers is not None:
-            arrays["covers"] = st.covers.cpu().numpy().astype(np.float32)
+        for k, sk in enumerate(stacks):
+            pre = f"k{k}_" if K > 1 else ""
+            for d, (feat, thr, na_left, valid) in enumerate(sk.levels):
+                arrays[f"{pre}feat_{d}"] = feat.cpu().numpy().astype(
+                    np.int32)
+                arrays[f"{pre}thr_{d}"] = thr.cpu().numpy().astype(
+                    np.float32)
+                arrays[f"{pre}na_left_{d}"] = na_left.cpu().numpy().astype(
+                    bool)
+                arrays[f"{pre}valid_{d}"] = valid.cpu().numpy().astype(bool)
+            arrays[f"{pre}values"] = sk.values.cpu().numpy().astype(
+                np.float32)
+            if sk.covers is not None:
+                arrays[f"{pre}covers"] = sk.covers.cpu().numpy().astype(
+                    np.float32)
         return meta, arrays
 
 
@@ -764,6 +1064,11 @@ class SharedTree(ModelBuilder):
         return y0, dist.init_score(y0, w)
 
     def _scores_to_preds(self, F, dist, di):
+        """Training scores -> predictions: [N, K] probabilities from the
+        class-major [K, N] multinomial scores (softmax over the classes),
+        [N, 2] for binomial, the predictions otherwise."""
+        if dist.name == "multinomial":
+            return torch.softmax(F, dim=0).t()
         if di.is_classifier:
             p1 = dist.linkinv(F).clamp(0.0, 1.0)
             return torch.stack([1 - p1, p1], dim=1)

@@ -1,5 +1,6 @@
-"""Checks shared by the port's tests and ``chip_smoke.py``: bitwise
-equality of f32 tensors and a records histogram with a planted tie."""
+"""What the port's tests and ``chip_smoke.py`` share: bitwise equality of
+f32 tensors, a records histogram with a planted tie, and the 3-class
+``delay_class`` response of the bench frame."""
 
 from __future__ import annotations
 
@@ -25,3 +26,13 @@ def tie_hist(a: int, b: int, L: int, F: int) -> np.ndarray:
     row = np.concatenate([row, np.zeros((3, 1))], axis=1)
     return np.broadcast_to(row[:, None, None, :], (3, L, F, nbins + 1)) \
         .astype(np.float32).copy()
+
+
+def delay_class(cols) -> np.ndarray:
+    """The 3-class ``delay_class`` response of the airlines-shaped bench
+    frame (``make_airlines_like``'s columns): "NO" where
+    ``dep_delayed_15min`` is "NO", else "LONG" where the scheduled
+    departure ``crs_dep_time`` is 1700 or later, else "SHORT"."""
+    late = np.asarray(cols["crs_dep_time"]) >= 1700
+    return np.where(np.asarray(cols["dep_delayed_15min"]) == "NO", "NO",
+                    np.where(late, "LONG", "SHORT")).astype(object)

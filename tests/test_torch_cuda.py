@@ -416,3 +416,118 @@ def test_small_hier_train_matches_cpu_plain_route(cuda):
     pb = b.predict(Frame.from_numpy(cols, types=types, domains=domains,
                                     device="cpu")).vec("a").to_numpy()
     np.testing.assert_allclose(pa, pb, rtol=1e-4)
+
+
+# --------------------------------- the K axis of the histogram kernel
+
+# (K, F, nbins, L, n, codes): K trees in one launch, on codes they share
+# (read with a stride of 0) or on each tree's own prefix (a [K, F, n] view
+# of an [F, K, n] buffer, as make_batched_level_fn compacts them)
+_BATCHED_CASES = [(1, 8, 256, 1, 1_000_003, "shared"),
+                  (3, 8, 256, 1, 999_983, "shared"),
+                  (3, 8, 256, 16, 500_001, "own"),
+                  (7, 5, 64, 4, 77_777, "own"),
+                  (7, 3, 17, 2, 1_001, "shared")]
+
+
+def _batched_inputs(rng, K, F, nbins, L, n, codes_kind, integer, dev):
+    bc, codes, _, _ = _hist_inputs(rng, F, nbins, L, n, 0.05, integer, dev)
+    if codes_kind == "own":
+        own = [codes[:, rng.permutation(n)] for _ in range(K)]
+        codes = torch.stack(own, dim=1).transpose(0, 1)     # [K, F, n]
+    leaf = torch.from_numpy(rng.integers(-1, L, (K, n)).astype(
+        np.int32)).to(dev)
+    sts = [_hist_inputs(rng, 1, 2, 1, n, 0.0, integer, dev)[3] * (10.0 ** k)
+           for k in range(K)]                  # trees on scales far apart
+    return bc, codes, leaf, torch.stack(sts)
+
+
+def _tree(codes, k):
+    return codes[k] if codes.dim() == 3 else codes
+
+
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("K,F,nbins,L,n,codes_kind", _BATCHED_CASES)
+def test_hist_batched_equals_plain_and_single_launches(cuda, K, F, nbins, L,
+                                                       n, codes_kind,
+                                                       integer):
+    """One K-batched launch of ``csrc/hist.cu`` (blockIdx.z = tree, each
+    tree on its own fixed-point scale) equals its plain version bitwise,
+    and each tree's histogram equals a launch of that tree alone, on both
+    layouts, at a ragged n, with rows of leaf -1."""
+    rng = np.random.default_rng(K * 13 + L + n % 83)
+    bc, codes, leaf, st = _batched_inputs(rng, K, F, nbins, L, n,
+                                          codes_kind, integer, cuda)
+    B = nbins + 1
+    scale = hist.stat_scale(st)
+    before = hist.HIST.launches
+    got = hist.hist_uniform(codes, leaf, st, L, B, scale=scale)
+    gcodes = hist.offset_codes(codes, bc, nbins)
+    packed = hist.hist_varbin(gcodes, leaf, st, L, bc, B, scale)
+    torch.cuda.synchronize()
+    assert hist.HIST.launches == before + 2
+    assert got.shape == (K, 3, L, F, B)
+    _assert_bitwise(got, hist.hist_uniform_torch(codes, leaf, st, L, B,
+                                                 scale=scale))
+    _assert_bitwise(packed, hist.hist_varbin_torch(
+        gcodes, leaf, st, L, hist.packed_layout(bc, B), scale))
+    for k in range(K):
+        _assert_bitwise(got[k], hist.hist_uniform(
+            _tree(codes, k).contiguous(), leaf[k], st[k], L, B))
+        _assert_bitwise(packed[k], hist.hist_varbin(
+            _tree(gcodes, k).contiguous(), leaf[k], st[k], L, bc, B))
+    _assert_bitwise(hist.expand_varbin(packed, bc, L, B), got)
+
+
+def test_small_multinomial_train_matches_cpu_plain_route(cuda):
+    """A 3-class XGBoost on the card: one hist and one split_records launch
+    per level for all three class trees; bitwise the K loop of single
+    builds (split_mode="separate") on the card, and the same splits as the
+    CPU plain route on the first round."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    from h2o3_tpu_torch.testing import same_bits
+    rng = np.random.default_rng(4)
+    n = 30_000
+    x0 = rng.normal(size=n).astype(np.float32)
+    x0[rng.random(n) < 0.05] = np.nan
+    x1 = rng.integers(0, 2400, n).astype(np.float32)
+    cols = {"x0": x0, "x1": x1, "c": rng.integers(0, 30, n),
+            "y": np.where(np.nan_to_num(x0) + 0.3 * (rng.random(n) < 0.5)
+                          < 0.2, "NO", np.where(x1 >= 1700, "LONG",
+                                                "SHORT")).astype(object)}
+    types, domains = {"c": "cat"}, {"c": [str(i) for i in range(30)]}
+    cfg = dict(response_column="y", max_depth=4, nbins=64, seed=1, ntrees=3,
+               score_tree_interval=10 ** 9)
+    models = {}
+    for dev in ("cuda", "cpu"):
+        fr = Frame.from_numpy(cols, types=types, domains=domains, device=dev)
+        before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+        models[dev] = XGBoost(device=dev, **cfg).train(fr)
+        if dev == "cuda":
+            assert (hist.HIST.launches - before[0],
+                    hist.SPLIT_RECORDS.launches - before[1]) == (12, 12)
+            # sampled (the card's generators draw other numbers than the
+            # CPU's, so only here): the batched build against the K loop
+            sampled = dict(cfg, sample_rate=0.8, col_sample_rate=0.8,
+                           col_sample_rate_per_tree=0.7)
+            fus = XGBoost(device=dev, **sampled).train(fr)
+            sep = XGBoost(device=dev, split_mode="separate",
+                          **sampled).train(fr)
+    a, b = models["cuda"], models["cpu"]
+    assert a.output["nclass_trees"] == 3
+    for sa, ss in zip(fus.output["stacked"], sep.output["stacked"]):
+        for la, ls in zip(sa.levels, ss.levels):
+            for x, y in zip(la, ls):
+                assert torch.equal(x, y)
+        assert same_bits(sa.values, ss.values)
+    for ta, tb in zip(a.output["trees"][0], b.output["trees"][0]):
+        for d in range(len(ta.feat)):
+            va, vb = ta.valid[d].cpu().numpy(), tb.valid[d].numpy()
+            np.testing.assert_array_equal(va, vb)
+            np.testing.assert_array_equal(ta.feat[d].cpu().numpy()[va],
+                                          tb.feat[d].numpy()[vb])
+            np.testing.assert_array_equal(ta.thr[d].cpu().numpy()[va],
+                                          tb.thr[d].numpy()[vb])
+        np.testing.assert_allclose(ta.values.cpu().numpy(),
+                                   tb.values.numpy(), rtol=1e-4, atol=1e-6)
