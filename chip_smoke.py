@@ -123,10 +123,42 @@ Phases (any failure exits non-zero and prints no result line):
              K-batched launch per round in turns with K single launches,
              beside its plain version, the one ``index_add_`` and its bound;
 16. multinomial headline — at 10M rows a 20-round warmup, then rounds/s
-             and trees/s (K x rounds/s) of a timed 20-round train, batched
-             and as the K loop, each with a profile's device operations per
-             round and idle share; the K-batched launch per round in turns
-             with K single launches on a captured 10M-row round.
+             and trees/s (K x rounds/s) of a timed 20-round train, batched,
+             and of a 5-round train as the K loop, each with a profile's
+             device operations per round and idle share; the K-batched
+             launch per round in turns with K single launches on a
+             captured 10M-row round.
+17. grid kernels — on the bench frame at 1M rows, the records inputs of
+             one round of the phase-18 cohort (G = 4 members, their K*L
+             leaves member-major, one set of parameters per leaf) are
+             captured; on each level the per-row ``split_records`` launch
+             must equal its plain version with the same per-leaf tensors
+             on the real and the integer-valued H, on a NaN g plane, with
+             min_rows and min_child_weight ruling out one member only and
+             with one member retired (all-zero histogram: no split), and a
+             second launch, bitwise; with every leaf on one member's
+             parameters it must equal the scalar launch bitwise;
+18. grid train — launch counts set to 0, then ``GridSearch(XGBoost,
+             {"learn_rate": [0.05, 0.1], "reg_lambda": [0.0, 1.0]},
+             grid_batch="on")`` with the bench config at 1M rows and 20
+             trees: ``hist`` and the per-row ``split_records`` must each
+             launch rounds x levels times, the scalar records never; each
+             member bitwise its own sequential train (trees, leaf values,
+             predictions); a second cohort bitwise; the plain route the
+             same first-tree splits per member, training AUC to 1e-4; a
+             sampled cohort (``sample_rate`` and ``col_sample_rate_per_tree``
+             in [0.8, 1.0], ``col_sample_rate=0.6``) bitwise its members'
+             sequential trains; successive halving (``halving_eta=2``)
+             leaves every member bitwise the first trees of its sequential
+             train and the retired members' trees after retirement without
+             a split or a non-zero leaf value; a member published; then the
+             per-row launch per round beside its plain version and bound;
+19. grid headline — at 10M rows a 5-round warmup, then member trees/s (G
+             x rounds/s) of a timed 20-round cohort, the device operations
+             per round and idle share of a profiled cohort of the same size,
+             the wave path's trees/s (the members as sequential 20-tree
+             trains, ``grid_batch="off"``), and the per-row records per
+             round (bitwise its plain version) beside its bound.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -149,6 +181,7 @@ serving kernels.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -159,6 +192,7 @@ import traceback
 
 import numpy as np
 
+T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 REPS = 50
@@ -171,6 +205,11 @@ TURN_BATCHES = (1, 8, 64, 256, 1024)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def mark(phase: str) -> None:
+    """The script's elapsed seconds at the end of a phase."""
+    log(f"[{time.perf_counter() - T_START:.1f} s] {phase} done")
 
 
 def make_airlines_like(n):
@@ -552,14 +591,16 @@ def per_tree(fn, codes, leaf, stats, *args):
                         for k in range(leaf.shape[0])])
 
 
-def train_plain(fr, XGBoost, hist, ntrees, cfg=BENCH_CFG, **extra):
-    """The same train with ``hist_varbin``, ``hist_uniform``,
-    ``split_records`` and ``fine_hist`` swapped for plain torch on the
-    card: the route the kernels' training is held against.  Its
+@contextlib.contextmanager
+def plain_route(hist):
+    """``hist_varbin``, ``hist_uniform``, ``split_records`` and
+    ``fine_hist`` swapped for plain torch on the card while the block
+    runs: the route the kernels' training is held against.  Its
     histograms are this script's own f64 ``index_add_`` (``f64_uniform``,
     ``f64_varbin``, ``f64_fine``; tree by tree for a batched call) rounded
     to f32, not the port's fixed-point plain versions: an oracle
-    independent of the arithmetic under test."""
+    independent of the arithmetic under test; its records the plain
+    ``_split_records_torch`` (per-leaf parameters included)."""
     real = (hist.hist_varbin, hist.hist_uniform, hist.split_records,
             hist.fine_hist)
 
@@ -580,10 +621,16 @@ def train_plain(fr, XGBoost, hist, ntrees, cfg=BENCH_CFG, **extra):
     (hist.hist_varbin, hist.hist_uniform, hist.split_records,
      hist.fine_hist) = varbin, uniform, records, fine
     try:
-        return XGBoost(ntrees=ntrees, **cfg, **extra).train(fr)
+        yield
     finally:
         (hist.hist_varbin, hist.hist_uniform, hist.split_records,
          hist.fine_hist) = real
+
+
+def train_plain(fr, XGBoost, hist, ntrees, cfg=BENCH_CFG, **extra):
+    """The same train through ``plain_route``."""
+    with plain_route(hist):
+        return XGBoost(ntrees=ntrees, **cfg, **extra).train(fr)
 
 
 def raw_codes(gcodes, bc, nbins, hist):
@@ -871,6 +918,8 @@ def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
             raise AssertionError(
                 f"{name} launched {launches[name]} times on the train; "
                 f"expected trees x levels = {ntrees} x {levels}")
+    if launches["split_records (per-row)"] != 0:
+        raise AssertionError("a single train took the per-row records")
     log(f"train: XGBoost(max_depth=6, nbins=256, ntrees={ntrees}) on "
         f"{n} rows in {train_s:.3f} s {card}; launches {launches} = "
         f"{ntrees} trees x {levels} levels for hist and split_records")
@@ -941,18 +990,28 @@ def stacks_differ(m, m2):
     """None when two models hold bitwise the same trees (feature,
     threshold, NA direction, valid at every level of every class) and
     leaf values; else what differs first."""
+    for k, (a, b) in enumerate(zip(as_stacks(m), as_stacks(m2))):
+        why = stack_differs(a, b)
+        if why:
+            return f"{why} of class {k}"
+    return None
+
+
+def stack_differs(a, b):
+    """None when two ``StackedTrees`` hold bitwise the same trees and leaf
+    values; else what differs first."""
     import torch
     from h2o3_tpu_torch.testing import same_bits
-    for k, (a, b) in enumerate(zip(as_stacks(m), as_stacks(m2))):
-        for d, (lv1, lv2) in enumerate(zip(a.levels, b.levels)):
-            for nm, x, y in zip(("feat", "thr", "na_left", "valid"), lv1,
-                                lv2):
-                same = same_bits(x, y) if x.is_floating_point() \
-                    else torch.equal(x, y)
-                if not same:
-                    return f"{nm} at level {d} of class {k}"
-        if not same_bits(a.values, b.values):
-            return f"the leaf values of class {k}"
+    if (a.ntrees, a.depth) != (b.ntrees, b.depth):
+        return f"{a.ntrees} x {a.depth} trees against {b.ntrees} x {b.depth}"
+    for d, (lv1, lv2) in enumerate(zip(a.levels, b.levels)):
+        for nm, x, y in zip(("feat", "thr", "na_left", "valid"), lv1, lv2):
+            same = same_bits(x, y) if x.is_floating_point() \
+                else torch.equal(x, y)
+            if not same:
+                return f"{nm} at level {d}"
+    if not same_bits(a.values, b.values):
+        return "the leaf values"
     return None
 
 
@@ -1280,7 +1339,7 @@ def train_hier_phase(fr, cols, kernels, XGBoost, batcher, hist, codes,
         raise AssertionError("the train did not take the hierarchical "
                              "search")
     want = {"hist": ntrees * levels, "fine_hist": ntrees * levels,
-            "split_records": 0}
+            "split_records": 0, "split_records (per-row)": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"hier train launches {launches}; expected "
                              f"{want}")
@@ -1407,6 +1466,9 @@ MULTI_CFG = dict(response_column="delay_class",
                  ignored_columns=["dep_delayed_15min"], max_depth=6,
                  nbins=256, seed=1, score_tree_interval=10 ** 9)
 MULTI_ROUNDS = 20
+# the K loop's headline rounds: its ~13,000 device operations a round
+# make a profile of 20 rounds minutes of the script's time
+MULTI_LOOP_ROUNDS = 5
 
 
 def multi_frame(n, Frame):
@@ -1605,7 +1667,7 @@ def train_multi_phase(fr, cols, kernels, XGBoost, batcher, hist, card):
                              f"stacks on the {m.output['hist_kernel']} "
                              f"layout; expected {K_CLASSES}, varbin")
     want = {"hist": rounds * levels, "split_records": rounds * levels,
-            "fine_hist": 0}
+            "fine_hist": 0, "split_records (per-row)": 0}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"multinomial train launches {launches}; "
                              f"expected rounds x levels, whatever K: {want}")
@@ -1683,18 +1745,18 @@ def stacks_differ_round(m, m2, t):
 def headline_multi(XGBoost, fr, card):
     """Phase 16: the multinomial train at 10M rows: a 20-round warmup,
     then rounds/s and trees/s (K x rounds/s) of a timed 20-round train,
-    batched and with split_mode="separate" (the K loop), each with the
-    device operations per round and idle share of a profiled 20-round
-    train."""
+    batched, and of a timed 5-round train with split_mode="separate" (the
+    K loop), each with the device operations per round and idle share of
+    a profiled train of the same size."""
     import torch
     n = fr.nrows
     out = {}
-    rounds = MULTI_ROUNDS
     t0 = time.perf_counter()
-    XGBoost(ntrees=rounds, **MULTI_CFG).train(fr)
+    XGBoost(ntrees=MULTI_ROUNDS, **MULTI_CFG).train(fr)
     torch.cuda.synchronize()
     warm = time.perf_counter() - t0
     for mode in ("fused", "separate"):
+        rounds = MULTI_ROUNDS if mode == "fused" else MULTI_LOOP_ROUNDS
         cfg = dict(MULTI_CFG, split_mode=mode)
         probe_us = host_op_us()
         t0 = time.perf_counter()
@@ -1705,7 +1767,7 @@ def headline_multi(XGBoost, fr, card):
         mt = m.training_metrics
         log(f"headline multinomial {mode}: {n} rows, XGBoost(max_depth=6, "
             f"nbins=256), delay_class (K = {K_CLASSES}): "
-            + (f"{rounds}-round warmup {warm:.3f} s, then "
+            + (f"{MULTI_ROUNDS}-round warmup {warm:.3f} s, then "
                if mode == "fused" else "")
             + f"{rounds} rounds in {dt:.3f} s = {rps:.3f} rounds/s = "
             f"{K_CLASSES * rps:.3f} trees/s; training logloss "
@@ -1730,6 +1792,390 @@ def headline_multi(XGBoost, fr, card):
                             f"({e.count / rounds:g})" for e in kern[:12]))
         out[mode] = (rps, ops, idle)
     return out
+
+
+# --------------------------------------------------------------- grid
+
+# the phase-18 cohort: G = 4 members of the bench XGBoost
+GRID_HP = {"learn_rate": [0.05, 0.1], "reg_lambda": [0.0, 1.0]}
+GRID_SAMPLED = {"sample_rate": [0.8, 1.0],
+                "col_sample_rate_per_tree": [0.8, 1.0]}
+GRID_ROUNDS = 20
+
+
+def combos(hp):
+    """The grid's combos in GridSearch's Cartesian order."""
+    import itertools
+    names = list(hp)
+    return [dict(zip(names, v)) for v in itertools.product(*hp.values())]
+
+
+def grid_search(GridSearch, XGBoost, hp, ntrees, **extra):
+    """The bench XGBoost's batched grid over ``hp``."""
+    return GridSearch(XGBoost, hp, grid_batch="on", ntrees=ntrees,
+                      **dict(BENCH_CFG, **extra))
+
+
+def by_combo(models, hp):
+    """Grid models keyed by their hyperparameter values."""
+    return {tuple(getattr(m.params, k) for k in hp): m for m in models}
+
+
+def capture_grid_records(fr, GridSearch, XGBoost, hist):
+    """Train one round of the phase-18 cohort with the records wrapper
+    watched: each level's ``split_records`` inputs (H [3, G*L, F, B] of
+    the G members' L leaves, member-major, and the per-leaf parameters
+    lam, min_rows, alpha, gamma, mcw, each [G*L])."""
+    sr = []
+    real = hist.split_records
+
+    def spy(Hist, nbins, *args, **kw):
+        sr.append((Hist.clone(), nbins, args))
+        return real(Hist, nbins, *args, **kw)
+
+    hist.split_records = spy
+    try:
+        grid_search(GridSearch, XGBoost, GRID_HP, 1).train(fr)
+    finally:
+        hist.split_records = real
+    return sr
+
+
+def check_grid_records(sr, hist, dev):
+    """Phase 17: the per-row records launch on the captured levels of a
+    cohort round against its plain version with the same per-leaf
+    tensors, bitwise (NaN bits included), a second launch bitwise the
+    first; with every leaf given member 0's parameters, bitwise the scalar
+    launch; and on a NaN g plane, with min_rows and min_child_weight that
+    rule out every bin of one member only, and with one member retired
+    (its histogram all zero).  Raises on any difference; returns the
+    largest max|kernel - plain|."""
+    import torch
+    from h2o3_tpu_torch.testing import same_bits
+    G = len(GRID_HP["learn_rate"]) * len(GRID_HP["reg_lambda"])
+    worst = 0.0
+    cases = 0
+
+    def held(H, nbins, args, what):
+        nonlocal worst, cases
+        got = hist.split_records(H, nbins, *args)
+        again = hist.split_records(H, nbins, *args)
+        want = hist._split_records_torch(H, *args)
+        torch.cuda.synchronize()
+        worst = max(worst, max_diff(got, want))
+        cases += 1
+        if not (same_bits(got, want) and same_bits(again, got)):
+            raise AssertionError(f"split_records (per-row) != plain (or a "
+                                 f"second launch) on {what}: max|diff| "
+                                 f"{max_diff(got, want):.3e}")
+        return got
+
+    for i, (H, nbins, args) in enumerate(sr):
+        nl = H.shape[1]
+        L = nl // G
+        if not all(isinstance(a, torch.Tensor) and a.shape == (nl,)
+                   for a in args):
+            raise AssertionError(f"level {i}: the cohort's records did not "
+                                 f"take per-leaf parameters")
+        held(H, nbins, args, f"level {i}")
+        held(H.round(), nbins, args, f"level {i}, integer-valued H")
+        same = tuple(torch.full_like(a, float(a[0])) for a in args)
+        a = hist.split_records(H, nbins, *same)
+        b = hist.split_records(H, nbins, *(float(x[0]) for x in args))
+        torch.cuda.synchronize()
+        if not same_bits(a, b):
+            raise AssertionError(f"level {i}: per-row launch with equal "
+                                 f"leaves != the scalar launch")
+        Hn = H.clone()
+        Hn[0] = float("nan")
+        held(Hn, nbins, args, f"level {i}, NaN g plane")
+        ruled = [x.clone() for x in args]
+        for j in (1, 4):                        # min_rows, mcw
+            ruled[j][2 * L:3 * L] = 1e9
+        got = held(H, nbins, ruled, f"level {i}, member 2 ruled out")
+        if not (bool(torch.isneginf(got[2 * L:3 * L, :, 0]).all())
+                and bool(torch.isfinite(got[:2 * L, :, 0]).any())):
+            raise AssertionError(f"level {i}: min_rows/min_child_weight of "
+                                 f"member 2 did not rule out its bins alone")
+        Hz = H.clone()
+        Hz[:, 3 * L:] = 0.0
+        got = held(Hz, nbins, args, f"level {i}, member 3 retired")
+        split = hist.finish_splits(got, args[1], 0.0)
+        if bool(split[4][3 * L:].any()) or not bool(
+                torch.isfinite(split[5][3 * L:]).all()):
+            raise AssertionError(f"level {i}: the retired member split or "
+                                 f"gave non-finite child sums")
+    log(f"kernel check split_records (per-row): bitwise equal to its plain "
+        f"version with the same per-leaf tensors (NaN bits included), a "
+        f"second launch bitwise the first, over {cases} launches: the "
+        f"{len(sr)} captured levels of a G = {G} cohort round (1M rows) on "
+        f"the real and the integer-valued H, a NaN g plane, min_rows and "
+        f"min_child_weight ruling out member 2 alone, member 3 retired "
+        f"(all-zero histogram: no split, finite child sums); with every "
+        f"leaf on member 0's parameters bitwise the scalar launch")
+    return worst
+
+
+def time_grid_records(sr, hist, label, card):
+    """Device ms per cohort round (the sum of its captured level launches)
+    of the per-row records launch, its plain version and its bound: H
+    read once, 3 G L F B x 4 B, the parameter block G L x 32 B, the
+    records written G L F x 12 x 4 B, over 3.35 TB/s, or its operations
+    over 67 TFLOP/s.  Returns [ms, plain, bound, bytes, ops]."""
+    tot = [0.0, 0.0, 0.0, 0, 0]
+    for i, (H, nbins, args) in enumerate(sr):
+        nl, F, B = H.shape[1], H.shape[2], H.shape[3]
+        ms = cuda_ms(lambda: hist.split_records(H, nbins, *args))
+        plain = cuda_ms(lambda: hist._split_records_torch(H, *args),
+                        reps=10)
+        nbytes = 3 * nl * F * B * 4 + nl * 32 + nl * F * 12 * 4
+        ops = work_records(nl * F, B)[1]
+        bnd, _ = bound(nbytes, ops)
+        for j, v in enumerate((ms, plain, bnd, nbytes, ops)):
+            tot[j] += v
+        log(f"grid records {label} level {i} (G*L={nl}, F={F}, B={B}) "
+            f"{card}: split_records (per-row) {ms:.4f} ms (plain "
+            f"{plain:.4f}, bound {bnd:.6f})")
+    log(f"grid records per round at {label} (sum of the {len(sr)} level "
+        f"launches) {card}: split_records (per-row) {tot[0]:.4f} ms, plain "
+        f"{tot[1]:.4f}, bound {tot[2]:.6f} ({bound(tot[3], tot[4])[1]})")
+    return tot
+
+
+class ScanWatch:
+    """Wraps ``shared.make_grid_scan_fn`` while a block runs: each chunk's
+    ``alive`` mask and its per-member trees, to see what the retired
+    members grew."""
+
+    def __init__(self, shared):
+        self.shared = shared
+        self.chunks = []
+
+    def __enter__(self):
+        real = self.real = self.shared.make_grid_scan_fn
+
+        def make(*a, **kw):
+            fn = real(*a, **kw)
+
+            def scan(*args):
+                F, per = fn(*args)
+                self.chunks.append((list(args[15]), per))
+                return F, per
+            scan.build = fn.build
+            return scan
+        self.shared.make_grid_scan_fn = make
+        return self
+
+    def __exit__(self, *exc):
+        self.shared.make_grid_scan_fn = self.real
+
+
+def grid_train_phase(fr, cols, kernels, GridSearch, XGBoost, batcher, hist,
+                     card):
+    """Phase 18: the batched grid path (G = 4 members of the bench
+    XGBoost, one level loop), counted; each member bitwise its sequential
+    train; a second cohort bitwise; the plain route; a sampled cohort;
+    successive halving; a member published.  Returns the main path's
+    launch counts."""
+    import torch
+    from h2o3_tpu_torch.models.tree import shared
+    R = GRID_ROUNDS
+    G = len(combos(GRID_HP))
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    g = grid_search(GridSearch, XGBoost, GRID_HP, R).train(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    levels = as_stacks(g.models[0])[0].depth
+    want = {"hist": R * levels, "split_records (per-row)": R * levels,
+            "split_records": 0, "fine_hist": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"grid cohort launches {launches}; expected "
+                             f"rounds x levels, whatever G: {want}")
+    if sorted(m.output["grid_cohort"]["member"] for m in g.models) != \
+            list(range(G)) or len(g.models) != G:
+        raise AssertionError("the grid did not train one cohort of "
+                             f"{G} members")
+    log(f"grid train: GridSearch(XGBoost, {GRID_HP}, grid_batch='on'), "
+        f"max_depth=6, nbins=256, ntrees={R}, on {fr.nrows} rows in "
+        f"{train_s:.3f} s {card}; launches {launches} = {R} rounds x "
+        f"{levels} levels for hist and the per-row split_records, none of "
+        f"the scalar form")
+
+    mg = by_combo(g.models, GRID_HP)
+    seqs = {}
+    for combo in combos(GRID_HP):
+        key = tuple(combo.values())
+        seqs[key] = XGBoost(ntrees=R, **BENCH_CFG, **combo).train(fr)
+        why = stacks_differ(mg[key], seqs[key])
+        if why:
+            raise AssertionError(f"cohort member {combo} and its sequential "
+                                 f"train differ on {why}")
+        p_g = mg[key].predict(fr).vec("YES").to_numpy()
+        p_s = seqs[key].predict(fr).vec("YES").to_numpy()
+        if not np.array_equal(p_g, p_s):
+            raise AssertionError(f"cohort member {combo}'s predictions "
+                                 f"differ from its sequential train's")
+    log(f"grid vs sequential on the card: each of the {G} members bitwise "
+        f"its own sequential XGBoost train ({R} trees x {levels} levels, "
+        f"leaf values and predictions)")
+
+    g2 = grid_search(GridSearch, XGBoost, GRID_HP, R).train(fr)
+    for key, m2 in by_combo(g2.models, GRID_HP).items():
+        why = stacks_differ(mg[key], m2)
+        if why:
+            raise AssertionError(f"a second cohort train differs on {why} "
+                                 f"(member {key})")
+    log(f"determinism grid: a second cohort train gave bitwise identical "
+        f"trees and leaf values ({G} members x {R} trees)")
+
+    plain_from = {k.name: k.launches for k in kernels}
+    with plain_route(hist):
+        gp = grid_search(GridSearch, XGBoost, GRID_HP, R).train(fr)
+    if {k.name: k.launches for k in kernels} != plain_from:
+        raise AssertionError("the plain-route cohort launched a kernel")
+    worst_rel, worst_auc = 0.0, 0.0
+    for key, mp in by_combo(gp.models, GRID_HP).items():
+        a, b = mg[key].output["trees"][0], mp.output["trees"][0]
+        for d in range(levels):
+            for name in ("feat", "na_left", "valid", "thr"):
+                if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                    raise AssertionError(
+                        f"kernel and plain-route cohorts differ on {name} at "
+                        f"level {d} of member {key}'s first tree")
+        auc_k, auc_p = mg[key].training_metrics.auc, mp.training_metrics.auc
+        worst_auc = max(worst_auc, abs(auc_k - auc_p))
+        if abs(auc_k - auc_p) > 1e-4:
+            raise AssertionError(f"member {key}: training AUC {auc_k} vs "
+                                 f"plain {auc_p}")
+        p_k = mg[key].predict(fr).vec("YES").to_numpy()
+        p_p = mp.predict(fr).vec("YES").to_numpy()
+        if not (np.isfinite(p_k).all() and p_k.shape == (fr.nrows,)):
+            raise AssertionError("cohort predictions are not finite")
+        worst_rel = max(worst_rel,
+                        float(np.max(np.abs(p_k - p_p) / np.abs(p_p))))
+    log(f"grid vs plain route on the card: every member's first tree equal "
+        f"at all {levels} levels; predictions max rel diff {worst_rel:.3e}; "
+        f"training AUC max |diff| {worst_auc:.3e} (each "
+        + ", ".join(f"{k}: {m.training_metrics.auc:.6f}"
+                    for k, m in mg.items()) + ")")
+
+    gs = grid_search(GridSearch, XGBoost, GRID_SAMPLED, R,
+                     col_sample_rate=0.6).train(fr)
+    masked = 0
+    for key, m in by_combo(gs.models, GRID_SAMPLED).items():
+        combo = dict(zip(GRID_SAMPLED, key))
+        seq = XGBoost(ntrees=R, col_sample_rate=0.6, **BENCH_CFG,
+                      **combo).train(fr)
+        why = stacks_differ(m, seq)
+        if why:
+            raise AssertionError(f"sampled cohort member {combo} and its "
+                                 f"sequential train differ on {why}")
+        if not np.array_equal(m.predict(fr).vec("YES").to_numpy(),
+                              seq.predict(fr).vec("YES").to_numpy()):
+            raise AssertionError(f"sampled member {combo}'s predictions "
+                                 f"differ")
+        masked += sum(int((~lv[3]).sum()) for lv in as_stacks(m)[0].levels)
+    log(f"grid sampled: {GRID_SAMPLED} with col_sample_rate=0.6, each "
+        f"member bitwise its sequential train (trees, leaf values, "
+        f"predictions); {masked} nodes left unsplit across the members")
+
+    halving = dict(BENCH_CFG, score_tree_interval=5)
+    with ScanWatch(shared) as watch:
+        gh = GridSearch(XGBoost, GRID_HP, grid_batch="on", ntrees=R,
+                        search_criteria={"successive_halving": True,
+                                         "halving_eta": 2},
+                        **halving).train(fr)
+    retired = [m for m in gh.models if m.output.get("halving")]
+    survivors = [m for m in gh.models if not m.output.get("halving")]
+    if len(retired) != G - 1 or len(survivors) != 1:
+        raise AssertionError(f"halving left {len(survivors)} survivors")
+    for m in gh.models:
+        key = tuple(getattr(m.params, k) for k in GRID_HP)
+        full = as_stacks(seqs[key])[0]
+        n = m.output["ntrees_trained"]
+        why = stack_differs(as_stacks(m)[0], shared.StackedTrees(
+            [tuple(x[:n] for x in lv) for lv in full.levels],
+            full.values[:n], full.covers[:n]))
+        if why:
+            raise AssertionError(f"halving member {key}: its {n} trees and "
+                                 f"its sequential train's differ on {why}")
+    after = 0
+    for alive, per in watch.chunks:
+        for k, on in enumerate(alive):
+            if on:
+                continue
+            after += per[k].ntrees
+            if bool((per[k].values != 0).any()) or any(
+                    bool(lv[3].any()) for lv in per[k].levels):
+                raise AssertionError(f"retired member {k} grew a split or a "
+                                     f"non-zero leaf value")
+    log(f"grid halving (halving_eta=2, scoring every 5 trees): retired at "
+        + ", ".join(f"{m.output['halving']['retired_at']}" for m in retired)
+        + f" trees, {survivors[0].params.learn_rate}/"
+        f"{survivors[0].params.reg_lambda} survives with "
+        f"{survivors[0].output['ntrees_trained']} trees; every member bitwise "
+        f"the first trees of its sequential train; the {after} trees the "
+        f"retired members grew after retirement have no split and zero leaf "
+        f"values")
+    publish_check("trained-xgboost-grid-member", g.models[0], fr, cols,
+                  batcher)
+    return launches
+
+
+def headline_grid(GridSearch, XGBoost, fr, card):
+    """Phase 19: the phase-18 cohort at 10M rows: a 5-round warmup, then
+    member trees/s (G x rounds/s) of a timed 20-round cohort, the device
+    operations per round and idle share of a profiled train of the same
+    size, and the wave path (the G members as sequential 20-tree trains,
+    ``grid_batch="off"``) in the same run."""
+    import torch
+    R = GRID_ROUNDS
+    G = len(combos(GRID_HP))
+    n = fr.nrows
+    t0 = time.perf_counter()
+    grid_search(GridSearch, XGBoost, GRID_HP, 5).train(fr)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    probe_us = host_op_us()
+    t0 = time.perf_counter()
+    g = grid_search(GridSearch, XGBoost, GRID_HP, R).train(fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tps = G * R / dt
+    log(f"headline grid: {n} rows, GridSearch(XGBoost, {GRID_HP}, "
+        f"grid_batch='on'), max_depth=6, nbins=256: 5-round warmup "
+        f"{warm:.3f} s, then {R} rounds of {G} members in {dt:.3f} s = "
+        f"{R / dt:.3f} rounds/s = {tps:.3f} member trees/s; best training "
+        f"AUC {max(m.training_metrics.auc for m in g.models):.6f} {card}")
+    kern, busy = device_profile(
+        lambda: grid_search(GridSearch, XGBoost, GRID_HP, R).train(fr))
+    ops = sum(e.count for e in kern) / R
+    idle = idle_share(busy, dt)
+    if busy <= 0:
+        log("profile grid: no device time in the trace: not measured")
+    else:
+        log(f"profile grid of a {R}-round cohort at {n} rows: {ops:g} device "
+            f"operations per round (a small torch op costs the host "
+            f"{probe_us:.2f} us); device busy {busy / R:.2f} ms per round "
+            f"against {dt / R * 1e3:.2f} ms of wall per round of the "
+            f"unprofiled {R}-round cohort: idle share {idle:.3f}; device ms "
+            f"per round by kernel (launches per round): "
+            + "; ".join(f"{e.key[:110]} "
+                        f"{e.self_device_time_total / 1e3 / R:.3f} "
+                        f"({e.count / R:g})" for e in kern[:12]))
+    t0 = time.perf_counter()
+    GridSearch(XGBoost, GRID_HP, grid_batch="off", ntrees=R,
+               **BENCH_CFG).train(fr)
+    torch.cuda.synchronize()
+    wave_dt = time.perf_counter() - t0
+    wave_tps = G * R / wave_dt
+    log(f"headline grid wave path: the {G} members as sequential {R}-tree "
+        f"trains (grid_batch='off') in {wave_dt:.3f} s = {wave_tps:.3f} "
+        f"trees/s {card}")
+    return tps, ops, idle, wave_tps
 
 
 def load_other(path: str):
@@ -1880,6 +2326,7 @@ def main() -> dict:
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.export.mojo import from_reference
     from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models import GridSearch
     from h2o3_tpu_torch.models.tree import hist
     from h2o3_tpu_torch.models.tree.xgboost import XGBoost
     from h2o3_tpu_torch.runtime import config as cfgmod
@@ -2085,6 +2532,7 @@ def main() -> dict:
         "library_ms": None,
     }
 
+    mark("phases 1-6")
     # ------------------------------------------------- 7 train kernels
     dev = torch.device("cuda")
     cols, types, domains = make_airlines_like(1_000_000)
@@ -2093,7 +2541,8 @@ def main() -> dict:
     kdiff = check_train_kernels(hv, sr, hist, dev)
 
     # ---------------------------------------------------------- 8 train
-    kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.FINE_HIST]
+    kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.SPLIT_RECORDS_ROWS,
+                     hist.FINE_HIST]
     _, tlaunch, ntrees, exact_auc = train_phase(
         cols, types, domains, kernels_train, XGBoost, Frame, batcher, hist,
         card)
@@ -2131,6 +2580,7 @@ def main() -> dict:
         records_turns(sr, rec_pair, "1M rows", card)
     del sr
 
+    mark("phases 7-9")
     # ------------------------------------------------- 10 hier kernels
     fh, hu = capture_hier_levels(fr1, XGBoost, hist)
     kdiff.update(check_hier_kernels(fh, hu, hist, dev))
@@ -2167,8 +2617,10 @@ def main() -> dict:
         "bound_by": bound(v[4], v[5])[1], "library_ms": v[3],
     })
     log_turns(hv, hu, fh, variants, "1M rows", card)
-    del hv, fh, hu, fr1
+    del hv, fh, hu
+    cols1 = cols
 
+    mark("phases 10-12")
     # ------------------------------------------ 14 multinomial kernels
     mcols, frm1 = multi_frame(1_000_000, Frame)
     mhv, msr = capture_multi_levels(frm1, XGBoost, hist)
@@ -2191,6 +2643,28 @@ def main() -> dict:
     })
     del mhv, frm1, mcols
 
+    mark("phases 14-15")
+    # ------------------------------------------------- 17 grid kernels
+    gsr = capture_grid_records(fr1, GridSearch, XGBoost, hist)
+    kdiff["split_records (per-row)"] = check_grid_records(gsr, hist, dev)
+
+    mark("phase 17")
+    # ---------------------------------------------------- 18 grid train
+    glaunch = grid_train_phase(fr1, cols1, kernels_train, GridSearch,
+                               XGBoost, batcher, hist, card)
+    gtot = time_grid_records(gsr, hist, "1M rows", card)
+    rows.append({
+        "name": "split_records (per-row)", "route": "cuda",
+        "source": "h2o3_tpu_torch/csrc/split_records.cu",
+        "replaces": "h2o3_tpu/models/tree/hist.py:1526 (per_row=True)",
+        "launches": glaunch["split_records (per-row)"],
+        "max_abs_err": kdiff["split_records (per-row)"],
+        "ms": gtot[0], "plain_ms": gtot[1], "bound_ms": gtot[2],
+        "bound_by": bound(gtot[3], gtot[4])[1], "library_ms": None,
+    })
+    del gsr, fr1, cols1
+
+    mark("phase 18")
     # ----------------------------------------------------- 13 headlines
     t0 = time.perf_counter()
     cols, types, domains = make_airlines_like(10_000_000)
@@ -2236,7 +2710,6 @@ def main() -> dict:
         records_turns(sr10, rec_pair, "10M rows", card)
     del sr10
     fh10, hu10 = capture_hier_levels(fr10, XGBoost, hist)
-    del fr10
     htot10 = time_hier_kernels(fh10, hu10, hist, "10M rows")
     log(f"kernel times per 10M-row tree (CUDA events, sum of the 6 level "
         f"launches of one captured tree) {card}: " + "; ".join(
@@ -2246,6 +2719,7 @@ def main() -> dict:
     log_turns(hv10, hu10, fh10, variants, "10M rows", card)
     del hv10, fh10, hu10
 
+    mark("phase 13")
     # ---------------------------------------- 16 multinomial headline
     _, frm10 = multi_frame(10_000_000, Frame)
     mh = headline_multi(XGBoost, frm10, card)
@@ -2261,6 +2735,22 @@ def main() -> dict:
         f"ops per round, idle share {sidle:.3f}); K-batched hist "
         f"{mtot10[0]:.4f} ms per round against {mtot10[6]:.4f} ms for "
         f"{K_CLASSES} single launches (bound {mtot10[2]:.5f})")
+
+    mark("phase 16")
+    # ------------------------------------------------ 19 grid headline
+    gtps, gops, gidle, wave_tps = headline_grid(GridSearch, XGBoost, fr10,
+                                                card)
+    gsr10 = capture_grid_records(fr10, GridSearch, XGBoost, hist)
+    del fr10
+    check_records(gsr10, hist, "10M-row grid")
+    gtot10 = time_grid_records(gsr10, hist, "10M rows", card)
+    del gsr10
+    log(f"grid headline at 10M rows {card}: cohort of "
+        f"{len(combos(GRID_HP))} {gtps:.3f} member trees/s ({gops:g} device "
+        f"ops per round, idle share {gidle:.3f}); wave path {wave_tps:.3f} "
+        f"trees/s; per-row split_records {gtot10[0]:.4f} ms per round "
+        f"(bound {gtot10[2]:.6f}, plain {gtot10[1]:.4f}); "
+        f"{time.perf_counter() - T_START:.1f} s since the script started")
 
     return {
         "kernels": [traverse_row] + rows,

@@ -7,10 +7,11 @@ online scoring plane and the tree-training main path:
 * ``frame``   — ``Frame`` / ``Vec``: numeric and categorical columns as
   padded device tensors.
 * ``models``  — the training contract (``base``, ``datainfo``,
-  ``distributions``, ``scorekeeper``) and the tree family
+  ``distributions``, ``scorekeeper``), the tree family
   (``models.tree``: binning, the level kernels' wrappers in ``hist``,
-  the growth loop in ``shared``, ``gbm``, ``xgboost``), with the CUDA
-  histogram and split-record kernels.
+  the growth loop in ``shared``, ``gbm``, ``xgboost``, and the batched
+  grid cohorts of ``grid_batch``), with the CUDA histogram and
+  split-record kernels, and the grid search (``grid``: ``GridSearch``).
 * ``metrics`` — binomial and regression model metrics.
 * ``export``  — the numpy ``ScoringModel``, the archive reader
   (``import_mojo``) and ``from_reference`` for models trained by the

@@ -1,8 +1,8 @@
 // Split-search winner records of tree training for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel
-// h2o3_tpu/models/tree/hist.py::_make_pallas_split_records (:1526, the
-// scalar-parameter form) and computes what it computes: for every
+// h2o3_tpu/models/tree/hist.py::_make_pallas_split_records (:1526) in
+// both its forms, and computes what it computes: for every
 // (leaf, feature) row of the level histogram H[3, L*F, B] (planes Σg, Σh,
 // Σw; bins 0..B-2 regular, B-1 the NA bin, nbins = B - 1):
 //   * prefix sums GL/HL/CL over the regular bins, and totals with NA;
@@ -16,6 +16,20 @@
 // and writes the 12-field record
 //   gain, bin, na_left, GL, HL, CL (at the bin, NA excluded),
 //   g_na, h_na, c_na, totG, totH, totC.
+//
+// Two entries, one body (a template on kRows):
+//   * split_records_launch: lambda, alpha, gamma, min_rows and
+//     min_child_weight are five scalars of the launch (the TPU kernel's
+//     [1, 8] SMEM block);
+//   * split_records_rows_launch: the per-row form (per_row=True, the
+//     batched grid's per-member parameters repeated over their leaves).
+//     The five come from a [nleaf, 8] f32 device array, lanes 0-4 lam,
+//     alpha, gamma, min_rows, mcw; row r belongs to leaf r / F.  The TPU
+//     kernel broadcasts an [RS, 8] VMEM block of them against its row
+//     block; here a block owns one row, so each thread reads its leaf's
+//     five values once (one broadcast load each) into registers, and the
+//     rest is the scalar body.  The scalar instantiation compiles without
+//     those loads: the form costs it nothing.
 //
 // The contract: bitwise equal to the plain torch version
 // (hist.py::_split_records_torch) on any H.  Its prefix sums run in
@@ -136,13 +150,26 @@ __device__ __forceinline__ void prefix_chain(float* x, int n) {
   }
 }
 
+// lanes of a per-row parameter record: lam, alpha, gamma, min_rows, mcw
+constexpr int kParamLanes = 8;
+
+template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
                      float lam, float alpha, float gamma, float min_rows,
-                     float mcw, float* __restrict__ rec) {
+                     float mcw, int F, const float* __restrict__ params,
+                     float* __restrict__ rec) {
   extern __shared__ __align__(16) float smem[];  // [3][Bp], warp winners
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int row = blockIdx.x;
+  if (kRows) {
+    const float* p = params + (size_t)(row / F) * kParamLanes;
+    lam = __ldg(p);
+    alpha = __ldg(p + 1);
+    gamma = __ldg(p + 2);
+    min_rows = __ldg(p + 3);
+    mcw = __ldg(p + 4);
+  }
   const int nbins = B - 1;
   const size_t plane = (size_t)LF * B;
   float* G = smem;
@@ -228,6 +255,26 @@ split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
   }
 }
 
+template <bool kRows>
+int launch(const float* hist, int LF, int B, float lam, float alpha,
+           float gamma, float min_rows, float mcw, int F,
+           const float* params, float* rec, cudaStream_t stream) {
+  if (LF <= 0) return (int)cudaSuccess;
+  if (B < 3) return (int)cudaErrorInvalidValue;
+  const int Bp = (B + 3) & ~3;         // 16-byte aligned planes
+  const size_t smem = (size_t)3 * Bp * sizeof(float) + 2 * kWarps * 4;
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  if (smem > (size_t)kSmemDefault) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        split_records_kernel<kRows>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  split_records_kernel<kRows><<<LF, kThreads, smem, stream>>>(
+      hist, LF, B, Bp, lam, alpha, gamma, min_rows, mcw, F, params, rec);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // Launch on `stream`; returns a CUDA error code (0 = launched).  hist:
@@ -236,18 +283,17 @@ extern "C" int split_records_launch(const float* hist, int LF, int B,
                                     float lam, float alpha, float gamma,
                                     float min_rows, float mcw, float* rec,
                                     cudaStream_t stream) {
-  if (LF <= 0) return (int)cudaSuccess;
-  if (B < 3) return (int)cudaErrorInvalidValue;
-  const int Bp = (B + 3) & ~3;         // 16-byte aligned planes
-  const size_t smem = (size_t)3 * Bp * sizeof(float) + 2 * kWarps * 4;
-  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  if (smem > (size_t)kSmemDefault) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        split_records_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  split_records_kernel<<<LF, kThreads, smem, stream>>>(
-      hist, LF, B, Bp, lam, alpha, gamma, min_rows, mcw, rec);
-  return (int)cudaGetLastError();
+  return launch<false>(hist, LF, B, lam, alpha, gamma, min_rows, mcw, 1,
+                       nullptr, rec, stream);
+}
+
+// The per-row form: the same records with each row's five parameters
+// read from params [LF / F, 8] f32 (lanes 0-4 lam, alpha, gamma,
+// min_rows, mcw of leaf r / F).  Device pointers; LF a multiple of F.
+extern "C" int split_records_rows_launch(const float* hist, int LF, int B,
+                                         int F, const float* params,
+                                         float* rec, cudaStream_t stream) {
+  if (F <= 0 || LF % F != 0) return (int)cudaErrorInvalidValue;
+  return launch<true>(hist, LF, B, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, F, params,
+                      rec, stream);
 }

@@ -1,1 +1,5 @@
-"""Models: the training contract and the tree family."""
+"""Models: the training contract, the tree family and the grid search."""
+
+from .grid import Grid, GridSearch
+
+__all__ = ["Grid", "GridSearch"]

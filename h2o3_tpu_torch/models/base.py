@@ -173,9 +173,11 @@ class ModelBuilder:
                   valid: Optional[Frame]) -> None:
         """Hook after _fit; default no-op."""
 
-    def train(self, frame: Frame, valid: Optional[Frame] = None) -> Model:
-        """Blocking train on ``params.device`` (``cuda`` unless named):
-        the trainModel/computeImpl path."""
+    def _check_device(self, frame: Frame,
+                      valid: Optional[Frame] = None) -> torch.device:
+        """The device this builder trains on (``params.device``, ``cuda``
+        unless named; raises without CUDA); raises unless the frames lie
+        there."""
         dev = resolve_device(self.params.device)
         for fr in (frame, valid):
             if fr is not None and fr.device != dev and not (
@@ -184,6 +186,12 @@ class ModelBuilder:
                 raise ValueError(
                     f"the frame lies on {fr.device}; this model trains on "
                     f"{dev} (Frame.from_numpy(..., device=...))")
+        return dev
+
+    def train(self, frame: Frame, valid: Optional[Frame] = None) -> Model:
+        """Blocking train on ``params.device`` (``cuda`` unless named):
+        the trainModel/computeImpl path."""
+        self._check_device(frame, valid)
         self._validate(frame)
         di = self._make_datainfo(frame)
         self.job = Job(f"{self.algo} train", dest_key=dkv.make_key(self.algo))

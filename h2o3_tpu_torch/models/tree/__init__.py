@@ -1,2 +1,2 @@
 """The tree family: binning, histograms and split search, the level-wise
-growth loop, GBM and XGBoost."""
+growth loop, GBM and XGBoost, and the batched grid cohorts."""

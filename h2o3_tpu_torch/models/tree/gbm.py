@@ -8,7 +8,9 @@ trees a round on the softmax gradients (``shared.make_multinomial_scan_fn``:
 one batched build of the K trees, GBM.java buildNextKTrees).  Rounds run in
 chunks that end on the scoring intervals (``shared.chunk_schedule``);
 training metrics come from F, with no second pass over the ensemble.  The
-DART booster waits for a later slice and raises.
+DART booster waits for a later slice and raises.  Grid cohorts of GBM and
+XGBoost members grow through ``grid_batch.train_cohort``, which finishes
+each member as ``_fit`` finishes a train (``_finalize_fused``).
 """
 
 from __future__ import annotations
@@ -60,9 +62,41 @@ class GBMModel(SharedTreeModel):
 class GBM(SharedTree):
     algo = "gbm"
     model_class = GBMModel
+    # grid cohorts batch through the single-class path
+    # (grid_batch.train_cohort reuses _prep_targets, _interval_score and
+    # _finalize_fused)
+    _grid_batchable = True
 
     def __init__(self, params: Optional[GBMParameters] = None, **kw):
         super().__init__(params or GBMParameters(**kw))
+
+    def _finalize_fused(self, model, di, dist, F, y, w, valid, history,
+                        binned, init_host, stacked):
+        """The end of a train, shared by ``_fit`` and the grid cohort's
+        members: the trees (one ``StackedTrees``, or a list of K class
+        stacks) and the initial score into ``model.output``, the scoring
+        history, and the training (and validation) metrics, taken from the
+        last interval's scoring where it scored this ensemble, else from
+        the scores F."""
+        ntrained = (stacked[0] if isinstance(stacked, list)
+                    else stacked).ntrees
+        model.output["trees"] = TreeList(stacked)
+        model.output["stacked"] = stacked
+        model.output["init_score"] = init_host
+        model.output["ntrees_trained"] = ntrained
+        model.output["edges"] = binned.edges
+        model.scoring_history = history
+        im = getattr(model, "_interval_metrics", None)
+        if im is not None and im[0] == ntrained:
+            model.training_metrics = im[1]
+            if valid is not None:
+                model.validation_metrics = im[2]
+        else:
+            model.training_metrics = make_metrics(
+                di, self._scores_to_preds(F, dist, di), y, w)
+            if valid is not None:
+                model.validation_metrics = model.model_performance(valid)
+        return model
 
     def _fit(self, job: Job, frame: Frame, di: DataInfo,
              valid: Optional[Frame]) -> GBMModel:
@@ -183,27 +217,8 @@ class GBM(SharedTree):
                                     history, vstate, metric_name, maximize):
                 break
 
-        if K > 1:
-            stacked = [StackedTrees.concat([ch[k] for ch in chunks])
-                       for k in range(K)]
-            ntrained = stacked[0].ntrees
-        else:
-            stacked = StackedTrees.concat(chunks)
-            ntrained = stacked.ntrees
-        model.output["trees"] = TreeList(stacked)
-        model.output["stacked"] = stacked
-        model.output["init_score"] = init_host
-        model.output["ntrees_trained"] = ntrained
-        model.output["edges"] = binned.edges
-        model.scoring_history = history
-        im = getattr(model, "_interval_metrics", None)
-        if im is not None and im[0] == ntrained:
-            model.training_metrics = im[1]
-            if valid is not None:
-                model.validation_metrics = im[2]
-        else:
-            model.training_metrics = make_metrics(
-                di, self._scores_to_preds(F, dist, di), y, w)
-            if valid is not None:
-                model.validation_metrics = model.model_performance(valid)
-        return model
+        stacked = [StackedTrees.concat([ch[k] for ch in chunks])
+                   for k in range(K)] if K > 1 \
+            else StackedTrees.concat(chunks)
+        return self._finalize_fused(model, di, dist, F, y, w, valid, history,
+                                    binned, init_host, stacked)

@@ -17,9 +17,10 @@ version:
   ``hist_uniform_torch`` / ``hist_varbin_torch``, one int64 ``index_add_``
   each;
 * ``split_records`` -> ``csrc/split_records.cu`` (JAX
-  ``_make_pallas_split_records``); plain version ``_split_records_torch``
-  (the JAX package's ``_split_records_xla`` with its prefix sums taken in
-  sequential order);
+  ``_make_pallas_split_records``, both forms: scalar parameters, or one
+  set per leaf for the batched grid); plain version
+  ``_split_records_torch`` (the JAX package's ``_split_records_xla`` with
+  its prefix sums taken in sequential order);
 * ``fine_hist`` -> ``csrc/fine_hist.cu`` (JAX ``_make_pallas_fine_hist``):
   the fine bins inside the K super-bins the hierarchical split search
   chose per (leaf, feature); plain version ``fine_hist_torch``, one
@@ -62,7 +63,12 @@ HIST = native.Kernel("hist", {
 })
 SPLIT_RECORDS = native.Kernel("split_records", {
     "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
+    "split_records_rows_launch": ((_P, _I, _I, _I, _P, _P, _P), _I),
 })
+# the per-row form of the records kernel (per-leaf parameters), counted
+# apart from the scalar form's launches in ``SPLIT_RECORDS.launches``
+SPLIT_RECORDS_ROWS = native.KernelForm(SPLIT_RECORDS,
+                                       "split_records (per-row)")
 FINE_HIST = native.Kernel("fine_hist", {
     "fine_hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
                           _P, _I, _I, _I, _I, _P, _P), _I),
@@ -807,9 +813,10 @@ def _score(G, H, lam, alpha=0.0):
     return Gt * Gt / (H + lam)
 
 
-def newton_value(g, h, reg_lambda: float, reg_alpha: float):
+def newton_value(g, h, reg_lambda, reg_alpha):
     """Soft-thresholded Newton node value, the one formula shared by
-    split rejection and leaf fitting."""
+    split rejection and leaf fitting; the parameters are scalars or
+    tensors that broadcast against g (per tree [K, 1])."""
     num = torch.sign(g) * torch.clamp_min(g.abs() - reg_alpha, 0.0)
     return -num / (h + reg_lambda + 1e-12)
 
@@ -828,13 +835,28 @@ def _cumsum_seq(x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def _per_leaf(x, extra_dims: int):
+    """A per-leaf [L] parameter broadcast against ``extra_dims`` trailing
+    axes (the JAX package's ``_per_leaf``); scalars pass through."""
+    if isinstance(x, torch.Tensor) and x.dim():
+        return x.reshape(x.shape + (1,) * extra_dims)
+    return x
+
+
 def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
                          min_child_weight) -> torch.Tensor:
     """Per-(leaf, feature) winner records [L, F, 12] — the plain version
     of ``csrc/split_records.cu`` and the port of the JAX package's
     ``_split_records_xla`` (same formula; prefix sums in sequential f32
     order).  Fields: gain, bin, na_left, GL, HL, CL at the bin (NA
-    excluded), g_na, h_na, c_na, totG, totH, totC."""
+    excluded), g_na, h_na, c_na, totG, totH, totC.  The five parameters
+    are scalars, or f32 tensors of one value per leaf [L] (the per-row
+    form), broadcast as [L, 1] against the totals and [L, 1, 1] against
+    the bins."""
+    lam1, alpha1 = _per_leaf(reg_lambda, 1), _per_leaf(reg_alpha, 1)
+    lam2, alpha2 = _per_leaf(reg_lambda, 2), _per_leaf(reg_alpha, 2)
+    gamma2 = _per_leaf(gamma, 2)
+    rows2, mcw2 = _per_leaf(min_rows, 2), _per_leaf(min_child_weight, 2)
     G, Hs, C = Hist[0], Hist[1], Hist[2]
     g_na, h_na, c_na = G[..., -1], Hs[..., -1], C[..., -1]
     cum = _cumsum_seq(Hist[..., :-1])
@@ -842,18 +864,17 @@ def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
     totG = cumG[..., -1] + g_na
     totH = cumH[..., -1] + h_na
     totC = cumC[..., -1] + c_na
-    parent = _score(totG, totH, reg_lambda, reg_alpha)
+    parent = _score(totG, totH, lam1, alpha1)
     GL, HL, CL = cumG[..., :-1], cumH[..., :-1], cumC[..., :-1]
     GR = totG[..., None] - GL - g_na[..., None]
     HR = totH[..., None] - HL - h_na[..., None]
     CR = totC[..., None] - CL - c_na[..., None]
 
     def gain_with_na(gl, hl, cl, gr, hr, cr):
-        g = 0.5 * (_score(gl, hl, reg_lambda, reg_alpha)
-                   + _score(gr, hr, reg_lambda, reg_alpha)
-                   - parent[..., None]) - gamma
-        ok = (cl >= min_rows) & (cr >= min_rows) & \
-            (hl >= min_child_weight) & (hr >= min_child_weight)
+        g = 0.5 * (_score(gl, hl, lam2, alpha2)
+                   + _score(gr, hr, lam2, alpha2)
+                   - parent[..., None]) - gamma2
+        ok = (cl >= rows2) & (cr >= rows2) & (hl >= mcw2) & (hr >= mcw2)
         return torch.where(ok, g, -torch.inf)
 
     gain_naL = gain_with_na(GL + g_na[..., None], HL + h_na[..., None],
@@ -874,43 +895,82 @@ def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
          totG, totH, totC], dim=-1)
 
 
+def _leaf_params(L: int, device, *params) -> torch.Tensor:
+    """The per-row form's parameter block [L, 8] f32, lanes 0-4 lam,
+    alpha, gamma, min_rows, min_child_weight of each leaf (a scalar is
+    the same for every leaf); lanes 5-7 pad a leaf's record to 32 bytes
+    and are never read (they repeat lanes 0-2, so that the block is one
+    stack)."""
+    cols = []
+    for x in params:
+        if isinstance(x, torch.Tensor):
+            if x.device != torch.device(device):
+                raise ValueError(f"a per-leaf parameter lies on {x.device}, "
+                                 f"the histogram on {device}")
+            cols.append(x.to(torch.float32).expand(L))
+        else:
+            cols.append(torch.full((L,), float(x), dtype=torch.float32,
+                                   device=device))
+    return torch.stack(cols + cols[:3], dim=1)
+
+
 def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
                   gamma=0.0, min_child_weight=0.0) -> torch.Tensor:
     """Per-(leaf, feature) winner records [L, F, 12] from H[3, L, F, B].
 
-    CUDA tensors launch ``csrc/split_records.cu`` (counted in
-    ``SPLIT_RECORDS.launches``); CPU tensors take
-    ``_split_records_torch``.  Scalar parameters only: the per-leaf form
-    of the batched grid waits for that slice."""
+    The five parameters are scalars, or 1-D f32 tensors of one value per
+    leaf [L] (the JAX package's per-leaf arrays: the batched grid's
+    per-member parameters repeated over their leaves).  CUDA tensors
+    launch ``csrc/split_records.cu``: its scalar form when every parameter
+    is a scalar (counted in ``SPLIT_RECORDS.launches``), else its per-row
+    form (``SPLIT_RECORDS_ROWS.launches``).  CPU tensors take
+    ``_split_records_torch``."""
     if Hist.dim() != 4 or Hist.shape[0] != 3 or Hist.shape[-1] != nbins + 1:
         raise ValueError(f"Hist must be [3, L, F, {nbins + 1}], got "
                          f"{tuple(Hist.shape)}")
     if Hist.dtype != torch.float32:
         raise ValueError("Hist must be f32")
+    _, L, F, B = Hist.shape
+    params = (reg_lambda, reg_alpha, gamma, min_rows, min_child_weight)
+    per_leaf = False
+    for x in params:
+        if isinstance(x, torch.Tensor) and x.dim():
+            if tuple(x.shape) != (L,):
+                raise ValueError(f"a per-leaf parameter must be [{L}], got "
+                                 f"{tuple(x.shape)}")
+            per_leaf = True
     if not _on_cuda(Hist, "split records"):
         return _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha,
                                     gamma, min_child_weight)
-    _, L, F, B = Hist.shape
     H = Hist.contiguous()
     rec = torch.empty((L, F, _REC_PLANES), dtype=torch.float32,
                       device=H.device)
     lib = SPLIT_RECORDS.lib()
-    with torch.cuda.device(H.device):
-        rc = lib.split_records_launch(
-            H.data_ptr(), L * F, B, float(reg_lambda), float(reg_alpha),
-            float(gamma), float(min_rows), float(min_child_weight),
-            rec.data_ptr(), torch.cuda.current_stream(H.device).cuda_stream)
+    stream = torch.cuda.current_stream(H.device).cuda_stream
+    if per_leaf:
+        block = _leaf_params(L, H.device, *params)
+        with torch.cuda.device(H.device):
+            rc = lib.split_records_rows_launch(
+                H.data_ptr(), L * F, B, F, block.data_ptr(), rec.data_ptr(),
+                stream)
+    else:
+        with torch.cuda.device(H.device):
+            rc = lib.split_records_launch(
+                H.data_ptr(), L * F, B, float(reg_lambda), float(reg_alpha),
+                float(gamma), float(min_rows), float(min_child_weight),
+                rec.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"split_records kernel launch failed: CUDA "
                            f"error {rc}")
-    SPLIT_RECORDS.count()
+    (SPLIT_RECORDS_ROWS if per_leaf else SPLIT_RECORDS).count()
     return rec
 
 
 def finish_splits(rec, min_rows, min_split_improvement, feat_mask=None):
     """Reduce winner records over features into the per-leaf best split
     (feat, bin, na_left, gain, valid, children[L, 6]), in the JAX
-    package's ``best_splits`` arithmetic order."""
+    package's ``best_splits`` arithmetic order.  ``min_rows`` and
+    ``min_split_improvement`` are scalars or one value per leaf [L]."""
     L, F, _ = rec.shape
     gain = rec[..., 0]
     if feat_mask is not None:
@@ -930,7 +990,7 @@ def finish_splits(rec, min_rows, min_split_improvement, feat_mask=None):
     ftot, htot, ctot = pick(9), pick(10), pick(11)
     valid = torch.isfinite(best_gain) & \
         (best_gain > min_split_improvement) & \
-        (rec[..., 11] >= 2 * min_rows).any(-1)
+        (rec[..., 11] >= _per_leaf(2 * min_rows, 1)).any(-1)
     gr0 = ftot - glx - gna
     hr0 = htot - hlx - hna
     cr0 = ctot - clx - cna
@@ -969,7 +1029,9 @@ def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
     every field.  The K*L leaves flatten into one call, tree-major (row
     k*L + l); the records and the feature argmax are row-local, so each
     tree's result is bitwise its own call.  ``feat_mask`` is [K, L, F] or
-    [K, F]."""
+    [K, F].  The parameters are scalars or one value per tree [K] (a
+    batched grid's members), repeated over each tree's L leaves in the
+    flat order (the JAX package's ``perk``)."""
     K, _, L, F, B = HistK.shape
     Hflat = HistK.transpose(0, 1).reshape(3, K * L, F, B)
     fm = None
@@ -977,8 +1039,17 @@ def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
         fm = feat_mask if feat_mask.dim() == 3 else \
             feat_mask[:, None, :].expand(K, L, F)
         fm = fm.reshape(K * L, F)
-    out = split_fn(Hflat, nbins, reg_lambda, min_rows, min_split_improvement,
-                   fm, reg_alpha, gamma, min_child_weight)
+
+    def perk(x):                                  # [K] -> [K*L], K-major
+        if isinstance(x, torch.Tensor) and x.dim():
+            if tuple(x.shape) != (K,):
+                raise ValueError(f"a per-tree parameter must be [{K}], got "
+                                 f"{tuple(x.shape)}")
+            return x.repeat_interleave(L)
+        return x
+    out = split_fn(Hflat, nbins, perk(reg_lambda), perk(min_rows),
+                   perk(min_split_improvement), fm, perk(reg_alpha),
+                   perk(gamma), perk(min_child_weight))
     return tuple(x.view(K, L, *x.shape[1:]) for x in out)
 
 
@@ -987,7 +1058,8 @@ def fused_best_splits_batched(HistK, nbins: int, reg_lambda, min_rows,
                               reg_alpha=0.0, gamma=0.0,
                               min_child_weight=0.0):
     """The JAX package's ``fused_best_splits_batched`` (hist.py:1778):
-    ``batched_splits`` through one records launch over the K*L leaves."""
+    ``batched_splits`` through one records launch over the K*L leaves
+    (the per-row form where a parameter is per tree [K])."""
     return batched_splits(fused_best_splits, HistK, nbins, reg_lambda,
                           min_rows, min_split_improvement, feat_mask,
                           reg_alpha, gamma, min_child_weight)

@@ -19,12 +19,14 @@ The port builds the dense layout as a Python loop of levels
 ``H2O3_TPU_AUTOTUNE=off``.  A multinomial round grows its K class trees
 as one batched build (``make_build_tree_fn(nk=K)``: one histogram launch
 and one records launch per level for all K trees; one tree is the same
-level loop at K = 1), or as a loop of K single-tree builds (``split_mode="separate"``, the
-oracle it is bitwise).  Every tree's random draws come from generators
-keyed by (seed, chunk, tree, class) (``draw_generator``), so both paths
-draw the same.  The JAX package's other build programs (node-sparse deep
-levels, the whole-tree scan, EFB and monotone constraints) wait for
-later slices and raise when asked for.
+level loop at K = 1), or as a loop of K single-tree builds
+(``split_mode="separate"``, the oracle it is bitwise).  A grid cohort's G
+members grow through the same batched build, each with its own
+parameters (``make_grid_scan_fn``).  Every tree's random draws come from
+generators keyed by (seed, chunk, tree, class) (``draw_generator``), so
+both paths draw the same.  The JAX package's other build programs
+(node-sparse deep levels, the whole-tree scan, EFB and monotone
+constraints) wait for later slices and raise when asked for.
 """
 
 from __future__ import annotations
@@ -467,17 +469,27 @@ def _pairs(x):
     return x.reshape(*x.shape[:-2], -1)
 
 
+def _per_k(x, extra_dims: int):
+    """A per-tree [K] parameter broadcast against ``extra_dims`` trailing
+    axes (the JAX package's ``_per_k``); scalars pass through."""
+    if isinstance(x, torch.Tensor) and x.dim():
+        return x.reshape(x.shape + (1,) * extra_dims)
+    return x
+
+
 def _leaf_values(children, reg_lambda, reg_alpha, learn_rate):
     """The Newton leaf values [..., 2^depth] (x learn_rate) and covers of
-    the last level's child sums [..., 2^(depth-1), 6]."""
+    the last level's child sums [..., 2^(depth-1), 6]; the parameters are
+    scalars or one value per tree [K] of children [K, L, 6]."""
     gl, hl, cl, gr, hr, cr = children.unbind(-1)
+    lam, alpha = _per_k(reg_lambda, 1), _per_k(reg_alpha, 1)
 
     def newton(gc, hc, cc):
-        return torch.where(cc > 0, hist.newton_value(gc, hc, reg_lambda,
-                                                     reg_alpha), 0.0)
+        return torch.where(cc > 0, hist.newton_value(gc, hc, lam, alpha),
+                           0.0)
     vals = _pairs(torch.stack([newton(gl, hl, cl), newton(gr, hr, cr)],
                               dim=-1))
-    vals = (vals * learn_rate).to(torch.float32)
+    vals = (vals * _per_k(learn_rate, 1)).to(torch.float32)
     cover = _pairs(torch.stack([cl, cr], dim=-1)).to(torch.float32)
     return vals, cover
 
@@ -489,7 +501,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     """A function that grows one tree on the device (the JAX package's
     ``make_build_tree_fn`` with the dense layout and
     tree_program="level"), or, with ``nk`` > 1, the K trees of a
-    multinomial round at once.
+    multinomial round or the G members of a grid cohort at once.
 
     ``build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
     min_split_improvement, learn_rate, col_sample_rate, tree_mask,
@@ -508,7 +520,14 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     or ``hist.local_hist``: one launch), one records launch over the K*L
     leaves (``hist.batched_splits``) and one partition.  It takes
     split_mode="fused"; tree k is bitwise a single build of tree k with
-    the same generator.
+    the same generator.  Each parameter may also be one value per tree
+    (the JAX package's ``[G]`` grid operands): ``reg_lambda``,
+    ``min_rows``, ``min_split_improvement``, ``learn_rate``,
+    ``reg_alpha``, ``gamma`` and ``min_child_weight`` as f32 tensors [K]
+    on the device (the records then take their kernel's per-row form),
+    ``col_sample_rate`` as a sequence of K floats: tree k draws its
+    per-split masks only where its own rate is below 1, as its single
+    build does.
 
     ``hier=True`` takes the hierarchical split search (JAX
     ``shared.py:929-1055``): per level a coarse histogram over the S
@@ -592,6 +611,7 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         K = len(gens)
         N = codes.shape[1]
         scale = hist.stat_scale(stats)                       # [K, 2, 3]
+        rates = member_rates(col_sample_rate, K)
         if hier and hcodes is None:
             hcodes = hist.coarse_codes(codes, nbins)
         elif use_varbin and hcodes is None:
@@ -606,11 +626,13 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         for d in range(max_depth):
             L = 2 ** d
             mask = None
-            if col_sample_rate < 1.0:
+            if min(rates) < 1.0:
                 # each tree's own draws, in the order a single build of
-                # it draws them
-                mask = torch.stack([split_column_mask(L, F, col_sample_rate,
-                                                      gk) for gk in gens])
+                # it draws them; a tree at rate 1 draws nothing
+                mask = torch.stack([
+                    split_column_mask(L, F, r, gk) if r < 1.0 else
+                    torch.ones((L, F), dtype=torch.bool, device=codes.device)
+                    for r, gk in zip(rates, gens)])
             if tree_mask is not None:
                 mask = tree_mask[:, None, :].expand(K, L, F) \
                     if mask is None else mask & tree_mask[:, None, :]
@@ -663,6 +685,17 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     build.bin_counts = bc
     build.nk = nk
     return build
+
+
+def member_rates(rate, K: int) -> tuple:
+    """A sampling rate as K host floats: one rate for every tree, or a
+    sequence of one per tree."""
+    if not isinstance(rate, (list, tuple)):
+        return (float(rate),) * K
+    rates = tuple(float(r) for r in rate)
+    if len(rates) != K:
+        raise ValueError(f"{len(rates)} sampling rates for {K} trees")
+    return rates
 
 
 def _scan_codes(bt_fn, codes, nbins: int, hier: bool):
@@ -817,6 +850,86 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
 
     scan_fn.build = bt_fn
     scan_fn.max_depth = max_depth
+    return scan_fn
+
+
+def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
+                      n_padded: int, bin_counts=None,
+                      hist_mode: str = "subtract", hist_layout: str = "auto",
+                      device=None):
+    """A chunk of G-member grid rounds (the JAX package's
+    ``make_grid_scan_fn``, shared.py:2235, as a plain loop): the members
+    of a cohort share the codes, the response and the tree shape, and
+    each carries its own scalar hyperparameters, seed and scores; one
+    batched build (``make_build_tree_fn(nk=G)``) grows the round's G
+    trees: one histogram launch and one records launch (its per-row form)
+    per level whatever G is.
+
+    Returns ``scan_fn(codes, y, w, F0, edges_mat, seeds, chunk_no, nchunk,
+    reg_lambda, min_rows, min_split_improvement, learn_rate,
+    col_sample_rate, sample_rate, col_sample_rate_per_tree, alive,
+    reg_alpha, gamma, min_child_weight) -> (F, [G StackedTrees of the
+    chunk, one per member])``: F0 and F are the [G, N] scores; ``seeds``,
+    the three rates and ``alive`` are sequences of G host values; the
+    other parameters f32 tensors [G] on the device.
+
+    Member g draws exactly what its own sequential train draws
+    (``make_tree_scan_fn``): its row sample, tree mask and per-split masks
+    come from ``draw_generator(seeds[g], chunk_no, t, ...)`` and only at
+    its own rates below 1 (the JAX package always draws; here one
+    generator carries a tree's column draws in order, so a skipped draw
+    must stay skipped).  Its gradients are computed on its own [N] row of
+    scores.  So member g is bitwise its sequential train.  ``alive`` is
+    the successive-halving mask: a retired member's row weights are 0,
+    every split of its trees is invalid, its leaf values are 0 and its
+    scores stay as they are."""
+    if G < 2:
+        raise ValueError("make_grid_scan_fn needs G >= 2 (a single member "
+                         "is the sequential path)")
+    bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
+                               bin_counts=bin_counts, hist_mode=hist_mode,
+                               split_mode="fused", hist_layout=hist_layout,
+                               device=device, nk=G)
+
+    def scan_fn(codes, y, w, F0, edges_mat, seeds, chunk_no, nchunk,
+                reg_lambda, min_rows, min_split_improvement, learn_rate,
+                col_sample_rate, sample_rate, col_sample_rate_per_tree,
+                alive, reg_alpha, gamma, min_child_weight):
+        hcodes = _scan_codes(bt_fn, codes, nbins, False)
+        csr = member_rates(col_sample_rate, G)
+        srs = member_rates(sample_rate, G)
+        cspt = member_rates(col_sample_rate_per_tree, G)
+        live = [bool(a) for a in alive]
+        Fc = F0
+        rounds = []
+        for t in range(nchunk):
+            gh = [dist.grad_hess(y, Fc[k]) for k in range(G)]
+            wv = torch.stack([
+                _row_sample(w, srs[k], seeds[k], chunk_no, t) if live[k]
+                else torch.zeros_like(w) for k in range(G)])
+            gens = [draw_generator(seeds[k], chunk_no, t, 0, w.device)
+                    for k in range(G)]
+            tm = None
+            if min(cspt) < 1.0:
+                tm = torch.stack([
+                    tree_column_mask(F, cspt[k], gens[k]) if cspt[k] < 1.0
+                    else torch.ones((F,), dtype=torch.bool, device=w.device)
+                    for k in range(G)])
+            g = torch.stack([x[0] for x in gh]) * wv
+            h = torch.stack([x[1] for x in gh]) * wv
+            levels, vals, cover, leaf = bt_fn(
+                codes, g, h, wv, edges_mat, gens, reg_lambda, min_rows,
+                min_split_improvement, learn_rate, csr, tm, reg_alpha, gamma,
+                min_child_weight, hcodes=hcodes)
+            Fc = Fc + vals.gather(1, leaf.long())
+            rounds.append((levels, vals, cover))
+        lv = [tuple(torch.stack([r[0][d][i] for r in rounds])
+                    for i in range(4)) for d in range(len(rounds[0][0]))]
+        vals, cover = (torch.stack([r[i] for r in rounds]) for i in (1, 2))
+        return Fc, [StackedTrees([tuple(x[:, k] for x in lvd) for lvd in lv],
+                                 vals[:, k], cover[:, k]) for k in range(G)]
+
+    scan_fn.build = bt_fn
     return scan_fn
 
 

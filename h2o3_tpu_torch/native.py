@@ -134,6 +134,25 @@ class Kernel:
             return self._lib
 
 
+class KernelForm:
+    """Another entry of a ``Kernel``'s library (one source, one build),
+    with a count of launches of its own: so that a run shows which form
+    of the kernel its path took.  ``lib()`` is the parent's."""
+
+    def __init__(self, kernel: Kernel, name: str):
+        self.kernel = kernel
+        self.name = name
+        self.launches = 0
+        self._lock = threading.Lock()
+
+    def count(self) -> None:
+        with self._lock:
+            self.launches += 1
+
+    def lib(self) -> ctypes.CDLL:
+        return self.kernel.lib()
+
+
 def build_all(kernels: Iterable[Kernel]) -> None:
     """Build every kernel's library at once: one nvcc per source, all
     started together, then load each.  A failed build stops the others

@@ -531,3 +531,107 @@ def test_small_multinomial_train_matches_cpu_plain_route(cuda):
                                           tb.thr[d].numpy()[vb])
         np.testing.assert_allclose(ta.values.cpu().numpy(),
                                    tb.values.numpy(), rtol=1e-4, atol=1e-6)
+
+
+# (L, F, nbins, kind) for the per-row form: the bench grid's root and
+# deepest level of a 4-member cohort (4 and 128 leaves), a ragged small
+# case and a NaN plane
+_ROWS_CASES = [(4, 8, 256, "integer"), (4, 8, 256, "real"),
+               (128, 8, 256, "real"), (12, 5, 31, "real"),
+               (8, 8, 256, "nan_g")]
+
+
+@pytest.mark.parametrize("L,F,nbins,kind", _ROWS_CASES)
+def test_split_records_per_row_equal_plain(cuda, L, F, nbins, kind):
+    """The per-row form (one lam, alpha, gamma, min_rows, mcw per leaf,
+    leaf 1 ruled out by its min_rows and min_child_weight, the last leaf
+    a retired member's all-zero histogram): bitwise its plain version on
+    the card, a second launch bitwise the first, equal to the plain
+    version on the CPU; counted in SPLIT_RECORDS_ROWS and never in the
+    scalar form's count."""
+    rng = np.random.default_rng(L * 7 + F + nbins)
+    H = _records_hist(rng, L, F, nbins, kind)
+    H[:, -1] = 0.0
+    Hd = torch.from_numpy(H).to(cuda)
+    lam = rng.choice([0.0, 1.0, 2.5], L).astype(np.float32)
+    rows = rng.choice([1.0, 10.0], L).astype(np.float32)
+    alpha = rng.choice([0.0, 0.5], L).astype(np.float32)
+    gamma = rng.choice([0.0, 0.1], L).astype(np.float32)
+    mcw = rng.choice([0.0, 1.0], L).astype(np.float32)
+    rows[1], mcw[1] = 1e9, 1e9
+    prm = [torch.from_numpy(x) for x in (lam, rows, alpha, gamma, mcw)]
+    dprm = [p.to(cuda) for p in prm]
+    before = (hist.SPLIT_RECORDS.launches, hist.SPLIT_RECORDS_ROWS.launches)
+    got = hist.split_records(Hd, nbins, *dprm)
+    again = hist.split_records(Hd, nbins, *dprm)
+    want = hist._split_records_torch(Hd, *dprm)
+    cpu = hist._split_records_torch(Hd.cpu(), *prm)
+    torch.cuda.synchronize()
+    assert (hist.SPLIT_RECORDS.launches,
+            hist.SPLIT_RECORDS_ROWS.launches) == (before[0], before[1] + 2)
+    assert same_bits(got, want) and same_bits(again, got)
+    # against the CPU as values: a NaN's payload differs by device
+    np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+    assert (got[1, :, 0] == -torch.inf).all()
+
+
+@pytest.mark.parametrize("nbins", [31, 256])
+def test_split_records_equal_leaves_per_row_equal_scalar(cuda, nbins):
+    """Per-leaf tensors holding one value for every leaf: the per-row
+    launch is bitwise the scalar launch (NaN plane included)."""
+    L, F = 16, 8
+    rng = np.random.default_rng(nbins)
+    H = _records_hist(rng, L, F, nbins, "real")
+    H[0, 3] = np.nan
+    Hd = torch.from_numpy(H).to(cuda)
+    for scal in ((1.0, 1.0, 0.0, 0.0, 1.0), (0.0, 10.0, 0.5, 0.1, 0.0)):
+        per = [torch.full((L,), v, dtype=torch.float32, device=cuda)
+               for v in scal]
+        a = hist.split_records(Hd, nbins, *per)
+        b = hist.split_records(Hd, nbins, *scal)
+        torch.cuda.synchronize()
+        assert same_bits(a, b)
+
+
+def test_small_grid_cohort_bitwise_sequential_members(cuda):
+    """A 2-member cohort on a small frame on the card: one hist and one
+    per-row split_records launch per level for both members, no scalar
+    records launch; each member bitwise its own sequential train on the
+    card (trees, leaf values, predictions), sampled members too."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models import GridSearch
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    rng = np.random.default_rng(5)
+    n = 30_000
+    x0 = rng.normal(size=n).astype(np.float32)
+    x0[rng.random(n) < 0.05] = np.nan
+    x1 = rng.integers(0, 2400, n).astype(np.float32)
+    cols = {"x0": x0, "x1": x1, "c": rng.integers(0, 30, n),
+            "y": np.where(np.nan_to_num(x0) + 0.3 * (rng.random(n) < 0.5)
+                          < 0.2, "NO", "YES").astype(object)}
+    fr = Frame.from_numpy(cols, types={"c": "cat"},
+                          domains={"c": [str(i) for i in range(30)]})
+    cfg = dict(response_column="y", max_depth=4, nbins=64, seed=1, ntrees=3)
+    for hp, extra in (({"learn_rate": [0.1, 0.3]}, {}),
+                      ({"sample_rate": [0.8, 1.0]},
+                       {"col_sample_rate": 0.7})):
+        before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches,
+                  hist.SPLIT_RECORDS_ROWS.launches)
+        g = GridSearch(XGBoost, hp, grid_batch="on", **cfg,
+                       **extra).train(fr)
+        torch.cuda.synchronize()
+        assert (hist.HIST.launches - before[0],
+                hist.SPLIT_RECORDS.launches - before[1],
+                hist.SPLIT_RECORDS_ROWS.launches - before[2]) == (12, 0, 12)
+        for m in g.models:
+            assert m.output["grid_cohort"]["size"] == 2
+            (name, val), = ((k, getattr(m.params, k)) for k in hp)
+            seq = XGBoost(**cfg, **extra, **{name: val}).train(fr)
+            a, b = m.output["stacked"], seq.output["stacked"]
+            for la, lb in zip(a.levels, b.levels):
+                for x, y in zip(la, lb):
+                    assert torch.equal(x, y)
+            assert same_bits(a.values, b.values)
+            np.testing.assert_array_equal(
+                m.predict(fr).vec("YES").to_numpy(),
+                seq.predict(fr).vec("YES").to_numpy())
