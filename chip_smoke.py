@@ -159,6 +159,37 @@ Phases (any failure exits non-zero and prints no result line):
              the wave path's trees/s (the members as sequential 20-tree
              trains, ``grid_batch="off"``), and the per-row records per
              round (bitwise its plain version) beside its bound.
+20. slot levels — on the bench frame at 1M rows, one tree of
+             ``DRF(max_depth=20, nbins=64, sample_rate=1, mtries=-2)`` and
+             one round of K = 3 class trees on ``delay_class`` are
+             captured; at every node-sparse level (from depth 8, at most
+             4,096 slots) the one ``hist`` launch (L = the parent slots,
+             K on blockIdx.z) must equal its plain version and a second
+             launch, bitwise, on the captured and on integer-valued stats,
+             and the records over the K*A slots theirs; the slot budget
+             must bind (the alive children made terminal, per level, are
+             printed);
+21. DRF train — launch counts set to 0, then the 3-tree DRF above:
+             ``hist`` and the scalar records must each launch trees x
+             ``effective_max_depth`` times (60); the plain route the same
+             first-tree splits, predictions to rtol 1e-4, training AUC to
+             1e-4; a second train bitwise; the sampled K = 3 forest
+             (``sample_rate=0.632``, ``mtries=-1``, 2 rounds) launching
+             rounds x levels, whatever K, and bitwise its K loop
+             (``split_mode="separate"``); ``hist_layout="check"`` at
+             ``max_depth=12``, ``sparse_depth_threshold=4``; DRF at its
+             defaults (5 trees) published and 400 single-row requests
+             served through the MicroBatcher, every answer against the
+             numpy ScoringModel (rtol 1e-4, atol 1e-5), ``traverse``
+             launched once per batcher launch;
+22. DRF headline — at 10M rows DRF at its defaults (depth 20,
+             ``sample_rate=0.632``, ``mtries=-1``, ``min_rows=1``): a 3-tree
+             warmup, then trees/s of a timed 10-tree forest, the device
+             peak memory, the device operations per tree, idle share and
+             device ms by op of a profiled forest of the same size; then
+             one captured tree's sparse levels: ``hist`` and the records
+             per level beside their plain versions, the one int64
+             ``index_add_`` and their bounds.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -196,6 +227,9 @@ T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
 REPS = 50
+# the plain versions and the one-call library yardsticks: tens of ms a
+# call at 10M rows, so a median of a few launches holds them
+YARDSTICK_REPS = 5
 SPIN_CYCLES = 20_000_000         # ~10 ms of device clock
 # the batch sizes of the traversal's checks and of its turns
 TRAVERSE_BATCHES = (1, 8, 37, 256, 1024)
@@ -845,11 +879,12 @@ def time_train_kernels(hv, sr, hist, label):
         raw = raw_codes(g, bc, B - 1, hist)
         ms = cuda_ms(lambda: hist.hist_varbin(g, leaf, st, L, bc, B, sc))
         plain = cuda_ms(lambda: hist.hist_varbin_torch(g, leaf, st, L,
-                                                       layout, sc), reps=20)
+                                                       layout, sc),
+                        reps=YARDSTICK_REPS)
         ums = cuda_ms(lambda: hist.hist_uniform(raw, leaf, st, L, B,
                                                 scale=sc))
         uplain = cuda_ms(lambda: hist.hist_uniform_torch(
-            raw, leaf, st, L, B, scale=sc), reps=20)
+            raw, leaf, st, L, B, scale=sc), reps=YARDSTICK_REPS)
         # the yardstick: the one int64 index_add_ that computes the same
         # fixed-point sums, its index and quantised source prepared
         # outside the timed call
@@ -861,13 +896,14 @@ def time_train_kernels(hv, sr, hist, label):
         src = qs.t()[None].expand(F, -1, 3)[ok]
         out = torch.zeros((layout.Q * L, 3), dtype=torch.int64,
                           device=g.device)
-        lib = cuda_ms(lambda: out.index_add_(0, idx, src))
+        lib = cuda_ms(lambda: out.index_add_(0, idx, src), YARDSTICK_REPS)
         uidx = ((lf[None, :] * F + torch.arange(F, device=g.device)[:, None])
                 * B + raw.long())[ok]
         uout = torch.zeros((3, L * F * B), dtype=torch.int64,
                            device=g.device)
         usrc = qs[:, None, :].expand(3, F, -1)[:, ok]
-        ulib = cuda_ms(lambda: uout.index_add_(1, uidx, usrc))
+        ulib = cuda_ms(lambda: uout.index_add_(1, uidx, usrc),
+                       YARDSTICK_REPS)
         nbytes, ops = work_hist(g, leaf, L, layout.Q, F)
         bnd, _ = bound(nbytes, ops)
         ubnd, _ = bound(nbytes - layout.Q * 3 * L * 4 + F * B * 3 * L * 4,
@@ -1420,21 +1456,23 @@ def time_hier_kernels(fh, hu, hist, label):
         Lf, F, K = sel.shape
         ms = cuda_ms(lambda: hist.fine_hist(c, leaf, st, sel, W, nbins, sc))
         plain = cuda_ms(lambda: hist.fine_hist_torch(c, leaf, st, sel, W,
-                                                     nbins, sc), reps=10)
+                                                     nbins, sc),
+                        reps=YARDSTICK_REPS)
         idx, ok = hist.fine_slots(c, leaf, sel, W, nbins)
         fidx = idx[ok]
         src = hist.quantize(st, sc)[:, None, None, :].expand(
             3, F, K, -1)[:, ok]
         out = torch.zeros((3, Lf * F * K * W), dtype=torch.int64,
                           device=c.device)
-        lib = cuda_ms(lambda: out.index_add_(1, fidx, src))
+        lib = cuda_ms(lambda: out.index_add_(1, fidx, src), YARDSTICK_REPS)
         del idx, ok, src
         nbytes, ops = work_fine(c, leaf, sel, W, nbins, hist)
         bnd, _ = bound(nbytes, ops)
         cms = cuda_ms(lambda: hist.hist_uniform(cc, pl, cst, L, B,
                                                 scale=csc))
         cplain = cuda_ms(lambda: hist.hist_uniform_torch(cc, pl, cst, L, B,
-                                                         scale=csc), reps=10)
+                                                         scale=csc),
+                         reps=YARDSTICK_REPS)
         lf = pl.long()
         cok = ((lf >= 0) & (lf < L))[None, :].expand_as(cc)
         cidx = ((lf[None, :] * F + torch.arange(F, device=c.device)[:, None])
@@ -1442,7 +1480,8 @@ def time_hier_kernels(fh, hu, hist, label):
         cout = torch.zeros((3, L * F * B), dtype=torch.int64,
                            device=c.device)
         csrc = hist.quantize(cst, csc)[:, None, :].expand(3, F, -1)[:, cok]
-        clib = cuda_ms(lambda: cout.index_add_(1, cidx, csrc))
+        clib = cuda_ms(lambda: cout.index_add_(1, cidx, csrc),
+                       YARDSTICK_REPS)
         cbytes, cops = work_hist(cc, pl, L, F * B, F)
         cbnd, _ = bound(cbytes, cops)
         for k, v in (("fine_hist", (ms, plain, bnd, lib, nbytes, ops)),
@@ -1610,7 +1649,8 @@ def time_multi_kernels(hv, hist, label, card, turns_reps=30):
         b2 = cuda_ms(batched, turns_reps)
         ms, one = (b1 + b2) / 2, (s1 + s2) / 2
         plain = cuda_ms(lambda: hist.hist_varbin_torch(g, leaf, st, L,
-                                                       layout, sc), reps=10)
+                                                       layout, sc),
+                        reps=YARDSTICK_REPS)
         qs = hist.quantize(st, sc)                             # [K, 3, n]
         q = g.long() if g.dim() == 3 else g.long()[None]
         lf = leaf.long()
@@ -1620,7 +1660,7 @@ def time_multi_kernels(hv, hist, label, card, turns_reps=30):
         src = qs.transpose(1, 2)[:, None].expand(K, F, n, 3)[ok]
         out = torch.zeros((K * layout.Q * L, 3), dtype=torch.int64,
                           device=g.device)
-        lib = cuda_ms(lambda: out.index_add_(0, idx, src))
+        lib = cuda_ms(lambda: out.index_add_(0, idx, src), YARDSTICK_REPS)
         del idx, src, kq, ok
         nbytes, ops = work_multi(g, leaf, L, layout.Q, F)
         bnd, _ = bound(nbytes, ops)
@@ -2178,6 +2218,490 @@ def headline_grid(GridSearch, XGBoost, fr, card):
     return tps, ops, idle, wave_tps
 
 
+# -------------------------------------------------- DRF, node-sparse levels
+
+# the forest of phases 20-21: the bench frame's binary response, unsampled
+# (every tree alike), at DRF's depth, min_rows and a 64-bin axis
+DRF_CFG = dict(response_column="dep_delayed_15min",
+               ignored_columns=["delay_class"], max_depth=20, nbins=64,
+               sample_rate=1.0, mtries=-2, seed=1,
+               score_tree_interval=10 ** 9)
+DRF_CLASS_CFG = dict(DRF_CFG, response_column="delay_class",
+                     ignored_columns=["dep_delayed_15min"])
+# DRF's defaults (sample_rate 0.632, mtries -1, min_rows 1) at depth 20
+DRF_DEFAULT_CFG = dict(response_column="dep_delayed_15min",
+                       ignored_columns=["delay_class"], max_depth=20,
+                       nbins=64, seed=1, score_tree_interval=10 ** 9)
+DRF_TREES = 3
+DRF_WARM, DRF_TIMED = 3, 10
+
+
+def capture_slot_levels(fr, DRF, hist, cfg):
+    """Train one DRF tree (or one round of K class trees) with the
+    histogram and records wrappers watched: per level the inputs of its
+    one batched ``hist_varbin`` or ``hist_uniform`` launch (leaf [K, n]:
+    the root's rows, a dense level's compacted prefix labelled by parent,
+    a sparse level's labelled by parent slot) and of its records launch
+    (the K*L flattened leaves or slots).  Returns (levels, records, the
+    model's build: its depth and first sparse level)."""
+    hv, sr = [], []
+    real = (hist.hist_varbin, hist.hist_uniform, hist.split_records)
+
+    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
+        hv.append(("varbin", gcodes, leaf, stats, L, tuple(bc), B, scale))
+        return real[0](gcodes, leaf, stats, L, bc, B, scale)
+
+    def spy_hu(codes, leaf, stats, L, B, planes=3, scale=None):
+        hv.append(("uniform", codes, leaf, stats, L, None, B, scale))
+        return real[1](codes, leaf, stats, L, B, planes, scale)
+
+    def spy_sr(Hist, nbins, *args, **kw):
+        sr.append((Hist.clone(), nbins, args))
+        return real[2](Hist, nbins, *args, **kw)
+
+    hist.hist_varbin, hist.hist_uniform, hist.split_records = \
+        spy_hv, spy_hu, spy_sr
+    try:
+        m = DRF(ntrees=1, **cfg).train(fr)
+    finally:
+        hist.hist_varbin, hist.hist_uniform, hist.split_records = real
+    return hv, sr, m
+
+
+def slot_hist(entry, hist, stats=None, scale=None, plain=True):
+    """Launch a captured level's histogram again (on other stats when
+    given), and with ``plain`` its plain version: (kernel, plain)."""
+    kind, g, leaf, st, L, bc, B, sc = entry
+    st = st if stats is None else stats
+    sc = sc if stats is None else scale
+    if kind == "varbin":
+        got = hist.hist_varbin(g, leaf, st, L, bc, B, sc)
+        return (got, hist.hist_varbin_torch(
+            g, leaf, st, L, hist.packed_layout(bc, B), sc)) if plain else got
+    got = hist.hist_uniform(g, leaf, st, L, B, scale=sc)
+    return (got, hist.hist_uniform_torch(g, leaf, st, L, B, scale=sc)) \
+        if plain else got
+
+
+def dropped_children(m, shared):
+    """Per sparse level d of the model's trees: the alive children past
+    the slot budget (2 x the valid nodes of level d-1 less the A_d slots:
+    pairs drop whole), summed over its trees and classes."""
+    p = m.params
+    F = len(m.datainfo.specs)
+    depth = m.output["effective_max_depth"]
+    _, A_lv, _ = shared.sparse_geometry(depth, p.nbins, F,
+                                        p.sparse_depth_threshold, "sparse")
+    out = {d: 0 for d in A_lv}
+    for st in as_stacks(m):
+        for d, A in A_lv.items():
+            alive = 2 * st.levels[d - 1][3].sum(dim=1)
+            out[d] += int((alive - A).clamp_min(0).sum())
+    return out, A_lv
+
+
+def check_slot_kernels(fr, DRF, hist, shared, dev, card):
+    """Phase 20: one 1M-row DRF tree and one K = 3 round captured; at
+    every sparse level the one ``hist`` launch (K on blockIdx.z, L = the
+    parent slots) bitwise its plain version and a second launch, on the
+    captured and on integer-valued stats, and the records over the K*A
+    slots bitwise theirs; the slot budget binds (some level drops pairs).
+    Returns (the largest max|kernel - plain| of hist and records, the
+    binomial capture)."""
+    import torch
+    from h2o3_tpu_torch.testing import same_bits
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20)
+    worst = {"hist": 0.0, "split_records": 0.0}
+    capture = None
+    for what, cfg in (("binomial tree", DRF_CFG),
+                      (f"K={K_CLASSES} round", DRF_CLASS_CFG)):
+        hv, sr, m = capture_slot_levels(fr, DRF, hist, cfg)
+        depth = m.output["effective_max_depth"]
+        start = shared.sparse_geometry(
+            depth, m.params.nbins, len(m.datainfo.specs),
+            m.params.sparse_depth_threshold, "sparse")[0]
+        if len(hv) != depth or len(sr) != depth or start >= depth:
+            raise AssertionError(
+                f"DRF {what}: {len(hv)} hist and {len(sr)} records "
+                f"launches for {depth} levels, sparse from {start}")
+        shapes = []
+        for d in range(start, depth):
+            entry = hv[d]
+            leaf = entry[2]
+            K, n = leaf.shape
+            ints = torch.stack([int_stats(n, gen, dev) for _ in range(K)])
+            for stats, sc, kind in ((None, None, "captured"),
+                                    (ints, hist.stat_scale(ints),
+                                     "integer")):
+                got, want = slot_hist(entry, hist, stats, sc)
+                again, _ = slot_hist(entry, hist, stats, sc)
+                torch.cuda.synchronize()
+                worst["hist"] = max(worst["hist"], max_diff(got, want))
+                if not (same_bits(got, want) and same_bits(again, got)):
+                    raise AssertionError(
+                        f"hist ({entry[0]}) at sparse level {d} of the DRF "
+                        f"{what} != plain (or a second launch) on {kind} "
+                        f"stats: max|diff| {max_diff(got, want):.3e}")
+            shapes.append((d, entry[4], sr[d][0].shape[1], n))
+        worst["split_records"] = max(
+            worst["split_records"],
+            check_records(sr[start:], hist, f"sparse-level DRF {what}"))
+        drops, A_lv = dropped_children(m, shared)
+        log(f"kernel check slot levels, DRF {what} at {fr.nrows} rows "
+            f"(max_depth {depth}, sparse from level {start}, slots "
+            f"{sorted(set(A_lv.values()))}, hist layout {hv[-1][0]}): "
+            f"every sparse level's hist launch bitwise its plain version "
+            f"and a second launch, on the captured and on integer-valued "
+            f"stats; records over the K*A slots bitwise theirs; "
+            f"(level, parent slots L, K*A records rows, prefix rows) "
+            f"{shapes}; alive children made terminal by the slot budget "
+            f"per level { {d: c for d, c in drops.items() if c} } {card}")
+        if not any(drops.values()):
+            raise AssertionError(f"DRF {what}: no sparse level dropped a "
+                                 f"pair; the slot budget never bound")
+        if capture is None:
+            capture = (hv, sr, start)
+    return worst, capture
+
+
+def drf_train_phase(fr, cols, kernels, DRF, hist, batcher, card):
+    """Phase 21: the DRF main path at 1M rows, counted (``hist`` and the
+    scalar records once per level of every tree, ``effective_max_depth``
+    each a tree; for a K = 3 round the same, whatever K); against the
+    plain route; a second train bitwise; the K = 3 forest, sampled,
+    bitwise its K loop; hist_layout="check" at depth 12 from level 4;
+    the default-sampled forest published and served through the
+    MicroBatcher, every answer against the numpy ScoringModel.  Returns
+    the main path's launch counts."""
+    import torch
+    from h2o3_tpu_torch.export.mojo import from_reference
+    n = fr.nrows
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = DRF(ntrees=DRF_TREES, **DRF_CFG).train(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    depth = m.output["effective_max_depth"]
+    if m.output["hist_layout"] != "sparse" \
+            or depth != DRF_CFG["max_depth"]:
+        raise AssertionError(f"the DRF grew {m.output['hist_layout']} "
+                             f"levels to depth {depth}")
+    want = {"hist": DRF_TREES * depth, "split_records": DRF_TREES * depth,
+            "split_records (per-row)": 0, "fine_hist": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"DRF launches {launches}; expected trees x "
+                             f"levels: {want}")
+    log(f"DRF train: DRF(max_depth=20, nbins=64, sample_rate=1, mtries=-2, "
+        f"ntrees={DRF_TREES}) on {n} rows in {train_s:.3f} s {card}; "
+        f"launches {launches} = {DRF_TREES} trees x {depth} levels; hist "
+        f"kernel {m.output['hist_kernel']}; training AUC "
+        f"{m.training_metrics.auc:.6f}")
+
+    plain_from = {k.name: k.launches for k in kernels}
+    with plain_route(hist):
+        mp = DRF(ntrees=DRF_TREES, **DRF_CFG).train(fr)
+    if {k.name: k.launches for k in kernels} != plain_from:
+        raise AssertionError("the plain-route DRF train launched a kernel")
+    a, b = m.output["trees"][0], mp.output["trees"][0]
+    for d in range(depth):
+        for name in ("feat", "na_left", "valid", "thr"):
+            if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                raise AssertionError(
+                    f"kernel and plain-route DRF trains differ on {name} "
+                    f"at level {d} of the first tree")
+    p_k = m.predict(fr).vec("YES").to_numpy()
+    p_p = mp.predict(fr).vec("YES").to_numpy()
+    if not (np.isfinite(p_k).all() and p_k.shape == (n,)):
+        raise AssertionError("DRF predictions are not finite")
+    if not np.allclose(p_k, p_p, rtol=1e-4, atol=0.0):
+        raise AssertionError("DRF predictions differ from the plain route")
+    auc_k, auc_p = m.training_metrics.auc, mp.training_metrics.auc
+    if abs(auc_k - auc_p) > 1e-4:
+        raise AssertionError(f"DRF training AUC {auc_k} vs plain {auc_p}")
+    log(f"DRF vs plain route on the card: the first tree's splits equal at "
+        f"all {depth} levels; predictions max |diff| "
+        f"{float(np.max(np.abs(p_k - p_p))):.3e}; training AUC "
+        f"{auc_k:.6f} vs {auc_p:.6f}")
+    check_deterministic(m, DRF(ntrees=DRF_TREES, **DRF_CFG).train(fr),
+                        "DRF")
+
+    sampled = dict(DRF_CLASS_CFG, sample_rate=0.632, mtries=-1)
+    for k in kernels:
+        k.launches = 0
+    mk = DRF(ntrees=2, **sampled).train(fr)
+    torch.cuda.synchronize()
+    klaunch = {k.name: k.launches for k in kernels}
+    kdepth = mk.output["effective_max_depth"]
+    if klaunch["hist"] != 2 * kdepth or klaunch["split_records"] \
+            != 2 * kdepth or len(as_stacks(mk)) != K_CLASSES:
+        raise AssertionError(f"K={K_CLASSES} DRF launches {klaunch}; "
+                             f"expected rounds x levels, whatever K")
+    ms = DRF(ntrees=2, split_mode="separate", **sampled).train(fr)
+    why = stacks_differ(mk, ms)
+    if why:
+        raise AssertionError(f"the batched K={K_CLASSES} DRF and its K "
+                             f"loop differ on {why}")
+    log(f"DRF K={K_CLASSES} (delay_class, sample_rate 0.632, mtries -1, 2 "
+        f"rounds): launches {klaunch} = 2 rounds x {kdepth} levels, "
+        f"whatever K; bitwise its K loop (split_mode='separate'); logloss "
+        f"{mk.training_metrics.logloss:.6f}")
+
+    mc = DRF(ntrees=1, **dict(DRF_CFG, max_depth=12, sparse_depth_threshold=4,
+                             hist_layout="check")).train(fr)
+    if mc.output["hist_layout"] != "sparse":
+        raise AssertionError("hist_layout='check' did not train sparse")
+    log("DRF hist_layout='check' (max_depth 12, sparse from level 4, no "
+        "level past the slot budget): the dense and node-sparse builds "
+        "agree on the card, then the sparse one trained")
+
+    md = DRF(ntrees=5, **DRF_DEFAULT_CFG).train(fr)
+    serve_check("trained-drf", md, cols, batcher, from_reference, card)
+    return launches
+
+
+def serve_check(name, m, cols, batcher, from_reference, card):
+    """Publish ``m``; 8 client threads x 50 single-row requests through
+    the MicroBatcher, counted, each answer against the numpy
+    ``ScoringModel`` of the same archive (rtol 1e-4, atol 1e-5, labels
+    equal)."""
+    from h2o3_tpu_torch.serving import kernel
+    n_threads, per_thread = 8, 50
+    rows = []
+    for i in range(n_threads * per_thread):
+        r = {}
+        for k, v in cols.items():
+            if k in ("carrier", "origin", "dest"):
+                r[k] = str(int(v[i]))
+            elif k not in ("dep_delayed_15min", "delay_class"):
+                r[k] = float(v[i])
+        rows.append(r)
+    answers = [None] * len(rows)
+    errors = []
+
+    def client(c):
+        try:
+            for j in range(c * per_thread, (c + 1) * per_thread):
+                answers[j] = ent.predict_rows([rows[j]])
+        except Exception as e:          # noqa: BLE001 — reported below
+            errors.append(e)
+
+    sm = from_reference(*m.to_archive())
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(n_threads)]
+    kernel.TRAVERSE.launches = 0
+    try:
+        ent = batcher.publish(name, m)
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        launches = kernel.TRAVERSE.launches
+        batcher_launches = ent.batcher.launches
+    finally:
+        batcher.shutdown_all()
+    if errors:
+        raise errors[0]
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a client thread did not finish")
+    ref = sm.predict({k: np.asarray([r[k] for r in rows])
+                      for k in rows[0]})
+    got_p = np.concatenate([a["probabilities"] for a in answers])
+    got_l = np.concatenate([a["predict"] for a in answers])
+    if not np.allclose(got_p, ref["probabilities"], rtol=1e-4, atol=1e-5):
+        raise AssertionError(f"served {name} diverges from the numpy "
+                             f"ScoringModel: max|diff| "
+                             f"{np.abs(got_p - ref['probabilities']).max()}")
+    if not (got_l == ref["predict"]).all():
+        raise AssertionError(f"served {name} labels diverge")
+    if launches <= 0 or launches != batcher_launches:
+        raise AssertionError(f"traverse launches {launches}, batcher "
+                             f"launches {batcher_launches}")
+    log(f"serve {name}: {sm.meta['ntrees']} trees of depth "
+        f"{sm.meta['depth']}, tree_average {sm.meta['tree_average']}; "
+        f"{len(rows)} single-row requests from {n_threads} threads through "
+        f"the MicroBatcher, {launches} traverse launches; every answer "
+        f"matches the numpy ScoringModel {card}")
+
+
+def time_slot_levels(hv, sr, start, hist, label, card):
+    """Device ms of each sparse level's ``hist`` launch (CUDA events) and
+    records launch of a captured tree, beside their plain versions, the
+    one int64 ``index_add_`` computing the same histogram sums and their
+    bounds.  Returns per-tree sums {hist, split_records: [ms, plain,
+    bound, index_add_, bytes, ops]}."""
+    import torch
+    tot = {"hist": [0.0] * 6, "split_records": [0.0] * 6}
+    for d in range(start, len(hv)):
+        kind, g, leaf, st, L, bc, B, sc = hv[d]
+        K, n = leaf.shape
+        F = g.shape[-2]
+        ms = cuda_ms(lambda: slot_hist(hv[d], hist, plain=False), reps=20)
+        if kind == "varbin":
+            layout = hist.packed_layout(bc, B)
+            plain = cuda_ms(lambda: hist.hist_varbin_torch(
+                g, leaf, st, L, layout, sc), reps=YARDSTICK_REPS)
+            Q = layout.Q
+            q = g.long() if g.dim() == 3 else g.long()[None]
+        else:
+            plain = cuda_ms(lambda: hist.hist_uniform_torch(
+                g, leaf, st, L, B, scale=sc), reps=YARDSTICK_REPS)
+            Q = F * B
+            c = g.long() if g.dim() == 3 else g.long()[None]
+            q = c + (torch.arange(F, device=g.device) * B)[None, :, None]
+        qs = hist.quantize(st, sc)
+        lf = leaf.long()
+        ok = ((lf >= 0) & (lf < L))[:, None, :].expand(K, F, n)
+        kq = torch.arange(K, device=g.device)[:, None, None] * Q + q
+        idx = (kq * L + lf[:, None, :]).expand(K, F, n)[ok]
+        src = qs.transpose(1, 2)[:, None].expand(K, F, n, 3)[ok]
+        out = torch.zeros((K * Q * L, 3), dtype=torch.int64,
+                          device=g.device)
+        lib = cuda_ms(lambda: out.index_add_(0, idx, src), YARDSTICK_REPS)
+        del idx, src, kq, ok, out
+        nbytes, ops = work_multi(g, leaf, L, Q, F)
+        bnd, _ = bound(nbytes, ops)
+        H, nbins, args = sr[d]
+        LF, Bh = H.shape[1] * H.shape[2], H.shape[3]
+        rms = cuda_ms(lambda: hist.split_records(H, nbins, *args), reps=20)
+        rplain = cuda_ms(lambda: hist._split_records_torch(H, *args),
+                         reps=3)
+        rb, rops = work_records(LF, Bh)
+        rbnd, _ = bound(rb, rops)
+        for key, v in (("hist", (ms, plain, bnd, lib, nbytes, ops)),
+                       ("split_records", (rms, rplain, rbnd, 0.0, rb,
+                                          rops))):
+            for j in range(6):
+                tot[key][j] += v[j]
+        log(f"slot level times {label} level {d} (K={K}, parent slots "
+            f"L={L}, prefix rows {n}, valid rows {ops // (3 * F)}, {kind}) "
+            f"{card}: hist {ms:.4f} ms (plain {plain:.4f}, index_add_ "
+            f"{lib:.4f}, bound {bnd:.5f} by bytes {nbytes}); split_records "
+            f"{rms:.4f} ms over {LF} rows (plain {rplain:.4f}, bound "
+            f"{rbnd:.6f})")
+    log(f"slot level times per tree at {label} (sum of the {len(hv) - start}"
+        f" sparse levels) {card}: hist {tot['hist'][0]:.4f} ms (plain "
+        f"{tot['hist'][1]:.4f}, index_add_ {tot['hist'][3]:.4f}, bound "
+        f"{tot['hist'][2]:.5f}); split_records "
+        f"{tot['split_records'][0]:.4f} ms (plain "
+        f"{tot['split_records'][1]:.4f}, bound {tot['split_records'][2]:.6f})")
+    return tot
+
+
+def headline_drf(DRF, fr, hist, shared, card):
+    """Phase 22: DRF at its defaults at 10M rows (depth 20, sample_rate
+    0.632, mtries -1, min_rows 1): a 3-tree warmup, then trees/s of a
+    timed 10-tree forest, the device operations per tree, idle share and
+    device ms by op of a profiled forest of the same size; then one
+    captured tree's sparse levels timed."""
+    import torch
+    n = fr.nrows
+    t0 = time.perf_counter()
+    DRF(ntrees=DRF_WARM, **DRF_DEFAULT_CFG).train(fr)
+    torch.cuda.synchronize()
+    warm = time.perf_counter() - t0
+    probe_us = host_op_us()
+    T = DRF_TIMED
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    m = DRF(ntrees=T, **DRF_DEFAULT_CFG).train(fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    tps = T / dt
+    peak = torch.cuda.max_memory_allocated()
+    F = len(m.datainfo.specs)
+    B = m.params.nbins + 1
+    A = max(shared.sparse_geometry(20, B - 1, F, 8, "sparse")[1].values())
+    # a sparse level holds its carry, Hs, Ho, the [Hs, Ho] pair and H, each
+    # [K, 3, A, F, B] f32, and the kernel's int64 [K, Q|F*B, A, 3] output
+    lvl = 6 * 3 * A * F * B * 4 + A * 3 * F * B * 8
+    log(f"DRF memory at {n} rows: device peak "
+        f"{peak / 2 ** 30:.3f} GiB over the timed forest (the frame "
+        f"included); a sparse level's histograms, reckoned from the code at "
+        f"A = {A} slots, K = 1: at most {lvl / 2 ** 20:.1f} MiB, x K for K "
+        f"class trees")
+    drops, _ = dropped_children(m, shared)
+    log(f"headline DRF: {n} rows, DRF at its defaults (max_depth=20, "
+        f"nbins=64, sample_rate=0.632, mtries=-1, min_rows=1): {DRF_WARM}-"
+        f"tree warmup {warm:.3f} s, then {T} trees in {dt:.3f} s = "
+        f"{tps:.3f} trees/s; training AUC {m.training_metrics.auc:.6f}; "
+        f"effective depth {m.output['effective_max_depth']}, hist kernel "
+        f"{m.output['hist_kernel']}; alive children past the slot budget "
+        f"per tree by level "
+        f"{ {d: c / T for d, c in drops.items() if c} } {card}")
+    kern, busy = device_profile(lambda: DRF(ntrees=T, **DRF_DEFAULT_CFG)
+                                .train(fr))
+    ops = sum(e.count for e in kern) / T
+    idle = idle_share(busy, dt)
+    if busy <= 0:
+        log("profile DRF: no device time in the trace: not measured")
+    else:
+        log(f"profile DRF of a {T}-tree forest at {n} rows: {ops:g} device "
+            f"operations per tree (a small torch op costs the host "
+            f"{probe_us:.2f} us); device busy {busy / T:.2f} ms per tree "
+            f"against {dt / T * 1e3:.2f} ms of wall per tree of the "
+            f"unprofiled {T}-tree forest: idle share {idle:.3f}; device ms "
+            f"per tree by kernel (launches per tree): "
+            + "; ".join(f"{e.key[:110]} "
+                        f"{e.self_device_time_total / 1e3 / T:.3f} "
+                        f"({e.count / T:g})" for e in kern[:14]))
+    hv, sr, mc = capture_slot_levels(fr, DRF, hist, DRF_DEFAULT_CFG)
+    start = shared.sparse_geometry(
+        mc.output["effective_max_depth"], mc.params.nbins,
+        len(mc.datainfo.specs), mc.params.sparse_depth_threshold,
+        "sparse")[0]
+    check_records(sr[start:], hist, "10M-row DRF sparse-level")
+    tot = time_slot_levels(hv, sr, start, hist, f"{n} rows", card)
+    return tps, ops, idle, tot
+
+
+def slot_phases(DRF, Frame, hist, shared, batcher, kernels, dev, card):
+    """Phases 20-21 at 1M rows.  Returns what phase 22's kernel rows
+    need: (kernel-vs-plain differences, the main path's launch counts)."""
+    cols, frd = multi_frame(1_000_000, Frame)
+    kdiff, _ = check_slot_kernels(frd, DRF, hist, shared, dev, card)
+    mark("phase 20")
+    launches = drf_train_phase(frd, cols, kernels, DRF, hist, batcher, card)
+    del frd, cols
+    mark("phase 21")
+    return kdiff, launches
+
+
+def slot_headline(DRF, Frame, hist, shared, card, slot):
+    """Phase 22 and the kernel rows of the slot geometry."""
+    kdiff, launches = slot
+    _, fr10 = multi_frame(10_000_000, Frame)
+    tps, ops, idle, tot = headline_drf(DRF, fr10, hist, shared, card)
+    del fr10
+    log(f"DRF headline at 10M rows {card}: {tps:.3f} trees/s, {ops:g} "
+        f"device ops per tree, idle share {idle:.3f}; per tree hist at the "
+        f"sparse levels {tot['hist'][0]:.4f} ms (bound "
+        f"{tot['hist'][2]:.5f}), split_records {tot['split_records'][0]:.4f}"
+        f" ms")
+    rows = []
+    for name, src, rep, lib in (
+            ("hist (node-sparse levels)", "h2o3_tpu_torch/csrc/hist.cu",
+             "h2o3_tpu/models/tree/hist.py:256; "
+             "h2o3_tpu/models/tree/hist.py:80 (at the slot geometry: "
+             "hist.py:1046, _make_sparse_level_fn)", True),
+            ("split_records (node-sparse levels)",
+             "h2o3_tpu_torch/csrc/split_records.cu",
+             "h2o3_tpu/models/tree/hist.py:1526 (over the K*A slots: "
+             "shared.py:836, shared.py:998)", False)):
+        key = name.split(" ")[0]
+        v = tot[key]
+        rows.append({
+            "name": name, "route": "cuda", "source": src, "replaces": rep,
+            "launches": launches[key], "max_abs_err": kdiff[key],
+            "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
+            "bound_by": bound(v[4], v[5])[1],
+            "library_ms": v[3] if lib else None,
+        })
+    return rows
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -2326,8 +2850,8 @@ def main() -> dict:
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.export.mojo import from_reference
     from h2o3_tpu_torch.frame import Frame
-    from h2o3_tpu_torch.models import GridSearch
-    from h2o3_tpu_torch.models.tree import hist
+    from h2o3_tpu_torch.models import DRF, GridSearch
+    from h2o3_tpu_torch.models.tree import hist, shared
     from h2o3_tpu_torch.models.tree.xgboost import XGBoost
     from h2o3_tpu_torch.runtime import config as cfgmod
     from h2o3_tpu_torch.runtime import observability as obs
@@ -2665,6 +3189,9 @@ def main() -> dict:
     del gsr, fr1, cols1
 
     mark("phase 18")
+    # ------------------------------------- 20-21 slot levels, DRF train
+    slot = slot_phases(DRF, Frame, hist, shared, batcher, kernels_train,
+                       dev, card)
     # ----------------------------------------------------- 13 headlines
     t0 = time.perf_counter()
     cols, types, domains = make_airlines_like(10_000_000)
@@ -2751,6 +3278,11 @@ def main() -> dict:
         f"trees/s; per-row split_records {gtot10[0]:.4f} ms per round "
         f"(bound {gtot10[2]:.6f}, plain {gtot10[1]:.4f}); "
         f"{time.perf_counter() - T_START:.1f} s since the script started")
+
+    mark("phase 19")
+    # ------------------------------------------------ 22 DRF headline
+    rows += slot_headline(DRF, Frame, hist, shared, card, slot)
+    mark("phase 22")
 
     return {
         "kernels": [traverse_row] + rows,

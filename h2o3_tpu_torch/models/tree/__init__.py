@@ -1,2 +1,3 @@
 """The tree family: binning, histograms and split search, the level-wise
-growth loop, GBM and XGBoost, and the batched grid cohorts."""
+growth loop (dense and node-sparse levels), GBM, XGBoost and DRF, and the
+batched grid cohorts."""

@@ -34,7 +34,8 @@ from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
                      record_effective_depth, resolve_hist_layout,
                      resolve_hist_mode, resolve_split_mode,
                      resolve_tree_program, run_hist_crosscheck,
-                     run_split_crosscheck, traverse, use_hier_split_search)
+                     run_layout_crosscheck, run_split_crosscheck, traverse,
+                     use_hier_split_search)
 
 _LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
 
@@ -135,8 +136,7 @@ class GBM(SharedTree):
         model.output["nclass_trees"] = K
         model.output["tree_program"] = tree_program
         model.output["split_search"] = "hier" if hier else "exact"
-        record_effective_depth(model, p, Fw, N, hist_layout=hist_layout,
-                               nk=K)
+        record_effective_depth(model, p, Fw, N, hist_layout=hist_layout)
 
         if K > 1:
             # class-major [K, N] one-hot response and scores; F0 the log
@@ -165,14 +165,13 @@ class GBM(SharedTree):
                       reg_lambda=p.reg_lambda, min_rows=p.min_rows,
                       min_split_improvement=p.min_split_improvement,
                       learn_rate=p.learn_rate, reg_alpha=p.reg_alpha,
-                      gamma=p.gamma, min_child_weight=p.min_child_weight,
-                      hist_layout=hist_layout)
-        if hist_mode == "check" or split_mode == "check":
+                      gamma=p.gamma, min_child_weight=p.min_child_weight)
+        if "check" in (hist_mode, split_mode, hist_layout):
             # the crosschecks on the real first-round gradients (the exact
             # search, also when training takes the hierarchical one), with
             # the K class trees of a multinomial round as one batched
-            # build; then training proceeds on the subtraction path and
-            # the fused split search
+            # build; then training proceeds on the subtraction path, the
+            # fused split search and the node-sparse levels
             g0, h0 = dist.grad_hess(target, F)
             kw = dict(common, nk=K)
             if hist_mode == "check":
@@ -184,12 +183,20 @@ class GBM(SharedTree):
                                      seed, hist_mode=hist_mode,
                                      col_sample_rate=p.col_sample_rate, **kw)
                 split_mode = "fused"
+            if hist_layout == "check":
+                run_layout_crosscheck(
+                    codes, g0 * w, h0 * w, w, edges_mat, seed,
+                    sparse_depth_threshold=p.sparse_depth_threshold,
+                    col_sample_rate=p.col_sample_rate, **kw)
+                hist_layout = "sparse"
+                model.output["hist_layout"] = hist_layout
 
         scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate,
                      p.col_sample_rate_per_tree)
         scan_kw = dict(bin_counts=binned.bin_counts, hist_mode=hist_mode,
                        split_mode=split_mode, hist_layout=hist_layout,
-                       device=dev, hier=hier)
+                       device=dev, hier=hier,
+                       sparse_depth_threshold=p.sparse_depth_threshold)
         scan_fn = make_multinomial_scan_fn(K, *scan_args, **scan_kw) \
             if K > 1 else make_tree_scan_fn(dist, *scan_args, **scan_kw)
         model.output["hist_kernel"] = \

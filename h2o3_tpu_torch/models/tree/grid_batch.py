@@ -20,7 +20,7 @@ invalid, its leaf values are 0 and its scores stay as they were.
 Anything that changes a tree's shape or the build's path falls back to
 the wave path of ``grid.py`` (``CohortFallback`` with the reason): the
 multinomial response, the hierarchical search, non-fused split modes,
-node-sparse layouts, DART, monotone constraints, CV folds, checkpoints,
+the crosscheck modes, DART, monotone constraints, CV folds, checkpoints,
 and the options the port has not ported, where the member's own builder
 then raises.  Not ported here: the JAX package's recovery journals,
 progress snapshots and ``grid_member`` fault injection
@@ -90,10 +90,7 @@ def _eligibility(builder_cls, p) -> Optional[str]:
     if str(getattr(p, "split_mode", "auto")).lower() not in ("auto",
                                                              "fused"):
         return "split_mode (batched builds are fused-only)"
-    if str(getattr(p, "hist_layout", "auto")).lower() not in ("auto",
-                                                              "dense"):
-        return "hist_layout (batched builds are dense-only)"
-    for knob in ("hist_mode", "tree_program"):
+    for knob in ("hist_mode", "hist_layout", "tree_program"):
         if str(getattr(p, knob, "auto")).lower() == "check":
             return f"{knob}=check (per-member crosscheck diagnostics)"
     if str(getattr(p, "tree_program", "auto")).lower() == "scan":
@@ -215,7 +212,7 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     from ..distributions import make_distribution
     from ..scorekeeper import METRIC_MAXIMIZE, metric_direction
     from .binning import edges_matrix, fit_bins
-    from .shared import (StackedTrees, chunk_schedule, effective_max_depth,
+    from .shared import (StackedTrees, chunk_schedule,
                          make_grid_scan_fn, record_effective_depth,
                          resolve_hist_layout, resolve_hist_mode, traverse)
 
@@ -257,21 +254,14 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     N = codes.shape[1]
     Fw = binned.nfeatures
     hist_mode = resolve_hist_mode(p0)
+    # past the threshold the cohort grows node-sparse levels, as each
+    # member's own train does: its depth does not depend on G
     hist_layout = resolve_hist_layout(p0, hist_mode=hist_mode)
-    # "auto" counts a level's histograms over the cohort's G trees: where
-    # that caps the cohort shallower than its members' own trains, they
-    # would grow other trees
-    d_one = effective_max_depth(p0.max_depth, p0.nbins, Fw, N, hist_layout)
-    d_all = effective_max_depth(p0.max_depth, p0.nbins, Fw, N, hist_layout,
-                                nk=G)
-    if d_one != d_all:
-        raise CohortFallback(
-            f"hist_layout={hist_layout} grows depth {d_one} one member at "
-            f"a time but caps a cohort of {G} at {d_all}")
-    scan_fn = make_grid_scan_fn(G, dist, p0.max_depth, p0.nbins, Fw, N,
-                                bin_counts=binned.bin_counts,
-                                hist_mode=hist_mode, hist_layout=hist_layout,
-                                device=dev)
+    scan_fn = make_grid_scan_fn(
+        G, dist, p0.max_depth, p0.nbins, Fw, N,
+        bin_counts=binned.bin_counts, hist_mode=hist_mode,
+        hist_layout=hist_layout, device=dev,
+        sparse_depth_threshold=p0.sparse_depth_threshold)
 
     algo = rep.algo
     obs.set_gauge("grid_cohort_size", float(G), algo=algo)

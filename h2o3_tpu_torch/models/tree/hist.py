@@ -6,7 +6,10 @@ sums of the gradient statistics) and XGBoost's ``gpu_hist``.  One tree
 level is: the level histogram ``H[3, L, F, B]`` of (Σg, Σh, Σw) per
 (leaf, feature, bin) -> the per-(leaf, feature) winner records -> the
 per-leaf best split -> the row partition into child leaves.  ``B`` counts
-``nbins`` regular bins and the NA bin last.
+``nbins`` regular bins and the NA bin last.  A node-sparse deep level
+(``make_batched_sparse_level_fn``) runs the same steps over A slots of
+alive nodes (``sparse_slot_maps``) instead of the 2^d dense nodes, through
+the same kernels.
 
 Kernels (``csrc/``, built by ``native.py``), each beside its plain torch
 version:
@@ -681,6 +684,137 @@ def make_subtract_level_fn(d: int, F: int, B: int, bin_counts=None):
     return fn
 
 
+# ------------------------------------------------ node-sparse deep levels
+
+def sparse_slot_budget(F: int, B: int,
+                       cap_bytes: int = 64 * 1024 * 1024) -> int:
+    """Slots of a node-sparse deep level (the JAX package's
+    ``sparse_slot_budget``, hist.py:906): the largest multiple of 8 whose
+    [A, F, B] three-plane f32 histogram fits ``cap_bytes``, clamped to
+    [16, 4096].  A level narrower than this uses its 2^d nodes."""
+    a = cap_bytes // (F * B * 3 * 4)
+    return int(max(16, min(4096, (a // 8) * 8)))
+
+
+def sparse_slot_maps(valid_prev: torch.Tensor, A_next: int):
+    """Child slots of the next node-sparse level, per tree (the JAX
+    package's ``sparse_slot_maps``, hist.py:955, with a leading K).
+
+    ``valid_prev`` [K, Ap] holds the previous level's split decisions in
+    its own space (dense nodes at the first sparse level, slots after it).
+    Both children of every valid slot get a pair of slots (even = left),
+    in slot order; where a level has more alive children than ``A_next``
+    slots, the later pairs are dropped and those children are terminal.
+    Returns int64 ``child_base`` [K, Ap+1] (each previous slot's first
+    child slot, ``A_next`` for none; the last column is the sentinel's),
+    ``ps_of_slot`` [K, A_next] (each slot's parent slot; slots past the
+    live ones point at 0) and bool ``real`` [K, A_next] (the live slots)."""
+    K, Ap = valid_prev.shape
+    dev = valid_prev.device
+    idx = torch.cumsum(valid_prev.long(), dim=1) - 1
+    kept = valid_prev & (2 * idx + 1 < A_next)
+    base = torch.where(kept, 2 * idx, A_next)
+    child_base = torch.cat(
+        [base, torch.full((K, 1), A_next, dtype=torch.int64, device=dev)], 1)
+    # a pair's parent; a dropped pair writes the spare last column
+    half = torch.zeros((K, A_next // 2 + 1), dtype=torch.int64, device=dev) \
+        .scatter_(1, torch.where(kept, idx, A_next // 2),
+                  torch.arange(Ap, device=dev).expand(K, Ap))
+    ps_of_slot = half[:, :-1].repeat_interleave(2, dim=1)
+    real = torch.arange(A_next, device=dev) < 2 * kept.sum(1, keepdim=True)
+    return child_base, ps_of_slot, real
+
+
+def make_batched_sparse_level_fn(A_prev: int, A: int, K: int, F: int, B: int,
+                                 bin_counts=None):
+    """A node-sparse deep level of K trees in one histogram launch (the
+    JAX package's ``_make_batched_sparse_level_fn`` and
+    ``_sparse_local_body``, hist.py:988-1127): the ``make_batched_level_fn``
+    contract on A slots of alive nodes instead of 2^d dense nodes.
+
+    ``fn(codes, sleaf, stats, carry, ps_of_slot, scale=None) -> (H,
+    carry)``: codes [F, n] shared (pre-offset under ``bin_counts``), sleaf
+    [K, n] int64 each row's slot in [0, A] (A: no slot, a dead chain or a
+    dropped pair), stats [K, 3, n], carry the previous level's [K, 3,
+    A_prev, F, B] (at the first sparse level the dense level's, whose
+    nodes are then the parent slots), ``ps_of_slot`` [K, A]
+    (``sparse_slot_maps``).  The rows per slot (one ``histc``), folded to
+    each parent slot's left and right, pick its smaller child; the
+    chosen rows (never a row of slot A) are compacted into a prefix of n
+    // 2 + 1 rows labelled by parent slot and histogrammed in one launch
+    at L = A_prev; the larger child is the carry minus the smaller, h/w
+    clamped at 0, and one gather along the slot axis gives H [K, 3, A, F,
+    B], also the next level's carry.  With every parent valid and A =
+    2^d the slot map is the identity and H is bitwise the dense level's."""
+    bc = tuple(bin_counts) if bin_counts is not None else None
+
+    def level(codes, sleaf, stats, carry, ps_of_slot, scale=None):
+        scale = stat_scale(stats) if scale is None else scale
+        n = codes.shape[1]
+        cap = n // 2
+        dev = codes.device
+        # rows per slot of every tree, the sentinel slot A included
+        cnt = torch.histc((sleaf + _tree_offsets(K, A + 1, str(dev))).double(),
+                          bins=K * (A + 1), min=0,
+                          max=K * (A + 1)).view(K, A + 1)
+        # each parent slot's left and right counts (slots past the live
+        # ones hold no rows, so pointing them at parent 0 adds nothing)
+        zero = torch.zeros((K, A_prev), dtype=torch.float64, device=dev)
+        cl = zero.scatter_add(1, ps_of_slot[:, 0::2], cnt[:, 0:A:2])
+        cr = zero.scatter_add(1, ps_of_slot[:, 1::2], cnt[:, 1:A:2])
+        sil = (cl <= cr).gather(1, ps_of_slot)                       # [K, A]
+        chosen_slot = torch.where(
+            (torch.arange(A, device=dev) & 1).bool(), ~sil, sil)
+        # per-slot tables with the sentinel slot A: never chosen
+        no = torch.zeros((K, 1), dtype=torch.int64, device=dev)
+        chosen_tbl = torch.cat([chosen_slot, no.bool()], 1)
+        ps_tbl = torch.cat([ps_of_slot, no], 1)
+        chosen = chosen_tbl.gather(1, sleaf)                         # [K, n]
+        # the dense level's compaction (make_batched_level_fn)
+        c_flat = torch.cumsum(chosen.view(-1), dim=0).view(K, n)
+        c_incl = c_flat - torch.nn.functional.pad(c_flat[:-1, -1:], (0, 0,
+                                                                     1, 0))
+        target = torch.where(chosen, c_incl - 1, cap)
+        rows = torch.zeros((K, cap + 1), dtype=torch.int64, device=dev) \
+            .scatter_(1, target, torch.arange(n, device=dev).expand(K, n))
+        kept = torch.arange(cap + 1, device=dev) < c_incl[:, -1:]
+        ccodes = codes.index_select(1, rows.view(-1)).view(
+            F, K, cap + 1).transpose(0, 1)                   # [K, F, cap+1]
+        pleaf = torch.where(kept, ps_tbl.gather(1, sleaf.gather(1, rows)),
+                            -1).to(torch.int32)
+        st = stats.gather(2, rows[:, None, :].expand(K, 3, cap + 1))
+        Hs = local_hist(ccodes, pleaf, st, A_prev, F, B, bc, scale)
+        Ho = carry - Hs
+        Ho[:, 1:].clamp_min_(0.0)
+        # each slot's histogram from its parent slot's row: the chosen
+        # child reads Hs, the other Ho (one gather over both side by side)
+        both = torch.stack([Hs, Ho], dim=3).view(K, 3, 2 * A_prev, F * B)
+        src = 2 * ps_of_slot + (~chosen_slot).long()
+        H = both.gather(2, src[:, None, :, None].expand(K, 3, A, F * B)) \
+            .view(K, 3, A, F, B)
+        return H, H
+
+    return level
+
+
+def make_sparse_level_fn(A_prev: int, A: int, F: int, B: int,
+                         bin_counts=None):
+    """One tree's node-sparse deep level (the JAX package's
+    ``make_sparse_level_fn``): ``make_batched_sparse_level_fn`` at K = 1.
+    ``fn(codes, sleaf, stats, carry, ps_of_slot, scale=None) -> (H,
+    carry)`` with sleaf [n], stats [3, n], carry [3, A_prev, F, B],
+    ps_of_slot [A], scale [2, 3]; H [3, A, F, B]."""
+    batched = make_batched_sparse_level_fn(A_prev, A, 1, F, B, bin_counts)
+
+    def level(codes, sleaf, stats, carry, ps_of_slot, scale=None):
+        scale = stat_scale(stats) if scale is None else scale
+        H, _ = batched(codes, sleaf[None], stats[None], carry[None],
+                       ps_of_slot[None], scale[None])
+        return H[0], H[0]
+
+    return level
+
+
 # ------------------------------------------- hierarchical search: histograms
 
 def superbin_geometry(nbins: int) -> Tuple[int, int]:
@@ -1244,18 +1378,27 @@ def best_splits_hier(Hc, Hf, sel, ub, nbins: int, W: int, reg_lambda,
 
 # --------------------------------------------------------------- partition
 
-def partition(codes, leaf, feat, bin_, na_left, valid, na_bin: int):
-    """Send rows to child leaves: new_leaf = 2 * leaf + went_right.
-
-    ``codes`` is feature-major [F, N].  Each row gathers its leaf's split
-    (feature, bin, NA direction, valid) and its code of that feature; a
-    terminal (invalid) leaf routes every row left.  K trees: leaf [K, N]
-    and the splits [K, L], over the one shared code plane."""
+def partition_right(codes, leaf, feat, bin_, na_left, valid,
+                    na_bin: int) -> torch.Tensor:
+    """Whether each row goes right (the JAX package's ``partition_right``,
+    hist.py:2058): it gathers its node's split (feature, bin, NA
+    direction, valid) and its code of that feature; a terminal (invalid)
+    node sends every row left.  ``leaf`` indexes the split tables: dense
+    node ids, or slot ids at a node-sparse level (whose tables carry the
+    sentinel slot, never valid).  ``codes`` is feature-major [F, N]; K
+    trees: leaf [K, N] and the tables [K, L], over the one shared code
+    plane."""
     li = leaf.long()
     f = feat.long().gather(-1, li)
     b = bin_.gather(-1, li)
     nl = na_left.gather(-1, li)
     v = valid.gather(-1, li)
     c = codes.gather(0, f.view(-1, leaf.shape[-1])).view(f.shape)
-    right = torch.where(c == na_bin, ~nl, c > b) & v
+    return torch.where(c == na_bin, ~nl, c > b) & v
+
+
+def partition(codes, leaf, feat, bin_, na_left, valid, na_bin: int):
+    """Send rows to child leaves: new_leaf = 2 * leaf + went_right
+    (``partition_right``)."""
+    right = partition_right(codes, leaf, feat, bin_, na_left, valid, na_bin)
     return (2 * leaf + right.to(torch.int32)).to(torch.int32)

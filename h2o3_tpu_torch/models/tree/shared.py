@@ -14,18 +14,22 @@ direction, valid) plus leaf values, all on the device; the ensemble
 stacks them per level (``StackedTrees``) and ``traverse`` walks them with
 gathers.
 
-The port builds the dense layout as a Python loop of levels
-(``tree_program="level"``): what the JAX package trains with
-``H2O3_TPU_AUTOTUNE=off``.  A multinomial round grows its K class trees
-as one batched build (``make_build_tree_fn(nk=K)``: one histogram launch
-and one records launch per level for all K trees; one tree is the same
-level loop at K = 1), or as a loop of K single-tree builds
-(``split_mode="separate"``, the oracle it is bitwise).  A grid cohort's G
-members grow through the same batched build, each with its own
-parameters (``make_grid_scan_fn``).  Every tree's random draws come from
-generators keyed by (seed, chunk, tree, class) (``draw_generator``), so
-both paths draw the same.  The JAX package's other build programs
-(node-sparse deep levels, the whole-tree scan, EFB and monotone
+The port builds the level program (``tree_program="level"``), what the
+JAX package trains with ``H2O3_TPU_AUTOTUNE=off``: full-width [2^d] dense
+levels down to ``sparse_depth_threshold``, then, under
+``hist_layout="sparse"`` (what "auto" resolves to), node-sparse levels
+whose histograms, split records and routing run over A slots of alive
+nodes (``hist.make_batched_sparse_level_fn``, ``hist.sparse_slot_maps``),
+each level expanded back to the dense [2^d] contract.  A multinomial or
+forest round grows its K class trees as one batched build
+(``make_build_tree_fn(nk=K)``: one histogram launch and one records launch
+per level for all K trees; one tree is the same level loop at K = 1), or
+as a loop of K single-tree builds (``split_mode="separate"``, the oracle
+it is bitwise).  A grid cohort's G members grow through the same batched
+build, each with its own parameters (``make_grid_scan_fn``).  Every
+tree's random draws come from generators keyed by (seed, chunk, tree,
+class) (``draw_generator``), so both paths draw the same.  The JAX
+package's other build programs (the whole-tree scan, EFB and monotone
 constraints) wait for later slices and raise when asked for.
 """
 
@@ -77,14 +81,16 @@ class SharedTreeParameters(Parameters):
     # argmax; "separate" the multi-pass best_splits oracle; "check" grows
     # the first tree both ways, then trains "fused"; "auto" is "fused"
     split_mode: str = "auto"
-    # "auto" and "dense" both build dense [2^d] levels on the port; they
-    # differ only in the depth cap: "dense" stops where a level's
-    # histogram passes 64 MB (the JAX package's bound), "auto" where rows
-    # run out or a level's histograms pass AUTO_LEVEL_BUDGET (the JAX
-    # package grows node-sparse levels there, which are not ported yet).
-    # "auto" is "dense" under hist_mode="full" and the hierarchical
-    # search, as in the JAX package.
+    # "dense" grows full-width [2^d] levels, capped where a level's
+    # histogram passes 64 MB; "sparse" grows node-sparse levels from the
+    # (clamped) sparse_depth_threshold on, their slot axis sized to the
+    # same budget; "check" grows the first round both ways, raises on
+    # divergence, then trains "sparse"; "auto" is "sparse", and "dense"
+    # under hist_mode="full" and the hierarchical search
     hist_layout: str = "auto"
+    # the first node-sparse level (clamped to the dense memory cap and to
+    # >= 1: the root level is always dense)
+    sparse_depth_threshold: int = 8
     # "level" (and "auto"); the whole-tree scan program is not ported yet
     tree_program: str = "auto"
     # "hier" takes the hierarchical search (a coarse super-bin histogram,
@@ -247,80 +253,50 @@ def dense_mem_cap(nbins: int, F: int) -> int:
     return mem_cap
 
 
-# hist_layout="auto" grows a dense level only while the histograms that
-# level holds fit this many bytes.  The JAX package grows node-sparse
-# levels from depth 8 on, with a slot axis sized to a budget; until the
-# port has them (ROADMAP Queue 1 item 3) "auto" stops here.  A fixed
-# constant, not the free memory of the card at hand, so that a model's
-# depth never depends on the machine that trained it: 8 GiB, a tenth of
-# an H100's 80 GB, which leaves the rest to the rows, codes and scores.
-AUTO_LEVEL_BUDGET = 8 * 2 ** 30
-
-
-def level_bytes(d: int, nbins: int, F: int, nk: int = 1) -> int:
-    """Bytes of the histograms a dense subtract level d holds: the carry,
-    H, Hs, Ho, Hl and Hr, each counted as nk x [3, 2^d, F, nbins+1] f32
-    (nk class trees of one batched level)."""
-    return 6 * nk * 3 * 2 ** d * F * (nbins + 1) * 4
-
-
-def auto_depth_cap(nbins: int, F: int, nk: int = 1) -> int:
-    """Levels hist_layout="auto" grows: every one fits AUTO_LEVEL_BUDGET
-    (the root always)."""
-    depth = 1
-    while depth < 63 and level_bytes(depth, nbins, F, nk) \
-            <= AUTO_LEVEL_BUDGET:
-        depth += 1
-    return depth
-
-
 def row_depth_cap(n_padded: int) -> int:
     """A balanced tree runs out of rows past log2(n) + 1 levels."""
     return max(1, int(np.ceil(np.log2(max(n_padded, 2)))) + 1)
 
 
 def effective_max_depth(max_depth: int, nbins: int, F: int,
-                        n_padded: int, hist_layout: str = "dense",
-                        nk: int = 1) -> int:
-    """Depth cap shared by every consumer (the JAX package's formula, less
-    its node-sparse levels): a balanced tree runs out of rows past log2(n)
-    + 1 levels; hist_layout="dense" also stops where a level's histogram
-    passes 64 MB (``dense_mem_cap``), and "auto" where a level of ``nk``
-    trees passes ``AUTO_LEVEL_BUDGET`` (``auto_depth_cap``)."""
-    mem_cap = auto_depth_cap(nbins, F, nk) if hist_layout == "auto" \
-        else dense_mem_cap(nbins, F)
-    return max(1, min(max_depth, row_depth_cap(n_padded), mem_cap))
+                        n_padded: int, hist_layout: str = "dense") -> int:
+    """Depth cap shared by every consumer (the JAX package's formula,
+    shared.py:419-441): a balanced tree runs out of rows past log2(n) + 1
+    levels; the dense layout also stops where a level's histogram passes
+    64 MB (``dense_mem_cap``).  Under the node-sparse layout (``hist_layout``
+    "sparse", "auto" or "check", already resolved) the dense levels stop
+    at the threshold and the slot axis is sized to the same budget
+    (``hist.sparse_slot_budget``), so only the rows cap the depth."""
+    if hist_layout in ("sparse", "auto", "check"):
+        return max(1, min(max_depth, row_depth_cap(n_padded)))
+    return max(1, min(max_depth, row_depth_cap(n_padded),
+                      dense_mem_cap(nbins, F)))
 
 
 def record_effective_depth(model, params, F: int, n_padded: int,
-                           hist_layout: str = "dense", nk: int = 1) -> int:
+                           hist_layout: str = "dense") -> int:
     """Record the requested and the effective depth, and what caps it, in
-    ``model.output``; warn when a cap binds."""
+    ``model.output``; warn when a cap binds (the JAX package's
+    ``record_effective_depth``)."""
     eff = effective_max_depth(params.max_depth, params.nbins, F, n_padded,
-                              hist_layout, nk)
+                              hist_layout)
     model.output["requested_max_depth"] = params.max_depth
     model.output["effective_max_depth"] = eff
     model.output["hist_layout"] = hist_layout
     cap = None
-    if eff == params.max_depth:
-        pass
-    elif eff == row_depth_cap(n_padded):
-        cap, hint = "rows", "rows bound the tree"
-    elif hist_layout == "auto":
-        cap = f"auto level budget {AUTO_LEVEL_BUDGET} B"
-        hint = (f"a dense level of {nk} tree(s) would hold more than "
-                f"{AUTO_LEVEL_BUDGET} bytes of histograms; the port grows "
-                f"node-sparse levels in a later slice")
-    else:
-        cap = "dense level 64 MB"
-        hint = ("full-width [2^d] levels double histogram memory per "
-                "level; hist_layout='auto' lifts the 64 MB bound")
-    model.output["depth_cap"] = cap
-    if cap is not None:
+    if eff < params.max_depth:
+        if hist_layout != "dense" or eff == row_depth_cap(n_padded):
+            cap, hint = "rows", "rows bound the tree"
+        else:
+            cap = "dense level 64 MB"
+            hint = ("full-width [2^d] levels double histogram memory per "
+                    "level; hist_layout='auto' lifts the memory bound")
         warnings.warn(
             f"max_depth={params.max_depth} is capped to {eff} on this frame "
             f"({hint}; {F} features x {params.nbins} bins x {n_padded} "
-            f"rows; hist_layout={hist_layout!r}).", stacklevel=3)
+            f"rows). Trees train at depth {eff}; lower max_depth to "
+            f"silence this.", stacklevel=3)
+    model.output["depth_cap"] = cap
     return eff
 
 
@@ -355,23 +331,35 @@ def resolve_split_mode(params, hier: bool = False) -> str:
 
 
 def resolve_hist_layout(params, *, hist_mode=None, hier: bool = False) -> str:
-    """"auto" or "dense".  As in the JAX package (shared.py:1555), "auto"
-    becomes "dense", and so takes the 64 MB cap, under the hierarchical
-    search and under hist_mode="full" (no carry to subtract from);
-    ``hist_mode`` is the resolved mode ("check" trains "subtract"), by
-    default ``resolve_hist_mode(params)``."""
+    """The builder's layout, "dense" or "sparse", or "check" for the
+    trainer to resolve with ``run_layout_crosscheck`` (the JAX package's
+    ``resolve_hist_layout``, shared.py:1553-1589).  "auto" is "sparse",
+    and "dense" under the hierarchical search and under
+    hist_mode="full" (no carry to subtract from); an explicit "sparse"
+    raises there.  "sparse" means node-sparse levels from the clamped
+    ``sparse_depth_threshold`` on; the builder applies the threshold.
+    ``hist_mode`` is the resolved mode, by default
+    ``resolve_hist_mode(params)``."""
     layout = str(getattr(params, "hist_layout", "auto")).lower()
+    if layout not in ("dense", "sparse", "auto", "check"):
+        raise ValueError(
+            f"hist_layout={layout!r}: use dense | sparse | auto | check")
+    if int(getattr(params, "sparse_depth_threshold", 8)) < 1:
+        raise ValueError("sparse_depth_threshold must be >= 1 (the root "
+                         "level seeds the carry and is always dense)")
     if layout == "dense":
         return "dense"
-    if layout == "auto":
-        hm = hist_mode if hist_mode is not None else resolve_hist_mode(params)
-        return "dense" if hier or hm == "full" else "auto"
-    if layout in ("sparse", "check"):
-        raise NotImplementedError(
-            f"hist_layout={layout!r}: node-sparse deep levels are not "
-            f"ported yet ({_LATER}); use 'auto' or 'dense'")
-    raise ValueError(
-        f"hist_layout={layout!r}: use dense | sparse | auto | check")
+    hm = hist_mode if hist_mode is not None else resolve_hist_mode(params)
+    # the JAX package's sparse_layout_active (shared.py:1539), less the
+    # options the port has not ported: hist_mode="check" trains subtract
+    if hier or hm not in ("subtract", "check"):
+        if layout == "sparse":
+            raise ValueError(
+                "hist_layout='sparse' does not compose with "
+                "hist_mode='full' or the hierarchical split search; use "
+                "hist_layout='auto' to downgrade automatically")
+        return "dense"
+    return "check" if layout == "check" else "sparse"
 
 
 def resolve_tree_program(params) -> str:
@@ -494,14 +482,88 @@ def _leaf_values(children, reg_lambda, reg_alpha, learn_rate):
     return vals, cover
 
 
+def sparse_geometry(max_depth: int, nbins: int, F: int,
+                    sparse_depth_threshold: int, hist_layout: str):
+    """Where a build's node-sparse levels start and their widths (the JAX
+    package's ``make_build_tree_fn``, shared.py:631-660): the first
+    sparse level t0 = max(1, min(threshold, ``dense_mem_cap``)) when the
+    layout is "sparse" and the tree is deeper than t0 (else
+    ``max_depth``: no sparse level), level d's slots A_d = min(2^d,
+    ``hist.sparse_slot_budget``) and its parent slots (2^(d-1), the dense
+    nodes, at the first sparse level; A_(d-1) after it).  Returns
+    (sparse_from, {d: A_d}, {d: parent slots})."""
+    t0 = max(1, min(sparse_depth_threshold, dense_mem_cap(nbins, F)))
+    sparse_from = t0 if hist_layout == "sparse" and max_depth > t0 \
+        else max_depth
+    A_cap = hist.sparse_slot_budget(F, nbins + 1)
+    A_lv = {d: min(2 ** d, A_cap) for d in range(sparse_from, max_depth)}
+    Ap_lv = {d: 2 ** (d - 1) if d == sparse_from else A_lv[d - 1]
+             for d in range(sparse_from, max_depth)}
+    return sparse_from, A_lv, Ap_lv
+
+
+def _slot_maps(d: int, A: int, prev_valid, slot_of_leaf, leaf_of_slot):
+    """Slot assignment and the dense <-> slot maps of sparse level d, per
+    tree [K, ...] (the JAX package's ``_slot_maps``).  ``prev_valid`` is
+    the previous level's valid in its own space: the dense [K, 2^(d-1)]
+    nodes at the first sparse level (then ``slot_of_leaf`` is None), its
+    [K, Ap] slots after it.  Returns ``sparse_slot_maps``' child_base,
+    ps_of_slot and real, ``slot_of_leaf`` [K, 2^d] (A for a node with no
+    slot) and ``leaf_of_slot`` [K, A] (each slot's dense node)."""
+    child_base, ps_of_slot, real = hist.sparse_slot_maps(prev_valid, A)
+    dev = prev_valid.device
+    side = torch.arange(2 ** d, device=dev) & 1
+    sbit = torch.arange(A, device=dev) & 1
+    if slot_of_leaf is None:
+        parent_base = child_base[:, :-1]
+        leaf_of_slot = 2 * ps_of_slot + sbit
+    else:
+        parent_base = child_base.gather(1, slot_of_leaf)
+        leaf_of_slot = 2 * leaf_of_slot.gather(1, ps_of_slot) + sbit
+    slot_of_leaf = torch.clamp_max(
+        parent_base.repeat_interleave(2, dim=1) + side, A)
+    return child_base, ps_of_slot, real, slot_of_leaf, leaf_of_slot
+
+
+def _expand_sparse(A: int, split_s, slot_of_leaf, prev_children):
+    """A sparse level's slot records [K, A] -> the dense [K, 2^d] level
+    contract (the JAX package's ``_expand_sparse``).  A node with no slot
+    (a dead chain or a dropped pair) is terminal: an invalid record whose
+    child sums are its side of its parent's, all to the left, so the rows
+    draining through it keep a leaf value."""
+    feat_s, bin_s, na_s, valid_s, children_s = split_s
+    K, L = slot_of_leaf.shape
+    mapped = slot_of_leaf < A
+    slc = torch.clamp_max(slot_of_leaf, A - 1)
+    feat = torch.where(mapped, feat_s.gather(1, slc), 0)
+    bin_ = torch.where(mapped, bin_s.gather(1, slc), 0)
+    na_left = mapped & na_s.gather(1, slc)
+    valid = mapped & valid_s.gather(1, slc)
+    pc = prev_children.repeat_interleave(2, dim=1)            # [K, 2^d, 6]
+    right = (torch.arange(L, device=slot_of_leaf.device) & 1).bool()
+    tot = torch.where(right[:, None], pc[..., 3:6], pc[..., 0:3])
+    inherit = torch.cat([tot, torch.zeros_like(tot)], dim=-1)
+    children = torch.where(
+        mapped[..., None],
+        children_s.gather(1, slc[..., None].expand(K, L, 6)), inherit)
+    return feat, bin_, na_left, valid, children
+
+
+def _sentinel(x):
+    """[K, A] slot table -> [K, A+1] with the sentinel slot A (zero:
+    never valid, so a row without a slot keeps flowing left)."""
+    return torch.cat([x, torch.zeros_like(x[:, :1])], dim=1)
+
+
 def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                        bin_counts=None, hist_mode: str = "subtract",
-                       split_mode: str = "fused", hist_layout: str = "auto",
-                       device=None, hier: bool = False, nk: int = 1):
+                       split_mode: str = "fused", hist_layout: str = "dense",
+                       device=None, hier: bool = False, nk: int = 1,
+                       sparse_depth_threshold: int = 8):
     """A function that grows one tree on the device (the JAX package's
-    ``make_build_tree_fn`` with the dense layout and
-    tree_program="level"), or, with ``nk`` > 1, the K trees of a
-    multinomial round or the G members of a grid cohort at once.
+    ``make_build_tree_fn`` with tree_program="level"), or, with ``nk`` >
+    1, the K trees of a multinomial or forest round or the G members of a
+    grid cohort at once.
 
     ``build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
     min_split_improvement, learn_rate, col_sample_rate, tree_mask,
@@ -538,6 +600,21 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     (``fine_hist``) and ``best_splits_hier``.  ``hist_mode`` does not
     apply to it, and it takes ``split_mode="separate"`` and one tree.
 
+    ``hist_layout="sparse"`` (JAX ``shared.py:631-766``, ``:812-857``)
+    grows node-sparse levels from ``sparse_geometry``'s first sparse
+    level on: each tree's alive nodes get slots (``_slot_maps``), every
+    row carries its slot (``sleaf``, A for none) beside its dense node,
+    and per level one batched histogram at the slot geometry
+    (``hist.make_batched_sparse_level_fn``: one launch at L = the parent
+    slots), one records launch over the K*A slots (its column mask drawn
+    dense, as a dense level draws it, then gathered to the slots), the
+    slot records expanded back to the dense [2^d] level
+    (``_expand_sparse``), and one went-right bit through the slot tables
+    (``hist.partition_right``) that updates both ids.  Where a level has
+    more alive children than slots, the later pairs are dropped and those
+    children stay leaves.  It takes hist_mode="subtract" and the exact
+    search.
+
     ``device`` (``cuda`` unless given, raising without CUDA) decides the
     histogram layout (``varbin_kernel_engages``).  Every histogram of a
     tree sums on one fixed-point scale, ``hist.stat_scale`` of its stats,
@@ -556,16 +633,29 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         raise ValueError("the batched K-tree build takes split_mode="
                          "'fused' and the exact search; the K loop of "
                          "single builds serves the others")
+    if hist_layout not in ("dense", "sparse"):
+        raise ValueError(f"hist_layout={hist_layout!r}: use 'dense' or "
+                         "'sparse' here ('auto' and 'check' are resolved "
+                         "by the trainer)")
+    if hist_layout == "sparse" and (hist_mode != "subtract" or hier):
+        raise ValueError("hist_layout='sparse' takes hist_mode='subtract' "
+                         "(the slot carry is the subtraction carry) and the "
+                         "exact search")
     B = nbins + 1
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
-                                    hist_layout, nk)
+                                    hist_layout)
+    sparse_from, A_lv, Ap_lv = sparse_geometry(
+        max_depth, nbins, F, sparse_depth_threshold, hist_layout)
     device = resolve_device(device)
     use_varbin = not hier and varbin_kernel_engages(bin_counts, nbins, F,
                                                     device)
     bc = tuple(bin_counts) if use_varbin else None
     level_fns = [] if hier else [
         hist.make_batched_level_fn(d, nk, F, B, bin_counts=bc)
-        for d in range(max_depth)]
+        for d in range(sparse_from)] + [
+        hist.make_batched_sparse_level_fn(Ap_lv[d], A_lv[d], nk, F, B,
+                                          bin_counts=bc)
+        for d in range(sparse_from, max_depth)]
     split_fn = hist.fused_best_splits if split_mode == "fused" \
         else hist.best_splits
     if hier:
@@ -636,6 +726,45 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
             if tree_mask is not None:
                 mask = tree_mask[:, None, :].expand(K, L, F) \
                     if mask is None else mask & tree_mask[:, None, :]
+            if d >= sparse_from:
+                A = A_lv[d]
+                if d == sparse_from:
+                    # the first sparse level: slots from the last dense
+                    # level's valid, whose carry is the parent slots'
+                    (child_base, ps_of_slot, real, slot_of_leaf,
+                     leaf_of_slot) = _slot_maps(d, A, valid, None, None)
+                    sleaf = slot_of_leaf.gather(1, leaf.long())
+                else:
+                    (child_base, ps_of_slot, real, slot_of_leaf,
+                     leaf_of_slot) = _slot_maps(d, A, valid_s, slot_of_leaf,
+                                                leaf_of_slot)
+                    sleaf = torch.clamp_max(
+                        child_base.gather(1, sleaf) + right, A)
+                H, carry = level_fns[d](lcodes, sleaf, stats, carry,
+                                        ps_of_slot, scale)
+                mask_s = None if mask is None else mask.gather(
+                    1, leaf_of_slot[..., None].expand(K, A, F))
+                feat_s, bin_s, na_s, _, valid_s, children_s = \
+                    hist.batched_splits(split_fn, H, nbins, reg_lambda,
+                                        min_rows, min_split_improvement,
+                                        mask_s, reg_alpha, gamma,
+                                        min_child_weight)
+                # slots past the live ones gathered parent slot 0's
+                # histogram: no rows, their records are dropped here
+                valid_s, children_s = _collapse_dead(valid_s, real,
+                                                     children_s)
+                feat, bin_, na_left, valid, children = _expand_sparse(
+                    A, (feat_s, bin_s, na_s, valid_s, children_s),
+                    slot_of_leaf, children)
+                # one went-right bit moves both ids: the dense node (leaf
+                # values, traversal) and the slot (next level's routing)
+                right = hist.partition_right(
+                    codes, sleaf, *map(_sentinel, (feat_s, bin_s, na_s,
+                                                   valid_s)), nbins)
+                leaf = (2 * leaf + right.to(torch.int32)).to(torch.int32)
+                thr = edges_mat[feat.long(), bin_.clamp(0, nbins - 1).long()]
+                levels.append((feat, thr, na_left, valid))
+                continue
             if hier:
                 split, carry = hier_level(
                     d, codes, hcodes, leaf[0], stats[0], scale[0], carry,
@@ -721,11 +850,14 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                       n_padded: int, sample_rate: float,
                       col_sample_rate_per_tree: float, bin_counts=None,
                       hist_mode: str = "subtract", split_mode: str = "fused",
-                      hist_layout: str = "auto", device=None,
-                      hier: bool = False):
-    """A chunk of boosting rounds (the JAX package's ``make_tree_scan_fn``
-    as a plain loop over the chunk's trees): gradients -> row and column
-    samples -> grow -> F update.  Returns ``scan_fn(codes, y, w, F0,
+                      hist_layout: str = "dense", device=None,
+                      hier: bool = False, sparse_depth_threshold: int = 8):
+    """A chunk of boosting or bagging rounds (the JAX package's
+    ``make_tree_scan_fn`` as a plain loop over the chunk's trees):
+    gradients -> row and column samples -> grow -> F update.  ``dist`` is
+    a distribution, or "drf" for the forest's mean fit (g = -y, h = 1,
+    shared.py:2080 there: no feedback from F, which sums the trees'
+    leaf values).  Returns ``scan_fn(codes, y, w, F0,
     edges_mat, seed, chunk_no, nchunk, reg_lambda, min_rows,
     min_split_improvement, learn_rate, col_sample_rate, reg_alpha, gamma,
     min_child_weight) -> (F, StackedTrees of the chunk)``; tree t of chunk
@@ -738,7 +870,8 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode=split_mode,
                                hist_layout=hist_layout, device=device,
-                               hier=hier)
+                               hier=hier,
+                               sparse_depth_threshold=sparse_depth_threshold)
 
     def scan_fn(codes, y, w, F0, edges_mat, seed, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -747,7 +880,10 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
         Fc = F0
         trees = []
         for t in range(nchunk):
-            g0, h0 = dist.grad_hess(y, Fc)
+            if dist == "drf":
+                g0, h0 = -y, torch.ones_like(y)
+            else:
+                g0, h0 = dist.grad_hess(y, Fc)
             wv = _row_sample(w, sample_rate, seed, chunk_no, t)
             gen = draw_generator(seed, chunk_no, t, 0, w.device)
             tm = tree_column_mask(F, col_sample_rate_per_tree, gen) \
@@ -776,13 +912,17 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
                              col_sample_rate_per_tree: float,
                              bin_counts=None, hist_mode: str = "subtract",
                              split_mode: str = "fused",
-                             hist_layout: str = "auto", device=None,
-                             hier: bool = False):
-    """A chunk of multinomial rounds of K class trees (the JAX package's
+                             hist_layout: str = "dense", device=None,
+                             hier: bool = False, mode: str = "multinomial",
+                             sparse_depth_threshold: int = 8):
+    """A chunk of rounds of K class trees (the JAX package's
     ``make_multinomial_scan_fn``, shared.py:2108, as a plain loop): per
-    round the softmax gradients g = P - Y1, h = max(P (1 - P), 1e-10),
-    one row sample shared by the K trees, a column mask and per-split
-    draws per class, and the K trees.
+    round the gradients, one row sample shared by the K trees, a column
+    mask and per-split draws per class, and the K trees.  The gradients
+    are the softmax's, g = P - Y1, h = max(P (1 - P), 1e-10), for
+    ``mode="multinomial"``, and the forest's mean fit, g = -Y1, h = 1,
+    for ``mode="drf"`` (each class tree fits its one-hot column; F sums
+    the trees' leaf values).
 
     ``split_mode="fused"`` grows them as one batched build
     (``make_build_tree_fn(nk=K)``: one histogram and one records launch
@@ -796,17 +936,19 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
     col_sample_rate, reg_alpha, gamma, min_child_weight) -> (F, [K
     StackedTrees of the chunk, one per class])``; Y1 [K, N] is the
     one-hot response, F0 and F the [K, N] scores, class-major."""
+    if mode not in ("multinomial", "drf"):
+        raise ValueError(f"mode={mode!r}: use 'multinomial' or 'drf'")
     if hier:
         split_mode, hist_layout = "separate", "dense"
-    # one depth for both paths: the batched level's budget counts K trees
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
-                                    hist_layout, K)
+                                    hist_layout)
     batched = split_mode == "fused" and K > 1
     bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode=split_mode,
                                hist_layout=hist_layout, device=device,
-                               hier=hier, nk=K if batched else 1)
+                               hier=hier, nk=K if batched else 1,
+                               sparse_depth_threshold=sparse_depth_threshold)
 
     def scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -818,7 +960,10 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
         Fc = F0
         rounds = []
         for t in range(nchunk):
-            g, h = _MULTINOMIAL.grad_hess(Y1, Fc)
+            if mode == "drf":
+                g, h = -Y1, torch.ones_like(Y1)
+            else:
+                g, h = _MULTINOMIAL.grad_hess(Y1, Fc)
             wv = _row_sample(w, sample_rate, seed, chunk_no, t)
             gens = [draw_generator(seed, chunk_no, t, k, w.device)
                     for k in range(K)]
@@ -855,15 +1000,18 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
 
 def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
                       n_padded: int, bin_counts=None,
-                      hist_mode: str = "subtract", hist_layout: str = "auto",
-                      device=None):
+                      hist_mode: str = "subtract",
+                      hist_layout: str = "dense", device=None,
+                      sparse_depth_threshold: int = 8):
     """A chunk of G-member grid rounds (the JAX package's
     ``make_grid_scan_fn``, shared.py:2235, as a plain loop): the members
     of a cohort share the codes, the response and the tree shape, and
     each carries its own scalar hyperparameters, seed and scores; one
     batched build (``make_build_tree_fn(nk=G)``) grows the round's G
     trees: one histogram launch and one records launch (its per-row form)
-    per level whatever G is.
+    per level whatever G is, at the dense or the node-sparse slot
+    geometry alike, so a deep cohort grows the trees of its members' own
+    trains (the JAX package pins its cohorts to the dense layout).
 
     Returns ``scan_fn(codes, y, w, F0, edges_mat, seeds, chunk_no, nchunk,
     reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -889,7 +1037,8 @@ def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
     bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode="fused", hist_layout=hist_layout,
-                               device=device, nk=G)
+                               device=device, nk=G,
+                               sparse_depth_threshold=sparse_depth_threshold)
 
     def scan_fn(codes, y, w, F0, edges_mat, seeds, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -965,13 +1114,13 @@ def _grow_host(fn, codes, g, h, w, edges_mat, seed, scal, nk: int = 1,
 
 def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
                         nbins, F, n_padded, bin_counts=None,
-                        hist_layout="auto",
                         reg_lambda=0.0, min_rows=1.0,
                         min_split_improvement=1e-5, learn_rate=0.1,
                         reg_alpha=0.0, gamma=0.0, min_child_weight=0.0,
                         nk: int = 1, atol=1e-4):
     """The hist_mode="check" assert: grow one tree with the subtraction
-    path and one with the full rebuild on the same inputs and raise
+    path and one with the full rebuild (dense levels, at the dense
+    effective depth, as in the JAX package) on the same inputs and raise
     AssertionError on any divergence of split structure, row routing or
     leaf values (exactly tied gains are the one legitimate cause).  ``nk``
     > 1 checks the batched K-tree build (g and h [K, N]) at its own
@@ -983,7 +1132,6 @@ def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
         fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                 bin_counts=bin_counts, hist_mode=mode,
                                 split_mode="fused" if nk > 1 else "separate",
-                                hist_layout=hist_layout,
                                 device=codes.device, nk=nk)
         outs[mode] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal,
                                 nk)
@@ -1010,25 +1158,22 @@ def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
 
 def run_split_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
                          max_depth, nbins, F, n_padded, bin_counts=None,
-                         hist_mode="subtract", hist_layout="auto",
-                         reg_lambda=0.0, min_rows=1.0,
+                         hist_mode="subtract", reg_lambda=0.0, min_rows=1.0,
                          min_split_improvement=1e-5, learn_rate=0.1,
                          col_sample_rate=1.0, reg_alpha=0.0, gamma=0.0,
                          min_child_weight=0.0, nk: int = 1, atol=1e-4):
     """The split_mode="check" assert: grow one round's tree, or its ``nk``
     class trees (g and h [K, N]), with the fused path (batched when ``nk``
     > 1) and with a loop of single builds on the separate best_splits
-    oracle, on the same inputs and draws, and raise on divergence.  A dead
+    oracle, on the same inputs and draws (dense levels, as in the JAX
+    package), and raise on divergence.  A dead
     node's stored split is arbitrary, so feature/NA/threshold compare only
     where valid."""
     hm = hist_mode if hist_mode in ("subtract", "full") else "subtract"
     scal = (reg_lambda, min_rows, min_split_improvement, learn_rate,
             col_sample_rate, None, reg_alpha, gamma, min_child_weight)
-    # the K loop grows at the batched build's depth
-    max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
-                                    hist_layout, nk)
-    common = dict(bin_counts=bin_counts, hist_mode=hm,
-                  hist_layout=hist_layout, device=codes.device)
+    max_depth = effective_max_depth(max_depth, nbins, F, n_padded)
+    common = dict(bin_counts=bin_counts, hist_mode=hm, device=codes.device)
     sep = make_build_tree_fn(max_depth, nbins, F, n_padded,
                              split_mode="separate", **common)
     fus = make_build_tree_fn(max_depth, nbins, F, n_padded,
@@ -1061,6 +1206,71 @@ def run_split_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
         raise AssertionError(
             "split_mode='check': leaf values diverge (max abs diff "
             f"{np.max(np.abs(v_s - v_f))})")
+
+
+def run_layout_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
+                          max_depth, nbins, F, n_padded, bin_counts=None,
+                          sparse_depth_threshold=8, reg_lambda=0.0,
+                          min_rows=1.0, min_split_improvement=1e-5,
+                          learn_rate=0.1, col_sample_rate=1.0,
+                          reg_alpha=0.0, gamma=0.0, min_child_weight=0.0,
+                          nk: int = 1, atol=1e-4):
+    """The hist_layout="check" assert (the JAX package's
+    ``run_layout_crosscheck``, shared.py:1831-1930): grow one round's
+    tree, or its ``nk`` class trees as one batched build (g and h [K,
+    N]), with dense levels and with node-sparse levels on the same inputs
+    and draws, at the dense effective depth (past it no dense oracle
+    exists), and raise AssertionError on divergence.  The sparse levels
+    never histogram a dead chain's rows, so valid and the final routing
+    must match exactly, feature and NA direction exactly where valid,
+    thresholds to tolerance where valid, leaf values to f32 tolerance.
+    Children that a full slot budget leaves as leaves
+    (``hist.sparse_slot_budget``) trip the valid compare: showing that is
+    this mode's job."""
+    md = effective_max_depth(max_depth, nbins, F, n_padded)
+    scal = (reg_lambda, min_rows, min_split_improvement, learn_rate,
+            col_sample_rate, None, reg_alpha, gamma, min_child_weight)
+    outs = {}
+    for layout in ("dense", "sparse"):
+        fn = make_build_tree_fn(md, nbins, F, n_padded,
+                                bin_counts=bin_counts, hist_mode="subtract",
+                                split_mode="fused" if nk > 1 else "separate",
+                                hist_layout=layout, device=codes.device,
+                                nk=nk,
+                                sparse_depth_threshold=sparse_depth_threshold)
+        outs[layout] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal,
+                                  nk)
+    lv_d, v_d, leaf_d = outs["dense"]
+    lv_s, v_s, leaf_s = outs["sparse"]
+    for k in range(nk):
+        for d in range(len(lv_d)):
+            valid_d = lv_d[d][3][k].astype(bool)
+            if not np.array_equal(valid_d, lv_s[d][3][k].astype(bool)):
+                raise AssertionError(
+                    f"hist_layout='check': dense and sparse builds disagree "
+                    f"on valid at tree {k} level {d} (alive children past "
+                    f"the slot budget stay leaves on the sparse side: see "
+                    f"hist.sparse_slot_budget)")
+            for name, i in (("feat", 0), ("na_left", 2)):
+                if not np.array_equal(lv_d[d][i][k][valid_d],
+                                      lv_s[d][i][k][valid_d]):
+                    raise AssertionError(
+                        f"hist_layout='check': {name} diverges at tree {k} "
+                        f"level {d}")
+            if not np.allclose(lv_d[d][1][k][valid_d],
+                               lv_s[d][1][k][valid_d], atol=atol,
+                               rtol=1e-5):
+                raise AssertionError(
+                    f"hist_layout='check': split thresholds diverge at "
+                    f"tree {k} level {d}")
+        if not np.array_equal(leaf_d[k], leaf_s[k]):
+            raise AssertionError(
+                "hist_layout='check': final leaf routing differs between "
+                f"the dense and sparse builds for tree {k}")
+        if not np.allclose(v_d[k], v_s[k], atol=atol, rtol=1e-4):
+            raise AssertionError(
+                f"hist_layout='check': leaf values diverge for tree {k} "
+                f"(max abs diff {np.max(np.abs(v_d[k] - v_s[k]))})")
 
 
 # ------------------------------------------------------------ the model
@@ -1113,11 +1323,13 @@ class SharedTreeModel(Model):
     def to_archive(self):
         """``(meta, arrays)`` in the portable archive layout that
         ``export.mojo.from_reference`` reads (the JAX package's
-        ``export/mojo.py::_extract`` for GBM/XGBoost): ``feat_d``,
+        ``export/mojo.py::_extract`` for GBM/XGBoost/DRF): ``feat_d``,
         ``thr_d``, ``na_left_d``, ``valid_d`` per level, ``values``,
         ``covers``, and ``init_score`` in the metadata; K class-tree stacks
         as K groups of those arrays under the prefixes ``k0_``, ``k1_``,
-        ... with ``nclass_trees`` = K and one initial score per class."""
+        ... with ``nclass_trees`` = K and one initial score per class.
+        ``tree_average`` is true for a forest: its scorers divide the sum
+        of the trees by their number."""
         di = self.datainfo
         st = self.output["stacked"]
         K = self.output.get("nclass_trees", 1)
@@ -1129,7 +1341,8 @@ class SharedTreeModel(Model):
             "datainfo": _datainfo_meta(di),
             "default_threshold": float(self.default_threshold())
             if di.is_classifier else 0.5,
-            "family": "tree", "tree_average": False, "nclass_trees": K,
+            "family": "tree", "tree_average": self.algo == "drf",
+            "nclass_trees": K,
             "depth": stacks[0].depth, "ntrees": stacks[0].ntrees,
             "link": "log" if dist in ("poisson", "gamma", "tweedie")
             else "identity",

@@ -635,3 +635,123 @@ def test_small_grid_cohort_bitwise_sequential_members(cuda):
             np.testing.assert_array_equal(
                 m.predict(fr).vec("YES").to_numpy(),
                 seq.predict(fr).vec("YES").to_numpy())
+
+
+# ------------------------------------------------ node-sparse deep levels
+
+def _slot_level_inputs(rng, K, A_prev, A, bc, nbins, n, integer, dev):
+    """A sparse level's inputs on ``dev``: codes [F, n] (feature f's
+    regular codes below its bin count ``bc[f]``), each tree's parent
+    slots (3/4 of them valid, so that the A slots overflow where 2 x the
+    valid ones pass A), each row's slot in [0, A] (some rows on the
+    sentinel A), stats [K, 3, n] and a carry [K, 3, A_prev, F, B]."""
+    codes = np.stack([np.where(rng.random(n) < 0.05, nbins,
+                               rng.integers(0, b, n))
+                      for b in bc]).astype(np.int16)
+    valid = torch.from_numpy(rng.random((K, A_prev)) < 0.75)
+    _, ps, real = hist.sparse_slot_maps(valid, A)
+    live = real.sum(1, keepdim=True)
+    sleaf = torch.from_numpy(rng.integers(0, 1 << 30, (K, n))) % (live + 1)
+    sleaf = torch.where(sleaf == live, A, sleaf)       # the sentinel slot
+    if integer:
+        st = np.stack([rng.integers(-3, 4, (K, n)), rng.integers(0, 3, (K, n)),
+                       rng.integers(0, 2, (K, n))], axis=1)
+    else:
+        p = rng.random((K, n))
+        st = np.stack([p - (rng.random((K, n)) < 0.4), p * (1 - p),
+                       rng.random((K, n)) < 0.632], axis=1)
+    carry = rng.random((K, 3, A_prev, len(bc), nbins + 1)) * n / A_prev
+    return [torch.as_tensor(x).to(dev) for x in (
+        codes, sleaf, st.astype(np.float32), carry.astype(np.float32), ps)]
+
+
+@pytest.mark.parametrize("varbin", [False, True])
+@pytest.mark.parametrize("integer", [True, False])
+@pytest.mark.parametrize("K", [1, 3])
+def test_sparse_level_at_4096_slots_equals_plain(cuda, K, integer, varbin):
+    """A node-sparse level at the slot geometry of DRF's deep levels
+    (2,048 or 4,096 parent slots, A = 4,096 slots, F = 8, nbins 64), one
+    ``hist`` launch for all K trees, equals the same level on the CPU
+    (the plain versions) bitwise; its records over the K*A slots equal
+    their plain version bitwise, in one launch."""
+    F, nbins, n = 8, 64, 400_003
+    B = nbins + 1
+    A_prev = 2048 if K == 1 else 4096
+    rng = np.random.default_rng(K * 7 + integer + 2 * varbin)
+    bc = (nbins, 12, nbins, 7, nbins, 40, 3, nbins)
+    on_card = _slot_level_inputs(rng, K, A_prev, 4096, bc, nbins, n,
+                                 integer, cuda)
+    H = {}
+    for dev, (codes, sleaf, st, carry, ps) in (
+            ("cuda", on_card), ("cpu", [x.cpu() for x in on_card])):
+        codes = hist.offset_codes(codes, bc, nbins) if varbin else codes
+        fn = hist.make_batched_sparse_level_fn(A_prev, 4096, K, F, B,
+                                               bc if varbin else None)
+        before = hist.HIST.launches
+        H[dev], _ = fn(codes, sleaf, st, carry, ps)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert hist.HIST.launches == before + 1
+    assert H["cuda"].shape == (K, 3, 4096, F, B)
+    _assert_bitwise(H["cuda"].cpu(), H["cpu"])
+    before = hist.SPLIT_RECORDS.launches
+    got = hist.batched_splits(hist.fused_best_splits, H["cuda"], nbins, 1.0,
+                              1.0, 1e-5)
+    want = hist.batched_splits(hist.best_splits, H["cuda"], nbins, 1.0,
+                               1.0, 1e-5)
+    torch.cuda.synchronize()
+    assert hist.SPLIT_RECORDS.launches == before + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a.contiguous().view(-1).view(torch.uint8),
+                           b.contiguous().view(-1).view(torch.uint8))
+
+
+def test_small_drf_train_matches_cpu(cuda):
+    """A binomial and a 3-class DRF at depth 12 with sparse levels from
+    depth 4 on the card: one hist and one records launch per level of
+    every tree or round, whatever K; the same trees as the CPU, unsampled;
+    sampled, the batched 3-class round bitwise its K loop."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree.drf import DRF
+    rng = np.random.default_rng(8)
+    n = 30_000
+    x0 = rng.normal(size=n).astype(np.float32)
+    x0[rng.random(n) < 0.05] = np.nan
+    x1 = rng.integers(0, 2400, n).astype(np.float32)
+    y3 = np.where(np.nan_to_num(x0) + 0.3 * (rng.random(n) < 0.5) < 0.2,
+                  "NO", np.where(x1 >= 1700, "LONG", "SHORT")).astype(object)
+    cols = {"x0": x0, "x1": x1, "c": rng.integers(0, 30, n), "y3": y3,
+            "y2": np.where(y3 == "NO", "NO", "YES").astype(object)}
+    types, domains = {"c": "cat"}, {"c": [str(i) for i in range(30)]}
+    base = dict(max_depth=12, nbins=64, seed=1, ntrees=2, sample_rate=1.0,
+                mtries=-2, sparse_depth_threshold=4,
+                score_tree_interval=10 ** 9)
+    frames = {d: Frame.from_numpy(cols, types=types, domains=domains,
+                                  device=d) for d in ("cuda", "cpu")}
+    for resp, other in (("y2", "y3"), ("y3", "y2")):
+        cfg = dict(base, response_column=resp, ignored_columns=[other])
+        before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+        a = DRF(device="cuda", **cfg).train(frames["cuda"])
+        torch.cuda.synchronize()
+        assert (hist.HIST.launches - before[0],
+                hist.SPLIT_RECORDS.launches - before[1]) == (24, 24)
+        b = DRF(device="cpu", **cfg).train(frames["cpu"])
+        sa = a.output["stacked"]
+        sb = b.output["stacked"]
+        for x, y in zip(sa if isinstance(sa, list) else [sa],
+                        sb if isinstance(sb, list) else [sb]):
+            for la, lb in zip(x.levels, y.levels):
+                for u, v in zip(la, lb):
+                    assert torch.equal(u.cpu(), v)
+            np.testing.assert_allclose(x.values.cpu().numpy(),
+                                       y.values.numpy(), rtol=1e-6)
+    sampled = dict(base, response_column="y3", ignored_columns=["y2"],
+                   sample_rate=0.632, mtries=-1)
+    fus = DRF(device="cuda", **sampled).train(frames["cuda"])
+    sep = DRF(device="cuda", split_mode="separate", **sampled).train(
+        frames["cuda"])
+    for x, y in zip(fus.output["stacked"], sep.output["stacked"]):
+        for la, lb in zip(x.levels, y.levels):
+            for u, v in zip(la, lb):
+                assert torch.equal(u, v)
+        assert torch.equal(x.values, y.values)

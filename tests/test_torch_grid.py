@@ -25,8 +25,6 @@ clears it by 7e-4), leaf values and predictions to rtol 1e-4.  Inside the
 port everything is bitwise.
 """
 
-import warnings
-
 import numpy as np
 import pytest
 import torch
@@ -552,31 +550,6 @@ def test_mixed_depth_grid_partitions_into_cohorts(frames):
     for k in mo:
         assert mo[k].output["stacked"].depth == k[0]
         _same_stacks(mo[k].output["stacked"], mf[k].output["stacked"])
-
-
-# ------------------------------------------- (i) the "auto" depth check
-
-def test_auto_depth_cap_falls_back(frames, monkeypatch):
-    """Under hist_layout="auto" a level's histograms count the cohort's G
-    trees against the level budget: where that caps the cohort shallower
-    than its members' own trains, the cohort falls back (reason recorded)
-    and the members train on the wave path at their own depth."""
-    import time
-    *_, fr = frames
-    # at 8 features x 33 bins a dense level d of nk trees holds 19,008 x
-    # nk x 2^d bytes of histograms: one tree grows 4 levels under this
-    # budget, a cohort of 2 only 3
-    monkeypatch.setattr(shared, "AUTO_LEVEL_BUDGET", 200_000)
-    hp = {"learn_rate": [0.1, 0.2]}
-    t0 = time.time()
-    with warnings.catch_warnings():
-        warnings.simplefilter("error")      # the members are not capped
-        g = GridSearch(XGBoost, hp, grid_batch="on",
-                       **dict(_BASE, ntrees=2)).train(fr)
-    assert all(m.output.get("grid_cohort") is None for m in g.models)
-    assert all(m.output["effective_max_depth"] == 4 for m in g.models)
-    assert any("caps a cohort of 2 at 3" in str(e.get("reason"))
-               for e in _fallbacks(t0))
 
 
 # ------------------------------------------- max_runtime_secs in a cohort

@@ -553,58 +553,70 @@ def _ns(**kw):
 
 @pytest.mark.parametrize("F", [8, 32])
 @pytest.mark.parametrize("hier", [False, True])
-@pytest.mark.parametrize("hist_layout", ["auto", "dense"])
+@pytest.mark.parametrize("hist_layout", ["auto", "dense", "sparse"])
 @pytest.mark.parametrize("hist_mode", ["auto", "subtract", "full", "check"])
 def test_effective_depth_matches_reference_resolvers(hist_mode, hist_layout,
                                                      hier, F):
-    """``effective_max_depth`` after each package's resolvers is the same
-    over hist_mode x hist_layout x hier (nbins 256, max_depth 14, 2^20
-    rows): "auto" becomes "dense", with its 64 MB cap, under
-    hist_mode="full" and under the hierarchical search, as in the JAX
-    package.  The port's "auto" budget does not bind for one tree a level
-    here; for 3 it does at F = 32."""
+    """The layout and ``effective_max_depth`` after each package's
+    resolvers are the same over hist_mode x hist_layout x hier (nbins
+    256, max_depth 14, 2^20 rows): "auto" is "sparse", and "dense", with
+    its 64 MB cap, under hist_mode="full" and under the hierarchical
+    search; an explicit "sparse" raises in both there."""
     nbins, depth, n = 256, 14, 2 ** 20
     jp = _ns(hist_mode=hist_mode, hist_layout=hist_layout,
              sparse_depth_threshold=8)
+    tp = _ns(hist_mode=hist_mode, hist_layout=hist_layout,
+             sparse_depth_threshold=8)
+    if hist_layout == "sparse" and (hier or hist_mode == "full"):
+        with pytest.raises(ValueError, match="does not compose"):
+            jshared.resolve_hist_layout(
+                jp, hist_mode=jshared.resolve_hist_mode(jp), hier=hier)
+        with pytest.raises(ValueError, match="does not compose"):
+            shared.resolve_hist_layout(
+                tp, hist_mode=shared.resolve_hist_mode(tp), hier=hier)
+        return
     jlayout = jshared.resolve_hist_layout(
         jp, hist_mode=jshared.resolve_hist_mode(jp), hier=hier)
-    want = jshared.effective_max_depth(depth, nbins, F, n, jlayout)
-    tp = _ns(hist_mode=hist_mode, hist_layout=hist_layout)
     tlayout = shared.resolve_hist_layout(
         tp, hist_mode=shared.resolve_hist_mode(tp), hier=hier)
-    assert tlayout == ("dense" if jlayout == "dense" else "auto")
+    assert tlayout == jlayout
+    want = jshared.effective_max_depth(depth, nbins, F, n, jlayout)
     assert shared.effective_max_depth(depth, nbins, F, n, tlayout) == want
-    # K trees a level: the budget binds at F = 32 (a level 13 of 3 trees
-    # would hold 14.5 GB)
-    budget = shared.auto_depth_cap(nbins, F, K) if tlayout == "auto" \
-        else depth
-    assert shared.effective_max_depth(depth, nbins, F, n, tlayout, K) \
-        == min(want, budget)
 
 
-def test_auto_layout_caps_at_the_budget_and_warns():
-    """At F = 32, nbins = 256, max_depth=20 and 2^19 rows, "auto" stops
-    where a level's histograms would pass AUTO_LEVEL_BUDGET (a dense
-    level 19 alone would be 51.7 GB), warns, and records the cap; the
-    bench shape (F = 8, depth 6) is untouched at K = 1 and K = 3."""
+@pytest.mark.parametrize("threshold", [0, -3])
+def test_sparse_threshold_below_one_raises_in_both(threshold):
+    """A ``sparse_depth_threshold`` below 1 raises in both resolvers: the
+    root level seeds the carry and is always dense."""
+    for pkg in (jshared, shared):
+        with pytest.raises(ValueError, match="sparse_depth_threshold"):
+            pkg.resolve_hist_layout(_ns(hist_mode="auto", hist_layout="auto",
+                                        sparse_depth_threshold=threshold))
+
+
+def test_deep_auto_grows_the_reference_depth():
+    """At F = 32, nbins = 256, max_depth=20 and 2^19 rows (a dense level
+    19 would hold 51.7 GB of histograms) "auto" grows depth 20, the JAX
+    package's depth, silently, with node-sparse levels from depth 8 on,
+    at most 680 slots wide (the 64 MB budget's, in both packages);
+    "dense" stops at its 64 MB cap and warns, as the JAX package does."""
     nbins, F, n = 256, 32, 2 ** 19
-    for nk in (1, K):
-        eff = shared.effective_max_depth(20, nbins, F, n, "auto", nk)
-        assert eff < 20
-        assert shared.level_bytes(eff - 1, nbins, F, nk) \
-            <= shared.AUTO_LEVEL_BUDGET < shared.level_bytes(eff, nbins, F,
-                                                              nk)
-    assert shared.effective_max_depth(20, nbins, F, n, "auto", K) \
-        < shared.effective_max_depth(20, nbins, F, n, "auto", 1)
+    lay = shared.resolve_hist_layout(_ns(hist_mode="auto",
+                                         hist_layout="auto"))
+    assert lay == "sparse"
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        model = _ns(output={})
+        assert shared.record_effective_depth(
+            model, _ns(max_depth=20, nbins=nbins), F, n, lay) == 20
+    assert model.output["depth_cap"] is None
+    start, A_lv, Ap_lv = shared.sparse_geometry(20, nbins, F, 8, lay)
+    assert start == 8 and max(A_lv.values()) == hist.sparse_slot_budget(
+        F, nbins + 1) == jhist.sparse_slot_budget(F, nbins + 1) == 680
+    assert A_lv[8] == Ap_lv[9] == 256 and Ap_lv[8] == 128
     model = _ns(output={})
-    with pytest.warns(UserWarning, match="node-sparse levels in a later"):
+    with pytest.warns(UserWarning, match="dense level|64 MB|full-width"):
         eff = shared.record_effective_depth(
-            model, _ns(max_depth=20, nbins=nbins), F, n, "auto", K)
-    assert model.output["effective_max_depth"] == eff
-    assert model.output["depth_cap"].startswith("auto level budget")
-    for nk in (1, K):
-        with warnings.catch_warnings():
-            warnings.simplefilter("error")
-            assert shared.record_effective_depth(
-                _ns(output={}), _ns(max_depth=6, nbins=256), 8, 10 ** 7,
-                "auto", nk) == 6
+            model, _ns(max_depth=20, nbins=nbins), F, n, "dense")
+    assert eff == jshared.effective_max_depth(20, nbins, F, n, "dense") < 20
+    assert model.output["depth_cap"] == "dense level 64 MB"
