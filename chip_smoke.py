@@ -190,6 +190,38 @@ Phases (any failure exits non-zero and prints no result line):
              one captured tree's sparse levels: ``hist`` and the records
              per level beside their plain versions, the one int64
              ``index_add_`` and their bounds.
+23. import — the bench frame at 10M rows written to a CSV in a
+             temporary directory (vectorised per column and 1M-row chunk,
+             floats ``%.9g``: each reads back as the float32 it was) and
+             ``import_file``d onto the card with carrier, origin and dest
+             typed "cat": every column bitwise ``Frame.from_numpy`` built
+             with the parser's domains (the str of each code as a float,
+             sorted as strings), a second import bitwise the first, the
+             first 1M rows through the stdlib tokenizer bitwise the native
+             engine's (the same codes; labels "5" for "5.0"); rows/s,
+             MB/s, the stage seconds and the device peak;
+24. import train — launch counts set to 0, then 20 trees of the bench
+             XGBoost on the import: 120 ``hist`` and 120 ``split_records``
+             launches, bitwise the trees of the same train on the numpy
+             frame;
+25. DT — launch counts set to 0, then ``DecisionTree()`` (depth 20,
+             node-sparse from 8) on an imported 1M-row CSV: 20 and 20
+             launches, the plain route's splits at every level, a second
+             train bitwise, published and served against the numpy
+             ScoringModel; one DT at 10M rows timed;
+26. isolation — IsolationForest (50 trees) and EIF (10 trees) on the 1M
+             import, bitwise a ``device="cpu"`` train of the same file and
+             seed; the IsolationForest's archive scored through one
+             ``traverse`` launch over the 1M rows as ``predict`` does, then
+             published and served; trees/s of both at 10M rows;
+27. uplift — launch counts set to 0, then ``UpliftDRF(max_depth=10)``, 3
+             trees, on an imported 1M-row CSV of the bench features plus a
+             treatment and a conversion with a planted effect: 30 ``hist``
+             launches (both arms one launch a level, levels 8-9
+             node-sparse), the plain route's splits on the first tree, a
+             second train bitwise; trees/s at 10M rows (the timed train
+             twice), the device operations per tree, idle share and
+             device ms by op of a profiled train of the same size.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -2462,11 +2494,13 @@ def drf_train_phase(fr, cols, kernels, DRF, hist, batcher, card):
     return launches
 
 
-def serve_check(name, m, cols, batcher, from_reference, card):
+def serve_check(name, m, cols, batcher, from_reference, card,
+                cat_label=lambda v: str(int(v))):
     """Publish ``m``; 8 client threads x 50 single-row requests through
     the MicroBatcher, counted, each answer against the numpy
     ``ScoringModel`` of the same archive (rtol 1e-4, atol 1e-5, labels
-    equal)."""
+    equal; an isolation forest's scores alike).  ``cat_label`` writes a
+    bench code as the label the model's domain holds."""
     from h2o3_tpu_torch.serving import kernel
     n_threads, per_thread = 8, 50
     rows = []
@@ -2474,8 +2508,9 @@ def serve_check(name, m, cols, batcher, from_reference, card):
         r = {}
         for k, v in cols.items():
             if k in ("carrier", "origin", "dest"):
-                r[k] = str(int(v[i]))
-            elif k not in ("dep_delayed_15min", "delay_class"):
+                r[k] = cat_label(v[i])
+            elif k not in ("dep_delayed_15min", "delay_class", "treatment",
+                           "conv"):
                 r[k] = float(v[i])
         rows.append(r)
     answers = [None] * len(rows)
@@ -2508,22 +2543,25 @@ def serve_check(name, m, cols, batcher, from_reference, card):
         raise AssertionError("a client thread did not finish")
     ref = sm.predict({k: np.asarray([r[k] for r in rows])
                       for k in rows[0]})
-    got_p = np.concatenate([a["probabilities"] for a in answers])
+    key = "probabilities" if "probabilities" in ref else "predict"
+    got_p = np.concatenate([a[key] for a in answers])
     got_l = np.concatenate([a["predict"] for a in answers])
-    if not np.allclose(got_p, ref["probabilities"], rtol=1e-4, atol=1e-5):
+    if not np.allclose(got_p, ref[key], rtol=1e-4, atol=1e-5):
         raise AssertionError(f"served {name} diverges from the numpy "
                              f"ScoringModel: max|diff| "
-                             f"{np.abs(got_p - ref['probabilities']).max()}")
-    if not (got_l == ref["predict"]).all():
+                             f"{np.abs(got_p - ref[key]).max()}")
+    if key == "probabilities" and not (got_l == ref["predict"]).all():
         raise AssertionError(f"served {name} labels diverge")
     if launches <= 0 or launches != batcher_launches:
         raise AssertionError(f"traverse launches {launches}, batcher "
                              f"launches {batcher_launches}")
     log(f"serve {name}: {sm.meta['ntrees']} trees of depth "
-        f"{sm.meta['depth']}, tree_average {sm.meta['tree_average']}; "
+        f"{sm.meta['depth']}, family {sm.meta['family']}, tree_average "
+        f"{sm.meta.get('tree_average', False)}; "
         f"{len(rows)} single-row requests from {n_threads} threads through "
         f"the MicroBatcher, {launches} traverse launches; every answer "
         f"matches the numpy ScoringModel {card}")
+    return launches
 
 
 def time_slot_levels(hv, sr, start, hist, label, card):
@@ -2702,6 +2740,469 @@ def slot_headline(DRF, Frame, hist, shared, card, slot):
     return rows
 
 
+# ------------------------------------------ 23-27: file import and builders
+
+IMPORT_ROWS = 10_000_000
+IMPORT_SMALL = 1_000_000
+# the bench's categorical codes: written as numbers, imported as "cat"
+IMPORT_CATS = {"carrier": "cat", "origin": "cat", "dest": "cat"}
+XGB_IMPORT_TREES = 20
+DT_CFG = dict(response_column="dep_delayed_15min", seed=1)
+ISO_CFG = dict(ignored_columns=["dep_delayed_15min"], seed=1)
+# 10 trees: the device="cpu" oracle train scores 1M rows through every
+# tree's hyperplanes
+EIF_CFG = dict(ISO_CFG, extension_level=1, ntrees=10)
+UPLIFT_CFG = dict(response_column="conv", treatment_column="treatment",
+                  ignored_columns=["dep_delayed_15min"], max_depth=10, seed=1)
+UPLIFT_TREES = 3
+UPLIFT_TIMED = 5
+
+
+def csv_cells(v):
+    """One column as fixed-width byte cells: integer-valued numbers as
+    integers, other floats with 9 significant digits (each reads back as
+    the float32 it was), labels as they are."""
+    v = np.asarray(v)
+    if v.dtype == object or v.dtype.kind in "US":
+        return v.astype("S")
+    if v.dtype.kind in "iu" or (v == np.round(v)).all():
+        iv = v.astype(np.int64)
+        lo = int(iv.min())
+        table = np.array([str(i).encode()
+                          for i in range(lo, int(iv.max()) + 1)])
+        return table[iv - lo]
+    return np.array([b"%.9g" % x for x in v.astype(np.float64).tolist()])
+
+
+def write_csv(path, cols, rows=None, chunk=1_000_000) -> None:
+    """The columns as a CSV with a header line, vectorised per column and
+    chunk of rows: each chunk's cells side by side as bytes, their
+    padding dropped."""
+    names = list(cols)
+    n = len(cols[names[0]]) if rows is None else rows
+    with open(path, "wb") as f:
+        f.write((",".join(names) + "\n").encode())
+        for lo in range(0, n, chunk):
+            hi = min(n, lo + chunk)
+            parts = []
+            for j, name in enumerate(names):
+                parts.append(csv_cells(cols[name][lo:hi]).view(np.uint8)
+                             .reshape(hi - lo, -1))
+                parts.append(np.full((hi - lo, 1), ord(
+                    "\n" if j == len(names) - 1 else ","), np.uint8))
+            blk = np.concatenate(parts, axis=1).ravel()
+            f.write(blk[blk != 0].tobytes())
+
+
+def float_label(v):
+    """A bench code as the label the imported domain holds: the parser
+    labels a numeric cell typed "cat" by the str of its float64, as the
+    JAX package's native engine does."""
+    return str(np.float64(v))
+
+
+def imported_codes(values, domain):
+    """The bench codes against an imported domain: each label must be the
+    str of its value as a float64, the labels sorted as strings."""
+    want = sorted(np.unique(values).astype(np.float64).astype(str).tolist())
+    if list(domain) != want:
+        raise AssertionError(f"imported domain {domain[:6]}... is not the "
+                             "sorted float labels of the values")
+    lab = np.array([float(x) for x in domain]).astype(np.int64)
+    lut = np.full(int(lab.max()) + 1, -1, np.int32)
+    lut[lab] = np.arange(len(lab), dtype=np.int32)
+    return lut[values]
+
+
+def frames_bitwise(a, b, label, same_domains=True):
+    """Two frames with the same names, types, domains and every column
+    bitwise (``same_domains=False``: domains numerically equal, for the
+    stdlib engine's integer labels)."""
+    import torch
+    if a.names != b.names or a.types() != b.types() or a.nrows != b.nrows:
+        raise AssertionError(f"{label}: {a.types()} x {a.nrows} against "
+                             f"{b.types()} x {b.nrows}")
+    def numeric(dom):
+        try:
+            return [float(x) for x in dom]
+        except ValueError:
+            return dom
+    for name in a.names:
+        va, vb = a.vec(name), b.vec(name)
+        dom_ok = va.domain == vb.domain or not same_domains and \
+            numeric(va.domain) == numeric(vb.domain)
+        if not dom_ok:
+            raise AssertionError(f"{label}: domains of {name} differ")
+        if not torch.equal(va.data.view(torch.uint8),
+                           vb.data.to(va.device).view(torch.uint8)):
+            raise AssertionError(f"{label}: column {name} differs")
+
+
+def import_phase(Frame, tmp, card):
+    """Phase 23: the bench frame at 10M rows written to a CSV and imported
+    onto the card; returns (the import, the numpy frame with the parser's
+    domains, the columns, the 1M-row CSV, its import)."""
+    import torch
+    from h2o3_tpu_torch import fastcsv, import_file
+    from h2o3_tpu_torch.frame import parse
+    t0 = time.perf_counter()
+    fastcsv.load()
+    log(f"fastcsv: built with g++ {' '.join(fastcsv.GXX_FLAGS)} into "
+        f"{os.path.basename(fastcsv.lib_path())} and loaded in "
+        f"{time.perf_counter() - t0:.2f} s (the host of {card})")
+    n = IMPORT_ROWS
+    cols, _, _ = make_airlines_like(n)
+    path = os.path.join(tmp, "bench.csv")
+    t0 = time.perf_counter()
+    write_csv(path, cols)
+    write_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    log(f"import: wrote the {n}-row bench frame to a {size / 1e6:.1f} MB "
+        f"CSV in {write_s:.2f} s (vectorised per column and 1M-row chunk; "
+        f"floats %.9g; the host of {card})")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fr = import_file(path, col_types=IMPORT_CATS)
+    imp_s = time.perf_counter() - t0
+    stats = dict(parse.last_parse_stats)
+    peak = torch.cuda.max_memory_allocated() - base
+    if fr.device.type != "cuda" or fr.nrows != n:
+        raise AssertionError(f"import gave {fr.nrows} rows on {fr.device}")
+    stages = {k: stats[k] for k in ("mmap_s", "scan_s", "tokenize_s",
+                                    "device_s", "decode_s", "vec_s")}
+    log(f"import_file at {n} rows {card}: {imp_s:.3f} s = "
+        f"{n / imp_s:,.0f} rows/s, {size / 1e6 / imp_s:.1f} MB/s; "
+        f"{stats['ranges']} byte ranges; stage seconds {stages} (device_s "
+        f"sums the pool threads' casts and copies); device peak "
+        f"{peak / 2 ** 20:.1f} MiB above the {base / 2 ** 20:.1f} MiB "
+        f"before; types {fr.types()}")
+    arrays = dict(cols)
+    for c in IMPORT_CATS:
+        arrays[c] = imported_codes(cols[c], fr.vec(c).domain)
+    exp = Frame.from_numpy(arrays, types=IMPORT_CATS,
+                           domains={c: fr.vec(c).domain for c in IMPORT_CATS})
+    frames_bitwise(fr, exp, "import vs Frame.from_numpy")
+    t0 = time.perf_counter()
+    frames_bitwise(fr, import_file(path, col_types=IMPORT_CATS),
+                   "a second import")
+    imp2_s = time.perf_counter() - t0
+    small = os.path.join(tmp, "bench1m.csv")
+    write_csv(small, cols, rows=IMPORT_SMALL)
+    nat = import_file(small, col_types=IMPORT_CATS)
+    t0 = time.perf_counter()
+    names, raw = parse._parse_csv_stdlib(small, None, None, None)
+    std = Frame(names, [parse._column_to_vec(raw[c], c, IMPORT_CATS.get(c))
+                        for c in names])
+    torch.cuda.synchronize()
+    std_s = time.perf_counter() - t0
+    frames_bitwise(nat, std, "stdlib engine vs native", same_domains=False)
+    log(f"import checks: every column of the {n}-row import bitwise "
+        f"Frame.from_numpy with the parser's domains (labels '0.0', '1.0', "
+        f"... of the codes, sorted as strings); a second import "
+        f"({imp2_s:.3f} s) bitwise the first; the first {IMPORT_SMALL} rows "
+        f"through the stdlib engine ({std_s:.2f} s) bitwise the native "
+        f"engine's (the same codes; labels '5' for '5.0') {card}")
+    return fr, exp, cols, small, nat
+
+
+def import_train_phase(fr, exp, XGBoost, kernels, card):
+    """Phase 24: 20 trees of the bench XGBoost on the imported frame,
+    counted, bitwise the same train on the numpy frame."""
+    import torch
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = XGBoost(ntrees=XGB_IMPORT_TREES, **BENCH_CFG).train(fr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    levels = XGB_IMPORT_TREES * BENCH_CFG["max_depth"]
+    want = {"hist": levels, "split_records": levels,
+            "split_records (per-row)": 0, "fine_hist": 0}
+    if launches != want:
+        raise AssertionError(f"imported-frame XGBoost launches {launches}; "
+                             f"expected {want}")
+    why = stacks_differ(m, XGBoost(ntrees=XGB_IMPORT_TREES, **BENCH_CFG)
+                        .train(exp))
+    if why:
+        raise AssertionError(f"XGBoost on the imported frame and on the "
+                             f"numpy frame differ on {why}")
+    log(f"import train: XGBoost(max_depth=6, nbins=256, ntrees="
+        f"{XGB_IMPORT_TREES}) on the imported {fr.nrows}-row frame in "
+        f"{train_s:.3f} s {card}; launches "
+        f"{launches}; bitwise the trees and leaf values of the same train "
+        f"on the numpy frame; training AUC {m.training_metrics.auc:.6f}")
+    return launches
+
+
+def dt_phase(nat, cols, fr10, kernels, hist, batcher, card):
+    """Phase 25: DecisionTree at its defaults on the 1M-row import:
+    counted, against the plain route, a second train bitwise, served;
+    then one DT at 10M rows timed."""
+    import torch
+    from h2o3_tpu_torch.export.mojo import from_reference
+    from h2o3_tpu_torch.models.tree.dt import DecisionTree
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = DecisionTree(**DT_CFG).train(nat)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    depth = m.output["effective_max_depth"]
+    want = {"hist": depth, "split_records": depth,
+            "split_records (per-row)": 0, "fine_hist": 0}
+    if launches != want or m.output["hist_layout"] != "sparse" \
+            or depth != 20:
+        raise AssertionError(f"DT launches {launches} at depth {depth} "
+                             f"({m.output['hist_layout']}); expected {want}")
+    with plain_route(hist):
+        mp = DecisionTree(**DT_CFG).train(nat)
+    a, b = m.output["trees"][0], mp.output["trees"][0]
+    for d in range(depth):
+        for name in ("feat", "na_left", "valid", "thr"):
+            if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                raise AssertionError(f"kernel and plain-route DT differ on "
+                                     f"{name} at level {d}")
+    p_k = m.predict(nat).vec("YES").to_numpy()
+    p_p = mp.predict(nat).vec("YES").to_numpy()
+    if not (np.isfinite(p_k).all() and np.allclose(p_k, p_p, rtol=1e-4)):
+        raise AssertionError("DT predictions differ from the plain route")
+    check_deterministic(m, DecisionTree(**DT_CFG).train(nat), "DT")
+    log(f"DT train: DecisionTree() (max_depth 20, min_rows 10, nbins 64, "
+        f"node-sparse from depth 8) on the imported {nat.nrows} rows in "
+        f"{train_s:.3f} s {card}; launches {launches}; the plain route's "
+        f"splits at all {depth} levels, predictions max |diff| "
+        f"{float(np.max(np.abs(p_k - p_p))):.3e}; training AUC "
+        f"{m.training_metrics.auc:.6f}; "
+        f"{int(sum(v.sum() for v in a.valid))} splits")
+    serve_check("trained-dt", m, cols, batcher, from_reference, card,
+                cat_label=float_label)
+    DecisionTree(**DT_CFG).train(fr10)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m10 = DecisionTree(**DT_CFG).train(fr10)
+    torch.cuda.synchronize()
+    dt10 = time.perf_counter() - t0
+    log(f"DT at {fr10.nrows} rows (the import, after one warmup train) "
+        f"{card}: one tree in {dt10:.3f} s ({1 / dt10:.3f} trees/s), "
+        f"{int(sum(v.sum() for v in m10.output['trees'][0].valid))} "
+        f"splits, training AUC {m10.training_metrics.auc:.6f}")
+    return launches
+
+
+def same_iso_trees(a, b, label):
+    """Two isolation forests (or EIFs) with bitwise the same trees."""
+    if "stacked" in a.output:
+        sa, sb = a.output["stacked"], b.output["stacked"]
+        pairs = [(x.cpu(), y.cpu()) for la, lb in zip(sa.levels, sb.levels)
+                 for x, y in zip(la, lb)] + [(sa.values.cpu(),
+                                              sb.values.cpu())]
+        same = all(x.dtype == y.dtype and np.array_equal(
+            x.numpy().view(np.uint8), y.numpy().view(np.uint8))
+            for x, y in pairs)
+    else:
+        same = all(np.array_equal(np.asarray(x).view(np.uint8),
+                                  np.asarray(y).view(np.uint8))
+                   for ta, tb in zip(a.output["trees"], b.output["trees"])
+                   for x, y in zip(ta.normals + ta.offsets + ta.valid
+                                   + [ta.values],
+                                   tb.normals + tb.offsets + tb.valid
+                                   + [tb.values]))
+    if not same or len(a.output["trees"]) != len(b.output["trees"]):
+        raise AssertionError(f"{label}: the card's trees differ from the "
+                             "CPU's")
+
+
+def isolation_phase(nat, small, cols, fr10, batcher, card):
+    """Phase 26: IsolationForest and EIF on the 1M-row import against a
+    ``device="cpu"`` train of the same file and seed; the IsolationForest
+    published and served through ``traverse.cu``; trees/s at 10M rows."""
+    import torch
+    from h2o3_tpu_torch import import_file
+    from h2o3_tpu_torch.export.mojo import from_reference
+    from h2o3_tpu_torch.models.tree.isofor import (ExtendedIsolationForest,
+                                                   IsolationForest)
+    from h2o3_tpu_torch.serving import kernel
+    cpu = import_file(small, col_types=IMPORT_CATS, device="cpu")
+    for cls, cfg, label in ((IsolationForest, ISO_CFG, "IsolationForest"),
+                            (ExtendedIsolationForest, EIF_CFG, "EIF")):
+        t0 = time.perf_counter()
+        m = cls(**cfg).train(nat)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        same_iso_trees(m, cls(device="cpu", **cfg).train(cpu), label)
+        score = m.predict(nat).vecs[0].to_numpy()
+        if not (np.isfinite(score).all() and (score > 0).all()
+                and (score < 1).all()):
+            raise AssertionError(f"{label}: scores outside (0, 1)")
+        log(f"{label} ({m.params.ntrees} trees, sample_size 256, depth 8"
+            + (", extension_level 1" if cls is ExtendedIsolationForest
+               else "") + f") on the imported {nat.nrows} rows in "
+            f"{card_s:.3f} s {card}: bitwise the trees of a device='cpu' "
+            f"train of the same file and seed; mean score "
+            f"{float(np.mean(score)):.6f}")
+        if cls is IsolationForest:
+            iso = m
+    ps = kernel.PackedScorer(from_reference(*iso.to_archive()))
+    X = iso._design(nat)[: nat.nrows]
+    before = kernel.TRAVERSE.launches
+    got = ps.score_tensor(X)[:, 0].cpu().numpy()
+    want = iso.predict(nat).vec("predict").to_numpy()
+    if kernel.TRAVERSE.launches != before + 1 or \
+            not np.allclose(got, want, rtol=1e-5):
+        raise AssertionError("the packed IsolationForest's scores differ "
+                             "from predict")
+    served = serve_check("trained-isolationforest", iso, cols, batcher,
+                         from_reference, card, cat_label=float_label)
+    for cls, cfg, label in ((IsolationForest, ISO_CFG, "IsolationForest"),
+                            (ExtendedIsolationForest, EIF_CFG, "EIF")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = cls(**cfg).train(fr10)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        log(f"{label} at {fr10.nrows} rows {card}: {m.params.ntrees} trees "
+            f"in {dt:.3f} s = {m.params.ntrees / dt:.3f} trees/s (the "
+            f"training scores of every row included)")
+    return 1 + served
+
+
+def uplift_columns(cols, n=None, seed=12):
+    """The bench features plus a treatment arm and a conversion with a
+    planted effect (+0.15 past 700 miles, -0.05 below), drawn from
+    ``np.random.default_rng(seed)``, in the manner of
+    tests/test_algos3.py."""
+    n = len(cols["year"]) if n is None else n
+    rng = np.random.default_rng(seed)
+    treat = rng.integers(0, 2, n)
+    dist = cols["distance"][:n]
+    logit = (0.002 * (cols["crs_dep_time"][:n] / 100 - 12) ** 2
+             - 0.0005 * dist / 100 - 0.5)
+    p = np.clip(1 / (1 + np.exp(-logit))
+                + treat * np.where(dist > 700, 0.15, -0.05), 0.01, 0.99)
+    out = {k: cols[k][:n] for k in ("year", "month", "day_of_week",
+                                    "crs_dep_time", "distance", "carrier",
+                                    "origin", "dest")}
+    out["treatment"] = np.array(["control", "treatment"],
+                                dtype=object)[treat]
+    out["conv"] = np.array(["no", "yes"], dtype=object)[
+        (rng.random(n) < p).astype(np.int64)]
+    return out
+
+
+def uplift_phase(cols, fr10, Frame, kernels, hist, tmp, card):
+    """Phase 27: UpliftDRF (depth 10, both arms on the K axis) on a
+    1M-row uplift CSV imported onto the card: counted (one ``hist``
+    launch per level for both arms), against the plain route, a second
+    train bitwise; trees/s at 10M rows."""
+    import torch
+    from h2o3_tpu_torch import import_file
+    from h2o3_tpu_torch.models.tree.uplift import UpliftDRF
+    path = os.path.join(tmp, "uplift1m.csv")
+    write_csv(path, uplift_columns(cols, IMPORT_SMALL))
+    ufr = import_file(path, col_types=IMPORT_CATS)
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = UpliftDRF(ntrees=UPLIFT_TREES, **UPLIFT_CFG).train(ufr)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    want = {"hist": UPLIFT_TREES * 10, "split_records": 0,
+            "split_records (per-row)": 0, "fine_hist": 0}
+    if launches != want:
+        raise AssertionError(f"uplift launches {launches}; expected {want}")
+    with plain_route(hist):
+        mp = UpliftDRF(ntrees=UPLIFT_TREES, **UPLIFT_CFG).train(ufr)
+    a, b = m.output["trees"][0], mp.output["trees"][0]
+    for d in range(10):
+        for name in ("feat", "na_left", "valid", "thr"):
+            if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                raise AssertionError(f"kernel and plain-route uplift differ "
+                                     f"on {name} at level {d}")
+    m2 = UpliftDRF(ntrees=UPLIFT_TREES, **UPLIFT_CFG).train(ufr)
+    for key in ("stacked_pt", "stacked_pc"):
+        why = stack_differs(m.output[key], m2.output[key])
+        if why:
+            raise AssertionError(f"a second uplift train differs on {why}")
+    up = m.predict(ufr).vec("uplift_predict").to_numpy()
+    met = m.training_metrics.describe()
+    if not (np.isfinite(up).all() and np.isfinite(list(met.values())).all()):
+        raise AssertionError(f"uplift predictions or metrics not finite: "
+                             f"{met}")
+    log(f"uplift train: UpliftDRF(max_depth=10, KL, sample_rate 0.632, "
+        f"ntrees={UPLIFT_TREES}) on the imported {ufr.nrows} rows in "
+        f"{train_s:.3f} s {card}; launches {launches} (both arms in one "
+        f"launch a level, node-sparse levels 8-9, hist kernel "
+        f"{m.output['hist_kernel']}); the plain route's splits on the first "
+        f"tree; a second train bitwise; qini {met['qini']:.6f}, ate "
+        f"{met['ate']:.6f}, mean uplift on the planted +0.15 rows "
+        f"{float(up[cols['distance'][:ufr.nrows] > 700].mean()):.4f}")
+    u10 = uplift_columns(cols)
+    ufr10 = fr10.cbind(Frame.from_numpy(
+        {k: u10[k] for k in ("treatment", "conv")}))
+    walls = []
+    # the first is also the warmup; the timed train twice, for its spread
+    for T in (1, UPLIFT_TIMED, UPLIFT_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        UpliftDRF(ntrees=T, **UPLIFT_CFG).train(ufr10)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    T = UPLIFT_TIMED
+    further = [(w - walls[0]) / (T - 1) * 1e3 for w in walls[1:]]
+    log(f"uplift at {ufr10.nrows} rows (the import plus a treatment and a "
+        f"conversion) {card}: {T} trees in {walls[1]:.3f} s = "
+        f"{T / walls[1]:.3f} trees/s, binning, the training scores and the "
+        f"AUUC on the host included (1 tree: {walls[0]:.3f} s, so "
+        f"{further[0]:.1f} ms a further tree; the {T}-tree train again: "
+        f"{walls[2]:.3f} s, {further[1]:.1f} ms a further tree)")
+    probe_us = host_op_us()
+    kern, busy = device_profile(lambda: UpliftDRF(ntrees=T, **UPLIFT_CFG)
+                                .train(ufr10))
+    if busy <= 0:
+        log("profile uplift: no device time in the trace: not measured")
+    else:
+        log(f"profile uplift of a {T}-tree train at {ufr10.nrows} rows: "
+            f"{sum(e.count for e in kern) / T:g} device operations per tree "
+            f"(a small torch op costs the host {probe_us:.2f} us); device "
+            f"busy {busy / T:.2f} ms per tree against "
+            f"{walls[1] / T * 1e3:.2f} ms of wall per tree of the unprofiled "
+            f"{T}-tree train: idle share {idle_share(busy, walls[1]):.3f}; "
+            f"device ms per tree by kernel (launches per tree): "
+            + "; ".join(f"{e.key[:110]} "
+                        f"{e.self_device_time_total / 1e3 / T:.3f} "
+                        f"({e.count / T:g})" for e in kern[:14]))
+    return launches
+
+
+def import_phases(Frame, XGBoost, hist, batcher, kernels, card):
+    """Phases 23-27 in a temporary directory, removed after."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="h2o3_smoke_")
+    try:
+        fr, exp, cols, small, nat = import_phase(Frame, tmp, card)
+        mark("phase 23")
+        xl = import_train_phase(fr, exp, XGBoost, kernels, card)
+        del exp
+        mark("phase 24")
+        dl = dt_phase(nat, cols, fr, kernels, hist, batcher, card)
+        mark("phase 25")
+        tl = isolation_phase(nat, small, cols, fr, batcher, card)
+        mark("phase 26")
+        ul = uplift_phase(cols, fr, Frame, kernels, hist, tmp, card)
+        mark("phase 27")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"launches on the import paths {card}: XGBoost {xl}; DT {dl}; "
+        f"IsolationForest scoring: traverse {tl} (one over the 1M rows, "
+        f"the rest serving); uplift {ul}")
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -2878,6 +3379,10 @@ def main() -> dict:
     for fn, (ops, back) in sorted(probe_sass(native).items()):
         log(f"sass probe {fn}: {ops}"
             + ("; a branch back (a loop)" if back else ""))
+    kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.SPLIT_RECORDS_ROWS,
+                     hist.FINE_HIST]
+    device = {"platform": "gpu", "kind": name,
+              "count": torch.cuda.device_count()}
     # the histograms timed in turns (phases 12, 13): this checkout's
     # tiles, the tiles without copies, and another version if given
     variants = [("this", hist, None),
@@ -3065,8 +3570,6 @@ def main() -> dict:
     kdiff = check_train_kernels(hv, sr, hist, dev)
 
     # ---------------------------------------------------------- 8 train
-    kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.SPLIT_RECORDS_ROWS,
-                     hist.FINE_HIST]
     _, tlaunch, ntrees, exact_auc = train_phase(
         cols, types, domains, kernels_train, XGBoost, Frame, batcher, hist,
         card)
@@ -3283,12 +3786,10 @@ def main() -> dict:
     # ------------------------------------------------ 22 DRF headline
     rows += slot_headline(DRF, Frame, hist, shared, card, slot)
     mark("phase 22")
+    # --------------------------- 23-27 file import, DT, IF/EIF, uplift
+    import_phases(Frame, XGBoost, hist, batcher, kernels_train, card)
 
-    return {
-        "kernels": [traverse_row] + rows,
-        "device": {"platform": "gpu", "kind": name,
-                   "count": torch.cuda.device_count()},
-    }
+    return {"kernels": [traverse_row] + rows, "device": device}
 
 
 if __name__ == "__main__":

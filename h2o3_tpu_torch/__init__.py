@@ -4,15 +4,20 @@ It runs beside the JAX package, which stays the reference it is tested
 against, and imports nothing of it (nor jax).  So far it holds the
 online scoring plane and the tree-training main path:
 
-* ``frame``   — ``Frame`` / ``Vec``: numeric and categorical columns as
-  padded device tensors.
+* ``frame``   — ``Frame`` / ``Vec``: numeric, categorical and time
+  columns as padded device tensors, string columns on the host, and the
+  file import (``frame.parse``: ``import_file``, ``upload_string``,
+  ``H2OFrame``, ``export_file``) through the native CSV tokenizer
+  (``fastcsv``, host C++ built with g++ at first use).
 * ``models``  — the training contract (``base``, ``datainfo``,
   ``distributions``, ``scorekeeper``), the tree family
   (``models.tree``: binning, the level kernels' wrappers in ``hist``,
   the growth loop in ``shared``, ``gbm``, ``xgboost``, and the batched
-  grid cohorts of ``grid_batch``), with the CUDA histogram and
-  split-record kernels, and the grid search (``grid``: ``GridSearch``).
-* ``metrics`` — binomial and regression model metrics.
+  grid cohorts of ``grid_batch``, ``drf``, ``dt``, ``isofor``:
+  IsolationForest and ExtendedIsolationForest, ``uplift``: UpliftDRF),
+  with the CUDA histogram and split-record kernels, and the grid search
+  (``grid``: ``GridSearch``).
+* ``metrics`` — binomial, multinomial, regression and uplift metrics.
 * ``export``  — the numpy ``ScoringModel``, the archive reader
   (``import_mojo``) and ``from_reference`` for models trained by the
   JAX package or by the port (``model.to_archive()``).
@@ -24,3 +29,7 @@ online scoring plane and the tree-training main path:
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
+
+from .frame.parse import H2OFrame, import_file, upload_string
+
+__all__ = ["H2OFrame", "import_file", "upload_string"]

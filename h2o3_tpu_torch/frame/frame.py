@@ -1,10 +1,15 @@
 """Frame: a named table of Vecs on one device — the port of
 ``h2o3_tpu/frame/frame.py`` (water/fvec/Frame.java:65).
 
-Every Vec of a Frame lies on the same device and is padded to the same
-length, so row i of every column lines up.  Frames are immutable;
-``_matrix_cache`` memoizes per-frame device views (the response, the
-weights), as in the JAX package.
+Every device Vec of a Frame lies on the same device and is padded to the
+same length, so row i of every column lines up; STR/UUID columns stay on
+the host.  Frames are immutable: the munging verbs (``cbind``,
+``rename``, ``drop``, ``with_vec``, ``rows``, ``filter``,
+``split_frame``) return new Frames.  ``_matrix_cache`` memoizes
+per-frame device views (the response, the weights), as in the JAX
+package.  Not ported yet: the lineage records, ``sort``, ``merge``,
+``group_by``, ``impute``, ``scale``, ``cor``, ``var``, ``to_pandas`` and
+``spill`` (ROADMAP Queue 1, the data plane).
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ import numpy as np
 import torch
 
 from ..runtime import dkv
-from ..runtime.device import resolve_device
+from ..runtime.device import Cluster, resolve_device
 from .vec import T_CAT, T_NUM, Vec
 
 
@@ -28,7 +33,7 @@ class Frame:
             raise ValueError(f"duplicate column names: {list(names)}")
         if len({v.nrows for v in vecs}) > 1:
             raise ValueError("vecs disagree on nrows")
-        if len({str(v.device) for v in vecs}) > 1:
+        if len({str(v.device) for v in vecs if v.data is not None}) > 1:
             raise ValueError("vecs lie on different devices")
         self.names: List[str] = list(names)
         self.vecs: List[Vec] = list(vecs)
@@ -38,9 +43,28 @@ class Frame:
         if key is not None:
             dkv.put(key, self)
 
+    def _device_vec(self) -> Optional[Vec]:
+        return next((v for v in self.vecs if v.data is not None), None)
+
     @property
     def device(self) -> torch.device:
-        return self.vecs[0].device
+        """The device of the frame's device columns (the CPU for a frame
+        of host-only columns)."""
+        v = self._device_vec()
+        return v.device if v is not None else torch.device("cpu")
+
+    @property
+    def ncols(self) -> int:
+        return len(self.vecs)
+
+    @property
+    def shape(self):
+        return (self.nrows, self.ncols)
+
+    @property
+    def padded_rows(self) -> int:
+        v = self._device_vec()
+        return v.padded_len if v is not None else self.nrows
 
     def vec(self, name: str) -> Vec:
         try:
@@ -48,8 +72,17 @@ class Frame:
         except ValueError:
             raise KeyError(f"no column {name!r} in frame (have {self.names})")
 
+    def __getitem__(self, cols) -> "Frame":
+        if isinstance(cols, str):
+            cols = [cols]
+        return Frame(cols, [self.vec(c) for c in cols])
+
+    def types(self) -> Dict[str, str]:
+        return {n: v.type for n, v in zip(self.names, self.vecs)}
+
     def valid_mask(self) -> torch.Tensor:
-        return self.vecs[0].valid_mask()
+        return torch.arange(self.padded_rows, device=self.device) \
+            < self.nrows
 
     @staticmethod
     def from_numpy(arrays: Dict[str, np.ndarray], key: Optional[str] = None,
@@ -79,6 +112,98 @@ class Frame:
             vecs.append(Vec.from_numpy(arr, vtype, domain=domain,
                                        device=dev))
         return Frame(names, vecs, key=key)
+
+    # --------------------------------------------------------------- munging
+    def cbind(self, other: "Frame") -> "Frame":
+        if other.nrows != self.nrows:
+            raise ValueError("cbind: row counts differ")
+        return Frame(self.names + other.names, self.vecs + other.vecs)
+
+    def rename(self, mapping: Dict[str, str]) -> "Frame":
+        return Frame([mapping.get(n, n) for n in self.names], self.vecs)
+
+    def drop(self, cols: Sequence[str]) -> "Frame":
+        cols = set([cols] if isinstance(cols, str) else cols)
+        keep = [(n, v) for n, v in zip(self.names, self.vecs)
+                if n not in cols]
+        return Frame([n for n, _ in keep], [v for _, v in keep])
+
+    def with_vec(self, name: str, vec: Vec) -> "Frame":
+        if name in self.names:
+            vecs = list(self.vecs)
+            vecs[self.names.index(name)] = vec
+            return Frame(self.names, vecs)
+        return Frame(self.names + [name], self.vecs + [vec])
+
+    def rows(self, index: np.ndarray) -> "Frame":
+        """Row subset by integer index: device columns gather on their
+        device and pad again; host columns (TIME's ms, STR/UUID) on the
+        host."""
+        index = np.asarray(index, dtype=np.int64)
+        n = len(index)
+        padded = Cluster(self.device).pad_rows(n)
+        idx = torch.from_numpy(index).to(self.device)
+        out = []
+        for v in self.vecs:
+            host = v.host_data[: v.nrows][index] \
+                if v.host_data is not None else None
+            if v.data is None:
+                out.append(Vec(None, v.type, n, host_data=host))
+                continue
+            fill = -1 if v.type == T_CAT else float("nan")
+            data = torch.full((padded,), fill, dtype=v.data.dtype,
+                              device=v.device)
+            data[:n] = v.data[: v.nrows][idx]
+            out.append(Vec(data, v.type, n, domain=v.domain,
+                           host_data=host, time_base=v.time_base))
+        return Frame(self.names, out)
+
+    def filter(self, mask: np.ndarray) -> "Frame":
+        mask = np.asarray(mask, dtype=bool)
+        return self.rows(np.nonzero(mask[: self.nrows])[0])
+
+    def split_frame(self, ratios: Sequence[float],
+                    seed: int = 0) -> List["Frame"]:
+        """Random row split — h2o.split_frame (random uniform), the JAX
+        package's draws."""
+        u = np.random.default_rng(seed).random(self.nrows)
+        bounds = np.cumsum(list(ratios))
+        if len(bounds) == 0 or bounds[-1] < 1.0 - 1e-9:
+            bounds = np.append(bounds, 1.0)
+        bounds[-1] = np.inf       # the last piece takes what remains
+        pieces, lo = [], 0.0
+        for hi in bounds:
+            pieces.append(self.filter((u >= lo) & (u < hi)))
+            lo = hi
+        return pieces
+
+    # ---------------------------------------------------------------- export
+    def to_numpy(self) -> np.ndarray:
+        return np.stack([np.asarray(v.to_numpy(), dtype=np.float64)
+                         for v in self.vecs], axis=1)
+
+    def head(self, n: int = 10) -> "Frame":
+        """The first ``n`` rows as a Frame (h2o-py's ``head``; the JAX
+        package returns a pandas DataFrame, and ``to_pandas`` is not
+        ported yet)."""
+        return self.rows(np.arange(min(n, self.nrows)))
+
+    def describe(self) -> Dict[str, dict]:
+        """h2o-py H2OFrame.describe(): ``summary()``."""
+        return self.summary()
+
+    def summary(self) -> Dict[str, dict]:
+        out = {}
+        for name, v in zip(self.names, self.vecs):
+            r = v.rollups()
+            if v.data is None:
+                out[name] = {"type": v.type, "missing": r.nmissing}
+            else:
+                out[name] = {"type": v.type, "min": r.vmin, "max": r.vmax,
+                             "mean": r.mean, "sigma": r.sigma,
+                             "missing": r.nmissing, "zeros": r.nzero,
+                             "cardinality": v.cardinality}
+        return out
 
     def __repr__(self):
         return (f"<Frame {self.key or ''} {self.nrows}x{len(self.vecs)} "

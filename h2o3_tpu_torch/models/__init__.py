@@ -2,5 +2,9 @@
 
 from .grid import Grid, GridSearch
 from .tree.drf import DRF
+from .tree.dt import DecisionTree
+from .tree.isofor import ExtendedIsolationForest, IsolationForest
+from .tree.uplift import UpliftDRF
 
-__all__ = ["DRF", "Grid", "GridSearch"]
+__all__ = ["DRF", "DecisionTree", "ExtendedIsolationForest", "Grid",
+           "GridSearch", "IsolationForest", "UpliftDRF"]

@@ -67,13 +67,18 @@ class DataInfo:
             standardize: bool = True,
             use_all_factor_levels: bool = False,
             missing_values_handling: str = MEAN_IMPUTATION,
-            add_intercept: bool = True) -> "DataInfo":
+            add_intercept: bool = True,
+            force_classification: bool = False) -> "DataInfo":
+        """The layout of ``frame``'s feature columns (host-only STR/UUID
+        columns are never features).  ``force_classification`` trains a
+        numeric response as classes: its distinct finite values, as
+        labels, are the response domain."""
         skip = set(ignored_columns) | {response_column, weights_column,
                                        offset_column, None}
         specs: List[ColumnSpec] = []
         offset = 0
         for name, vec in zip(frame.names, frame.vecs):
-            if name in skip:
+            if name in skip or vec.data is None:
                 continue
             if vec.type == T_CAT:
                 dom = list(vec.domain or [])
@@ -87,6 +92,7 @@ class DataInfo:
                 sigma = r.sigma if (standardize and np.isfinite(r.sigma)
                                     and r.sigma > 0) else 1.0
                 specs.append(ColumnSpec(name, vec.type, None, mean, sigma,
+                                        time_base=vec.time_base,
                                         offset=offset, width=1))
             offset += specs[-1].width
         if not specs:
@@ -97,6 +103,11 @@ class DataInfo:
             rv = frame.vec(response_column)
             if rv.type == T_CAT:
                 resp_domain = list(rv.domain or [])
+            elif force_classification:
+                vals = np.unique(rv.to_numpy())
+                vals = vals[np.isfinite(vals)]
+                resp_domain = [str(int(v)) if v == int(v) else str(v)
+                               for v in vals]
             else:
                 rr = rv.rollups()
                 rmean = rr.mean if np.isfinite(rr.mean) else 0.0
@@ -132,10 +143,19 @@ class DataInfo:
         hit = frame._matrix_cache.get(key)
         if hit is None:
             rv = frame.vec(self.response_column)
-            if self.response_domain is not None:
+            if self.response_domain is not None and rv.type == T_CAT:
                 spec = ColumnSpec(self.response_column, T_CAT,
                                   self.response_domain, 0.0, 1.0)
                 hit = self.aligned_codes(rv, spec).to(torch.float32)
+            elif self.response_domain is not None:
+                # a numeric response trained as classes: the code of the
+                # domain value it equals, -1 for none
+                vals = torch.tensor([float(v) for v in self.response_domain],
+                                    dtype=torch.float32, device=rv.device)
+                x = rv.data
+                code = torch.argmin((x[:, None] - vals[None, :]).abs(), dim=1)
+                exact = (x[:, None] == vals[None, :]).any(dim=1)
+                hit = torch.where(exact, code, -1).to(torch.float32)
             else:
                 hit = rv.numeric_data()
             frame._matrix_cache[key] = hit

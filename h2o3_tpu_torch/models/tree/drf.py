@@ -72,6 +72,7 @@ def _avg_to_preds(avg: torch.Tensor, di: DataInfo, K: int) -> torch.Tensor:
 
 class DRFModel(SharedTreeModel):
     algo = "drf"
+    tree_average = True
 
     def _predict_raw(self, X: torch.Tensor) -> torch.Tensor:
         K = self.output.get("nclass_trees", 1)
@@ -130,7 +131,8 @@ class DRF(SharedTree):
         seed = p.effective_seed()
         col_rate = self._col_rate(Fw, di.is_classifier)
 
-        model = DRFModel(job.dest_key or dkv.make_key(self.algo), p, di)
+        model = self.model_class(job.dest_key or dkv.make_key(self.algo),
+                                 p, di)
         model.output["nclass_trees"] = K
         model.output["binning"] = {"nbins": p.nbins}
         model.output["tree_program"] = tree_program

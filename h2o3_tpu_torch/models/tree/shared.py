@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from ...frame.frame import Frame
-from ...frame.vec import T_CAT
+from ...frame.vec import T_CAT, T_TIME
 from ...runtime.config import config
 from ...runtime.device import resolve_device
 from ..base import Model, ModelBuilder, Parameters
@@ -1292,6 +1292,9 @@ def _datainfo_meta(di: DataInfo) -> dict:
 class SharedTreeModel(Model):
     """Tree-ensemble model: scores through ``traverse`` on the device."""
 
+    # a forest averages its trees (DRF, DT); a boosted model sums them
+    tree_average = False
+
     def _score_matrix(self, frame: Frame) -> torch.Tensor:
         return self._design(frame)
 
@@ -1307,7 +1310,10 @@ class SharedTreeModel(Model):
                 cols.append(torch.where(codes < 0, float("nan"),
                                         codes.to(torch.float32)))
             else:
-                cols.append(vec.data)
+                x = vec.data
+                if s.type == T_TIME and vec.time_base != s.time_base:
+                    x = x + (vec.time_base - s.time_base) / 1000.0
+                cols.append(x)
         return torch.stack(cols, dim=1)
 
     def _raw_scores(self, X: torch.Tensor) -> torch.Tensor:
@@ -1328,8 +1334,8 @@ class SharedTreeModel(Model):
         ``covers``, and ``init_score`` in the metadata; K class-tree stacks
         as K groups of those arrays under the prefixes ``k0_``, ``k1_``,
         ... with ``nclass_trees`` = K and one initial score per class.
-        ``tree_average`` is true for a forest: its scorers divide the sum
-        of the trees by their number."""
+        ``tree_average`` is true for a forest (DRF, DT): its scorers divide
+        the sum of the trees by their number."""
         di = self.datainfo
         st = self.output["stacked"]
         K = self.output.get("nclass_trees", 1)
@@ -1341,7 +1347,7 @@ class SharedTreeModel(Model):
             "datainfo": _datainfo_meta(di),
             "default_threshold": float(self.default_threshold())
             if di.is_classifier else 0.5,
-            "family": "tree", "tree_average": self.algo == "drf",
+            "family": "tree", "tree_average": self.tree_average,
             "nclass_trees": K,
             "depth": stacks[0].depth, "ntrees": stacks[0].ntrees,
             "link": "log" if dist in ("poisson", "gamma", "tweedie")

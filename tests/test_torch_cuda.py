@@ -755,3 +755,128 @@ def test_small_drf_train_matches_cpu(cuda):
             for u, v in zip(la, lb):
                 assert torch.equal(u, v)
         assert torch.equal(x.values, y.values)
+
+
+# ------------------------------------------- import and the other builders
+
+def _uplift_csv(path, n, seed):
+    """A CSV of four f32 features (``%.9g``, some missing), a category, a
+    treatment arm and a binary response with a planted effect."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 4)).astype(np.float32)
+    X[rng.random((n, 4)) < 0.03] = np.nan
+    c = rng.integers(0, 5, n)
+    treat = rng.integers(0, 2, n)
+    effect = np.where(np.nan_to_num(X[:, 0]) > 0, 0.3, -0.05)
+    y = rng.random(n) < np.clip(1 / (1 + np.exp(-np.nan_to_num(X[:, 1])))
+                                + treat * effect, 0.01, 0.99)
+    cells = [np.where(np.isnan(X[:, j]), "",
+                      np.char.mod("%.9g", X[:, j].astype(np.float64)))
+             for j in range(4)]
+    cells += [np.char.add("k", c.astype(str)),
+              np.array(["control", "treatment"])[treat],
+              np.array(["no", "yes"])[y.astype(int)]]
+    with open(path, "w") as f:
+        f.write("x0,x1,x2,x3,c,treatment,y\n")
+        f.write("\n".join(",".join(r) for r in zip(*cells)) + "\n")
+    return str(path)
+
+
+def _same_stack(a, b):
+    for la, lb in zip(a.levels, b.levels):
+        for u, v in zip(la, lb):
+            assert torch.equal(u.cpu(), v.cpu())
+    assert torch.equal(a.values.cpu(), b.values.cpu())
+
+
+def test_fastcsv_import_onto_cuda_equals_cpu(cuda, tmp_path, monkeypatch):
+    """The tokenizer builds with g++; a CSV imported onto the card in 8
+    byte ranges (each range's numeric columns copied from a pinned buffer
+    as it lands) is bitwise the CPU import of the same file."""
+    from h2o3_tpu_torch import fastcsv, import_file
+    from h2o3_tpu_torch.frame import parse
+    fastcsv.load()
+    assert fastcsv.lib_path().endswith(".so")
+    path = _uplift_csv(tmp_path / "u.csv", 50_000, 4)
+    monkeypatch.setenv("H2O3_PARSE_THREADS", "8")
+    monkeypatch.setenv("H2O3_PARSE_RANGE_MIN", "1")
+    a = import_file(path)
+    stats = dict(parse.last_parse_stats)
+    b = import_file(path, device="cpu")
+    assert a.device.type == "cuda" and stats["ranges"] == 8
+    assert a.types() == b.types() and a.names == b.names
+    for name in a.names:
+        va, vb = a.vec(name), b.vec(name)
+        assert va.domain == vb.domain
+        assert torch.equal(va.data.cpu().view(torch.uint8),
+                           vb.data.view(torch.uint8)), name
+
+
+def test_small_dt_and_uplift_trains_match_cpu(cuda, tmp_path):
+    """A depth-10 DT (node-sparse from depth 4) and a depth-6 uplift
+    forest (node-sparse from depth 3) trained on the card from an
+    imported CSV: one ``hist`` launch per level (both uplift arms on the
+    K axis) and, for the DT, one records launch per level; the same trees
+    and leaf values, bitwise, as the CPU's plain route; the uplift's arm
+    loop (``split_mode="separate"``) two launches a level, bitwise."""
+    from h2o3_tpu_torch import import_file
+    from h2o3_tpu_torch.models.tree.dt import DecisionTree
+    from h2o3_tpu_torch.models.tree.uplift import UpliftDRF
+    path = _uplift_csv(tmp_path / "u.csv", 40_000, 5)
+    frames = {d: import_file(path, device=d) for d in ("cuda", "cpu")}
+    dt = dict(response_column="y", ignored_columns=["treatment"],
+              max_depth=10, sparse_depth_threshold=4, nbins=64, seed=1)
+    up = dict(response_column="y", treatment_column="treatment", ntrees=2,
+              max_depth=6, sparse_depth_threshold=3, sample_rate=1.0,
+              nbins=64, seed=1)
+    before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+    a = DecisionTree(device="cuda", **dt).train(frames["cuda"])
+    torch.cuda.synchronize()
+    assert (hist.HIST.launches - before[0],
+            hist.SPLIT_RECORDS.launches - before[1]) == (10, 10)
+    b = DecisionTree(device="cpu", **dt).train(frames["cpu"])
+    _same_stack(a.output["stacked"], b.output["stacked"])
+    before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+    u = UpliftDRF(device="cuda", **up).train(frames["cuda"])
+    torch.cuda.synchronize()
+    assert (hist.HIST.launches - before[0],
+            hist.SPLIT_RECORDS.launches - before[1]) == (12, 0)
+    v = UpliftDRF(device="cpu", **up).train(frames["cpu"])
+    before = hist.HIST.launches
+    s = UpliftDRF(device="cuda", split_mode="separate", **up).train(
+        frames["cuda"])
+    torch.cuda.synchronize()
+    assert hist.HIST.launches - before == 24
+    for key in ("stacked_pt", "stacked_pc"):
+        _same_stack(u.output[key], v.output[key])
+        _same_stack(u.output[key], s.output[key])
+
+
+def test_small_isolation_forests_match_cpu(cuda, tmp_path):
+    """IsolationForest and EIF on the card grow bitwise the CPU's trees
+    from the same seed (the numpy draws, exact min/max); the published
+    IsolationForest's scores through ``traverse.cu`` equal ``predict``."""
+    from h2o3_tpu_torch import import_file
+    from h2o3_tpu_torch.export.mojo import from_reference
+    from h2o3_tpu_torch.models.tree.isofor import (ExtendedIsolationForest,
+                                                   IsolationForest)
+    path = _uplift_csv(tmp_path / "u.csv", 30_000, 6)
+    frames = {d: import_file(path, device=d) for d in ("cuda", "cpu")}
+    cfg = dict(ignored_columns=["y", "treatment"], ntrees=5, seed=7)
+    m = {d: IsolationForest(device=d, **cfg).train(frames[d])
+         for d in frames}
+    _same_stack(m["cuda"].output["stacked"], m["cpu"].output["stacked"])
+    e = {d: ExtendedIsolationForest(device=d, extension_level=1, **cfg)
+         .train(frames[d]) for d in frames}
+    for ta, tb in zip(e["cuda"].output["trees"], e["cpu"].output["trees"]):
+        for x, y in zip(ta.normals + ta.offsets, tb.normals + tb.offsets):
+            np.testing.assert_array_equal(x, y)
+        np.testing.assert_array_equal(ta.values, tb.values)
+    ps = kernel.PackedScorer(from_reference(*m["cuda"].to_archive()))
+    X = m["cuda"]._design(frames["cuda"])[: frames["cuda"].nrows]
+    before = kernel.TRAVERSE.launches
+    got = ps.score_tensor(X)[:, 0].cpu().numpy()
+    assert kernel.TRAVERSE.launches == before + 1
+    np.testing.assert_allclose(
+        got, m["cuda"].predict(frames["cuda"]).vec("predict").to_numpy(),
+        rtol=1e-5)

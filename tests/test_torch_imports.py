@@ -111,13 +111,32 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.serving.batcher\n"
         "import h2o3_tpu_torch.export\n"
         "import h2o3_tpu_torch.models.tree.xgboost\n"
+        "import h2o3_tpu_torch.frame.parse\n"
+        "import h2o3_tpu_torch.fastcsv\n"
+        "import h2o3_tpu_torch.models.tree.dt\n"
+        "import h2o3_tpu_torch.models.tree.isofor\n"
+        "import h2o3_tpu_torch.models.tree.uplift\n"
+        "import h2o3_tpu_torch.metrics.uplift\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "h2o3_tpu_torch.serving.kernel" in added
+    assert "h2o3_tpu_torch.models.tree.uplift" in added
     assert not [m for m in added if _forbidden(m)]
+
+
+def test_copied_sources_are_copies():
+    """The native tokenizer and the uplift metrics are byte copies of the
+    JAX package's (host C++ and numpy only), kept inside the port."""
+    for ours, theirs in (("h2o3_tpu_torch/csrc/fastcsv.cpp",
+                          "h2o3_tpu/native/fastcsv.cpp"),
+                         ("h2o3_tpu_torch/metrics/uplift.py",
+                          "h2o3_tpu/metrics/uplift.py")):
+        with open(os.path.join(ROOT, ours), "rb") as a, \
+                open(os.path.join(ROOT, theirs), "rb") as b:
+            assert a.read() == b.read(), ours
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -148,6 +167,10 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     fr = Frame.from_numpy(cols, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         XGBoost(response_column="y", ntrees=1).train(fr)
+    from h2o3_tpu_torch import upload_string
+    with pytest.raises(RuntimeError, match="CUDA"):
+        upload_string("x,y\n1,a\n")
+    assert upload_string("x,y\n1,a\n", device="cpu").device.type == "cpu"
     m = XGBoost(response_column="y", ntrees=1, max_depth=2, nbins=4,
                 min_rows=1.0, device="cpu").train(fr)
     assert m.output["stacked"].values.device.type == "cpu"
