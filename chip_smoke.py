@@ -222,6 +222,39 @@ Phases (any failure exits non-zero and prints no result line):
              second train bitwise; trees/s at 10M rows (the timed train
              twice), the device operations per tree, idle share and
              device ms by op of a profiled train of the same size.
+28. DART — launch counts set to 0, then ``XGBoost(booster="dart",
+             rate_drop=0.1, max_depth=6, nbins=256, seed=1)``, 20 trees on
+             the 1M-row bench frame: 120 ``hist`` and 120 ``split_records``
+             launches and at least one round with drops; the plain route
+             the same splits in every tree (those grown after a drop
+             included), predictions to rtol 1e-4, AUC to 1e-4; a second
+             train bitwise; published and answered through ``traverse``
+             as ``m.predict`` (its kernels run at the exact path's
+             shapes: phases 7 and 9 hold and time them there);
+29. DART K = 3 — 5 rounds on ``delay_class`` at 1M rows
+             (``rate_drop=0.3``, ``one_drop``): rounds x levels launches
+             whatever K, bitwise the K loop (``split_mode="separate"``);
+30. DART headline — at 10M rows a 5-tree warmup, trees/s of a timed
+             20-tree train, and a profiled train of the same size whose
+             drop sums (``gbm.tree_scores``), replayed alone under the
+             profiler, give their share of the device time;
+31. GLM — at 1M rows, TF32 off: binomial at the defaults (IRLSM, lambda
+             0, P = 628) against the same fit with the Gram in f64 on the
+             card (``gram_f64`` swapped for ``glm.weighted_gram``):
+             coefficients within 1e-2 of the largest (the f32 sums times
+             the Gram's condition number, printed), the deviance at the
+             final coefficients 1e-8, probabilities 1e-3; two planted
+             faults (TF32 allowed; the Gram's last row block dropped)
+             must break every limit; a second fit bitwise; the lambda search
+             (alpha 0.5, 30 lambdas) timed; multinomial on
+             ``delay_class``; the archives' numpy scorer on 20,000 rows
+             against ``m.predict`` (rtol 1e-5, atol 1e-6);
+32. GLM headline — at 10M rows (a 25.1 GB design): seconds of the first
+             fit and of one on the cached design, IRLS iterations, the
+             device peak, the Gram's device ms (CUDA events) against the
+             2·N·P² FLOP bound of the full product and the N·P(P+1) bound
+             of its symmetric half (67 TFLOP/s f32), and the idle share of
+             a profiled fit.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -1804,9 +1837,14 @@ def train_multi_phase(fr, cols, kernels, XGBoost, batcher, hist, card):
 
 
 def stacks_differ_round(m, m2, t):
-    """None when round t's class trees have the same splits in both."""
+    """None when round t's trees (its class trees, or its one tree) have
+    the same splits in both."""
     import torch
-    for a, b in zip(m.output["trees"][t], m2.output["trees"][t]):
+
+    def trees(model):
+        r = model.output["trees"][t]
+        return r if isinstance(r, list) else [r]
+    for a, b in zip(trees(m), trees(m2)):
         for name in ("feat", "na_left", "valid", "thr"):
             for x, y in zip(getattr(a, name), getattr(b, name)):
                 if not torch.equal(x, y):
@@ -3203,6 +3241,470 @@ def import_phases(Frame, XGBoost, hist, batcher, kernels, card):
         f"the rest serving); uplift {ul}")
 
 
+# ------------------------------------------------- 28-32: DART and GLM
+
+# phase 28: XGBoost's DART booster on the bench frame
+DART_CFG = dict(BENCH_CFG, booster="dart", rate_drop=0.1)
+DART_TREES = 20
+DART_ROUNDS_K = 5                 # the K = 3 DART rounds of phase 29
+DART_WARM, DART_TIMED = 5, 20     # the 10M-row headline of phase 30
+GLM_CFG = dict(response_column="dep_delayed_15min",
+               ignored_columns=["delay_class"])
+GLM_MULTI_CFG = dict(response_column="delay_class",
+                     ignored_columns=["dep_delayed_15min"])
+GLM_ARCHIVE_ROWS = 20_000         # rows the numpy scorer scores (f64)
+# the f32 Gram's fit against the f64 Gram's: the coefficients' max
+# difference over the largest, the deviance at the final coefficients
+# (relative) and the probabilities' max difference.  The sound reading
+# is the f32 sums' rounding (~1e-7 of each entry) times the condition
+# number of the 628-column Gram (printed beside it): its worst direction
+# is the intercept against the sum of a categorical's one-hot columns.
+# Each limit lies between that reading and the readings of two planted
+# faults, both taken in every run and required to break every limit:
+# the Gram with TF32 matmuls allowed, and the Gram with its last row
+# block's weights zeroed.  On an H100 at 1M rows the three read 3.578e-3,
+# 3.212e-10 and 2.649e-4 sound, 0.1194, 3.706e-7 and 8.814e-3 with TF32.
+GLM_F32_COEF_TOL = 1e-2
+GLM_F32_DEV_TOL = 1e-8
+GLM_F32_PROB_TOL = 1e-3
+
+
+def watch_drops(gbm):
+    """Wrap ``gbm.tree_scores`` (DART's drop sums; no validation frame is
+    scored here) to record each round's dropped trees (the list, its X
+    and K); returns (the records, a function that restores it)."""
+    seen = []
+    real = gbm.tree_scores
+
+    def spy(trees, X, K):
+        seen.append((list(trees), X, K))
+        return real(trees, X, K)
+    gbm.tree_scores = spy
+
+    def restore():
+        gbm.tree_scores = real
+    return seen, restore
+
+
+def dart_phase(fr, cols, kernels, XGBoost, batcher, hist, kernel, gbm,
+               card):
+    """Phase 28: the DART path at 1M rows, counted; every tree, those of
+    the rounds that dropped trees included, split as the plain route's;
+    a second train bitwise; published and served through
+    ``traverse.cu``.  Its kernels are the exact path's at the same
+    shapes, held against their plain versions in phase 7 and timed in
+    phase 9."""
+    import torch
+    n = fr.nrows
+    for k in kernels:
+        k.launches = 0
+    seen, restore = watch_drops(gbm)
+    try:
+        t0 = time.perf_counter()
+        m = XGBoost(ntrees=DART_TREES, **DART_CFG).train(fr)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        restore()
+    launches = {k.name: k.launches for k in kernels}
+    levels = m.output["stacked"].depth
+    want = {"hist": DART_TREES * levels,
+            "split_records": DART_TREES * levels, "fine_hist": 0,
+            "split_records (per-row)": 0}
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"DART train launches {launches}; expected "
+                             f"trees x levels: {want}")
+    if not seen:
+        raise AssertionError("the DART train dropped no tree")
+    dropped = sum(len(t) for t, _, _ in seen)
+    log(f"DART train: XGBoost(booster='dart', rate_drop=0.1, max_depth=6, "
+        f"nbins=256, ntrees={DART_TREES}) on {n} rows in {train_s:.3f} s "
+        f"{card}; launches {launches} = {DART_TREES} trees x {levels} "
+        f"levels; {len(seen)} rounds dropped trees ({dropped} in all)")
+
+    plain_from = {k.name: k.launches for k in kernels}
+    mp = train_plain(fr, XGBoost, hist, DART_TREES, cfg=DART_CFG)
+    if {k.name: k.launches for k in kernels} != plain_from:
+        raise AssertionError("the plain-route DART train launched a kernel")
+    a, b = m.output["trees"][0], mp.output["trees"][0]
+    for d in range(levels):
+        for name in ("feat", "na_left", "valid", "thr"):
+            if not torch.equal(getattr(a, name)[d], getattr(b, name)[d]):
+                raise AssertionError(f"kernel and plain-route DART trains "
+                                     f"differ on {name} at level {d} of the "
+                                     "first tree")
+    pk = m.predict(fr).vec("YES").to_numpy()
+    pp = mp.predict(fr).vec("YES").to_numpy()
+    if not (np.isfinite(pk).all() and pk.shape == (n,)):
+        raise AssertionError("DART predictions are not finite")
+    rel = float(np.max(np.abs(pk - pp) / np.abs(pp)))
+    if not np.allclose(pk, pp, rtol=1e-4, atol=0.0):
+        raise AssertionError(f"DART predictions differ from the plain "
+                             f"route: max rel {rel:.3e} > 1e-4")
+    auc_k, auc_p = m.training_metrics.auc, mp.training_metrics.auc
+    if abs(auc_k - auc_p) > 1e-4:
+        raise AssertionError(f"DART training AUC {auc_k} vs plain {auc_p}")
+    differ = [t for t in range(DART_TREES)
+              if stacks_differ_round(m, mp, t) is not None]
+    if differ:
+        raise AssertionError(f"kernel and plain-route DART trains split "
+                             f"trees {differ} differently")
+    log(f"DART train vs plain route on the card: all {DART_TREES} trees "
+        f"({len(seen)} of them grown after a drop) split equally at all "
+        f"{levels} levels; predictions max rel diff {rel:.3e}; training "
+        f"AUC {auc_k:.6f} vs {auc_p:.6f}")
+    m2 = XGBoost(ntrees=DART_TREES, **DART_CFG).train(fr)
+    check_deterministic(m, m2, "DART")
+    before = kernel.TRAVERSE.launches
+    publish_check("trained-xgboost-dart", m, fr, cols, batcher)
+    served = kernel.TRAVERSE.launches - before
+    if served <= 0:
+        raise AssertionError("the published DART model never launched "
+                             "traverse")
+    log(f"DART served: {served} traverse launches answered the 256 rows "
+        f"as m.predict {card}")
+
+    return launches
+
+
+def dart_multi_phase(Frame, XGBoost, kernels, card):
+    """Phase 29: the K = 3 DART round on ``delay_class`` at 1M rows, one
+    batched build a round (rounds x levels launches, whatever K), bitwise
+    its K loop (``split_mode="separate"``)."""
+    import torch
+    cols, fr = multi_frame(1_000_000, Frame)
+    cfg = dict(MULTI_CFG, booster="dart", rate_drop=0.3, one_drop=True)
+    for k in kernels:
+        k.launches = 0
+    m = XGBoost(ntrees=DART_ROUNDS_K, **cfg).train(fr)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    levels = as_stacks(m)[0].depth
+    if launches["hist"] != DART_ROUNDS_K * levels or \
+            launches["split_records"] != DART_ROUNDS_K * levels:
+        raise AssertionError(f"K = 3 DART launches {launches}; expected "
+                             f"rounds x levels, whatever K")
+    ms = XGBoost(ntrees=DART_ROUNDS_K, split_mode="separate", **cfg) \
+        .train(fr)
+    why = stacks_differ(m, ms)
+    if why:
+        raise AssertionError(f"the batched K = 3 DART round and its K loop "
+                             f"differ on {why}")
+    p = multi_class_probs(m, fr)
+    if not (np.isfinite(p).all() and np.allclose(p.sum(axis=1), 1.0,
+                                                  atol=1e-5)):
+        raise AssertionError("K = 3 DART probabilities are not finite rows "
+                             "summing to 1")
+    log(f"DART K = 3 (delay_class, rate_drop=0.3, one_drop, "
+        f"{DART_ROUNDS_K} rounds) on {fr.nrows} rows {card}: launches "
+        f"{launches} = rounds x levels; bitwise its K loop (trees and "
+        f"rescaled leaf values); training logloss "
+        f"{m.training_metrics.logloss:.6f}")
+    return launches
+
+
+def headline_dart(XGBoost, fr, gbm, card):
+    """Phase 30: DART at 10M rows: a warmup, then trees/s of a timed
+    train, and a profile of a train of the same size whose drop sums are
+    replayed alone under the profiler: their share of the device time."""
+    import torch
+    n = fr.nrows
+    XGBoost(ntrees=DART_WARM, **DART_CFG).train(fr)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = XGBoost(ntrees=DART_TIMED, **DART_CFG).train(fr)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    seen, restore = watch_drops(gbm)
+    try:
+        kern, busy = device_profile(lambda: XGBoost(
+            ntrees=DART_TIMED, **DART_CFG).train(fr))
+    finally:
+        restore()
+    _, drop_busy = device_profile(lambda: [gbm.tree_scores(t, X, K)
+                                           for t, X, K in seen])
+    ops = sum(e.count for e in kern) / DART_TIMED
+    log(f"headline DART: {n} rows, XGBoost(booster='dart', rate_drop=0.1, "
+        f"max_depth=6, nbins=256): {DART_WARM}-tree warmup, then "
+        f"{DART_TIMED} trees in {dt:.3f} s = {DART_TIMED / dt:.3f} trees/s; "
+        f"training AUC {m.training_metrics.auc:.6f} {card}")
+    if busy <= 0:
+        log("profile DART: no device time in the trace: not measured")
+    else:
+        log(f"profile DART of a {DART_TIMED}-tree train at {n} rows: "
+            f"{ops:g} device operations per tree; device busy "
+            f"{busy / DART_TIMED:.2f} ms per tree against "
+            f"{dt / DART_TIMED * 1e3:.2f} ms of wall: idle share "
+            f"{idle_share(busy, dt):.3f}; the drop sums ({len(seen)} "
+            f"rounds, {sum(len(t) for t, _, _ in seen)} dropped trees, "
+            f"replayed alone) {drop_busy:.2f} ms of {busy:.2f} ms device "
+            f"busy = share {drop_busy / busy:.4f}; device ms per tree by "
+            "kernel (launches per tree): " + "; ".join(
+                f"{e.key[:110]} {e.self_device_time_total / 1e3 / DART_TIMED:.3f}"
+                f" ({e.count / DART_TIMED:g})" for e in kern[:10]))
+    return DART_TIMED / dt
+
+
+def gram_f64(X, wi, z=None):
+    """``glm.weighted_gram`` with the products in f64 on the card: the
+    oracle the f32 Gram is held against (its own row blocks, 1 GiB
+    each)."""
+    import torch
+    N, P = X.shape
+    rb = max(1, (1 << 30) // (8 * P))
+    G = torch.zeros((P, P), dtype=torch.float64, device=X.device)
+    c = torch.zeros(P, dtype=torch.float64, device=X.device)
+    w64 = wi.double()
+    for r0 in range(0, N, rb):
+        Xb = X[r0:r0 + rb].double()
+        G.addmm_((Xb * w64[r0:r0 + rb, None]).t(), Xb)
+        if z is not None:
+            c += Xb.t() @ (w64[r0:r0 + rb] * z[r0:r0 + rb].double())
+    return G, (None if z is None else c)
+
+
+def without_last_block(glm, real):
+    """A faulty ``glm.weighted_gram``: the Gram with the weights of its
+    last row block zeroed (X'Wz whole), as a dropped block would give."""
+    import torch
+
+    def gram(X, wi, z=None):
+        N, P = X.shape
+        rb = max(1, glm.GRAM_BLOCK_BYTES // (4 * P))
+        keep = torch.arange(N, device=X.device) < (N - 1) // rb * rb
+        G, _ = real(X, wi * keep, None)
+        return G, (None if z is None else X.t() @ (wi * z))
+    return gram
+
+
+def glm_gap(m, ref, fr, y):
+    """(the coefficients' max difference over the largest, the relative
+    difference of the binomial deviances at the final coefficients, the
+    probabilities' max difference) of fit ``m`` against fit ``ref``; the
+    deviances summed in f64 from ``predict``'s probabilities."""
+    b, br = (np.asarray(x.output["beta_std_flat"]) for x in (m, ref))
+    p, pr = (multi_class_probs(x, fr)[:, 1].astype(np.float64)
+             for x in (m, ref))
+
+    def deviance(q):
+        return float(-2.0 * np.sum(np.where(y, np.log(q), np.log1p(-q))))
+    with np.errstate(all="ignore"):
+        gap = (float(np.abs(b - br).max() / np.abs(br).max()),
+               abs(deviance(p) / deviance(pr) - 1.0),
+               float(np.abs(p - pr).max()))
+    # a non-finite reading is as far off as can be
+    return tuple(float("inf") if not np.isfinite(v) else v for v in gap)
+
+
+def irls_iterations(m):
+    """The IRLS iterations of a single-class IRLSM fit: the sum over its
+    lambdas (one history entry each)."""
+    return sum(int(h["iteration"]) for h in m.scoring_history)
+
+
+def glm_phase(Frame, GLM, glm, from_reference, card):
+    """Phase 31: GLM at 1M rows on the card: binomial at the defaults
+    held against the same fit with the Gram in f64 on the card; a second
+    fit bitwise; the lambda search; multinomial on ``delay_class``; the
+    archive's numpy scorer against ``predict``."""
+    import torch
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: GLM's Gram must be full "
+                             "f32")
+    cols, fr = multi_frame(1_000_000, Frame)
+    n = fr.nrows
+    t0 = time.perf_counter()
+    m = GLM(**GLM_CFG).train(fr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    P = m.datainfo.nfeatures
+    y = np.asarray(cols["dep_delayed_15min"]) == "YES"
+    real = glm.weighted_gram
+    glm.weighted_gram = gram_f64
+    try:
+        m64 = GLM(**GLM_CFG).train(fr)
+    finally:
+        glm.weighted_gram = real
+    limits = (GLM_F32_COEF_TOL, GLM_F32_DEV_TOL, GLM_F32_PROB_TOL)
+    gap = glm_gap(m, m64, fr, y)
+    # the planted faults: each must break every limit
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        mt = GLM(**GLM_CFG).train(fr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    glm.weighted_gram = without_last_block(glm, real)
+    try:
+        mb = GLM(**GLM_CFG).train(fr)
+    finally:
+        glm.weighted_gram = real
+    faults = {"TF32 allowed": glm_gap(mt, m64, fr, y),
+              "last row block dropped": glm_gap(mb, m64, fr, y)}
+
+    def show(g):
+        return (f"coefficients {g[0]:.3e} of the largest, deviance "
+                f"{g[1]:.3e}, probabilities {g[2]:.3e}")
+    log(f"GLM fits against the f64 Gram's {card} (limits {limits}): the "
+        f"f32 Gram {show(gap)}; planted faults: " + "; ".join(
+            f"{k}: {show(g)}" for k, g in faults.items()))
+    di = m.datainfo
+    X = di.make_matrix(fr)
+    G = gram_f64(X, di.weights(fr))[0].cpu().numpy()
+    live = np.diag(G) > 0            # NA buckets no row sets are all zero
+    cond = float(np.linalg.cond(G[np.ix_(live, live)]))
+    if any(v > t for v, t in zip(gap, limits)):
+        raise AssertionError(f"GLM with the f32 Gram against the f64 Gram: "
+                             f"{show(gap)} (limits {limits})")
+    for k, g in faults.items():
+        if any(v <= t for v, t in zip(g, limits)):
+            raise AssertionError(f"the planted fault '{k}' passes a limit "
+                                 f"{limits}: {show(g)}")
+    m2 = GLM(**GLM_CFG).train(fr)
+    b, b2 = (np.asarray(x.output["beta_std_flat"]) for x in (m, m2))
+    if not np.array_equal(b, b2):
+        raise AssertionError("a second GLM fit on the card differs: max "
+                             f"|diff| {np.abs(b - b2).max():.3e}")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls came on during the GLM fits")
+    log(f"GLM binomial at the defaults on {n} rows (P = {P}) {card}: "
+        f"{fit_s:.3f} s, {irls_iterations(m)} IRLS iterations, residual "
+        f"deviance {m.output['residual_deviance']:.3f}, AUC "
+        f"{m.training_metrics.auc:.6f}; against the same fit with the Gram "
+        f"in f64 on the card: {show(gap)} (limits {limits}; the weighted "
+        f"Gram's condition number over its {int(live.sum())} live columns "
+        f"{cond:.3e}); a second fit bitwise; TF32 off")
+
+    t0 = time.perf_counter()
+    ms = GLM(alpha=0.5, lambda_search=True, nlambdas=30, **GLM_CFG) \
+        .train(fr)
+    torch.cuda.synchronize()
+    search_s = time.perf_counter() - t0
+    nz = int(np.count_nonzero(np.asarray(ms.output["beta_std_flat"])))
+    log(f"GLM lambda_search (alpha 0.5, 30 lambdas) on {n} rows {card}: "
+        f"{search_s:.3f} s, {irls_iterations(ms)} IRLS iterations, final "
+        f"lambda {ms.output['lambda']:.3e}, {nz} of {P} coefficients "
+        f"non-zero, AUC {ms.training_metrics.auc:.6f}")
+
+    t0 = time.perf_counter()
+    mm = GLM(**GLM_MULTI_CFG).train(fr)
+    torch.cuda.synchronize()
+    multi_s = time.perf_counter() - t0
+    p = multi_class_probs(mm, fr)
+    if not (mm.output["family"] == "multinomial" and np.isfinite(p).all()
+            and np.allclose(p.sum(axis=1), 1.0, atol=1e-5)):
+        raise AssertionError("GLM multinomial probabilities are not finite "
+                             "rows summing to 1")
+    log(f"GLM multinomial on delay_class ({n} rows, K = 3) {card}: "
+        f"{multi_s:.3f} s, {mm.output['iterations']} iterations, logloss "
+        f"{mm.training_metrics.logloss:.6f}, mean per-class error "
+        f"{mm.training_metrics.mean_per_class_error:.6f}")
+
+    k = GLM_ARCHIVE_ROWS
+    rows = {c: cols[c][:k] for c in ("year", "month", "day_of_week",
+                                     "crs_dep_time", "distance", "carrier",
+                                     "origin", "dest")}
+    for model, dom in ((m, ["NO", "YES"]), (mm, ["LONG", "NO", "SHORT"])):
+        got = from_reference(*model.to_archive()).predict(rows)[
+            "probabilities"]
+        want = multi_class_probs(model, fr)[:k]
+        err = float(np.abs(got - want).max())
+        if not np.allclose(got, want, rtol=1e-5, atol=1e-6):
+            raise AssertionError(f"the GLM archive's numpy scorer differs "
+                                 f"from predict by {err:.3e}")
+        log(f"GLM archive ({model.output['family']}): the numpy "
+            f"ScoringModel scores {k} rows as m.predict (max |diff| "
+            f"{err:.3e}, rtol 1e-5, atol 1e-6)")
+
+
+def glm_headline(fr, GLM, glm, card):
+    """Phase 32: GLM at 10M rows (P = 628): seconds per fit (the first
+    with the design matrix built), IRLS iterations, the device peak, the
+    Gram's device ms against its bound, and the idle share of a profiled
+    fit."""
+    import torch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    m = GLM(**GLM_CFG).train(fr)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    t0 = time.perf_counter()
+    m2 = GLM(**GLM_CFG).train(fr)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    if not np.array_equal(np.asarray(m.output["beta_std_flat"]),
+                          np.asarray(m2.output["beta_std_flat"])):
+        raise AssertionError("a second 10M-row GLM fit differs")
+    di = m.datainfo
+    X = di.make_matrix(fr)
+    N, P = X.shape
+    w = di.weights(fr)
+    z = torch.linspace(-1.0, 1.0, N, device=X.device)
+    gram_ms = cuda_ms(lambda: glm.weighted_gram(X, w, z), reps=5)
+    flops = 2.0 * N * P * P
+    # X'WX is symmetric: its P(P+1)/2 distinct entries are the least work
+    sym_flops = 1.0 * N * P * (P + 1)
+    ops_ms = flops / F32_OPS_PER_S * 1e3
+    sym_ms = sym_flops / F32_OPS_PER_S * 1e3
+    bytes_ms = (N * P * 4 + 2 * N * 4) / HBM_BYTES_PER_S * 1e3
+    its = irls_iterations(m)
+    log(f"GLM headline at {fr.nrows} rows, P = {P} {card}: the first fit "
+        f"(design matrix built, {N * P * 4 / 1e9:.2f} GB) {first_s:.3f} s, "
+        f"a fit on the cached design {fit_s:.3f} s, {its} IRLS iterations "
+        f"({fit_s / max(its, 1) * 1e3:.1f} ms each); device peak "
+        f"{peak / 2 ** 30:.2f} GiB above what was resident; the Gram "
+        f"X'WX + X'Wz {gram_ms:.2f} ms (median of 5, CUDA events) against "
+        f"the bound of the full product {max(ops_ms, bytes_ms):.2f} ms "
+        f"(2·N·P² = {flops / 1e12:.2f} TFLOP over 67 TFLOP/s f32; its "
+        f"bytes {bytes_ms:.2f} ms) and the symmetric bound "
+        f"{max(sym_ms, bytes_ms):.2f} ms (N·P(P+1) = {sym_flops / 1e12:.2f} "
+        f"TFLOP): {gram_ms / max(sym_ms, bytes_ms):.2f}x the symmetric "
+        f"bound, {flops / (gram_ms * 1e-3) / 1e12:.1f} TFLOP/s as the full "
+        f"product; training AUC {m.training_metrics.auc:.6f}")
+    kern, busy = device_profile(lambda: GLM(**GLM_CFG).train(fr))
+    if busy <= 0:
+        log("profile GLM: no device time in the trace: not measured")
+    else:
+        log(f"profile GLM of a fit at {fr.nrows} rows: device busy "
+            f"{busy:.1f} ms against {fit_s * 1e3:.1f} ms of wall: idle "
+            f"share {idle_share(busy, fit_s):.3f}; {sum(e.count for e in kern)}"
+            f" device operations; device ms by kernel (launches): "
+            + "; ".join(f"{e.key[:100]} {e.self_device_time_total / 1e3:.2f}"
+                        f" ({e.count})" for e in kern[:8]))
+
+
+def dart_glm_phases(Frame, XGBoost, GLM, glm, gbm, hist, kernel, batcher,
+                    from_reference, kernels, card):
+    """Phases 28-32: DART, then GLM."""
+    import torch
+    cols, types, domains = make_airlines_like(1_000_000)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    exact = dart_phase(fr, cols, kernels, XGBoost, batcher, hist, kernel,
+                       gbm, card)
+    del fr, cols
+    mark("phase 28")
+    launches = dart_multi_phase(Frame, XGBoost, kernels, card)
+    mark("phase 29")
+    t0 = time.perf_counter()
+    cols, types, domains = make_airlines_like(10_000_000)
+    fr10 = Frame.from_numpy(cols, types=types, domains=domains)
+    del cols
+    torch.cuda.synchronize()
+    log(f"DART and GLM headline frame: {fr10.nrows} rows on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    tps = headline_dart(XGBoost, fr10, gbm, card)
+    mark("phase 30")
+    glm_phase(Frame, GLM, glm, from_reference, card)
+    mark("phase 31")
+    glm_headline(fr10, GLM, glm, card)
+    del fr10
+    mark("phase 32")
+    log(f"launches on the DART paths {card}: 20 trees at 1M rows {exact}; "
+        f"the K = 3 rounds {launches}; DART at 10M rows {tps:.3f} trees/s")
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -3351,8 +3853,8 @@ def main() -> dict:
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.export.mojo import from_reference
     from h2o3_tpu_torch.frame import Frame
-    from h2o3_tpu_torch.models import DRF, GridSearch
-    from h2o3_tpu_torch.models.tree import hist, shared
+    from h2o3_tpu_torch.models import DRF, GLM, GridSearch, glm
+    from h2o3_tpu_torch.models.tree import gbm, hist, shared
     from h2o3_tpu_torch.models.tree.xgboost import XGBoost
     from h2o3_tpu_torch.runtime import config as cfgmod
     from h2o3_tpu_torch.runtime import observability as obs
@@ -3788,6 +4290,9 @@ def main() -> dict:
     mark("phase 22")
     # --------------------------- 23-27 file import, DT, IF/EIF, uplift
     import_phases(Frame, XGBoost, hist, batcher, kernels_train, card)
+    # ------------------------------------------------ 28-32 DART, GLM
+    dart_glm_phases(Frame, XGBoost, GLM, glm, gbm, hist, kernel, batcher,
+                    from_reference, kernels_train, card)
 
     return {"kernels": [traverse_row] + rows, "device": device}
 

@@ -15,8 +15,11 @@ online scoring plane and the tree-training main path:
   the growth loop in ``shared``, ``gbm``, ``xgboost``, and the batched
   grid cohorts of ``grid_batch``, ``drf``, ``dt``, ``isofor``:
   IsolationForest and ExtendedIsolationForest, ``uplift``: UpliftDRF),
-  with the CUDA histogram and split-record kernels, and the grid search
-  (``grid``: ``GridSearch``).
+  with the CUDA histogram and split-record kernels (XGBoost's DART
+  booster included), GLM (``glm``: IRLSM with COD, the lambda path,
+  L-BFGS, multinomial and ordinal, on the one-hot design of
+  ``datainfo.make_matrix``) and the grid search (``grid``:
+  ``GridSearch``).
 * ``metrics`` — binomial, multinomial, regression and uplift metrics.
 * ``export``  — the numpy ``ScoringModel``, the archive reader
   (``import_mojo``) and ``from_reference`` for models trained by the
@@ -31,5 +34,7 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .frame.parse import H2OFrame, import_file, upload_string
+from .models.glm import GLM, GLMParameters
 
-__all__ = ["H2OFrame", "import_file", "upload_string"]
+__all__ = ["GLM", "GLMParameters", "H2OFrame", "import_file",
+           "upload_string"]

@@ -19,6 +19,22 @@ import numpy as np
 from .scoring import ScoringModel
 
 
+def datainfo_meta(di) -> dict:
+    """The archive's featurization layout of a ``DataInfo`` (the JAX
+    package's ``_datainfo_meta``)."""
+    return {
+        "specs": [{"name": s.name, "type": s.type, "domain": s.domain,
+                   "mean": float(s.mean), "sigma": float(s.sigma),
+                   "offset": s.offset, "width": s.width} for s in di.specs],
+        "response_column": di.response_column,
+        "response_domain": di.response_domain,
+        "use_all_factor_levels": di.use_all_factor_levels,
+        "standardize": di.standardize,
+        "add_intercept": di.add_intercept,
+        "nfeatures": di.nfeatures,
+    }
+
+
 def from_reference(meta: dict, arrays: Dict[str, np.ndarray]) \
         -> ScoringModel:
     """Carry a model across from the JAX package.

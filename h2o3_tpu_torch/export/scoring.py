@@ -1,13 +1,14 @@
-"""Standalone scoring for exported tree ensembles — numpy + stdlib ONLY.
+"""Standalone scoring for exported models — numpy + stdlib ONLY.
 
 Reference: ``h2o-genmodel`` — ``hex/genmodel/MojoModel.java:12``,
 ``EasyPredictModelWrapper.java:65``: a zero-dependency scoring library
 that loads a model archive and predicts with no cluster.
 
 The port's copy of ``h2o3_tpu/export/scoring.py`` for the families the
-serving plane packs (``tree``: GBM/XGBoost/DRF, and ``isolation``).  It
-is the numpy oracle behind ``PackedScorer``'s ``"ref"``/``"check"``
-score modes.  The archive format lives in mojo.py.
+serving plane packs (``tree``: GBM/XGBoost/DRF, and ``isolation``), the
+numpy oracle behind ``PackedScorer``'s ``"ref"``/``"check"`` score
+modes, and for ``glm`` (the standardized one-hot design, the family's
+link).  The archive format lives in mojo.py.
 """
 
 from __future__ import annotations
@@ -50,6 +51,28 @@ class ScoringModel:
             cols[name] = col
         return cols
 
+    def _design_standardized(self, data: Dict[str, np.ndarray], n: int):
+        """One-hot + impute + standardize matrix (DataInfo.make_matrix)."""
+        cols = self._columns(data, n)
+        out = []
+        for s in self.spec["specs"]:
+            x = cols[s["name"]]
+            if s["type"] == "cat":
+                lo = 0 if self.spec["use_all_factor_levels"] else 1
+                width = s["width"] - 1
+                levels = np.arange(lo, lo + width)
+                onehot = (x[:, None] == levels[None, :]).astype(np.float64)
+                na = (x < 0)[:, None].astype(np.float64)
+                out.append(np.concatenate([onehot, na], axis=1))
+            else:
+                xi = np.where(np.isnan(x), s["mean"], x)
+                if self.spec["standardize"]:
+                    xi = (xi - s["mean"]) / s["sigma"]
+                out.append(xi[:, None])
+        if self.spec["add_intercept"]:
+            out.append(np.ones((n, 1)))
+        return np.concatenate(out, axis=1)
+
     def _design_raw(self, data: Dict[str, np.ndarray], n: int):
         """Raw-value matrix for tree traversal (cat codes, NaN missing).
 
@@ -78,7 +101,9 @@ class ScoringModel:
         else:
             data = {k: np.asarray(v) for k, v in data.items()}
         n = len(next(iter(data.values())))
-        raw = self.score_raw(self._design_raw(data, n))
+        raw = self._score_glm(self._design_standardized(data, n)) \
+            if self.meta["family"] == "glm" \
+            else self.score_raw(self._design_raw(data, n))
         domain = self.spec.get("response_domain")
         if domain:
             labels = np.asarray(domain, dtype=object)[np.argmax(raw, axis=1)]
@@ -111,6 +136,28 @@ class ScoringModel:
             "has not ported yet")
 
     # ------------------------------------------------------------ families
+    def _linkinv(self, eta):
+        link = self.meta.get("link", "identity")
+        if link == "logit":
+            return 1.0 / (1.0 + np.exp(-eta))
+        if link == "log":
+            return np.exp(eta)
+        return eta
+
+    def _score_glm(self, X):
+        """The standardized design (``_design_standardized``) ->
+        probabilities ``[n, K]`` or values ``[n]``."""
+        beta = self.arrays["beta"]
+        if beta.ndim == 2:                         # multinomial
+            eta = X @ beta
+            eta -= eta.max(axis=1, keepdims=True)
+            p = np.exp(eta)
+            return p / p.sum(axis=1, keepdims=True)
+        mu = self._linkinv(X @ beta)
+        if self.spec.get("response_domain"):
+            return np.stack([1 - mu, mu], axis=1)
+        return mu
+
     def _packed(self, prefix=""):
         """Bitpacked node planes for one class group, packed once and
         cached — the layout serving/kernel.py puts on device."""

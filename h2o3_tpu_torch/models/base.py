@@ -7,7 +7,8 @@ a ``Job`` and returns a Model holding the learned state.  ``device`` picks
 where it trains: ``cuda`` unless the caller names another, and the frame
 must lie there.  Cross-validation, class balancing, streaming ingest,
 checkpoints and warm starts, checkpoint export and the async scheduler
-path are not ported yet: setting any of them raises.
+path are not ported yet: setting any of them raises, and so does an
+offset column for any builder but GLM.
 """
 
 from __future__ import annotations
@@ -88,7 +89,9 @@ class Model:
         raise NotImplementedError
 
     def _score_matrix(self, frame: Frame) -> torch.Tensor:
-        raise NotImplementedError
+        """The matrix ``_predict_raw`` expects: the standardized one-hot
+        design (tree models override it with the raw-value design)."""
+        return self.datainfo.make_matrix(frame)
 
     def predict(self, frame: Frame) -> Frame:
         """Score a frame: ``predict`` (label) + one probability column per
@@ -135,6 +138,8 @@ class ModelBuilder:
     algo = "model"
     model_class = Model
     supervised = True
+    # the builders whose training reads ``offset_column`` (GLM)
+    takes_offset = False
 
     def __init__(self, params: Parameters):
         self.params = params
@@ -143,6 +148,8 @@ class ModelBuilder:
     def _validate(self, frame: Frame) -> None:
         p = self.params
         for name, off in _NOT_PORTED.items():
+            if name == "offset_column" and self.takes_offset:
+                continue
             if getattr(p, name, off) != off:
                 raise NotImplementedError(
                     f"{self.algo}: {name} is not ported to h2o3_tpu_torch "

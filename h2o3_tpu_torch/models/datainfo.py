@@ -1,10 +1,14 @@
-"""DataInfo: the fitted featurization state — the part of
-``h2o3_tpu/models/datainfo.py`` the tree family reads (hex/DataInfo.java).
+"""DataInfo: the fitted featurization state — the port of
+``h2o3_tpu/models/datainfo.py`` (hex/DataInfo.java).
 
-Trees train on raw values (numerics as they are, categoricals as codes),
-so the port keeps the column layout, the response domain and the
-per-frame response and weight views; the one-hot design matrix of the
-linear families waits for their slice (ROADMAP Queue 1).
+Trees train on raw values (numerics as they are, categoricals as codes)
+and read the column layout, the response domain and the per-frame
+response and weight views.  The linear families train on the design
+matrix (``make_matrix``): numerics mean-imputed and standardized, time
+columns shifted to the training base, categoricals one-hot with an NA
+bucket (unseen levels land there: the reference's adaptTestForTrain),
+and the intercept column, memoized on the frame; ``offsets`` gives GLM's
+offset column.
 """
 
 from __future__ import annotations
@@ -16,7 +20,7 @@ import numpy as np
 import torch
 
 from ..frame.frame import Frame
-from ..frame.vec import T_CAT, Vec
+from ..frame.vec import T_CAT, T_TIME, Vec
 
 MEAN_IMPUTATION = "mean_imputation"
 SKIP = "skip"
@@ -50,6 +54,20 @@ class DataInfo:
     nfeatures: int
     response_mean: float = 0.0
     response_sigma: float = 1.0
+
+    @property
+    def coef_names(self) -> List[str]:
+        names = []
+        for s in self.specs:
+            if s.type == T_CAT:
+                lo = 0 if self.use_all_factor_levels else 1
+                names += [f"{s.name}.{lbl}" for lbl in s.domain[lo:]]
+                names.append(f"{s.name}.missing(NA)")
+            else:
+                names.append(s.name)
+        if self.add_intercept:
+            names.append("Intercept")
+        return names
 
     @property
     def nclasses(self) -> int:
@@ -118,6 +136,63 @@ class DataInfo:
                         offset_column, standardize, use_all_factor_levels,
                         missing_values_handling, add_intercept, nfeat,
                         response_mean=rmean, response_sigma=rsigma)
+
+    def make_matrix(self, frame: Frame) -> torch.Tensor:
+        """The [padded, nfeatures] f32 design matrix on the frame's device,
+        bitwise the JAX package's: numerics with NaN as their mean, then
+        (x - mean) / sigma when standardizing; a time column shifted by
+        the difference of the time bases; a categorical's one-hot columns
+        from level ``lo`` (1 unless ``use_all_factor_levels``) and its NA
+        bucket, which missing and unseen levels set; the intercept column
+        of ones.  The columns are written into one preallocated tensor (at
+        10M rows and P = 628 it is 25 GB: no second [N, P] temporary
+        exists), and the result is memoized on the frame under the
+        layout's signature."""
+        key = ("__design__", self.standardize, self._design_signature())
+        hit = frame._matrix_cache.get(key)
+        if hit is not None:
+            return hit
+        n, P = frame.padded_rows, self.nfeatures
+        X = torch.zeros((n, P), dtype=torch.float32, device=frame.device)
+        rows = torch.arange(n, device=frame.device) * P
+        lo = 0 if self.use_all_factor_levels else 1
+        for s in self.specs:
+            vec = frame.vec(s.name)
+            if s.type == T_CAT:
+                codes = self.aligned_codes(vec, s).long()
+                # the level's column, or the NA bucket for a missing one
+                col = torch.where(codes < 0, s.width - 1, codes - lo)
+                hot = (codes < 0) | ((col >= 0) & (col < s.width - 1))
+                X.view(-1)[(rows + s.offset + col)[hot]] = 1.0
+                continue
+            x = vec.data
+            if s.type == T_TIME and abs(vec.time_base - s.time_base) > 0:
+                x = x + (vec.time_base - s.time_base) / 1000.0
+            mean = torch.tensor(s.mean, dtype=torch.float32)
+            x = torch.where(torch.isnan(x), mean.to(x.device), x)
+            if self.standardize:
+                x = (x - mean) / torch.tensor(s.sigma, dtype=torch.float32)
+            X[:, s.offset] = x
+        if self.add_intercept:
+            X[:, P - 1] = 1.0
+        frame._matrix_cache[key] = X
+        return X
+
+    def _design_signature(self) -> tuple:
+        """The memo key of the design layout (the signature tuple itself,
+        not a hash of it, so no two layouts can collide)."""
+        return (tuple((s.name, s.type, tuple(s.domain or ()), s.mean,
+                       s.sigma, s.time_base, s.offset, s.width)
+                      for s in self.specs),
+                self.use_all_factor_levels, self.add_intercept,
+                self.missing_values_handling)
+
+    def offsets(self, frame: Frame) -> Optional[torch.Tensor]:
+        """The offset column [padded] with NaN as 0, or None."""
+        if self.offset_column is None:
+            return None
+        return torch.nan_to_num(
+            frame.vec(self.offset_column).numeric_data())
 
     def aligned_codes(self, vec: Vec, s: ColumnSpec) -> torch.Tensor:
         """A (possibly differently coded) cat Vec on the training codes."""

@@ -7,10 +7,13 @@ values added to the scores F.  A response of K > 2 classes grows K class
 trees a round on the softmax gradients (``shared.make_multinomial_scan_fn``:
 one batched build of the K trees, GBM.java buildNextKTrees).  Rounds run in
 chunks that end on the scoring intervals (``shared.chunk_schedule``);
-training metrics come from F, with no second pass over the ensemble.  The
-DART booster waits for a later slice and raises.  Grid cohorts of GBM and
-XGBoost members grow through ``grid_batch.train_cohort``, which finishes
-each member as ``_fit`` finishes a train (``_finalize_fused``).
+training metrics come from F, with no second pass over the ensemble.
+XGBoost's DART booster (``booster="dart"``) grows one round at a time
+instead (``_fit_dart``, the JAX package's per-tree loop): it drops a
+random set of earlier trees, fits the new tree to the gradients without
+them and rescales both.  Grid cohorts of GBM and XGBoost members grow
+through ``grid_batch.train_cohort``, which finishes each member as
+``_fit`` finishes a train (``_finalize_fused``).
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ...frame.frame import Frame
@@ -29,15 +33,35 @@ from ..distributions import make_distribution
 from ..scorekeeper import metric_direction
 from .binning import edges_matrix, fit_bins
 from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
-                     StackedTrees, TreeList, chunk_schedule,
+                     StackedTrees, Tree, TreeList, _row_sample, _scan_codes,
+                     chunk_schedule, draw_generator, make_build_tree_fn,
                      make_multinomial_scan_fn, make_tree_scan_fn,
                      record_effective_depth, resolve_hist_layout,
                      resolve_hist_mode, resolve_split_mode,
                      resolve_tree_program, run_hist_crosscheck,
-                     run_layout_crosscheck, run_split_crosscheck, traverse,
-                     use_hier_split_search)
+                     run_layout_crosscheck, run_split_crosscheck,
+                     stack_trees, traverse, use_hier_split_search)
 
-_LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
+
+def tree_scores(trees, X: torch.Tensor, K: int) -> torch.Tensor:
+    """The summed scores of a list of trees (``Tree``s, or K class-tree
+    lists) over the raw design X, [N] or [K, N] class-major: DART's S_D
+    over its dropped trees, as the JAX package's ``drop_sum`` traverses
+    them (gbm.py:274), and a validation frame's scores over all."""
+    if K == 1:
+        return traverse(*stack_trees(trees), X)
+    return torch.stack([traverse(*stack_trees([t[k] for t in trees]), X)
+                        for k in range(K)])
+
+
+def dart_scales(kdrop: int, nu: float, normalize_type: str) -> tuple:
+    """(a, b): the dropped trees' rescale and the new tree's, libxgboost's
+    dart normalisation; with nothing dropped (1, nu)."""
+    if not kdrop:
+        return 1.0, nu
+    if normalize_type == "forest":
+        return 1.0 / (1.0 + nu), 1.0 / (1.0 + nu)
+    return kdrop / (kdrop + nu), 1.0 / (kdrop + nu)
 
 
 @dataclasses.dataclass
@@ -103,9 +127,6 @@ class GBM(SharedTree):
              valid: Optional[Frame]) -> GBMModel:
         p: GBMParameters = self.params
         K = di.nclasses if di.is_classifier and di.nclasses > 2 else 1
-        if getattr(p, "booster", "gbtree") == "dart":
-            raise NotImplementedError(
-                f"booster='dart' is not ported yet ({_LATER})")
         dev = frame.device
         dist = make_distribution(p.distribution, nclasses=di.nclasses)
         if (K > 1) != (dist.name == "multinomial"):
@@ -191,6 +212,13 @@ class GBM(SharedTree):
                 hist_layout = "sparse"
                 model.output["hist_layout"] = hist_layout
 
+        if getattr(p, "booster", "gbtree") == "dart":
+            vstate = (valid, Xv, y_v, w_v) if valid is not None else None
+            return self._fit_dart(
+                job, model, di, dist, codes, target, y, w, F, edges_mat,
+                binned, init_host, model._design(frame), vstate, hist_mode,
+                split_mode, hist_layout, hier, seed, K)
+
         scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate,
                      p.col_sample_rate_per_tree)
         scan_kw = dict(bin_counts=binned.bin_counts, hist_mode=hist_mode,
@@ -228,4 +256,113 @@ class GBM(SharedTree):
                    for k in range(K)] if K > 1 \
             else StackedTrees.concat(chunks)
         return self._finalize_fused(model, di, dist, F, y, w, valid, history,
+                                    binned, init_host, stacked)
+
+    def _fit_dart(self, job, model, di, dist, codes, target, y, w, F,
+                  edges_mat, binned, init_host, X_tr, vstate, hist_mode,
+                  split_mode, hist_layout, hier, seed, K):
+        """The DART booster, one round at a time (the JAX package's loop,
+        gbm.py:528-683): the dropped trees' scores S_D traversed over the
+        raw design, gradients on F - S_D, the new tree grown at learn
+        rate 1 and its leaf values scaled by b, the dropped trees' by a,
+        and F -= (1 - a) S_D.  The per-tree column mask and the drops are
+        drawn from ``np.random.default_rng(seed)`` in the JAX package's
+        order (column mask, skip_drop, rate_drop, one_drop), so the drop
+        sets are its own; the row sample and per-split masks are the
+        port's keyed streams (round t of chunk 0).  A round of K class
+        trees is one batched build (``make_build_tree_fn(nk=K)``), or
+        under ``split_mode="separate"`` and the hierarchical search a
+        loop of K single builds, bitwise alike.  Trees stay a list while
+        training, since rescaling rewrites earlier trees, and are stacked
+        at the end; a validation frame is scored from all trees at each
+        interval."""
+        p = self.params
+        dev, Fw, N = codes.device, binned.nfeatures, codes.shape[1]
+        if hier:
+            split_mode, hist_layout = "separate", "dense"
+        batched = K > 1 and split_mode == "fused"
+        build = make_build_tree_fn(
+            p.max_depth, p.nbins, Fw, N, bin_counts=binned.bin_counts,
+            hist_mode=hist_mode, split_mode=split_mode,
+            hist_layout=hist_layout, device=dev, hier=hier,
+            nk=K if batched else 1,
+            sparse_depth_threshold=p.sparse_depth_threshold)
+        model.output["hist_kernel"] = \
+            "varbin" if build.use_varbin else "uniform"
+        hcodes = _scan_codes(build, codes, p.nbins, hier)
+        scal = (p.reg_lambda, p.min_rows, p.min_split_improvement, 1.0,
+                p.col_sample_rate)
+        reg = (p.reg_alpha, p.gamma, p.min_child_weight)
+        metric_name, maximize = metric_direction(p.stopping_metric,
+                                                 di.is_classifier)
+        init_v = torch.as_tensor(np.asarray(init_host, np.float32),
+                                 device=dev)
+        nprng = np.random.default_rng(seed)
+        trees, history = [], []
+        F_v = None
+        for t in range(p.ntrees):
+            wv = _row_sample(w, p.sample_rate, seed, 0, t)
+            tm = None
+            if p.col_sample_rate_per_tree < 1.0:
+                m = nprng.random(Fw) < p.col_sample_rate_per_tree
+                if not m.any():
+                    m[nprng.integers(Fw)] = True
+                tm = torch.from_numpy(m).to(dev)
+            drop = []
+            if trees and nprng.random() >= p.skip_drop:
+                md = nprng.random(len(trees)) < p.rate_drop
+                if p.one_drop and not md.any():
+                    md[nprng.integers(len(trees))] = True
+                drop = [int(i) for i in np.flatnonzero(md)]
+            S_D = tree_scores([trees[i] for i in drop], X_tr, K) \
+                if drop else None
+            a, b = dart_scales(len(drop), p.learn_rate, p.normalize_type)
+            g, h = dist.grad_hess(target, F if S_D is None else F - S_D)
+            gens = [draw_generator(seed, 0, t, k, dev) for k in range(K)]
+            if K == 1 or batched:
+                levels, vals, cover, leaf = build(
+                    codes, g * wv, h * wv, wv, edges_mat,
+                    gens if batched else gens[0], *scal,
+                    tm.expand(K, Fw) if batched and tm is not None else tm,
+                    *reg, hcodes=hcodes)
+                vals = vals * b
+                per = [(levels, vals, cover, leaf)] if K == 1 else [
+                    ([tuple(x[k] for x in lv) for lv in levels], vals[k],
+                     cover[k], leaf[k]) for k in range(K)]
+            else:
+                per = []
+                for k in range(K):
+                    levels, vals, cover, leaf = build(
+                        codes, g[k] * wv, h[k] * wv, wv, edges_mat,
+                        gens[k], *scal, tm, *reg, hcodes=hcodes)
+                    per.append((levels, vals * b, cover, leaf))
+            new = [Tree([lv[0] for lv in levels], [lv[1] for lv in levels],
+                        [lv[2] for lv in levels], [lv[3] for lv in levels],
+                        vals, cover) for levels, vals, cover, _ in per]
+            dF = torch.stack([v[lf.long()] for _, v, _, lf in per])
+            F = F + (dF[0] if K == 1 else dF)
+            trees.append(new[0] if K == 1 else new)
+            if drop:
+                for i in drop:
+                    for tr in (trees[i] if K > 1 else [trees[i]]):
+                        tr.values = tr.values * a
+                F = F - (1.0 - a) * S_D
+            job.update((t + 1) / p.ntrees, f"tree {t + 1}/{p.ntrees}")
+            if (t + 1) % max(1, p.score_tree_interval) and t != p.ntrees - 1:
+                continue
+            if vstate is not None:
+                # rescaling rewrote earlier trees: all of them, anew
+                _, Xv, y_v, w_v = vstate
+                F_v = (init_v if K == 1 else init_v[:, None]) \
+                    + tree_scores(trees, Xv, K)
+            if self._interval_score(
+                    model, t + 1, F, y, w, di, dist, history,
+                    (F_v, y_v, w_v) if vstate is not None else None,
+                    metric_name, maximize):
+                break
+        stacked = StackedTrees.from_trees(trees) if K == 1 else [
+            StackedTrees.from_trees([tr[k] for tr in trees])
+            for k in range(K)]
+        return self._finalize_fused(model, di, dist, F, y, w,
+                                    vstate[0] if vstate else None, history,
                                     binned, init_host, stacked)

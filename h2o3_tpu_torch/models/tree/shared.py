@@ -42,6 +42,7 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
+from ...export.mojo import datainfo_meta
 from ...frame.frame import Frame
 from ...frame.vec import T_CAT, T_TIME
 from ...runtime.config import config
@@ -126,6 +127,15 @@ class Tree:
     cover: Optional[torch.Tensor] = None
 
 
+def stack_trees(trees: Sequence[Tree]):
+    """(per level (feat, thr, na_left, valid) [T, 2^d] stacks, leaf values
+    [T, 2^depth]) of a list of trees, for ``traverse``."""
+    levels = [tuple(torch.stack([getattr(t, a)[d] for t in trees])
+                    for a in ("feat", "thr", "na_left", "valid"))
+              for d in range(len(trees[0].feat))]
+    return levels, torch.stack([t.values for t in trees])
+
+
 @dataclasses.dataclass
 class StackedTrees:
     """The whole ensemble on the device: per level [T, 2^d] stacks."""
@@ -144,15 +154,11 @@ class StackedTrees:
 
     @staticmethod
     def from_trees(trees: Sequence[Tree]) -> "StackedTrees":
-        depth = len(trees[0].feat)
-        levels = [tuple(torch.stack([getattr(t, a)[d] for t in trees])
-                        for a in ("feat", "thr", "na_left", "valid"))
-                  for d in range(depth)]
+        levels, values = stack_trees(trees)
         covers = None
         if all(t.cover is not None for t in trees):
             covers = torch.stack([t.cover for t in trees])
-        return StackedTrees(levels, torch.stack([t.values for t in trees]),
-                            covers)
+        return StackedTrees(levels, values, covers)
 
     @staticmethod
     def concat(chunks: Sequence["StackedTrees"]) -> "StackedTrees":
@@ -1275,20 +1281,6 @@ def run_layout_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
 
 # ------------------------------------------------------------ the model
 
-def _datainfo_meta(di: DataInfo) -> dict:
-    return {
-        "specs": [{"name": s.name, "type": s.type, "domain": s.domain,
-                   "mean": float(s.mean), "sigma": float(s.sigma),
-                   "offset": s.offset, "width": s.width} for s in di.specs],
-        "response_column": di.response_column,
-        "response_domain": di.response_domain,
-        "use_all_factor_levels": di.use_all_factor_levels,
-        "standardize": di.standardize,
-        "add_intercept": di.add_intercept,
-        "nfeatures": di.nfeatures,
-    }
-
-
 class SharedTreeModel(Model):
     """Tree-ensemble model: scores through ``traverse`` on the device."""
 
@@ -1344,7 +1336,7 @@ class SharedTreeModel(Model):
         init = self.output["init_score"]
         meta = {
             "algo": self.algo, "format_version": 1,
-            "datainfo": _datainfo_meta(di),
+            "datainfo": datainfo_meta(di),
             "default_threshold": float(self.default_threshold())
             if di.is_classifier else 0.5,
             "family": "tree", "tree_average": self.tree_average,

@@ -67,8 +67,16 @@ class XGBoostParameters(SharedTreeParameters):
     sample_rate: float = 1.0
     col_sample_rate: float = 1.0
     col_sample_rate_per_tree: float = 1.0
-    booster: str = "gbtree"              # gbtree (dart: not ported yet)
+    booster: str = "gbtree"              # gbtree | dart
     scale_pos_weight: float = 1.0
+    # DART params (libxgboost dart booster)
+    rate_drop: float = 0.0
+    skip_drop: float = 0.0
+    one_drop: bool = False
+    normalize_type: str = "tree"         # tree | forest
+    # drops are drawn uniformly: anything but "uniform" raises (the JAX
+    # package's field is read nowhere either)
+    sample_type: str = "uniform"
 
 
 class XGBoostModel(GBMModel):
@@ -99,6 +107,10 @@ class XGBoost(GBM):
             raise ValueError(
                 f"booster={params.booster!r} not supported (gbtree, dart); "
                 "gblinear maps to GLM in this framework")
+        if params.sample_type != "uniform":
+            raise NotImplementedError(
+                f"sample_type={params.sample_type!r} is not ported to "
+                "h2o3_tpu_torch; DART drops are drawn uniformly")
         resolve_hist_mode(params)        # fail fast on a bad hist_mode
         resolve_split_mode(params)       # ... and on a bad split_mode
         resolve_hist_layout(params)      # ... and on a bad hist_layout

@@ -880,3 +880,75 @@ def test_small_isolation_forests_match_cpu(cuda, tmp_path):
     np.testing.assert_allclose(
         got, m["cuda"].predict(frames["cuda"]).vec("predict").to_numpy(),
         rtol=1e-5)
+
+
+def _dart_frame(dev, n=30_000):
+    """The bench frame's draws with the 3-class ``delay_class`` response,
+    on ``dev``."""
+    from bench import make_airlines_like
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.testing import delay_class
+    cols, types, domains = make_airlines_like(n)
+    cols["delay_class"] = delay_class(cols)
+    return Frame.from_numpy(cols, types=types, domains=domains, device=dev)
+
+
+def test_small_dart_train_matches_cpu(cuda):
+    """XGBoost's DART booster on the card: one ``hist`` and one records
+    launch per level (24 each for 6 depth-4 trees); the same splits at
+    every valid node and leaf values to rtol 1e-4 as the CPU train of the
+    same frame (the drop sets come from the same numpy draws); the K = 3
+    round bitwise its K loop on the card."""
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    cfg = dict(booster="dart", rate_drop=0.3, one_drop=True, max_depth=4,
+               nbins=64, seed=1, ntrees=6, score_tree_interval=10 ** 9)
+    binary = dict(cfg, response_column="dep_delayed_15min",
+                  ignored_columns=["delay_class"])
+    frames = {d: _dart_frame(d) for d in ("cuda", "cpu")}
+    before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+    a = XGBoost(device="cuda", **binary).train(frames["cuda"])
+    torch.cuda.synchronize()
+    assert (hist.HIST.launches - before[0],
+            hist.SPLIT_RECORDS.launches - before[1]) == (24, 24)
+    b = XGBoost(device="cpu", **binary).train(frames["cpu"])
+    for ta, tb in zip(a.output["trees"], b.output["trees"]):
+        for d in range(4):
+            va, vb = ta.valid[d].cpu().numpy(), tb.valid[d].numpy()
+            np.testing.assert_array_equal(va, vb)
+            np.testing.assert_array_equal(ta.feat[d].cpu().numpy()[va],
+                                          tb.feat[d].numpy()[vb])
+            np.testing.assert_array_equal(ta.thr[d].cpu().numpy()[va],
+                                          tb.thr[d].numpy()[vb])
+        np.testing.assert_allclose(ta.values.cpu().numpy(),
+                                   tb.values.numpy(), rtol=1e-4, atol=1e-6)
+    multi = dict(cfg, response_column="delay_class",
+                 ignored_columns=["dep_delayed_15min"], ntrees=3,
+                 sample_rate=0.8, col_sample_rate_per_tree=0.7)
+    before = hist.HIST.launches
+    fus = XGBoost(device="cuda", **multi).train(frames["cuda"])
+    torch.cuda.synchronize()
+    assert hist.HIST.launches - before == 12
+    sep = XGBoost(device="cuda", split_mode="separate", **multi).train(
+        frames["cuda"])
+    for sa, ss in zip(fus.output["stacked"], sep.output["stacked"]):
+        _same_stack(sa, ss)
+
+
+def test_small_glm_fit_matches_cpu(cuda):
+    """GLM on the card (binomial IRLSM, and COD at alpha 0.5 with a
+    lambda): coefficients to rtol 1e-4 of the CPU fit's; a second card
+    fit bitwise the first; the Gram's matmuls never on TF32."""
+    from h2o3_tpu_torch.models import GLM
+    assert not torch.backends.cuda.matmul.allow_tf32
+    frames = {d: _dart_frame(d, 50_000) for d in ("cuda", "cpu")}
+    for kw in (dict(), dict(alpha=0.5, lambda_=1e-3)):
+        cfg = dict(response_column="dep_delayed_15min",
+                   ignored_columns=["delay_class"], **kw)
+        m = {d: GLM(device=d, **cfg).train(frames[d]) for d in frames}
+        again = GLM(device="cuda", **cfg).train(frames["cuda"])
+        assert not torch.backends.cuda.matmul.allow_tf32
+        b, bc = (np.asarray(x.output["beta_std_flat"])
+                 for x in (m["cuda"], m["cpu"]))
+        assert np.abs(b - bc).max() <= 1e-4 * np.abs(bc).max()
+        np.testing.assert_array_equal(
+            b, np.asarray(again.output["beta_std_flat"]))
