@@ -163,15 +163,23 @@ Phases (any failure exits non-zero and prints no result line):
              ``DRF(max_depth=20, nbins=64, sample_rate=1, mtries=-2)`` and
              one round of K = 3 class trees on ``delay_class`` are
              captured; at every node-sparse level (from depth 8, at most
-             4,096 slots) the one ``hist`` launch (L = the parent slots,
-             K on blockIdx.z) must equal its plain version and a second
-             launch, bitwise, on the captured and on integer-valued stats,
-             and the records over the K*A slots theirs; the slot budget
-             must bind (the alive children made terminal, per level, are
-             printed);
-21. DRF train — launch counts set to 0, then the 3-tree DRF above:
-             ``hist`` and the scalar records must each launch trees x
-             ``effective_max_depth`` times (60); the plain route the same
+             4,096 slots) ``slot_compact`` must give its plain version's
+             row_start and chosen slots and, in every parent slot's
+             window, the same rows (told apart by a row-number code
+             plane) with the same codes, parent slot and stats, twice;
+             the one windowed ``hist`` launch (L = the parent slots, each
+             tile over its parent slots' row windows) must equal its
+             plain version, a second launch and the full-prefix launch
+             (``row_start=None``), bitwise, on the captured and on
+             integer-valued stats, and the plain histogram of the plain
+             compaction's prefix; the records over the K*A slots theirs;
+             the slot budget must bind (the alive children made
+             terminal, per level, are printed);
+21. DRF train — launch counts set to 0, then the 3-tree DRF above: the
+             scalar records must launch trees x ``effective_max_depth``
+             times (60), the full-prefix ``hist`` once per dense level
+             (24), ``slot_compact`` and the windowed ``hist`` once per
+             sparse level (36 each); the plain route the same
              first-tree splits, predictions to rtol 1e-4, training AUC to
              1e-4; a second train bitwise; the sampled K = 3 forest
              (``sample_rate=0.632``, ``mtries=-1``, 2 rounds) launching
@@ -187,9 +195,14 @@ Phases (any failure exits non-zero and prints no result line):
              warmup, then trees/s of a timed 10-tree forest, the device
              peak memory, the device operations per tree, idle share and
              device ms by op of a profiled forest of the same size; then
-             one captured tree's sparse levels: ``hist`` and the records
-             per level beside their plain versions, the one int64
-             ``index_add_`` and their bounds.
+             one captured tree's sparse levels, per level and per tree:
+             the windowed ``hist`` in turns with the same kernel over the
+             same prefix without windows (windowed, full, full,
+             windowed), beside its plain version, the one int64
+             ``index_add_`` and its bound; ``slot_compact`` beside its
+             plain version, the row-order compaction it replaced
+             (``row_order_compaction``, kept for timing) and its bound;
+             the records beside their plain version and bound.
 23. import — the bench frame at 10M rows written to a CSV in a
              temporary directory (vectorised per column and 1M-row chunk,
              floats ``%.9g``: each reads back as the float32 it was) and
@@ -205,8 +218,10 @@ Phases (any failure exits non-zero and prints no result line):
              launches, bitwise the trees of the same train on the numpy
              frame;
 25. DT — launch counts set to 0, then ``DecisionTree()`` (depth 20,
-             node-sparse from 8) on an imported 1M-row CSV: 20 and 20
-             launches, the plain route's splits at every level, a second
+             node-sparse from 8) on an imported 1M-row CSV: 20 records,
+             8 full-prefix ``hist``, 12 ``slot_compact`` and 12 windowed
+             ``hist`` launches, the plain route's splits at every level, a
+             second
              train bitwise, published and served against the numpy
              ScoringModel; one DT at 10M rows timed;
 26. isolation — IsolationForest (50 trees) and EIF (10 trees) on the 1M
@@ -216,8 +231,9 @@ Phases (any failure exits non-zero and prints no result line):
              published and served; trees/s of both at 10M rows;
 27. uplift — launch counts set to 0, then ``UpliftDRF(max_depth=10)``, 3
              trees, on an imported 1M-row CSV of the bench features plus a
-             treatment and a conversion with a planted effect: 30 ``hist``
-             launches (both arms one launch a level, levels 8-9
+             treatment and a conversion with a planted effect: 24
+             full-prefix ``hist`` launches and 6 ``slot_compact`` and 6
+             windowed ones (both arms one launch a level, levels 8-9
              node-sparse), the plain route's splits on the first tree, a
              second train bitwise; trees/s at 10M rows (the timed train
              twice), the device operations per tree, idle share and
@@ -296,6 +312,9 @@ REPS = 50
 # call at 10M rows, so a median of a few launches holds them
 YARDSTICK_REPS = 5
 SPIN_CYCLES = 20_000_000         # ~10 ms of device clock
+# the node-sparse kernels' launch counts of a train that grows no sparse
+# level
+NO_SLOT = {"hist (slot windows)": 0, "slot_compact": 0}
 # the batch sizes of the traversal's checks and of its turns
 TRAVERSE_BATCHES = (1, 8, 37, 256, 1024)
 LARGE_BATCH = 600_000
@@ -598,7 +617,7 @@ def capture_levels(fr, XGBoost, hist):
     hv, sr = [], []
     real_hv, real_sr = hist.hist_varbin, hist.split_records
 
-    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
+    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None, row_start=None):
         # the one-tree subtract level launches as a batch of one
         # (make_batched_level_fn's K = 1): keep the tree's own operands
         one = (gcodes[0] if gcodes.dim() == 3 else gcodes, leaf[0],
@@ -606,7 +625,8 @@ def capture_levels(fr, XGBoost, hist):
             (gcodes, leaf, stats, scale)
         hv.append((one[0].clone(), one[1].clone(), one[2].clone(), L,
                    tuple(bc), B, one[3]))
-        return real_hv(gcodes, leaf, stats, L, bc, B, scale)
+        return real_hv(gcodes, leaf, stats, L, bc, B, scale,
+                       row_start=row_start)
 
     def spy_sr(Hist, nbins, *args, **kw):
         sr.append((Hist.clone(), nbins, args))
@@ -692,22 +712,25 @@ def per_tree(fn, codes, leaf, stats, *args):
 
 @contextlib.contextmanager
 def plain_route(hist):
-    """``hist_varbin``, ``hist_uniform``, ``split_records`` and
-    ``fine_hist`` swapped for plain torch on the card while the block
-    runs: the route the kernels' training is held against.  Its
-    histograms are this script's own f64 ``index_add_`` (``f64_uniform``,
-    ``f64_varbin``, ``f64_fine``; tree by tree for a batched call) rounded
-    to f32, not the port's fixed-point plain versions: an oracle
+    """``hist_varbin``, ``hist_uniform``, ``split_records``,
+    ``fine_hist`` and ``slot_compact`` swapped for plain torch on the card
+    while the block runs: the route the kernels' training is held
+    against.  Its histograms are this script's own f64 ``index_add_``
+    (``f64_uniform``, ``f64_varbin``, ``f64_fine``; tree by tree for a
+    batched call; by leaf id, so a prefix's row windows need no reading)
+    rounded to f32, not the port's fixed-point plain versions: an oracle
     independent of the arithmetic under test; its records the plain
-    ``_split_records_torch`` (per-leaf parameters included)."""
+    ``_split_records_torch`` (per-leaf parameters included); its
+    node-sparse compaction ``slot_compact_torch``."""
     real = (hist.hist_varbin, hist.hist_uniform, hist.split_records,
-            hist.fine_hist)
+            hist.fine_hist, hist.slot_compact)
 
-    def varbin(gcodes, leaf, stats, L, bc, B, scale=None):
+    def varbin(gcodes, leaf, stats, L, bc, B, scale=None, row_start=None):
         return per_tree(f64_varbin, gcodes, leaf, stats, L,
                         hist.packed_layout(tuple(bc), B)).float()
 
-    def uniform(codes, leaf, stats, L, B, planes=3, scale=None):
+    def uniform(codes, leaf, stats, L, B, planes=3, scale=None,
+                row_start=None):
         return per_tree(f64_uniform, codes, leaf, stats, L, B,
                         planes).float()
 
@@ -718,12 +741,13 @@ def plain_route(hist):
         return f64_fine(codes, leaf, stats, sel, W, nbins).float()
 
     (hist.hist_varbin, hist.hist_uniform, hist.split_records,
-     hist.fine_hist) = varbin, uniform, records, fine
+     hist.fine_hist, hist.slot_compact) = (varbin, uniform, records, fine,
+                                           hist.slot_compact_torch)
     try:
         yield
     finally:
         (hist.hist_varbin, hist.hist_uniform, hist.split_records,
-         hist.fine_hist) = real
+         hist.fine_hist, hist.slot_compact) = real
 
 
 def train_plain(fr, XGBoost, hist, ntrees, cfg=BENCH_CFG, **extra):
@@ -1021,6 +1045,9 @@ def train_phase(cols, types, domains, kernels, XGBoost, Frame, batcher,
                 f"expected trees x levels = {ntrees} x {levels}")
     if launches["split_records (per-row)"] != 0:
         raise AssertionError("a single train took the per-row records")
+    if {k: launches[k] for k in NO_SLOT} != NO_SLOT:
+        raise AssertionError(f"a depth-6 train launched {launches}: the "
+                             f"node-sparse kernels")
     log(f"train: XGBoost(max_depth=6, nbins=256, ntrees={ntrees}) on "
         f"{n} rows in {train_s:.3f} s {card}; launches {launches} = "
         f"{ntrees} trees x {levels} levels for hist and split_records")
@@ -1253,9 +1280,11 @@ def capture_hier_levels(fr, XGBoost, hist):
         fh.append((codes, leaf, stats, sel.clone(), W, nbins, scale))
         return real_fh(codes, leaf, stats, sel, W, nbins, scale)
 
-    def spy_hu(codes, leaf, stats, L, B, planes=3, scale=None):
+    def spy_hu(codes, leaf, stats, L, B, planes=3, scale=None,
+               row_start=None):
         hu.append((codes, leaf, stats, L, B, scale))
-        return real_hu(codes, leaf, stats, L, B, planes, scale)
+        return real_hu(codes, leaf, stats, L, B, planes, scale,
+                       row_start=row_start)
 
     hist.fine_hist, hist.hist_uniform = spy_fh, spy_hu
     try:
@@ -1440,7 +1469,7 @@ def train_hier_phase(fr, cols, kernels, XGBoost, batcher, hist, codes,
         raise AssertionError("the train did not take the hierarchical "
                              "search")
     want = {"hist": ntrees * levels, "fine_hist": ntrees * levels,
-            "split_records": 0, "split_records (per-row)": 0}
+            "split_records": 0, "split_records (per-row)": 0, **NO_SLOT}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"hier train launches {launches}; expected "
                              f"{want}")
@@ -1593,10 +1622,11 @@ def capture_multi_levels(fr, XGBoost, hist):
     hv, sr = [], []
     real_hv, real_sr = hist.hist_varbin, hist.split_records
 
-    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
+    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None, row_start=None):
         if leaf.dim() == 2:
             hv.append((gcodes, leaf, stats, L, tuple(bc), B, scale))
-        return real_hv(gcodes, leaf, stats, L, bc, B, scale)
+        return real_hv(gcodes, leaf, stats, L, bc, B, scale,
+                       row_start=row_start)
 
     def spy_sr(Hist, nbins, *args, **kw):
         sr.append((Hist.clone(), nbins, args))
@@ -1772,7 +1802,7 @@ def train_multi_phase(fr, cols, kernels, XGBoost, batcher, hist, card):
                              f"stacks on the {m.output['hist_kernel']} "
                              f"layout; expected {K_CLASSES}, varbin")
     want = {"hist": rounds * levels, "split_records": rounds * levels,
-            "fine_hist": 0, "split_records (per-row)": 0}
+            "fine_hist": 0, "split_records (per-row)": 0, **NO_SLOT}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"multinomial train launches {launches}; "
                              f"expected rounds x levels, whatever K: {want}")
@@ -2100,7 +2130,7 @@ def grid_train_phase(fr, cols, kernels, GridSearch, XGBoost, batcher, hist,
     launches = {k.name: k.launches for k in kernels}
     levels = as_stacks(g.models[0])[0].depth
     want = {"hist": R * levels, "split_records (per-row)": R * levels,
-            "split_records": 0, "fine_hist": 0}
+            "split_records": 0, "fine_hist": 0, **NO_SLOT}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"grid cohort launches {launches}; expected "
                              f"rounds x levels, whatever G: {want}")
@@ -2308,49 +2338,121 @@ DRF_WARM, DRF_TIMED = 3, 10
 
 def capture_slot_levels(fr, DRF, hist, cfg):
     """Train one DRF tree (or one round of K class trees) with the
-    histogram and records wrappers watched: per level the inputs of its
-    one batched ``hist_varbin`` or ``hist_uniform`` launch (leaf [K, n]:
-    the root's rows, a dense level's compacted prefix labelled by parent,
-    a sparse level's labelled by parent slot) and of its records launch
-    (the K*L flattened leaves or slots).  Returns (levels, records, the
-    model's build: its depth and first sparse level)."""
-    hv, sr = [], []
-    real = (hist.hist_varbin, hist.hist_uniform, hist.split_records)
+    histogram, compaction and records wrappers watched: per level the
+    inputs of its one batched ``hist_varbin`` or ``hist_uniform`` launch
+    (leaf [K, n]: the root's rows, a dense level's compacted prefix
+    labelled by parent, a sparse level's slot-ordered prefix labelled by
+    parent slot, with its ``row_start``), per sparse level those of its
+    ``slot_compact`` launch (codes, sleaf, stats, ps_of_slot, A_prev), and
+    per level those of its records launch (the K*L flattened leaves or
+    slots).  Returns (levels, compactions, records, the model's build:
+    its depth and first sparse level)."""
+    hv, sc, sr = [], [], []
+    real = (hist.hist_varbin, hist.hist_uniform, hist.slot_compact,
+            hist.split_records)
 
-    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None):
-        hv.append(("varbin", gcodes, leaf, stats, L, tuple(bc), B, scale))
-        return real[0](gcodes, leaf, stats, L, bc, B, scale)
+    def spy_hv(gcodes, leaf, stats, L, bc, B, scale=None, row_start=None):
+        hv.append(("varbin", gcodes, leaf, stats, L, tuple(bc), B, scale,
+                   row_start))
+        return real[0](gcodes, leaf, stats, L, bc, B, scale,
+                       row_start=row_start)
 
-    def spy_hu(codes, leaf, stats, L, B, planes=3, scale=None):
-        hv.append(("uniform", codes, leaf, stats, L, None, B, scale))
-        return real[1](codes, leaf, stats, L, B, planes, scale)
+    def spy_hu(codes, leaf, stats, L, B, planes=3, scale=None,
+               row_start=None):
+        hv.append(("uniform", codes, leaf, stats, L, None, B, scale,
+                   row_start))
+        return real[1](codes, leaf, stats, L, B, planes, scale,
+                       row_start=row_start)
+
+    def spy_sc(codes, sleaf, stats, ps_of_slot, A_prev):
+        sc.append((codes, sleaf, stats, ps_of_slot, A_prev))
+        return real[2](codes, sleaf, stats, ps_of_slot, A_prev)
 
     def spy_sr(Hist, nbins, *args, **kw):
         sr.append((Hist.clone(), nbins, args))
-        return real[2](Hist, nbins, *args, **kw)
+        return real[3](Hist, nbins, *args, **kw)
 
-    hist.hist_varbin, hist.hist_uniform, hist.split_records = \
-        spy_hv, spy_hu, spy_sr
+    (hist.hist_varbin, hist.hist_uniform, hist.slot_compact,
+     hist.split_records) = spy_hv, spy_hu, spy_sc, spy_sr
     try:
         m = DRF(ntrees=1, **cfg).train(fr)
     finally:
-        hist.hist_varbin, hist.hist_uniform, hist.split_records = real
-    return hv, sr, m
+        (hist.hist_varbin, hist.hist_uniform, hist.slot_compact,
+         hist.split_records) = real
+    return hv, sc, sr, m
 
 
-def slot_hist(entry, hist, stats=None, scale=None, plain=True):
+def slot_hist(entry, hist, stats=None, scale=None, plain=True,
+              windows=True):
     """Launch a captured level's histogram again (on other stats when
-    given), and with ``plain`` its plain version: (kernel, plain)."""
-    kind, g, leaf, st, L, bc, B, sc = entry
+    given; over its row windows, or with ``windows=False`` over the whole
+    prefix, today's full-prefix geometry), and with ``plain`` its plain
+    version: (kernel, plain)."""
+    kind, g, leaf, st, L, bc, B, sc, rs = entry
     st = st if stats is None else stats
     sc = sc if stats is None else scale
+    rs = rs if windows else None
     if kind == "varbin":
-        got = hist.hist_varbin(g, leaf, st, L, bc, B, sc)
+        got = hist.hist_varbin(g, leaf, st, L, bc, B, sc, row_start=rs)
         return (got, hist.hist_varbin_torch(
             g, leaf, st, L, hist.packed_layout(bc, B), sc)) if plain else got
-    got = hist.hist_uniform(g, leaf, st, L, B, scale=sc)
+    got = hist.hist_uniform(g, leaf, st, L, B, scale=sc, row_start=rs)
     return (got, hist.hist_uniform_torch(g, leaf, st, L, B, scale=sc)) \
         if plain else got
+
+
+def by_window(out, n):
+    """A compaction's prefix ([K, F, cap1] codes whose plane 0 is each
+    row's number, pleaf, st) sorted per tree by (parent slot, row), the
+    tail (leaf -1) last with its codes and stats read as 0 (the kernel
+    leaves them unwritten): the order-free form of its windows."""
+    import torch
+    cc, pleaf, st = out[:3]
+    tail = pleaf < 0
+    key = torch.where(tail, torch.iinfo(torch.int64).max,
+                      pleaf.long() * n + cc[:, 0].long())
+    order = torch.sort(key, dim=1, stable=True)[1]
+    K, F, cap1 = cc.shape
+    tail = tail.gather(1, order)[:, None]
+    return (torch.where(tail, 0, cc.gather(
+                2, order[:, None].expand(K, F, cap1))),
+            pleaf.gather(1, order),
+            torch.where(tail, 0.0, st.gather(
+                2, order[:, None].expand(K, 3, cap1))))
+
+
+def check_compaction(entry, hist, what):
+    """``slot_compact`` against ``slot_compact_torch`` on a captured
+    level's inputs, with each row's number as a first code plane: the same
+    ``row_start`` and chosen slots, each window the same rows with the
+    same codes, parent slot and stats (both sorted by row within their
+    windows), the same tail of leaf -1; a second launch likewise.  Returns the
+    largest |kernel - plain| over the sorted stats and codes."""
+    import torch
+    codes, sleaf, stats, ps, A_prev = entry
+    n = codes.shape[1]
+    rows = torch.arange(n, dtype=torch.int32, device=codes.device)[None]
+    tagged = torch.cat([rows, codes.int()])
+    want = hist.slot_compact_torch(tagged, sleaf, stats, ps, A_prev)
+    w = by_window(want, n)
+    worst = 0.0
+    for _ in range(2):
+        got = hist.slot_compact(tagged, sleaf, stats, ps, A_prev)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[3], want[3])
+                and torch.equal(got[4], want[4])):
+            raise AssertionError(f"slot_compact at {what}: row_start or "
+                                 f"the chosen slots differ from the plain "
+                                 f"version")
+        g = by_window(got, n)
+        worst = max(worst, max_diff(g[0], w[0]), max_diff(g[2], w[2]))
+        if not (torch.equal(g[0], w[0]) and torch.equal(g[1], w[1])
+                and torch.equal(g[2].view(torch.int32),
+                                w[2].view(torch.int32))):
+            raise AssertionError(f"slot_compact at {what}: a window holds "
+                                 f"other rows, codes, parent slots or "
+                                 f"stats than the plain version's")
+    return worst
 
 
 def dropped_children(m, shared):
@@ -2370,75 +2472,117 @@ def dropped_children(m, shared):
     return out, A_lv
 
 
+def sparse_start(m, shared):
+    """The model's first node-sparse level."""
+    return shared.sparse_geometry(
+        m.output["effective_max_depth"], m.params.nbins,
+        len(m.datainfo.specs), m.params.sparse_depth_threshold,
+        "sparse")[0]
+
+
 def check_slot_kernels(fr, DRF, hist, shared, dev, card):
     """Phase 20: one 1M-row DRF tree and one K = 3 round captured; at
-    every sparse level the one ``hist`` launch (K on blockIdx.z, L = the
-    parent slots) bitwise its plain version and a second launch, on the
-    captured and on integer-valued stats, and the records over the K*A
-    slots bitwise theirs; the slot budget binds (some level drops pairs).
-    Returns (the largest max|kernel - plain| of hist and records, the
-    binomial capture)."""
+    every sparse level ``slot_compact`` against its plain version (the
+    same windows: ``check_compaction``), the one windowed ``hist`` launch
+    (K trees, L = the parent slots, each tile over its parent slots' row
+    windows) bitwise its plain version, a second launch and the
+    full-prefix launch (``row_start=None``), on the captured and on
+    integer-valued stats, and the plain histogram of the plain
+    compaction's prefix; the records over the K*A slots bitwise theirs;
+    the slot budget binds (some level drops pairs).  Returns (the largest
+    max|kernel - plain| of hist, slot_compact and records, the binomial
+    capture)."""
     import torch
     from h2o3_tpu_torch.testing import same_bits
     gen = torch.Generator(device=dev)
     gen.manual_seed(20)
-    worst = {"hist": 0.0, "split_records": 0.0}
+    worst = {"hist": 0.0, "split_records": 0.0, "slot_compact": 0.0}
     capture = None
     for what, cfg in (("binomial tree", DRF_CFG),
                       (f"K={K_CLASSES} round", DRF_CLASS_CFG)):
-        hv, sr, m = capture_slot_levels(fr, DRF, hist, cfg)
+        hv, sc, sr, m = capture_slot_levels(fr, DRF, hist, cfg)
         depth = m.output["effective_max_depth"]
-        start = shared.sparse_geometry(
-            depth, m.params.nbins, len(m.datainfo.specs),
-            m.params.sparse_depth_threshold, "sparse")[0]
-        if len(hv) != depth or len(sr) != depth or start >= depth:
+        start = sparse_start(m, shared)
+        if len(hv) != depth or len(sr) != depth or start >= depth \
+                or len(sc) != depth - start \
+                or any(e[8] is not None for e in hv[:start]) \
+                or any(e[8] is None for e in hv[start:]):
             raise AssertionError(
-                f"DRF {what}: {len(hv)} hist and {len(sr)} records "
-                f"launches for {depth} levels, sparse from {start}")
+                f"DRF {what}: {len(hv)} hist, {len(sc)} slot_compact and "
+                f"{len(sr)} records launches for {depth} levels, sparse "
+                f"from {start}, windows at the wrong levels")
         shapes = []
         for d in range(start, depth):
             entry = hv[d]
             leaf = entry[2]
             K, n = leaf.shape
+            worst["slot_compact"] = max(
+                worst["slot_compact"],
+                check_compaction(sc[d - start], hist,
+                                 f"sparse level {d} of the DRF {what}"))
             ints = torch.stack([int_stats(n, gen, dev) for _ in range(K)])
-            for stats, sc, kind in ((None, None, "captured"),
-                                    (ints, hist.stat_scale(ints),
-                                     "integer")):
-                got, want = slot_hist(entry, hist, stats, sc)
-                again, _ = slot_hist(entry, hist, stats, sc)
+            for stats, scl, kind in ((None, None, "captured"),
+                                     (ints, hist.stat_scale(ints),
+                                      "integer")):
+                got, want = slot_hist(entry, hist, stats, scl)
+                again, _ = slot_hist(entry, hist, stats, scl)
+                full = slot_hist(entry, hist, stats, scl, plain=False,
+                                 windows=False)
                 torch.cuda.synchronize()
                 worst["hist"] = max(worst["hist"], max_diff(got, want))
-                if not (same_bits(got, want) and same_bits(again, got)):
+                if not (same_bits(got, want) and same_bits(again, got)
+                        and same_bits(full, got)):
                     raise AssertionError(
-                        f"hist ({entry[0]}) at sparse level {d} of the DRF "
-                        f"{what} != plain (or a second launch) on {kind} "
-                        f"stats: max|diff| {max_diff(got, want):.3e}")
-            shapes.append((d, entry[4], sr[d][0].shape[1], n))
+                        f"windowed hist ({entry[0]}) at sparse level {d} of "
+                        f"the DRF {what} != plain (or a second launch, or "
+                        f"the full-prefix launch) on {kind} stats: "
+                        f"max|diff| {max_diff(got, want):.3e}, full "
+                        f"{max_diff(full, want):.3e}")
+            # the plain compaction's prefix through the plain histogram
+            pc = hist.slot_compact_torch(*sc[d - start])
+            kind, _, _, _, L, bc, B, scl, _ = entry
+            plain = hist.hist_varbin_torch(
+                pc[0], pc[1], pc[2], L, hist.packed_layout(bc, B), scl) \
+                if kind == "varbin" else hist.hist_uniform_torch(
+                    pc[0], pc[1], pc[2], L, B, scale=scl)
+            if not same_bits(plain, slot_hist(entry, hist, plain=False)):
+                raise AssertionError(
+                    f"the windowed hist of slot_compact's prefix at sparse "
+                    f"level {d} of the DRF {what} != the plain histogram "
+                    f"of the plain compaction's prefix")
+            shapes.append((d, L, sr[d][0].shape[1], n,
+                           int(entry[8][:, -1].sum())))
         worst["split_records"] = max(
             worst["split_records"],
             check_records(sr[start:], hist, f"sparse-level DRF {what}"))
         drops, A_lv = dropped_children(m, shared)
         log(f"kernel check slot levels, DRF {what} at {fr.nrows} rows "
             f"(max_depth {depth}, sparse from level {start}, slots "
-            f"{sorted(set(A_lv.values()))}, hist layout {hv[-1][0]}): "
-            f"every sparse level's hist launch bitwise its plain version "
-            f"and a second launch, on the captured and on integer-valued "
-            f"stats; records over the K*A slots bitwise theirs; "
-            f"(level, parent slots L, K*A records rows, prefix rows) "
-            f"{shapes}; alive children made terminal by the slot budget "
-            f"per level { {d: c for d, c in drops.items() if c} } {card}")
+            f"{sorted(set(A_lv.values()))}, hist layout {hv[-1][0]}): at "
+            f"every sparse level slot_compact's windows hold the plain "
+            f"version's rows, codes, parent slots and stats (a second "
+            f"launch too); the windowed hist launch bitwise its plain "
+            f"version, a second launch and the full-prefix launch, on the "
+            f"captured and on integer-valued stats, and the plain "
+            f"histogram of the plain compaction's prefix; records over the "
+            f"K*A slots bitwise theirs; (level, parent slots L, K*A records "
+            f"rows, prefix rows, chosen rows) {shapes}; alive children "
+            f"made terminal by the slot budget per level "
+            f"{ {d: c for d, c in drops.items() if c} } {card}")
         if not any(drops.values()):
             raise AssertionError(f"DRF {what}: no sparse level dropped a "
                                  f"pair; the slot budget never bound")
         if capture is None:
-            capture = (hv, sr, start)
+            capture = (hv, sc, sr, start)
     return worst, capture
 
 
-def drf_train_phase(fr, cols, kernels, DRF, hist, batcher, card):
-    """Phase 21: the DRF main path at 1M rows, counted (``hist`` and the
-    scalar records once per level of every tree, ``effective_max_depth``
-    each a tree; for a K = 3 round the same, whatever K); against the
+def drf_train_phase(fr, cols, kernels, DRF, hist, shared, batcher, card):
+    """Phase 21: the DRF main path at 1M rows, counted (the scalar
+    records once per level of every tree, ``effective_max_depth`` each a
+    tree; ``hist`` once per dense level, and per sparse level one
+    ``slot_compact`` and one windowed ``hist`` launch; for a K = 3 round
+    the same, whatever K); against the
     plain route; a second train bitwise; the K = 3 forest, sampled,
     bitwise its K loop; hist_layout="check" at depth 12 from level 4;
     the default-sampled forest published and served through the
@@ -2459,15 +2603,23 @@ def drf_train_phase(fr, cols, kernels, DRF, hist, batcher, card):
             or depth != DRF_CFG["max_depth"]:
         raise AssertionError(f"the DRF grew {m.output['hist_layout']} "
                              f"levels to depth {depth}")
-    want = {"hist": DRF_TREES * depth, "split_records": DRF_TREES * depth,
+    start = sparse_start(m, shared)
+    sparse = depth - start
+    want = {"hist": DRF_TREES * start,
+            "hist (slot windows)": DRF_TREES * sparse,
+            "slot_compact": DRF_TREES * sparse,
+            "split_records": DRF_TREES * depth,
             "split_records (per-row)": 0, "fine_hist": 0}
-    if {k: launches[k] for k in want} != want:
+    if launches != want:
         raise AssertionError(f"DRF launches {launches}; expected trees x "
                              f"levels: {want}")
     log(f"DRF train: DRF(max_depth=20, nbins=64, sample_rate=1, mtries=-2, "
         f"ntrees={DRF_TREES}) on {n} rows in {train_s:.3f} s {card}; "
-        f"launches {launches} = {DRF_TREES} trees x {depth} levels; hist "
-        f"kernel {m.output['hist_kernel']}; training AUC "
+        f"launches {launches} = {DRF_TREES} trees x {depth} levels: per "
+        f"tree {start} dense levels one full-prefix hist each, {sparse} "
+        f"node-sparse levels one slot_compact and one windowed hist each, "
+        f"every level one split_records; hist kernel "
+        f"{m.output['hist_kernel']}; training AUC "
         f"{m.training_metrics.auc:.6f}")
 
     plain_from = {k.name: k.launches for k in kernels}
@@ -2505,8 +2657,12 @@ def drf_train_phase(fr, cols, kernels, DRF, hist, batcher, card):
     torch.cuda.synchronize()
     klaunch = {k.name: k.launches for k in kernels}
     kdepth = mk.output["effective_max_depth"]
-    if klaunch["hist"] != 2 * kdepth or klaunch["split_records"] \
-            != 2 * kdepth or len(as_stacks(mk)) != K_CLASSES:
+    kstart = sparse_start(mk, shared)
+    if klaunch["hist"] != 2 * kstart \
+            or klaunch["hist (slot windows)"] != 2 * (kdepth - kstart) \
+            or klaunch["slot_compact"] != 2 * (kdepth - kstart) \
+            or klaunch["split_records"] != 2 * kdepth \
+            or len(as_stacks(mk)) != K_CLASSES:
         raise AssertionError(f"K={K_CLASSES} DRF launches {klaunch}; "
                              f"expected rounds x levels, whatever K")
     ms = DRF(ntrees=2, split_mode="separate", **sampled).train(fr)
@@ -2602,32 +2758,107 @@ def serve_check(name, m, cols, batcher, from_reference, card,
     return launches
 
 
-def time_slot_levels(hv, sr, start, hist, label, card):
-    """Device ms of each sparse level's ``hist`` launch (CUDA events) and
-    records launch of a captured tree, beside their plain versions, the
-    one int64 ``index_add_`` computing the same histogram sums and their
-    bounds.  Returns per-tree sums {hist, split_records: [ms, plain,
-    bound, index_add_, bytes, ops]}."""
+def row_order_compaction(codes, sleaf, stats, ps_of_slot, A_prev):
+    """The node-sparse level's compaction as the port built it before
+    ``slot_compact`` (``histc`` counts, the fold, one cumsum over the K*n
+    rows, a scatter of the chosen rows' numbers in ROW order, then
+    gathers of their codes, parent slots and stats): (ccodes, pleaf, st,
+    chosen_slot).  Kept only to be timed beside the kernel that replaced
+    it."""
     import torch
-    tot = {"hist": [0.0] * 6, "split_records": [0.0] * 6}
+    K, n = sleaf.shape
+    A = ps_of_slot.shape[1]
+    F = codes.shape[0]
+    cap = n // 2
+    dev = codes.device
+    off = (torch.arange(K, dtype=torch.int64, device=dev) * (A + 1))[:, None]
+    cnt = torch.histc((sleaf + off).double(), bins=K * (A + 1), min=0,
+                      max=K * (A + 1)).view(K, A + 1)
+    zero = torch.zeros((K, A_prev), dtype=torch.float64, device=dev)
+    cl = zero.scatter_add(1, ps_of_slot[:, 0::2], cnt[:, 0:A:2])
+    cr = zero.scatter_add(1, ps_of_slot[:, 1::2], cnt[:, 1:A:2])
+    sil = (cl <= cr).gather(1, ps_of_slot)
+    chosen_slot = torch.where((torch.arange(A, device=dev) & 1).bool(),
+                              ~sil, sil)
+    no = torch.zeros((K, 1), dtype=torch.int64, device=dev)
+    chosen = torch.cat([chosen_slot, no.bool()], 1).gather(1, sleaf)
+    ps_tbl = torch.cat([ps_of_slot, no], 1)
+    c_flat = torch.cumsum(chosen.view(-1), dim=0).view(K, n)
+    c_incl = c_flat - torch.nn.functional.pad(c_flat[:-1, -1:], (0, 0, 1, 0))
+    target = torch.where(chosen, c_incl - 1, cap)
+    rows = torch.zeros((K, cap + 1), dtype=torch.int64, device=dev) \
+        .scatter_(1, target, torch.arange(n, device=dev).expand(K, n))
+    kept = torch.arange(cap + 1, device=dev) < c_incl[:, -1:]
+    ccodes = codes.index_select(1, rows.view(-1)).view(
+        F, K, cap + 1).transpose(0, 1)
+    pleaf = torch.where(kept, ps_tbl.gather(1, sleaf.gather(1, rows)),
+                        -1).to(torch.int32)
+    st = stats.gather(2, rows[:, None, :].expand(K, 3, cap + 1))
+    return ccodes, pleaf, st, chosen_slot
+
+
+def work_windows(g, leaf, rs, L, Q, F):
+    """Bytes and adds of one windowed launch: each tree's row_start, the
+    leaf id, stats and codes of each row in its windows (every other row
+    of the prefix is never read) and its packed output once."""
+    valid = int(rs[:, -1].sum())
+    nbytes = rs.numel() * 4 + valid * (4 + 12 + F * g.element_size()) \
+        + leaf.shape[0] * Q * 3 * L * 4
+    return nbytes, 3 * F * valid
+
+
+def work_compaction(entry, hist):
+    """Bytes one ``slot_compact`` needs: every row's slot read once (8 B;
+    one [n] row when the trees share it), the codes and stats of the
+    chosen rows read and written with their parent slot, and the leaf -1
+    of each tree's tail (the rest of its n // 2 + 1 positions; their
+    codes and stats are never written)."""
+    codes, sleaf, _, ps, A_prev = entry
+    K, n = sleaf.shape
+    F, cb = codes.shape[0], codes.element_size()
+    cnt = hist.slot_counts_torch(sleaf, ps.shape[1])
+    chosen = int(hist._slot_choice(cnt, ps, A_prev)[2][:, -1].sum())
+    rows = K if sleaf.stride(0) else 1
+    return rows * n * 8 + chosen * (2 * (F * cb + 12) + 4) \
+        + (K * (n // 2 + 1) - chosen) * 4
+
+
+def time_slot_levels(hv, sc, sr, start, hist, label, card):
+    """Device ms of each sparse level's windowed ``hist`` launch (CUDA
+    events) in turns with the same kernel over the same slot-ordered
+    prefix without windows (``row_start=None``, the full-prefix
+    geometry: windowed, full, full, windowed), beside its plain version,
+    the one int64 ``index_add_`` computing the same sums and its bound;
+    its ``slot_compact`` beside the plain version and the row-order
+    compaction it replaced (``row_order_compaction``), with its bound;
+    the records launch.  Returns per-tree sums {hist, slot_compact,
+    split_records: [ms, plain, bound, index_add_, bytes, ops]} and the
+    full-prefix hist's ms and the row-order compaction's ms per tree."""
+    import torch
+    tot = {k: [0.0] * 6 for k in ("hist", "slot_compact", "split_records")}
+    full_tot = old_tot = 0.0
+    parts_tot = [0.0] * 3
     for d in range(start, len(hv)):
-        kind, g, leaf, st, L, bc, B, sc = hv[d]
+        kind, g, leaf, st, L, bc, B, scl, rs = hv[d]
         K, n = leaf.shape
         F = g.shape[-2]
-        ms = cuda_ms(lambda: slot_hist(hv[d], hist, plain=False), reps=20)
+        t = [cuda_ms(lambda: slot_hist(hv[d], hist, plain=False,
+                                       windows=w), reps=20)
+             for w in (True, False, False, True)]
+        ms, full = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
         if kind == "varbin":
             layout = hist.packed_layout(bc, B)
             plain = cuda_ms(lambda: hist.hist_varbin_torch(
-                g, leaf, st, L, layout, sc), reps=YARDSTICK_REPS)
+                g, leaf, st, L, layout, scl), reps=YARDSTICK_REPS)
             Q = layout.Q
             q = g.long() if g.dim() == 3 else g.long()[None]
         else:
             plain = cuda_ms(lambda: hist.hist_uniform_torch(
-                g, leaf, st, L, B, scale=sc), reps=YARDSTICK_REPS)
+                g, leaf, st, L, B, scale=scl), reps=YARDSTICK_REPS)
             Q = F * B
             c = g.long() if g.dim() == 3 else g.long()[None]
             q = c + (torch.arange(F, device=g.device) * B)[None, :, None]
-        qs = hist.quantize(st, sc)
+        qs = hist.quantize(st, scl)
         lf = leaf.long()
         ok = ((lf >= 0) & (lf < L))[:, None, :].expand(K, F, n)
         kq = torch.arange(K, device=g.device)[:, None, None] * Q + q
@@ -2637,8 +2868,26 @@ def time_slot_levels(hv, sr, start, hist, label, card):
                           device=g.device)
         lib = cuda_ms(lambda: out.index_add_(0, idx, src), YARDSTICK_REPS)
         del idx, src, kq, ok, out
-        nbytes, ops = work_multi(g, leaf, L, Q, F)
+        nbytes, ops = work_windows(g, leaf, rs, L, Q, F)
         bnd, _ = bound(nbytes, ops)
+        e = sc[d - start]
+        cms = cuda_ms(lambda: hist.slot_compact(*e), reps=20)
+        # its parts: the count pass, the [K, A] choice, the scatter pass
+        ecodes, esleaf, estats, eps, eAp = e
+        cnt = hist._slot_count(esleaf, eps.shape[1])
+        _, dest, ers = hist._slot_choice(cnt, eps, eAp)
+        parts = (cuda_ms(lambda: hist._slot_count(esleaf, eps.shape[1]),
+                         reps=20),
+                 cuda_ms(lambda: hist._slot_choice(cnt, eps, eAp), reps=20),
+                 cuda_ms(lambda: hist._slot_scatter(ecodes, esleaf, estats,
+                                                    dest, ers), reps=20))
+        chosen = int(ers[:, -1].sum())
+        cplain = cuda_ms(lambda: hist.slot_compact_torch(*e),
+                         reps=YARDSTICK_REPS)
+        cold = cuda_ms(lambda: row_order_compaction(*e),
+                       reps=YARDSTICK_REPS)
+        cb = work_compaction(e, hist)
+        cbnd, _ = bound(cb, 0)
         H, nbins, args = sr[d]
         LF, Bh = H.shape[1] * H.shape[2], H.shape[3]
         rms = cuda_ms(lambda: hist.split_records(H, nbins, *args), reps=20)
@@ -2647,23 +2896,39 @@ def time_slot_levels(hv, sr, start, hist, label, card):
         rb, rops = work_records(LF, Bh)
         rbnd, _ = bound(rb, rops)
         for key, v in (("hist", (ms, plain, bnd, lib, nbytes, ops)),
+                       ("slot_compact", (cms, cplain, cbnd, 0.0, cb, 0)),
                        ("split_records", (rms, rplain, rbnd, 0.0, rb,
                                           rops))):
             for j in range(6):
                 tot[key][j] += v[j]
+        full_tot += full
+        old_tot += cold
+        parts_tot = [a + b for a, b in zip(parts_tot, parts)]
         log(f"slot level times {label} level {d} (K={K}, parent slots "
-            f"L={L}, prefix rows {n}, valid rows {ops // (3 * F)}, {kind}) "
-            f"{card}: hist {ms:.4f} ms (plain {plain:.4f}, index_add_ "
-            f"{lib:.4f}, bound {bnd:.5f} by bytes {nbytes}); split_records "
+            f"L={L}, prefix rows {n}, rows in windows {ops // (3 * F)}, "
+            f"{kind}) {card}: windowed hist {ms:.4f} ms in turns with the "
+            f"full-prefix launch {full:.4f} ({t[0]:.4f}, {t[1]:.4f}, "
+            f"{t[2]:.4f}, {t[3]:.4f}; plain {plain:.4f}, index_add_ "
+            f"{lib:.4f}, bound {bnd:.5f} by bytes {nbytes}); slot_compact "
+            f"{cms:.4f} ms over {chosen} chosen rows (count pass "
+            f"{parts[0]:.4f}, choice {parts[1]:.4f}, scatter pass "
+            f"{parts[2]:.4f}; plain {cplain:.4f}, the row-order compaction "
+            f"{cold:.4f}, bound {cbnd:.5f} by bytes {cb}); split_records "
             f"{rms:.4f} ms over {LF} rows (plain {rplain:.4f}, bound "
             f"{rbnd:.6f})")
     log(f"slot level times per tree at {label} (sum of the {len(hv) - start}"
-        f" sparse levels) {card}: hist {tot['hist'][0]:.4f} ms (plain "
+        f" sparse levels) {card}: windowed hist {tot['hist'][0]:.4f} ms, "
+        f"the full-prefix launch in turns {full_tot:.4f} (plain "
         f"{tot['hist'][1]:.4f}, index_add_ {tot['hist'][3]:.4f}, bound "
-        f"{tot['hist'][2]:.5f}); split_records "
-        f"{tot['split_records'][0]:.4f} ms (plain "
-        f"{tot['split_records'][1]:.4f}, bound {tot['split_records'][2]:.6f})")
-    return tot
+        f"{tot['hist'][2]:.5f}); slot_compact {tot['slot_compact'][0]:.4f}"
+        f" ms (count pass {parts_tot[0]:.4f}, choice {parts_tot[1]:.4f}, "
+        f"scatter pass {parts_tot[2]:.4f}; plain "
+        f"{tot['slot_compact'][1]:.4f}, the row-order "
+        f"compaction {old_tot:.4f}, bound {tot['slot_compact'][2]:.5f}); "
+        f"split_records {tot['split_records'][0]:.4f} ms (plain "
+        f"{tot['split_records'][1]:.4f}, bound "
+        f"{tot['split_records'][2]:.6f})")
+    return tot, full_tot, old_tot
 
 
 def headline_drf(DRF, fr, hist, shared, card):
@@ -2723,13 +2988,10 @@ def headline_drf(DRF, fr, hist, shared, card):
             + "; ".join(f"{e.key[:110]} "
                         f"{e.self_device_time_total / 1e3 / T:.3f} "
                         f"({e.count / T:g})" for e in kern[:14]))
-    hv, sr, mc = capture_slot_levels(fr, DRF, hist, DRF_DEFAULT_CFG)
-    start = shared.sparse_geometry(
-        mc.output["effective_max_depth"], mc.params.nbins,
-        len(mc.datainfo.specs), mc.params.sparse_depth_threshold,
-        "sparse")[0]
+    hv, sc, sr, mc = capture_slot_levels(fr, DRF, hist, DRF_DEFAULT_CFG)
+    start = sparse_start(mc, shared)
     check_records(sr[start:], hist, "10M-row DRF sparse-level")
-    tot = time_slot_levels(hv, sr, start, hist, f"{n} rows", card)
+    tot = time_slot_levels(hv, sc, sr, start, hist, f"{n} rows", card)
     return tps, ops, idle, tot
 
 
@@ -2739,7 +3001,8 @@ def slot_phases(DRF, Frame, hist, shared, batcher, kernels, dev, card):
     cols, frd = multi_frame(1_000_000, Frame)
     kdiff, _ = check_slot_kernels(frd, DRF, hist, shared, dev, card)
     mark("phase 20")
-    launches = drf_train_phase(frd, cols, kernels, DRF, hist, batcher, card)
+    launches = drf_train_phase(frd, cols, kernels, DRF, hist, shared,
+                               batcher, card)
     del frd, cols
     mark("phase 21")
     return kdiff, launches
@@ -2749,28 +3012,36 @@ def slot_headline(DRF, Frame, hist, shared, card, slot):
     """Phase 22 and the kernel rows of the slot geometry."""
     kdiff, launches = slot
     _, fr10 = multi_frame(10_000_000, Frame)
-    tps, ops, idle, tot = headline_drf(DRF, fr10, hist, shared, card)
+    tps, ops, idle, (tot, full, old) = headline_drf(DRF, fr10, hist, shared,
+                                                   card)
     del fr10
     log(f"DRF headline at 10M rows {card}: {tps:.3f} trees/s, {ops:g} "
-        f"device ops per tree, idle share {idle:.3f}; per tree hist at the "
-        f"sparse levels {tot['hist'][0]:.4f} ms (bound "
-        f"{tot['hist'][2]:.5f}), split_records {tot['split_records'][0]:.4f}"
-        f" ms")
+        f"device ops per tree, idle share {idle:.3f}; per tree at the "
+        f"sparse levels the windowed hist {tot['hist'][0]:.4f} ms (the "
+        f"full-prefix launch in turns {full:.4f}, index_add_ "
+        f"{tot['hist'][3]:.4f}, bound {tot['hist'][2]:.5f}), slot_compact "
+        f"{tot['slot_compact'][0]:.4f} ms (the row-order compaction "
+        f"{old:.4f}, bound {tot['slot_compact'][2]:.5f}), split_records "
+        f"{tot['split_records'][0]:.4f} ms")
     rows = []
-    for name, src, rep, lib in (
-            ("hist (node-sparse levels)", "h2o3_tpu_torch/csrc/hist.cu",
+    for name, key, src, rep, lib in (
+            ("hist (node-sparse levels)", "hist (slot windows)",
+             "h2o3_tpu_torch/csrc/hist.cu",
              "h2o3_tpu/models/tree/hist.py:256; "
              "h2o3_tpu/models/tree/hist.py:80 (at the slot geometry: "
              "hist.py:1046, _make_sparse_level_fn)", True),
-            ("split_records (node-sparse levels)",
+            ("slot_compact", "slot_compact",
+             "h2o3_tpu_torch/csrc/slot_compact.cu",
+             "none: XLA in the reference (h2o3_tpu/models/tree/hist.py:988, "
+             "_sparse_local_body)", False),
+            ("split_records (node-sparse levels)", "split_records",
              "h2o3_tpu_torch/csrc/split_records.cu",
              "h2o3_tpu/models/tree/hist.py:1526 (over the K*A slots: "
              "shared.py:836, shared.py:998)", False)):
-        key = name.split(" ")[0]
-        v = tot[key]
+        v = tot[key.split(" ")[0]]
         rows.append({
             "name": name, "route": "cuda", "source": src, "replaces": rep,
-            "launches": launches[key], "max_abs_err": kdiff[key],
+            "launches": launches[key], "max_abs_err": kdiff[key.split(" ")[0]],
             "ms": v[0], "plain_ms": v[1], "bound_ms": v[2],
             "bound_by": bound(v[4], v[5])[1],
             "library_ms": v[3] if lib else None,
@@ -2793,6 +3064,11 @@ EIF_CFG = dict(ISO_CFG, extension_level=1, ntrees=10)
 UPLIFT_CFG = dict(response_column="conv", treatment_column="treatment",
                   ignored_columns=["dep_delayed_15min"], max_depth=10, seed=1)
 UPLIFT_TREES = 3
+# the first node-sparse level of DT's default depth 20 and of the uplift
+# forest's depth 10 (the default sparse_depth_threshold): the levels
+# before it launch the full-prefix hist, those from it slot_compact and
+# the windowed hist
+DT_SPARSE_FROM = UPLIFT_SPARSE_FROM = 8
 UPLIFT_TIMED = 5
 
 
@@ -2958,7 +3234,7 @@ def import_train_phase(fr, exp, XGBoost, kernels, card):
     launches = {k.name: k.launches for k in kernels}
     levels = XGB_IMPORT_TREES * BENCH_CFG["max_depth"]
     want = {"hist": levels, "split_records": levels,
-            "split_records (per-row)": 0, "fine_hist": 0}
+            "split_records (per-row)": 0, "fine_hist": 0, **NO_SLOT}
     if launches != want:
         raise AssertionError(f"imported-frame XGBoost launches {launches}; "
                              f"expected {want}")
@@ -2990,7 +3266,9 @@ def dt_phase(nat, cols, fr10, kernels, hist, batcher, card):
     train_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
     depth = m.output["effective_max_depth"]
-    want = {"hist": depth, "split_records": depth,
+    start = DT_SPARSE_FROM
+    want = {"hist": start, "hist (slot windows)": depth - start,
+            "slot_compact": depth - start, "split_records": depth,
             "split_records (per-row)": 0, "fine_hist": 0}
     if launches != want or m.output["hist_layout"] != "sparse" \
             or depth != 20:
@@ -3149,8 +3427,11 @@ def uplift_phase(cols, fr10, Frame, kernels, hist, tmp, card):
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
     launches = {k.name: k.launches for k in kernels}
-    want = {"hist": UPLIFT_TREES * 10, "split_records": 0,
-            "split_records (per-row)": 0, "fine_hist": 0}
+    want = {"hist": UPLIFT_TREES * UPLIFT_SPARSE_FROM,
+            "hist (slot windows)": UPLIFT_TREES * (10 - UPLIFT_SPARSE_FROM),
+            "slot_compact": UPLIFT_TREES * (10 - UPLIFT_SPARSE_FROM),
+            "split_records": 0, "split_records (per-row)": 0,
+            "fine_hist": 0}
     if launches != want:
         raise AssertionError(f"uplift launches {launches}; expected {want}")
     with plain_route(hist):
@@ -3310,7 +3591,7 @@ def dart_phase(fr, cols, kernels, XGBoost, batcher, hist, kernel, gbm,
     levels = m.output["stacked"].depth
     want = {"hist": DART_TREES * levels,
             "split_records": DART_TREES * levels, "fine_hist": 0,
-            "split_records (per-row)": 0}
+            "split_records (per-row)": 0, **NO_SLOT}
     if {k: launches[k] for k in want} != want:
         raise AssertionError(f"DART train launches {launches}; expected "
                              f"trees x levels: {want}")
@@ -3863,7 +4144,7 @@ def main() -> dict:
 
     # ----------------------------------------------------------- 2 build
     kernels = [kernel.TRAVERSE, hist.HIST, hist.SPLIT_RECORDS,
-               hist.FINE_HIST]
+               hist.FINE_HIST, hist.SLOT_COMPACT]
     t0 = time.perf_counter()
     native.build_all(kernels)
     log(f"build: {len(kernels)} kernel(s) in "
@@ -3882,7 +4163,7 @@ def main() -> dict:
         log(f"sass probe {fn}: {ops}"
             + ("; a branch back (a loop)" if back else ""))
     kernels_train = [hist.HIST, hist.SPLIT_RECORDS, hist.SPLIT_RECORDS_ROWS,
-                     hist.FINE_HIST]
+                     hist.FINE_HIST, hist.HIST_WINDOWS, hist.SLOT_COMPACT]
     device = {"platform": "gpu", "kind": name,
               "count": torch.cuda.device_count()}
     # the histograms timed in turns (phases 12, 13): this checkout's

@@ -95,9 +95,10 @@ fine_hist_kernel(const CodeT* __restrict__ codes, long long code_stride,
   const long long sl = (long long)F * K * W;      // output strides
   const FineSlots<CodeT> slots{codes, code_stride, ssel, t.fa, t.fb, K, W,
                                nbins};
+  const int r0 = blockIdx.y * rows_per_block;
   hist_common::tile_body(slots, t, smem + (nsel + 1) / 2, leaf, stats,
-                         stat_stride, qscale, 3, n, rows_per_block, out,
-                         L * sl, sl, 1);
+                         stat_stride, qscale, 3, r0,
+                         min(n, r0 + rows_per_block), out, L * sl, sl, 1);
 }
 
 template <typename CodeT>

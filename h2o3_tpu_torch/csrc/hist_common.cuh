@@ -2,10 +2,13 @@
 // share, for Hopper (sm_90a): integer fixed-point sums.
 //
 // A block owns one TILE of the output (a contiguous range of the packed
-// slot axis q x a leaf range, cut by models/tree/hist.py::hist_tiles)
-// and a range of rows.  It zeroes the tile in shared memory, adds each
-// row's stats into the slots its `Slots` policy names, and adds the
-// tile's non-zero entries to the global output at the end.  The two
+// slot axis q x a leaf range, cut by models/tree/hist.py::hist_tiles, or
+// ::slot_tiles at the node-sparse slot geometry) and a range of rows
+// [r0, r1) that its kernel hands it: a fixed slice of the row axis, or on
+// the slot geometry a chunk of the tile's own row window (hist.cu).  It
+// zeroes the tile in shared memory, adds each row's stats into the slots
+// its `Slots` policy names, and adds the tile's non-zero entries to the
+// global output at the end.  The two
 // kernels differ only in their slot function: hist.cu lands a row once
 // per feature, at code_off[f] + code; fine_hist.cu lands it once per
 // chosen super-bin k of its leaf and feature that holds its code, at
@@ -73,17 +76,17 @@ __device__ __forceinline__ void shared_add(u64* p, long long v) {
 
 // The tile's body.  `sums` is the block's shared memory for `copies`
 // tiles of [qn, ln, planes] u64 (each one u64 longer when copies > 1);
-// `qscale` the planes' scales 2^s_p (f64,
-// on the device); `out` the int64 output, written through the strides
-// (ss, sl, sq) of plane, leaf and packed slot.  slots.each(r, lf, emit)
-// calls emit(q) once for each packed slot q row r lands on.
+// `qscale` the planes' scales 2^s_p (f64, on the device); rows [r0, r1)
+// the block's; `out` the int64 output, written through the strides (ss,
+// sl, sq) of plane, leaf and packed slot.  slots.each(r, lf, emit) calls
+// emit(q) once for each packed slot q row r lands on.
 template <class Slots>
 __device__ __forceinline__ void tile_body(
     const Slots& slots, const Tile& t, u64* sums,
     const int32_t* __restrict__ leaf, const float* __restrict__ stats,
     long long stat_stride, const double* __restrict__ qscale, int planes,
-    int n, int rows_per_block, u64* __restrict__ out, long long ss,
-    long long sl, long long sq) {
+    int r0, int r1, u64* __restrict__ out, long long ss, long long sl,
+    long long sq) {
   const int size = t.qn * t.ln * planes;
   // lane l of every warp adds into copy l % copies; an odd stride puts
   // one slot's copies on distinct banks
@@ -91,13 +94,15 @@ __device__ __forceinline__ void tile_body(
   u64* mine = sums + (threadIdx.x % t.copies) * stride;
   const double sg = __ldg(qscale), sh = __ldg(qscale + 1),
                sw = __ldg(qscale + 2);
-  const int r0 = blockIdx.y * rows_per_block;
-  const int r1 = min(n, r0 + rows_per_block);
 
   if (t.use_smem)
     for (int i = threadIdx.x; i < t.copies * stride; i += blockDim.x)
       sums[i] = 0ull;
   __syncthreads();          // also orders what the caller staged before
+  // Every row of [r0, r1) is read; a row whose leaf falls outside the
+  // tile's range adds nothing.  Over a fixed slice that drops the rows of
+  // the other tiles' leaves; inside a row window every row belongs to
+  // the tile, and the check only guards it.
   for (int r = r0 + threadIdx.x; r < r1; r += blockDim.x) {
     const int lf = __ldg(leaf + r) - t.l0;
     if ((unsigned)lf >= (unsigned)t.ln) continue;

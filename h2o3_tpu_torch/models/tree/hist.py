@@ -27,7 +27,12 @@ version:
 * ``fine_hist`` -> ``csrc/fine_hist.cu`` (JAX ``_make_pallas_fine_hist``):
   the fine bins inside the K super-bins the hierarchical split search
   chose per (leaf, feature); plain version ``fine_hist_torch``, one
-  int64 ``index_add_``.
+  int64 ``index_add_``;
+* ``slot_compact`` -> ``csrc/slot_compact.cu`` (no Pallas kernel: XLA in
+  the JAX package's ``_sparse_local_body``): a node-sparse level's chosen
+  rows ordered by parent slot, so that ``hist_varbin`` / ``hist_uniform``
+  with ``row_start`` let each tile read only its parent slots' rows;
+  plain version ``slot_compact_torch``, a stable ``argsort`` per tree.
 
 The three histograms sum in int64 fixed point (``stat_scale``,
 ``quantize``; ``csrc/hist_common.cuh`` holds the kernels' shared tile):
@@ -62,7 +67,17 @@ _F = ctypes.c_float
 
 HIST = native.Kernel("hist", {
     "hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _P, _I, _P, _I, _I, _I, _I,
-                     _I, _P, _L, _L, _L, _I, _L, _L, _L, _L, _L, _P), _I),
+                     _I, _P, _L, _L, _L, _I, _L, _L, _L, _L, _L, _P, _I, _P,
+                     _I, _I, _P), _I),
+})
+# the histogram over per-tile row windows (the node-sparse levels' slot
+# geometry, ``row_start`` given), counted apart from the full-prefix
+# launches in ``HIST.launches``
+HIST_WINDOWS = native.KernelForm(HIST, "hist (slot windows)")
+SLOT_COMPACT = native.Kernel("slot_compact", {
+    "slot_count_launch": ((_P, _L, _I, _I, _I, _P, _P), _I),
+    "slot_scatter_launch": ((_P, _I, _L, _I, _P, _L, _P, _L, _L, _P, _I, _P,
+                             _I, _I, _I, _P, _P, _P, _I, _P), _I),
 })
 SPLIT_RECORDS = native.Kernel("split_records", {
     "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
@@ -288,11 +303,24 @@ def hist_tiles(layout: HistLayout, L: int, budget: int = HIST_SMEM_BUDGET,
         smem = int(qn * Lt * per_q <= budget)
         for l0 in range(0, L, Lt):
             ln = min(Lt, L - l0)
-            fit = _COPIES_SMEM // (qn * ln * per_q + _SLOT_BYTES)
-            copies = 1 << (min(MAX_COPIES, fit).bit_length() - 1) \
-                if smem and fit >= 2 else 1
-            tiles.append((fa, fb, qa, qn, l0, ln, smem, copies))
+            tiles.append((fa, fb, qa, qn, l0, ln, smem,
+                          _copies(qn, ln, per_q, smem)))
         fa = fb
+    return _tile_table(tiles, per_q)
+
+
+def _copies(qn: int, ln: int, per_q: int, smem: int) -> int:
+    """A tile's copies: the largest power of two up to ``MAX_COPIES`` whose
+    copies, each one slot longer, stay within ``_COPIES_SMEM`` (1 for a
+    tile in global memory)."""
+    fit = _COPIES_SMEM // (qn * ln * per_q + _SLOT_BYTES)
+    return 1 << (min(MAX_COPIES, fit).bit_length() - 1) \
+        if smem and fit >= 2 else 1
+
+
+def _tile_table(tiles, per_q: int) -> Tuple[np.ndarray, int]:
+    """[T, 8] int32 tile rows and the shared-memory bytes of the largest
+    block."""
     arr = np.asarray(tiles, np.int32)
     used = arr[:, 6] == 1
     cp = arr[used, 7]
@@ -302,16 +330,60 @@ def hist_tiles(layout: HistLayout, L: int, budget: int = HIST_SMEM_BUDGET,
     return arr, smem_bytes
 
 
+def slot_tiles(layout: HistLayout, L: int, budget: int = HIST_SMEM_BUDGET,
+               planes: int = 3) -> Tuple[np.ndarray, int]:
+    """``hist_tiles``'s table for a launch over per-tile row windows (the
+    node-sparse levels, ``row_start`` given).
+
+    There a tile reads only the rows of its own leaf range, so a narrower
+    leaf range costs no extra reads, while each further feature range
+    reads every row's leaf (4 B) and stats (12 B) again.  So features are
+    packed greedily into the widest ranges that fit the budget at ONE
+    leaf, and each range takes the widest leaf range that then fits (an
+    even split of L): the bench frame's 8 features at nbins 64 are 368
+    packed bins, 8.8 KB a slot, so 11 slots a 96 KB tile (373 tiles at
+    4,096 parent slots), each row's leaf and stats read once for all its
+    features.  A feature whose segment alone exceeds the
+    budget gets one tile over all L leaves in global memory (use_smem 0).
+    The copies rule is ``hist_tiles``'s."""
+    per_q = planes * _SLOT_BYTES
+    tiles = []
+    fa = 0
+    F = layout.F
+    while fa < F:
+        fb = fa + 1
+        while fb < F and (layout.qstart[fb] + layout.qlen[fb]
+                          - layout.qstart[fa]) * per_q <= budget:
+            fb += 1
+        qa = layout.qstart[fa]
+        qn = layout.qstart[fb - 1] + layout.qlen[fb - 1] - qa
+        smem = int(qn * per_q <= budget)
+        lt = min(L, budget // (qn * per_q)) if smem else L
+        groups = -(-L // lt)
+        Lt = -(-L // groups)
+        for l0 in range(0, L, Lt):
+            ln = min(Lt, L - l0)
+            tiles.append((fa, fb, qa, qn, l0, ln, smem,
+                          _copies(qn, ln, per_q, smem)))
+        fa = fb
+    return _tile_table(tiles, per_q)
+
+
 @functools.lru_cache(maxsize=None)
-def _device_meta(layout: HistLayout, L: int, device: str, planes: int = 3):
+def _device_meta(layout: HistLayout, L: int, device: str, planes: int = 3,
+                 windows: bool = False):
     """The layout's [3, F] feature table and its [T, 8] tiles on the
-    device, uploaded once per (layout, L, device, planes)."""
-    tiles, smem = hist_tiles(layout, L, planes=planes)
+    device (``slot_tiles`` for a launch over row windows, else
+    ``hist_tiles``), uploaded once per (layout, L, device, planes,
+    windows); with the tile count, the shared memory and the number of
+    feature ranges."""
+    tiles, smem = (slot_tiles if windows else hist_tiles)(
+        layout, L, planes=planes)
     meta = np.asarray([layout.code_off, layout.qstart, layout.qlen],
                       np.int32)
     dev = torch.device(device)
     return (torch.from_numpy(meta).to(dev), torch.from_numpy(tiles).to(dev),
-            int(tiles.shape[0]), smem)
+            int(tiles.shape[0]), smem, len(set(tiles[:, 0].tolist())))
 
 
 @functools.lru_cache(maxsize=None)
@@ -331,6 +403,24 @@ def _rows_per_block(n: int, n_tiles: int, smem: int, device: str,
     chunks = max(1, min(-(-n // 2048), -(-target // (n_tiles * K))))
     rows = -(-n // chunks)
     return max(rows, -(-n // 65_535))
+
+
+@functools.lru_cache(maxsize=None)
+def window_grid(n: int, n_tiles: int, n_ranges: int, smem: int, sms: int,
+                K: int = 1) -> Tuple[int, int]:
+    """(rows a chunk, blocks) of a launch over row windows on a card of
+    ``sms`` SMs: a prefix of n rows, T tiles over ``n_ranges`` feature
+    ranges, K trees.  The rows a chunk aim at two waves of the card if
+    every prefix row were in a window (at least 2,048); the blocks bound
+    the chunks any windows can need without reading them: within one
+    feature range the leaf ranges partition the leaves, so the windows of
+    tree k's tiles there hold at most n rows between them, and sum_t
+    ceil(rows_t / R) <= K * T + n_ranges * K * n / R."""
+    per_sm = max(1, min(2048 // _HIST_THREADS,
+                        (227 * 1024) // max(smem, 1)))
+    target = 2 * sms * per_sm
+    R = max(2048, -(-n_ranges * K * n // target))
+    return R, K * n_tiles + -(-n_ranges * K * n // R)
 
 
 # --------------------------------------------------- histogram: kernel path
@@ -367,15 +457,36 @@ def _check_hist_operands(codes, leaf, stats) -> int:
     return K
 
 
+def _check_row_start(row_start, leaf, L: int):
+    """Raise unless ``row_start`` is None or the [L + 1] (K trees: [K, L +
+    1]) contiguous int32 tensor of the leaves' row windows on the leaf's
+    device.  Its values are not checked (that would read them on the
+    host): windows that are not monotone or miss rows of their leaves give
+    undefined sums on the card."""
+    if row_start is None:
+        return
+    want = (*leaf.shape[:-1], L + 1)
+    if tuple(row_start.shape) != want or row_start.dtype != torch.int32 \
+            or row_start.device != leaf.device \
+            or not row_start.is_contiguous():
+        raise ValueError(f"row_start must be a contiguous {list(want)} "
+                         f"int32 tensor on {leaf.device}")
+
+
 def _launch_hist(codes, leaf, stats, scale, L: int, layout: HistLayout,
-                 out: torch.Tensor, strides, planes: int = 3) -> None:
+                 out: torch.Tensor, strides, planes: int = 3,
+                 row_start=None) -> None:
     """Launch ``csrc/hist.cu`` adding the level histogram of one tree, or
     of K trees (``leaf`` [K, n]), into ``out`` (int64 fixed point, zeroed
     by the caller; tree k's at ``out[k]``) through ``strides`` = (s, l,
-    q)."""
+    q).  With ``row_start`` each tile reads only its leaves' row windows
+    (``slot_tiles``; counted in ``HIST_WINDOWS``), else every row
+    (``hist_tiles``; counted in ``HIST``)."""
     dev = codes.device
     n = codes.shape[-1]
-    meta, tiles, n_tiles, smem = _device_meta(layout, L, str(dev), planes)
+    windows = row_start is not None
+    meta, tiles, n_tiles, smem, n_ranges = _device_meta(
+        layout, L, str(dev), planes, windows)
     if n == 0:
         return
     batched = leaf.dim() == 2
@@ -383,7 +494,15 @@ def _launch_hist(codes, leaf, stats, scale, L: int, layout: HistLayout,
 
     def kstride(t, dims):        # tree k's offset in elements; 0 if shared
         return t.stride(0) if batched and t.dim() == dims else 0
-    rpb = _rows_per_block(n, n_tiles, smem, str(dev), K)
+    if windows:
+        rpb = 0
+        R, blocks = window_grid(n, n_tiles, n_ranges, smem,
+                                _sm_count(str(dev)), K)
+        plan = torch.empty(K * n_tiles + 1, dtype=torch.int32, device=dev)
+        win = (row_start.data_ptr(), L, plan.data_ptr(), R, blocks)
+    else:
+        rpb = _rows_per_block(n, n_tiles, smem, str(dev), K)
+        win = (None, 0, None, 0, 0)
     lib = HIST.lib()
     with torch.cuda.device(dev):
         rc = lib.hist_launch(
@@ -393,11 +512,11 @@ def _launch_hist(codes, leaf, stats, scale, L: int, layout: HistLayout,
             n_tiles, n, rpb, smem, planes, out.data_ptr(), strides[0],
             strides[1], strides[2], K, kstride(codes, 3), kstride(leaf, 2),
             kstride(stats, 3), kstride(scale, 3),
-            kstride(out, out.dim()),
+            kstride(out, out.dim()), *win,
             torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"hist kernel launch failed: CUDA error {rc}")
-    HIST.count()
+    (HIST_WINDOWS if windows else HIST).count()
 
 
 def _plane_inv(scale, planes: int) -> torch.Tensor:
@@ -457,7 +576,7 @@ def hist_uniform_torch(codes, leaf, stats, L: int, B: int, planes: int = 3,
 
 
 def hist_uniform(codes, leaf, stats, L: int, B: int, planes: int = 3,
-                 scale=None) -> torch.Tensor:
+                 scale=None, row_start=None) -> torch.Tensor:
     """Level histogram on the uniform bin axis -> H [planes, L, F, B] f32.
 
     codes [F, n] int16/int32 in [0, B), leaf [n] int32 (rows outside
@@ -466,12 +585,20 @@ def hist_uniform(codes, leaf, stats, L: int, B: int, planes: int = 3,
     are int64 fixed point on ``scale`` (``stat_scale``; this call's own
     when None): exact, the same on every run.  K trees (leaf [K, n], see
     above) give H [K, planes, L, F, B] from one launch, bitwise K calls of
-    one tree.  CUDA tensors launch ``csrc/hist.cu`` (counted in
-    ``HIST.launches``); CPU tensors take ``hist_uniform_torch``."""
+    one tree.  ``row_start`` (None, or each tree's [L + 1] int32 row
+    windows: leaf l's rows at [row_start[l], row_start[l + 1]), every row
+    outside them at a leaf outside [0, L)) lets each tile read only its
+    leaves' rows; on the card a ``row_start`` that breaks this (not
+    monotone, or missing rows of a leaf) gives undefined sums, as the
+    windows are not checked against ``leaf``.  CUDA tensors launch ``csrc/hist.cu`` (counted in
+    ``HIST.launches``, or ``HIST_WINDOWS.launches`` over row windows); CPU
+    tensors take ``hist_uniform_torch``, which sums by leaf id and so
+    needs no windows."""
     K = _check_hist_operands(codes, leaf, stats)
     if planes not in (3, 4):
         raise ValueError(f"planes={planes}: use 3 or 4")
     scale = _check_scale(scale, stats)
+    _check_row_start(row_start, leaf, L)
     if not _on_cuda(codes, "histogram"):
         return hist_uniform_torch(codes, leaf, stats, L, B, planes, scale)
     F = codes.shape[-2]
@@ -479,7 +606,7 @@ def hist_uniform(codes, leaf, stats, L: int, B: int, planes: int = 3,
     out = torch.zeros((*lead, planes, L, F * B), dtype=torch.int64,
                       device=codes.device)
     _launch_hist(codes, leaf, stats, scale, L, uniform_layout(F, B), out,
-                 (L * F * B, F * B, 1), planes)
+                 (L * F * B, F * B, 1), planes, row_start)
     return _dequantize(out.view(*lead, planes, L, F, B),
                        _plane_inv(scale, planes))
 
@@ -515,23 +642,26 @@ def hist_varbin_torch(gcodes, leaf, stats, L: int, layout: HistLayout,
 
 
 def hist_varbin(gcodes, leaf, stats, L: int, bin_counts: tuple, B: int,
-                scale=None) -> torch.Tensor:
+                scale=None, row_start=None) -> torch.Tensor:
     """Level histogram on the packed per-feature axis -> [Q8, 3L] f32
     (row q, column 3 l + s; expand with ``expand_varbin``).
 
     gcodes [F, n] are pre-offset packed ids (``offset_codes``); sums as in
     ``hist_uniform``, and K trees likewise give [K, Q8, 3L] from one
-    launch.  CUDA tensors launch ``csrc/hist.cu`` (counted in
-    ``HIST.launches``); CPU tensors take ``hist_varbin_torch``."""
+    launch; ``row_start`` as there.  CUDA tensors launch ``csrc/hist.cu``
+    (counted in ``HIST.launches``, or ``HIST_WINDOWS.launches``); CPU
+    tensors take ``hist_varbin_torch``."""
     K = _check_hist_operands(gcodes, leaf, stats)
     layout = packed_layout(tuple(bin_counts), B)
     scale = _check_scale(scale, stats)
+    _check_row_start(row_start, leaf, L)
     if not _on_cuda(gcodes, "histogram"):
         return hist_varbin_torch(gcodes, leaf, stats, L, layout, scale)
     lead = (K,) if K else ()
     out = torch.zeros((*lead, layout.Q * L, 3), dtype=torch.int64,
                       device=gcodes.device)
-    _launch_hist(gcodes, leaf, stats, scale, L, layout, out, (1, 3, 3 * L))
+    _launch_hist(gcodes, leaf, stats, scale, L, layout, out, (1, 3, 3 * L),
+                 row_start=row_start)
     return _dequantize(out, scale[..., 1:2, :]).view(*lead, layout.Q, 3 * L)
 
 
@@ -558,16 +688,18 @@ def expand_varbin(packed: torch.Tensor, bin_counts: tuple, L: int,
 
 
 def local_hist(codes, leaf, stats, L: int, F: int, B: int,
-               bin_counts=None, scale=None) -> torch.Tensor:
+               bin_counts=None, scale=None, row_start=None) -> torch.Tensor:
     """Level histogram in the dense [3, L, F, B] contract (K trees: [K, 3,
     L, F, B]): the varbin layout when ``bin_counts`` is given (codes
     pre-offset), else the uniform one (the JAX package's ``make_hist_fn``
-    and ``make_varbin_hist_fn``; one device, so no psum)."""
+    and ``make_varbin_hist_fn``; one device, so no psum); ``row_start``
+    the leaves' row windows, if the rows are ordered by leaf."""
     if bin_counts is not None:
         packed = hist_varbin(codes, leaf, stats, L, tuple(bin_counts), B,
-                             scale)
+                             scale, row_start=row_start)
         return expand_varbin(packed, tuple(bin_counts), L, B)
-    return hist_uniform(codes, leaf, stats, L, B, scale=scale)
+    return hist_uniform(codes, leaf, stats, L, B, scale=scale,
+                        row_start=row_start)
 
 
 @functools.lru_cache(maxsize=None)
@@ -725,6 +857,174 @@ def sparse_slot_maps(valid_prev: torch.Tensor, A_next: int):
     return child_base, ps_of_slot, real
 
 
+def _slot_choice(cnt: torch.Tensor, ps_of_slot: torch.Tensor, A_prev: int):
+    """From the rows per slot ``cnt`` [K, A + 1] (the sentinel slot A
+    last), each parent slot's smaller child: the left one where its count
+    is at most the right one's (the JAX package's ``cl <= cr``).  Returns
+    bool ``chosen_slot`` [K, A], int32 ``dest`` [K, A + 1] (a chosen
+    slot's parent slot, -1 for the other child and for A) and int32
+    ``row_start`` [K, A_prev + 1], the exclusive scan of the chosen rows
+    per parent slot: parent slot p's rows lie at [row_start[k, p],
+    row_start[k, p + 1]), and row_start[k, A_prev] is tree k's count.
+    Slots past the live ones hold no rows, so pointing them at parent 0
+    adds nothing.  [K, A]-sized torch ops; the host reads nothing."""
+    K, A1 = cnt.shape
+    A = A1 - 1
+    dev = cnt.device
+    c = cnt[:, :A].long()
+    ps = ps_of_slot.long()
+    zero = torch.zeros((K, A_prev), dtype=torch.int64, device=dev)
+    cl = zero.scatter_add(1, ps[:, 0::2], c[:, 0::2])
+    cr = zero.scatter_add(1, ps[:, 1::2], c[:, 1::2])
+    sil = (cl <= cr).gather(1, ps)                                # [K, A]
+    chosen_slot = torch.where((torch.arange(A, device=dev) & 1).bool(),
+                              ~sil, sil)
+    per_parent = zero.scatter_add(1, ps, torch.where(chosen_slot, c, 0))
+    row_start = torch.nn.functional.pad(torch.cumsum(per_parent, 1),
+                                        (1, 0)).to(torch.int32)
+    dest = torch.nn.functional.pad(torch.where(chosen_slot, ps, -1),
+                                   (0, 1), value=-1).to(torch.int32)
+    return chosen_slot, dest, row_start
+
+
+def _slots(sleaf: torch.Tensor, A: int) -> torch.Tensor:
+    """Each row's slot, a value outside [0, A] counted as the sentinel
+    A (int64)."""
+    s = sleaf.long()
+    return torch.where((s < 0) | (s > A), A, s)
+
+
+def slot_counts_torch(sleaf: torch.Tensor, A: int) -> torch.Tensor:
+    """Plain version of the count pass: [K, n] slots -> int32 rows per
+    (tree, slot) [K, A + 1], the sentinel slot A included (one
+    ``bincount`` over k * (A + 1) + slot)."""
+    K = sleaf.shape[0]
+    off = torch.arange(K, device=sleaf.device)[:, None] * (A + 1)
+    return torch.bincount((_slots(sleaf, A) + off).view(-1),
+                          minlength=K * (A + 1)).view(K, A + 1) \
+        .to(torch.int32)
+
+
+def slot_compact_torch(codes, sleaf, stats, ps_of_slot, A_prev: int):
+    """Plain version of ``slot_compact`` (the CPU path and the oracle):
+    the same windows, each in row order.  A stable ``argsort`` per tree of
+    the key (the row's parent slot if its slot is chosen, else A_prev)
+    puts the chosen rows first in (parent slot, row) order; the first
+    n // 2 + 1 are gathered, and positions from the tree's count on take
+    leaf -1 (their codes and stats, other rows', are never read)."""
+    K, n = sleaf.shape
+    A = ps_of_slot.shape[1]
+    F = codes.shape[0]
+    cap1 = n // 2 + 1
+    dev = codes.device
+    chosen_slot, dest, row_start = _slot_choice(
+        slot_counts_torch(sleaf, A), ps_of_slot, A_prev)
+    key = dest.long().gather(1, _slots(sleaf, A))
+    key = torch.where(key < 0, A_prev, key)
+    rows = torch.argsort(key, dim=1, stable=True)[:, :cap1]     # [K, cap1]
+    kept = torch.arange(cap1, device=dev) < row_start[:, -1:]
+    ccodes = codes.index_select(1, rows.reshape(-1)).view(
+        F, K, cap1).transpose(0, 1).contiguous()
+    pleaf = torch.where(kept, key.gather(1, rows), -1).to(torch.int32)
+    st = stats.gather(2, rows[:, None, :].expand(K, 3, cap1))
+    return ccodes, pleaf, st, row_start, chosen_slot
+
+
+def slot_compact(codes, sleaf, stats, ps_of_slot, A_prev: int):
+    """The slot-ordered compaction of a node-sparse level of K trees: each
+    parent slot's smaller child's rows, side by side per parent slot, in
+    a prefix of n // 2 + 1 rows per tree (the JAX package's
+    ``_sparse_local_body`` compaction, hist.py:988-1035, there in row
+    order).
+
+    codes [F, n] int16/int32 shared by the trees, sleaf [K, n] each row's
+    slot in [0, A] (A: none; a tree's row may be a view of one [n] row),
+    stats [K, 3, n] f32, ps_of_slot [K, A] (``sparse_slot_maps``).
+    Returns (ccodes [K, F, n // 2 + 1], pleaf [K, n // 2 + 1] int32: the
+    row's parent slot, -1 past the tree's count, st [K, 3, n // 2 + 1],
+    row_start [K, A_prev + 1] int32: parent slot p's rows at
+    [row_start[k, p], row_start[k, p + 1]), chosen_slot [K, A] bool).
+    Past a tree's count its codes and stats are undefined; no reader
+    looks at a row of leaf -1.  The set of rows in each window is exact; in the kernel's output
+    their order inside the window may differ between runs (the
+    histograms of the prefix cannot: exact integer sums).  CUDA tensors
+    launch ``csrc/slot_compact.cu`` (its count pass, the [K, A]-sized
+    choice, its scatter pass; counted once in ``SLOT_COMPACT.launches``);
+    CPU tensors take ``slot_compact_torch``."""
+    K, n = sleaf.shape
+    A = ps_of_slot.shape[1]
+    if codes.dim() != 2 or codes.shape[1] != n \
+            or codes.dtype not in (torch.int16, torch.int32) \
+            or codes.stride(1) != 1:
+        raise ValueError("codes must be a [F, n] int16/int32 tensor with "
+                         "contiguous rows")
+    if sleaf.dtype != torch.int64 or sleaf.stride(1) != 1:
+        raise ValueError("sleaf must be a [K, n] int64 tensor with "
+                         "contiguous rows")
+    if stats.shape != (K, 3, n) or stats.dtype != torch.float32 \
+            or stats.stride(2) != 1:
+        raise ValueError(f"stats must be a [{K}, 3, {n}] f32 tensor with "
+                         f"contiguous rows")
+    if ps_of_slot.shape[0] != K:
+        raise ValueError(f"ps_of_slot must be [{K}, A]")
+    for name, t in (("sleaf", sleaf), ("stats", stats),
+                    ("ps_of_slot", ps_of_slot)):
+        if t.device != codes.device:
+            raise ValueError(f"{name} is on {t.device}, codes on "
+                             f"{codes.device}")
+    if not _on_cuda(codes, "slot compaction"):
+        return slot_compact_torch(codes, sleaf, stats, ps_of_slot, A_prev)
+    chosen_slot, dest, row_start = _slot_choice(_slot_count(sleaf, A),
+                                                ps_of_slot, A_prev)
+    ccodes, pleaf, st = _slot_scatter(codes, sleaf, stats, dest, row_start)
+    SLOT_COMPACT.count()
+    return ccodes, pleaf, st, row_start, chosen_slot
+
+
+def _slot_count(sleaf, A: int) -> torch.Tensor:
+    """``slot_compact``'s count pass on the card: [K, A + 1] int32 rows
+    per (tree, slot)."""
+    K, n = sleaf.shape
+    dev = sleaf.device
+    cnt = torch.zeros((K, A + 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = SLOT_COMPACT.lib().slot_count_launch(
+            sleaf.data_ptr(), sleaf.stride(0), n, A, K, cnt.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"slot_compact count pass failed: CUDA error "
+                           f"{rc}")
+    return cnt
+
+
+def _slot_scatter(codes, sleaf, stats, dest, row_start):
+    """``slot_compact``'s scatter pass on the card: (ccodes, pleaf, st)
+    of the [K, *, n // 2 + 1] prefix, each parent slot's rows in its
+    ``row_start`` window."""
+    K, n = sleaf.shape
+    F = codes.shape[0]
+    A = dest.shape[1] - 1
+    A_prev = row_start.shape[1] - 1
+    cap1 = n // 2 + 1
+    dev = codes.device
+    cursor = row_start.clone()
+    ccodes = torch.empty((K, F, cap1), dtype=codes.dtype, device=dev)
+    pleaf = torch.empty((K, cap1), dtype=torch.int32, device=dev)
+    st = torch.empty((K, 3, cap1), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        rc = SLOT_COMPACT.lib().slot_scatter_launch(
+            codes.data_ptr(), codes.element_size(), codes.stride(0), F,
+            sleaf.data_ptr(), sleaf.stride(0), stats.data_ptr(),
+            stats.stride(1), stats.stride(0), dest.data_ptr(), A,
+            cursor.data_ptr(), A_prev, n, cap1, ccodes.data_ptr(),
+            pleaf.data_ptr(), st.data_ptr(), K,
+            torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"slot_compact scatter pass failed: CUDA error "
+                           f"{rc}")
+    return ccodes, pleaf, st
+
+
 def make_batched_sparse_level_fn(A_prev: int, A: int, K: int, F: int, B: int,
                                  bin_counts=None):
     """A node-sparse deep level of K trees in one histogram launch (the
@@ -738,52 +1038,27 @@ def make_batched_sparse_level_fn(A_prev: int, A: int, K: int, F: int, B: int,
     dropped pair), stats [K, 3, n], carry the previous level's [K, 3,
     A_prev, F, B] (at the first sparse level the dense level's, whose
     nodes are then the parent slots), ``ps_of_slot`` [K, A]
-    (``sparse_slot_maps``).  The rows per slot (one ``histc``), folded to
-    each parent slot's left and right, pick its smaller child; the
-    chosen rows (never a row of slot A) are compacted into a prefix of n
-    // 2 + 1 rows labelled by parent slot and histogrammed in one launch
-    at L = A_prev; the larger child is the carry minus the smaller, h/w
-    clamped at 0, and one gather along the slot axis gives H [K, 3, A, F,
-    B], also the next level's carry.  With every parent valid and A =
-    2^d the slot map is the identity and H is bitwise the dense level's."""
+    (``sparse_slot_maps``).  ``slot_compact`` counts the rows per slot,
+    folds the counts to each parent slot's left and right, picks its
+    smaller child and writes the chosen rows (never a row of slot A) into
+    a prefix of n // 2 + 1 rows ordered by parent slot, each parent
+    slot's rows in its own window (``row_start``).  One launch
+    histograms the K prefixes at L = A_prev, each tile reading only the
+    windows of its parent slots (``slot_tiles``: all features a tile, a
+    few parent slots); the larger child is the carry minus the smaller,
+    h/w clamped at 0, and one gather along the slot axis gives H [K, 3,
+    A, F, B], also the next level's carry.  The histograms are exact
+    integer sums, so H does not depend on the order of rows within a
+    window.  With every parent valid and A = 2^d the slot map is the
+    identity and H is bitwise the dense level's."""
     bc = tuple(bin_counts) if bin_counts is not None else None
 
     def level(codes, sleaf, stats, carry, ps_of_slot, scale=None):
         scale = stat_scale(stats) if scale is None else scale
-        n = codes.shape[1]
-        cap = n // 2
-        dev = codes.device
-        # rows per slot of every tree, the sentinel slot A included
-        cnt = torch.histc((sleaf + _tree_offsets(K, A + 1, str(dev))).double(),
-                          bins=K * (A + 1), min=0,
-                          max=K * (A + 1)).view(K, A + 1)
-        # each parent slot's left and right counts (slots past the live
-        # ones hold no rows, so pointing them at parent 0 adds nothing)
-        zero = torch.zeros((K, A_prev), dtype=torch.float64, device=dev)
-        cl = zero.scatter_add(1, ps_of_slot[:, 0::2], cnt[:, 0:A:2])
-        cr = zero.scatter_add(1, ps_of_slot[:, 1::2], cnt[:, 1:A:2])
-        sil = (cl <= cr).gather(1, ps_of_slot)                       # [K, A]
-        chosen_slot = torch.where(
-            (torch.arange(A, device=dev) & 1).bool(), ~sil, sil)
-        # per-slot tables with the sentinel slot A: never chosen
-        no = torch.zeros((K, 1), dtype=torch.int64, device=dev)
-        chosen_tbl = torch.cat([chosen_slot, no.bool()], 1)
-        ps_tbl = torch.cat([ps_of_slot, no], 1)
-        chosen = chosen_tbl.gather(1, sleaf)                         # [K, n]
-        # the dense level's compaction (make_batched_level_fn)
-        c_flat = torch.cumsum(chosen.view(-1), dim=0).view(K, n)
-        c_incl = c_flat - torch.nn.functional.pad(c_flat[:-1, -1:], (0, 0,
-                                                                     1, 0))
-        target = torch.where(chosen, c_incl - 1, cap)
-        rows = torch.zeros((K, cap + 1), dtype=torch.int64, device=dev) \
-            .scatter_(1, target, torch.arange(n, device=dev).expand(K, n))
-        kept = torch.arange(cap + 1, device=dev) < c_incl[:, -1:]
-        ccodes = codes.index_select(1, rows.view(-1)).view(
-            F, K, cap + 1).transpose(0, 1)                   # [K, F, cap+1]
-        pleaf = torch.where(kept, ps_tbl.gather(1, sleaf.gather(1, rows)),
-                            -1).to(torch.int32)
-        st = stats.gather(2, rows[:, None, :].expand(K, 3, cap + 1))
-        Hs = local_hist(ccodes, pleaf, st, A_prev, F, B, bc, scale)
+        ccodes, pleaf, st, row_start, chosen_slot = slot_compact(
+            codes, sleaf, stats, ps_of_slot, A_prev)
+        Hs = local_hist(ccodes, pleaf, st, A_prev, F, B, bc, scale,
+                        row_start=row_start)
         Ho = carry - Hs
         Ho[:, 1:].clamp_min_(0.0)
         # each slot's histogram from its parent slot's row: the chosen

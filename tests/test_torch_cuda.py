@@ -639,12 +639,15 @@ def test_small_grid_cohort_bitwise_sequential_members(cuda):
 
 # ------------------------------------------------ node-sparse deep levels
 
-def _slot_level_inputs(rng, K, A_prev, A, bc, nbins, n, integer, dev):
+def _slot_level_inputs(rng, K, A_prev, A, bc, nbins, n, integer, dev,
+                       skewed=False):
     """A sparse level's inputs on ``dev``: codes [F, n] (feature f's
     regular codes below its bin count ``bc[f]``), each tree's parent
     slots (3/4 of them valid, so that the A slots overflow where 2 x the
     valid ones pass A), each row's slot in [0, A] (some rows on the
-    sentinel A), stats [K, 3, n] and a carry [K, 3, A_prev, F, B]."""
+    sentinel A), stats [K, 3, n] and a carry [K, 3, A_prev, F, B].
+    ``skewed``: 70% of a tree's rows on one slot, and a third of the live
+    slots empty."""
     codes = np.stack([np.where(rng.random(n) < 0.05, nbins,
                                rng.integers(0, b, n))
                       for b in bc]).astype(np.int16)
@@ -652,6 +655,10 @@ def _slot_level_inputs(rng, K, A_prev, A, bc, nbins, n, integer, dev):
     _, ps, real = hist.sparse_slot_maps(valid, A)
     live = real.sum(1, keepdim=True)
     sleaf = torch.from_numpy(rng.integers(0, 1 << 30, (K, n))) % (live + 1)
+    if skewed:
+        sleaf = torch.where(sleaf % 3 == 1, live, sleaf)   # empty slots
+        heavy = torch.from_numpy(rng.random((K, n)) < 0.7)
+        sleaf = torch.where(heavy, 5, sleaf)
     sleaf = torch.where(sleaf == live, A, sleaf)       # the sentinel slot
     if integer:
         st = np.stack([rng.integers(-3, 4, (K, n)), rng.integers(0, 3, (K, n)),
@@ -665,35 +672,69 @@ def _slot_level_inputs(rng, K, A_prev, A, bc, nbins, n, integer, dev):
         codes, sleaf, st.astype(np.float32), carry.astype(np.float32), ps)]
 
 
+def _launch_counts():
+    return (hist.HIST.launches, hist.HIST_WINDOWS.launches,
+            hist.SLOT_COMPACT.launches, hist.SPLIT_RECORDS.launches)
+
+
+def _launched(before):
+    return tuple(a - b for a, b in zip(_launch_counts(), before))
+
+
+@pytest.mark.parametrize("skewed", [False, True])
 @pytest.mark.parametrize("varbin", [False, True])
 @pytest.mark.parametrize("integer", [True, False])
 @pytest.mark.parametrize("K", [1, 3])
-def test_sparse_level_at_4096_slots_equals_plain(cuda, K, integer, varbin):
+def test_sparse_level_at_4096_slots_equals_plain(cuda, K, integer, varbin,
+                                                 skewed):
     """A node-sparse level at the slot geometry of DRF's deep levels
     (2,048 or 4,096 parent slots, A = 4,096 slots, F = 8, nbins 64), one
-    ``hist`` launch for all K trees, equals the same level on the CPU
-    (the plain versions) bitwise; its records over the K*A slots equal
-    their plain version bitwise, in one launch."""
+    ``slot_compact`` and one windowed ``hist`` launch for all K trees,
+    equals the same level on the CPU (the plain versions) bitwise, on
+    uniform and on skewed slots (one slot holding most rows, a third
+    empty); on the kernel's slot-ordered prefix the windowed ``hist`` is
+    bitwise its plain version and the full-prefix (``row_start=None``)
+    launch; the records over the K*A slots equal their plain version
+    bitwise, in one launch."""
     F, nbins, n = 8, 64, 400_003
     B = nbins + 1
     A_prev = 2048 if K == 1 else 4096
-    rng = np.random.default_rng(K * 7 + integer + 2 * varbin)
+    rng = np.random.default_rng(K * 7 + integer + 2 * varbin + 4 * skewed)
     bc = (nbins, 12, nbins, 7, nbins, 40, 3, nbins)
     on_card = _slot_level_inputs(rng, K, A_prev, 4096, bc, nbins, n,
-                                 integer, cuda)
+                                 integer, cuda, skewed)
     H = {}
     for dev, (codes, sleaf, st, carry, ps) in (
             ("cuda", on_card), ("cpu", [x.cpu() for x in on_card])):
         codes = hist.offset_codes(codes, bc, nbins) if varbin else codes
         fn = hist.make_batched_sparse_level_fn(A_prev, 4096, K, F, B,
                                                bc if varbin else None)
-        before = hist.HIST.launches
+        before = _launch_counts()
         H[dev], _ = fn(codes, sleaf, st, carry, ps)
         if dev == "cuda":
             torch.cuda.synchronize()
-            assert hist.HIST.launches == before + 1
+            assert _launched(before) == (0, 1, 1, 0)
+            cc, pleaf, pst, rs, _ = hist.slot_compact(codes, sleaf, st, ps,
+                                                      A_prev)
     assert H["cuda"].shape == (K, 3, 4096, F, B)
     _assert_bitwise(H["cuda"].cpu(), H["cpu"])
+    # the level's scale, from the card's stats: pst past the count is
+    # unwritten
+    sc = hist.stat_scale(on_card[2])
+    if varbin:
+        args = (pleaf, pst, A_prev, bc, B, sc)
+        win = hist.hist_varbin(cc, *args, row_start=rs)
+        full = hist.hist_varbin(cc, *args)
+        plain = hist.hist_varbin_torch(cc, pleaf, pst, A_prev,
+                                       hist.packed_layout(bc, B), sc)
+    else:
+        win = hist.hist_uniform(cc, pleaf, pst, A_prev, B, scale=sc,
+                                row_start=rs)
+        full = hist.hist_uniform(cc, pleaf, pst, A_prev, B, scale=sc)
+        plain = hist.hist_uniform_torch(cc, pleaf, pst, A_prev, B, scale=sc)
+    torch.cuda.synchronize()
+    _assert_bitwise(win, plain)
+    _assert_bitwise(full, win)
     before = hist.SPLIT_RECORDS.launches
     got = hist.batched_splits(hist.fused_best_splits, H["cuda"], nbins, 1.0,
                               1.0, 1e-5)
@@ -706,10 +747,61 @@ def test_sparse_level_at_4096_slots_equals_plain(cuda, K, integer, varbin):
                            b.contiguous().view(-1).view(torch.uint8))
 
 
+@pytest.mark.parametrize("skewed", [False, True])
+@pytest.mark.parametrize("K", [1, 3])
+def test_slot_compact_kernel_equals_plain(cuda, K, skewed):
+    """``csrc/slot_compact.cu`` against ``slot_compact_torch`` at 4,096
+    slots: the same row_start and chosen slots; each window the same set
+    of rows (the codes carry each row's number) with the same codes,
+    stats and parent slot, row by row once both are sorted by row; the
+    same tail of leaf -1 (its codes and stats are left unwritten); and
+    the windowed histograms of the two prefixes bitwise."""
+    nbins, n, A = 64, 400_003, 4096
+    A_prev = 2048 if K == 1 else 4096
+    rng = np.random.default_rng(30 + K + 2 * skewed)
+    bc = (nbins, 12, nbins, 7, nbins, 40, 3, nbins)
+    codes, sleaf, st, _, ps = _slot_level_inputs(
+        rng, K, A_prev, A, bc, nbins, n, False, cuda, skewed)
+    rowid = torch.arange(n, dtype=torch.int32, device=cuda)
+    c32 = torch.cat([rowid[None], codes.int()])          # [1 + F, n]
+    before = hist.SLOT_COMPACT.launches
+    got = hist.slot_compact(c32, sleaf, st, ps, A_prev)
+    want = hist.slot_compact_torch(c32, sleaf, st, ps, A_prev)
+    again = hist.slot_compact(c32, sleaf, st, ps, A_prev)
+    torch.cuda.synchronize()
+    assert hist.SLOT_COMPACT.launches == before + 2
+    assert torch.equal(got[3], want[3]) and torch.equal(got[4], want[4])
+    assert torch.equal(again[3], got[3])
+    total = want[3][:, -1].cpu()
+    for out in (got, again):
+        cc, pleaf, pst = (x.cpu() for x in out[:3])
+        wc, wl, wst = (x.cpu() for x in want[:3])
+        for k in range(K):
+            t = int(total[k])
+            # within its window each row keeps its parent slot, so one
+            # stable sort by (parent slot, row) gives the plain order
+            key = pleaf[k, :t].long() * n + cc[k, 0, :t].long()
+            order = torch.argsort(key)
+            assert torch.equal(cc[k][:, :t][:, order], wc[k][:, :t])
+            assert torch.equal(pleaf[k, :t][order], wl[k, :t])
+            assert same_bits(pst[k][:, :t][:, order], wst[k][:, :t])
+            assert bool((pleaf[k, t:] == -1).all())
+            assert torch.equal(pleaf[k, t:], wl[k, t:])
+    g = hist.offset_codes(codes, bc, nbins)
+    sc = hist.stat_scale(st)
+    Hs = [hist.hist_varbin(x[0], x[1], x[2], A_prev, bc, nbins + 1, sc,
+                           row_start=x[3])
+          for x in (hist.slot_compact(g, sleaf, st, ps, A_prev),
+                    hist.slot_compact_torch(g, sleaf, st, ps, A_prev))]
+    torch.cuda.synchronize()
+    _assert_bitwise(Hs[0], Hs[1])
+
+
 def test_small_drf_train_matches_cpu(cuda):
     """A binomial and a 3-class DRF at depth 12 with sparse levels from
     depth 4 on the card: one hist and one records launch per level of
-    every tree or round, whatever K; the same trees as the CPU, unsampled;
+    every tree or round, whatever K (at a sparse level the windowed hist,
+    after one slot_compact launch); the same trees as the CPU, unsampled;
     sampled, the batched 3-class round bitwise its K loop."""
     from h2o3_tpu_torch.frame import Frame
     from h2o3_tpu_torch.models.tree.drf import DRF
@@ -730,11 +822,11 @@ def test_small_drf_train_matches_cpu(cuda):
                                   device=d) for d in ("cuda", "cpu")}
     for resp, other in (("y2", "y3"), ("y3", "y2")):
         cfg = dict(base, response_column=resp, ignored_columns=[other])
-        before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+        before = _launch_counts()
         a = DRF(device="cuda", **cfg).train(frames["cuda"])
         torch.cuda.synchronize()
-        assert (hist.HIST.launches - before[0],
-                hist.SPLIT_RECORDS.launches - before[1]) == (24, 24)
+        # 2 trees (rounds) x 12 levels, 8 of them node-sparse
+        assert _launched(before) == (8, 16, 16, 24)
         b = DRF(device="cpu", **cfg).train(frames["cpu"])
         sa = a.output["stacked"]
         sb = b.output["stacked"]
@@ -816,7 +908,9 @@ def test_small_dt_and_uplift_trains_match_cpu(cuda, tmp_path):
     """A depth-10 DT (node-sparse from depth 4) and a depth-6 uplift
     forest (node-sparse from depth 3) trained on the card from an
     imported CSV: one ``hist`` launch per level (both uplift arms on the
-    K axis) and, for the DT, one records launch per level; the same trees
+    K axis; at a sparse level the windowed form, after one
+    ``slot_compact`` launch) and, for the DT, one records launch per
+    level; the same trees
     and leaf values, bitwise, as the CPU's plain route; the uplift's arm
     loop (``split_mode="separate"``) two launches a level, bitwise."""
     from h2o3_tpu_torch import import_file
@@ -829,24 +923,22 @@ def test_small_dt_and_uplift_trains_match_cpu(cuda, tmp_path):
     up = dict(response_column="y", treatment_column="treatment", ntrees=2,
               max_depth=6, sparse_depth_threshold=3, sample_rate=1.0,
               nbins=64, seed=1)
-    before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+    before = _launch_counts()
     a = DecisionTree(device="cuda", **dt).train(frames["cuda"])
     torch.cuda.synchronize()
-    assert (hist.HIST.launches - before[0],
-            hist.SPLIT_RECORDS.launches - before[1]) == (10, 10)
+    assert _launched(before) == (4, 6, 6, 10)      # 6 node-sparse levels
     b = DecisionTree(device="cpu", **dt).train(frames["cpu"])
     _same_stack(a.output["stacked"], b.output["stacked"])
-    before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+    before = _launch_counts()
     u = UpliftDRF(device="cuda", **up).train(frames["cuda"])
     torch.cuda.synchronize()
-    assert (hist.HIST.launches - before[0],
-            hist.SPLIT_RECORDS.launches - before[1]) == (12, 0)
+    assert _launched(before) == (6, 6, 6, 0)       # 2 trees x (3 + 3)
     v = UpliftDRF(device="cpu", **up).train(frames["cpu"])
-    before = hist.HIST.launches
+    before = _launch_counts()
     s = UpliftDRF(device="cuda", split_mode="separate", **up).train(
         frames["cuda"])
     torch.cuda.synchronize()
-    assert hist.HIST.launches - before == 24
+    assert _launched(before) == (12, 12, 12, 0)    # one launch an arm
     for key in ("stacked_pt", "stacked_pc"):
         _same_stack(u.output[key], v.output[key])
         _same_stack(u.output[key], s.output[key])

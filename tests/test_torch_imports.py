@@ -54,7 +54,7 @@ def test_every_cuda_source_is_a_loaded_kernel():
     from h2o3_tpu_torch.models.tree import hist
     from h2o3_tpu_torch.serving import kernel
     kernels = [kernel.TRAVERSE, hist.HIST, hist.SPLIT_RECORDS,
-               hist.FINE_HIST]
+               hist.FINE_HIST, hist.SLOT_COMPACT]
     sources = sorted(os.path.join(native.CSRC_DIR, f)
                      for f in os.listdir(native.CSRC_DIR)
                      if f.endswith(".cu"))
