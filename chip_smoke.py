@@ -271,6 +271,31 @@ Phases (any failure exits non-zero and prints no result line):
              2·N·P² FLOP bound of the full product and the N·P(P+1) bound
              of its symmetric half (67 TFLOP/s f32), and the idle share of
              a profiled fit.
+33. DeepLearning — at 1M rows of the bench frame, ``DeepLearning(hidden=
+             (200, 200), precision="f32")``, 300 steps of 256 rows, on the
+             card against the same train (the same CPU-drawn initial
+             weights, permutation and offsets) on the CPU: the weights'
+             max difference over the largest, the probabilities' and the
+             training logloss's within their limits (``DL_*_TOL``), each
+             limit broken by one of two planted faults (one step's block
+             shifted by a row, TF32 matmuls allowed); a second card train
+             bitwise; the bf16 default's logloss beside the f32 one's;
+             tanh units: the rectifier default's train moves by several
+             percent on a design scaled by one ulp (printed);
+34. DL samples/s — ``bench.py::bench_deeplearning``'s configuration
+             (60,000 x 784 uniform pixels, 10 classes, hidden (200, 200),
+             batch 8,192) in bf16 and in f32: a 2-epoch warmup, then
+             samples/s and steps/s of a timed train, the device busy and
+             idle share, operations a step and the products' share of a
+             profiled train of the same size, and the bound of the
+             products (989 TFLOP/s bf16, 67 f32);
+35. CV — launch counts set to 0, then ``XGBoost(ntrees=10, nfolds=3,
+             fold_assignment="modulo")`` at 1M rows: ``hist`` and
+             ``split_records`` each (nfolds + 1) x trees x levels, each
+             fold model bitwise the train with its fold's rows weighted 0,
+             the CV metrics those of the assembled holdout predictions; a
+             ``balance_classes=True`` train bitwise the train on its
+             factors as a weights column.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -1199,9 +1224,13 @@ def device_profile(train):
                              ProfilerActivity.CUDA]) as prof:
         train()
         torch.cuda.synchronize()
+    # device kernels only: a user annotation on the device timeline (such
+    # as torch.optim's "Optimizer.step#...") spans kernels counted already
     kern = [e for e in prof.key_averages()
             if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and e.self_device_time_total > 0]
+            and e.self_device_time_total > 0
+            and not getattr(e, "is_user_annotation", False)
+            and not e.key.startswith("Optimizer.")]
     kern.sort(key=lambda e: -e.self_device_time_total)
     return kern, sum(e.self_device_time_total for e in kern) / 1e3
 
@@ -3986,6 +4015,351 @@ def dart_glm_phases(Frame, XGBoost, GLM, glm, gbm, hist, kernel, batcher,
         f"the K = 3 rounds {launches}; DART at 10M rows {tps:.3f} trees/s")
 
 
+# ---------------------------------- 33-35: DeepLearning, CV, balancing
+
+# phase 33: the bench frame's binomial response, hidden (200, 200) tanh
+# units, full f32, ADADELTA, 3 iterations of 100 steps of 256 rows.  Tanh:
+# with rectifier units the train is chaotic (a unit crossing zero flips
+# its gradient, and ADADELTA scales every step to ~1e-3 whatever the
+# gradient's size), so a design scaled by one ulp moves the weights by
+# several percent and no card-against-CPU limit could tell a fault; the
+# phase prints that reading for the rectifier default too.
+DL_CFG = dict(response_column="dep_delayed_15min", hidden=(200, 200),
+              activation="tanh", precision="f32", mini_batch_size=256,
+              train_samples_per_iteration=25_600, epochs=0.0768,
+              stopping_rounds=0, seed=1)
+# the card's f32 train against the same train (the same CPU-drawn draws,
+# the same rollups) on the CPU: the weights' max difference over the
+# largest weight (the largest over the layers), the probabilities' max
+# difference and the training logloss's relative difference.  Each limit
+# lies between the sound reading and the reading of at least one of two
+# planted faults, taken in every run: one step's block shifted by a row,
+# and the train with TF32 matmuls allowed.  On an H100 at 1M rows the
+# three read 9.152e-7, 2.384e-7 and 0 sound; 3.847e-4, 1.205e-4 and
+# 3.614e-7 with TF32; 7.193e-3, 5.867e-4 and 2.710e-6 with the block
+# shifted.  The logloss is a sum of f32 terms over 1M rows on each
+# device, so its limit leaves it ~3 ulps.
+DL_W_TOL = 1e-5
+DL_P_TOL = 2e-6
+DL_LL_TOL = 2e-7
+# the bf16 default's training logloss against the f32 one's (relative;
+# 1.807e-7 on that card): a bound on the bf16 products' rounding
+DL_BF16_LL_TOL = 1e-4
+# phase 34: bench.py::bench_deeplearning's configuration; samples/s of a
+# 100-epoch train (45 iterations of 16 steps), the idle share from a
+# 20-epoch train, timed, then profiled
+MNIST_ROWS, MNIST_COLS = 60_000, 784
+MNIST_CFG = dict(response_column="label", hidden=(200, 200),
+                 mini_batch_size=8192, score_interval=1e9, stopping_rounds=0,
+                 seed=1)
+MNIST_EPOCHS = 100.0
+MNIST_PROFILE_EPOCHS = 20.0
+BF16_OPS_PER_S = 989e12          # H100 SXM dense bf16 tensor cores
+# phase 35: CV and class balancing on the bench frame
+CV_CFG = dict(BENCH_CFG, ntrees=10, nfolds=3, fold_assignment="modulo",
+              keep_cross_validation_predictions=True)
+
+
+class ShiftedDraws:
+    """A planted fault: a train's seeded draws with the first step's
+    block moved down by one row."""
+
+    def __init__(self, dl, seed):
+        self.real = dl.SeededDraws(seed)
+        self.init_weights = self.real.init_weights
+        self.permutation = self.real.permutation
+
+    def offsets(self, it, steps, n):
+        offs = self.real.offsets(it, steps, n)
+        if it == 0:
+            offs[0] = (offs[0] + 1) % n
+        return offs
+
+
+def share_rollups(src, dst):
+    """Give ``dst``'s columns ``src``'s rollups, so both frames
+    standardize alike: the rollups are one-pass f32 sums (the JAX
+    package's), whose order differs by device, and a column with a large
+    mean (``year``: 1997 ± 6) loses digits of its sigma.  Returns the
+    largest relative difference of a sigma before."""
+    gap = 0.0
+    for v, w in zip(src.vecs, dst.vecs):
+        if v.data is not None:
+            a, b = v.rollups().sigma, w.rollups().sigma
+            if np.isfinite(a) and np.isfinite(b) and b > 0:
+                gap = max(gap, abs(a / b - 1.0))
+            w._rollups = v.rollups()
+    return gap
+
+
+def dl_gap(m, ref, fr, fr_ref):
+    """(the weights' max difference over the largest weight, the
+    probabilities' max difference, the training logloss's relative
+    difference) of train ``m`` against train ``ref``."""
+    wg = max(float(np.abs(W - Wr).max() / np.abs(Wr).max())
+             for (W, _), (Wr, _) in zip(m.output["weights"],
+                                        ref.output["weights"]))
+    p, pr = (multi_class_probs(x, f)[:, 1].astype(np.float64)
+             for x, f in ((m, fr), (ref, fr_ref)))
+    ll, llr = m.training_metrics.logloss, ref.training_metrics.logloss
+    gap = (wg, float(np.abs(p - pr).max()), abs(ll / llr - 1.0))
+    return tuple(float("inf") if not np.isfinite(v) else v for v in gap)
+
+
+def dl_correctness_phase(Frame, DeepLearning, dl, card):
+    """Phase 33: DeepLearning at 1M rows on the card against the same
+    train on the CPU (the same draws and the same rollups); each limit
+    must be broken by one of two planted faults; a second card train
+    bitwise; the bf16 default's logloss; the rectifier default's
+    sensitivity to one ulp of the design."""
+    import torch
+    cols, types, domains = make_airlines_like(1_000_000)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    frc = Frame.from_numpy(cols, types=types, domains=domains, device="cpu")
+    sigma_gap = share_rollups(fr, frc)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: DeepLearning's f32 path "
+                             "must be full f32")
+    t0 = time.perf_counter()
+    m = DeepLearning(**DL_CFG).train(fr)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mc = DeepLearning(device="cpu", **DL_CFG).train(frc)
+    cpu_s = time.perf_counter() - t0
+    steps = m.output["samples_trained"] // DL_CFG["mini_batch_size"]
+    gap = dl_gap(m, mc, fr, frc)
+    b = DeepLearning(**DL_CFG)
+    b.draws = ShiftedDraws(dl, DL_CFG["seed"])
+    faults = {"one block shifted by a row": dl_gap(b.train(fr), mc, fr,
+                                                   frc)}
+    real = dl.check_full_f32
+    dl.check_full_f32 = lambda device: None
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        faults["TF32 allowed"] = dl_gap(DeepLearning(**DL_CFG).train(fr),
+                                        mc, fr, frc)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        dl.check_full_f32 = real
+
+    def show(g):
+        return (f"weights {g[0]:.3e} of the largest, probabilities "
+                f"{g[1]:.3e}, logloss {g[2]:.3e}")
+    limits = (DL_W_TOL, DL_P_TOL, DL_LL_TOL)
+    log(f"DeepLearning f32 on the card against the CPU {card} (limits "
+        f"{limits}): {show(gap)}; planted faults: " + "; ".join(
+            f"{k}: {show(g)}" for k, g in faults.items()))
+    if any(v > t for v, t in zip(gap, limits)):
+        raise AssertionError("DeepLearning on the card against the CPU: "
+                             f"{show(gap)} (limits {limits})")
+    for i, t in enumerate(limits):
+        if not any(g[i] > t for g in faults.values()):
+            raise AssertionError(f"no planted fault breaks limit {i} ({t}): "
+                                 + "; ".join(show(g)
+                                             for g in faults.values()))
+    m2 = DeepLearning(**DL_CFG).train(fr)
+    for (W, bias), (W2, bias2) in zip(m.output["weights"],
+                                      m2.output["weights"]):
+        if not (np.array_equal(W, W2) and np.array_equal(bias, bias2)):
+            raise AssertionError("a second DeepLearning train on the card "
+                                 "differs")
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls came on during the DL trains")
+    mb = DeepLearning(**dict(DL_CFG, precision="bf16")).train(fr)
+    ll, llb = m.training_metrics.logloss, mb.training_metrics.logloss
+    bgap = abs(llb / ll - 1.0)
+    log(f"DeepLearning at {fr.nrows} rows (P = {m.datainfo.nfeatures}, "
+        f"hidden (200, 200), {steps} steps of "
+        f"{DL_CFG['mini_batch_size']}) {card}: f32 on the card "
+        f"{card_s:.3f} s, the same train on the CPU {cpu_s:.3f} s (on the "
+        f"card's rollups: the two devices' f32 sums put a column's sigma up "
+        f"to {sigma_gap:.3e} apart); a second "
+        f"card train bitwise; TF32 off; training logloss f32 {ll:.6f} (CPU "
+        f"{mc.training_metrics.logloss:.6f}), bf16 {llb:.6f}: {bgap:.3e} "
+        f"apart (limit {DL_BF16_LL_TOL})")
+    if not bgap <= DL_BF16_LL_TOL:
+        raise AssertionError(f"the bf16 train's logloss {llb:.6f} is "
+                             f"{bgap:.3e} from the f32 one's {ll:.6f}")
+    # the rectifier default against itself on a design scaled by one ulp
+    relu = dict(DL_CFG, activation="rectifier")
+    mr = DeepLearning(**relu).train(fr)
+    X = m.datainfo.make_matrix(fr)
+    X0 = X.clone()
+    X.mul_(1 + 2 ** -23)
+    try:
+        rgap = dl_gap(DeepLearning(**relu).train(fr), mr, fr, fr)
+    finally:
+        X.copy_(X0)
+    log(f"DeepLearning with rectifier units {card}: the same train on the "
+        f"design scaled by 1 + 2^-23 moves {show(rgap)} (the tanh train on "
+        f"the card against the CPU: {show(gap)})")
+
+
+def mnist_frame(Frame):
+    """bench.py::bench_deeplearning's frame: 60,000 x 784 uniform pixels
+    in [0, 255) and a 10-class label, from ``default_rng(1)``."""
+    rng = np.random.default_rng(1)
+    X = (rng.random((MNIST_ROWS, MNIST_COLS)) * 255).astype(np.float32)
+    y = rng.integers(0, 10, MNIST_ROWS)
+    cols = {f"p{j}": X[:, j] for j in range(MNIST_COLS)}
+    cols["label"] = np.array([str(v) for v in y], dtype=object)
+    return Frame.from_numpy(cols)
+
+
+def is_gemm(name: str) -> bool:
+    low = name.lower()
+    return any(w in low for w in ("gemm", "cutlass", "xmma", "nvjet",
+                                  "matmul"))
+
+
+def dl_samples_phase(Frame, DeepLearning, card):
+    """Phase 34: DeepLearning samples/s, BASELINE.json's second metric,
+    at bench.py::bench_deeplearning's configuration, bf16 and f32: a
+    2-epoch warmup, then a timed train; a profiled train of the same size
+    for the device busy and idle share, the operations per step and the
+    products' share; the bound of the step's products."""
+    import torch
+    fr = mnist_frame(Frame)
+    P = MNIST_COLS + 1                # the design's intercept column
+    H1, H2, K = 200, 200, 10
+    batch = MNIST_CFG["mini_batch_size"]
+    # the products a sample costs: forward and weight gradient of every
+    # layer, the input gradient of all but the first (2 flops a MAC);
+    # 6 x (P·H1 + H1·H2 + H2·K) counts the first layer's input gradient
+    # too, which no step computes
+    flops = 2 * (2 * P * H1 + 3 * H1 * H2 + 3 * H2 * K)
+    flops_all = 6 * (P * H1 + H1 * H2 + H2 * K)
+    out = {}
+    for prec, rate in (("bf16", BF16_OPS_PER_S), ("f32", F32_OPS_PER_S)):
+        cfg = dict(MNIST_CFG, precision=prec)
+        DeepLearning(epochs=2.0, **cfg).train(fr)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = DeepLearning(epochs=MNIST_EPOCHS, **cfg).train(fr)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        samples = m.output["samples_trained"]
+        steps = samples // batch
+        sps = samples / dt
+        t0 = time.perf_counter()
+        mp = DeepLearning(epochs=MNIST_PROFILE_EPOCHS, **cfg).train(fr)
+        torch.cuda.synchronize()
+        dtp = time.perf_counter() - t0
+        psteps = mp.output["samples_trained"] // batch
+        kern, busy = device_profile(lambda: DeepLearning(
+            epochs=MNIST_PROFILE_EPOCHS, **cfg).train(fr))
+        gemm = sum(e.self_device_time_total for e in kern
+                   if is_gemm(e.key)) / 1e3
+        ops = sum(e.count for e in kern)
+        bound_s = flops * samples / rate
+        log(f"DeepLearning samples/s {prec} {card}: bench_deeplearning's "
+            f"configuration ({MNIST_ROWS} x {MNIST_COLS}, hidden (200, 200), "
+            f"batch {batch}): {samples} samples ({steps} steps) in "
+            f"{dt:.3f} s = {sps:.1f} samples/s, {steps / dt:.2f} steps/s "
+            f"(bench.py's epochs x n / s: "
+            f"{MNIST_EPOCHS * MNIST_ROWS / dt:.1f});"
+            f" training logloss {m.training_metrics.logloss:.6f}; a "
+            f"{psteps}-step train {dtp * 1e3:.1f} ms of wall, device busy "
+            f"{busy:.1f} ms of the same train profiled: idle share "
+            f"{idle_share(busy, dtp):.3f}, {busy / max(psteps, 1):.3f} ms "
+            f"busy a step, {ops / max(psteps, 1):.1f} device operations a step, "
+            f"the products {gemm / max(busy, 1e-9):.3f} of busy; bound "
+            f"{bound_s * 1e3:.3f} ms for the timed train ({flops / 1e6:.3f} "
+            f"MFLOP a sample over {rate / 1e12:g} TFLOP/s {prec}; "
+            f"{flops_all / 1e6:.3f} with the first layer's input gradient): "
+            f"{bound_s / dt:.4f} of the wall; each block reads "
+            f"{batch * P * 4 / 1e6:.2f} MB of the design from HBM; device "
+            f"ms by kernel (launches): " + "; ".join(
+                f"{e.key[:80]} {e.self_device_time_total / 1e3:.2f} "
+                f"({e.count})" for e in kern[:8]))
+        out[prec] = sps
+    return out
+
+
+def check_cv_launches(launches, want):
+    """A CV train's level kernels launch once a level of every tree of
+    every fold model and of the final model."""
+    if launches["hist"] != want or launches["split_records"] != want:
+        raise AssertionError(f"CV launches {launches}: hist and "
+                             f"split_records must each launch {want}")
+
+
+def cv_phase(Frame, XGBoost, kernels, card):
+    """Phase 35: cross-validation and class balancing on the card at 1M
+    rows: the fold models bitwise their weighted trains, the CV metrics
+    those of the assembled holdouts, (nfolds + 1) x trees x levels
+    launches; a balanced train bitwise its explicit weights."""
+    import torch
+    from h2o3_tpu_torch.frame.vec import T_NUM, Vec
+    from h2o3_tpu_torch.metrics.core import make_metrics
+    from h2o3_tpu_torch.runtime import dkv
+    cols, types, domains = make_airlines_like(1_000_000)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    n = fr.nrows
+    for k in kernels:
+        k.launches = 0
+    t0 = time.perf_counter()
+    m = XGBoost(**CV_CFG).train(fr)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    launches = {k.name: k.launches for k in kernels}
+    nf, nt = CV_CFG["nfolds"], CV_CFG["ntrees"]
+    check_cv_launches(launches, (nf + 1) * nt * CV_CFG["max_depth"])
+    folds = np.arange(n) % nf
+    for f, key in enumerate(m.output["cv_fold_models"]):
+        w = Vec.from_numpy(np.where(folds != f, 1.0, 0.0), T_NUM)
+        mw = XGBoost(weights_column="fw", **BENCH_CFG, ntrees=nt) \
+            .train(fr.with_vec("fw", w))
+        why = stacks_differ(dkv.get(key), mw)
+        if why:
+            raise AssertionError(f"CV fold {f} differs from its weighted "
+                                 f"train on {why}")
+    di = m.datainfo
+    hp = np.zeros((fr.padded_rows, 2))
+    hp[:n] = m.cv_predictions
+    ref = make_metrics(di, torch.tensor(hp, dtype=torch.float32,
+                                        device=fr.device),
+                       di.response(fr), di.weights(fr))
+    got = m.cross_validation_metrics.describe()
+    if got != ref.describe():
+        raise AssertionError(f"CV metrics {got} != the holdouts' "
+                             f"{ref.describe()}")
+    y = np.asarray(cols["dep_delayed_15min"]) == "YES"
+    counts = np.bincount(y.astype(int), minlength=2)
+    bw = Vec.from_numpy((n / (2 * counts))[y.astype(int)], T_NUM)
+    mb = XGBoost(balance_classes=True, **BENCH_CFG, ntrees=nt).train(fr)
+    mbw = XGBoost(weights_column="bw", **BENCH_CFG, ntrees=nt) \
+        .train(fr.with_vec("bw", bw))
+    why = stacks_differ(mb, mbw)
+    if why:
+        raise AssertionError(f"the balanced train differs from its "
+                             f"explicit weights on {why}")
+    if mb.datainfo.weights_column is not None:
+        raise AssertionError("the balanced model keeps the synthetic "
+                             "weights column")
+    log(f"CV XGBoost(ntrees={nt}, nfolds={nf}, modulo) at {n} rows {card}: "
+        f"{cv_s:.3f} s; launches {launches} = (nfolds + 1) x trees x "
+        f"levels; each fold model bitwise its train with the fold's rows "
+        f"weighted 0; CV AUC {got['auc']:.6f} (training "
+        f"{m.training_metrics.auc:.6f}) = make_metrics of the assembled "
+        f"holdouts; balance_classes (factors "
+        f"{(n / (2 * counts)).round(6).tolist()}) bitwise the train on "
+        f"those factors as a weights column")
+
+
+def dl_cv_phases(Frame, XGBoost, DeepLearning, dl, kernels, card):
+    """Phases 33-35: DeepLearning, then CV and class balancing."""
+    dl_correctness_phase(Frame, DeepLearning, dl, card)
+    mark("phase 33")
+    sps = dl_samples_phase(Frame, DeepLearning, card)
+    mark("phase 34")
+    cv_phase(Frame, XGBoost, kernels, card)
+    mark("phase 35")
+    log(f"DeepLearning samples/s {card}: bf16 {sps['bf16']:.1f}, f32 "
+        f"{sps['f32']:.1f}")
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -4134,7 +4508,8 @@ def main() -> dict:
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.export.mojo import from_reference
     from h2o3_tpu_torch.frame import Frame
-    from h2o3_tpu_torch.models import DRF, GLM, GridSearch, glm
+    from h2o3_tpu_torch.models import (DRF, GLM, DeepLearning, GridSearch,
+                                       deeplearning, glm)
     from h2o3_tpu_torch.models.tree import gbm, hist, shared
     from h2o3_tpu_torch.models.tree.xgboost import XGBoost
     from h2o3_tpu_torch.runtime import config as cfgmod
@@ -4574,6 +4949,9 @@ def main() -> dict:
     # ------------------------------------------------ 28-32 DART, GLM
     dart_glm_phases(Frame, XGBoost, GLM, glm, gbm, hist, kernel, batcher,
                     from_reference, kernels_train, card)
+    # --------------------------------- 33-35 DeepLearning, CV, balancing
+    dl_cv_phases(Frame, XGBoost, DeepLearning, deeplearning, kernels_train,
+                 card)
 
     return {"kernels": [traverse_row] + rows, "device": device}
 

@@ -10,7 +10,9 @@ online scoring plane and the tree-training main path:
   ``H2OFrame``, ``export_file``) through the native CSV tokenizer
   (``fastcsv``, host C++ built with g++ at first use).
 * ``models``  — the training contract (``base``, ``datainfo``,
-  ``distributions``, ``scorekeeper``), the tree family
+  ``distributions``, ``scorekeeper``) with the shared options: class
+  balancing, a custom metric and cross-validation (``cv``), the tree
+  family
   (``models.tree``: binning, the level kernels' wrappers in ``hist``,
   the growth loop in ``shared``, ``gbm``, ``xgboost``, and the batched
   grid cohorts of ``grid_batch``, ``drf``, ``dt``, ``isofor``:
@@ -18,9 +20,12 @@ online scoring plane and the tree-training main path:
   with the CUDA histogram and split-record kernels (XGBoost's DART
   booster included), GLM (``glm``: IRLSM with COD, the lambda path,
   L-BFGS, multinomial and ordinal, on the one-hot design of
-  ``datainfo.make_matrix``) and the grid search (``grid``:
-  ``GridSearch``).
-* ``metrics`` — binomial, multinomial, regression and uplift metrics.
+  ``datainfo.make_matrix``), DeepLearning (``deeplearning``: the MLP
+  and autoencoder, cuBLAS products in bf16 with f32 output or in full
+  f32, ``torch.optim``'s ADADELTA or SGD) and the grid search
+  (``grid``: ``GridSearch``).
+* ``metrics`` — binomial (with gains/lift), multinomial, regression and
+  uplift metrics, and a custom metric.
 * ``export``  — the numpy ``ScoringModel``, the archive reader
   (``import_mojo``) and ``from_reference`` for models trained by the
   JAX package or by the port (``model.to_archive()``).
@@ -34,7 +39,8 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .frame.parse import H2OFrame, import_file, upload_string
+from .models.deeplearning import DeepLearning, DeepLearningParameters
 from .models.glm import GLM, GLMParameters
 
-__all__ = ["GLM", "GLMParameters", "H2OFrame", "import_file",
-           "upload_string"]
+__all__ = ["DeepLearning", "DeepLearningParameters", "GLM", "GLMParameters",
+           "H2OFrame", "import_file", "upload_string"]

@@ -7,8 +7,10 @@ that loads a model archive and predicts with no cluster.
 The port's copy of ``h2o3_tpu/export/scoring.py`` for the families the
 serving plane packs (``tree``: GBM/XGBoost/DRF, and ``isolation``), the
 numpy oracle behind ``PackedScorer``'s ``"ref"``/``"check"`` score
-modes, and for ``glm`` (the standardized one-hot design, the family's
-link).  The archive format lives in mojo.py.
+modes, for ``glm`` (the standardized one-hot design, the family's
+link) and for ``deeplearning`` (the same design through the layers:
+tanh or rectifier, softmax or the de-standardized regression).  The
+archive format lives in mojo.py.
 """
 
 from __future__ import annotations
@@ -101,9 +103,13 @@ class ScoringModel:
         else:
             data = {k: np.asarray(v) for k, v in data.items()}
         n = len(next(iter(data.values())))
-        raw = self._score_glm(self._design_standardized(data, n)) \
-            if self.meta["family"] == "glm" \
-            else self.score_raw(self._design_raw(data, n))
+        family = self.meta["family"]
+        if family in ("glm", "deeplearning"):
+            X = self._design_standardized(data, n)
+            raw = self._score_glm(X) if family == "glm" \
+                else self._score_deeplearning(X)
+        else:
+            raw = self.score_raw(self._design_raw(data, n))
         domain = self.spec.get("response_domain")
         if domain:
             labels = np.asarray(domain, dtype=object)[np.argmax(raw, axis=1)]
@@ -157,6 +163,29 @@ class ScoringModel:
         if self.spec.get("response_domain"):
             return np.stack([1 - mu, mu], axis=1)
         return mu
+
+    def _score_deeplearning(self, X):
+        """The standardized design (``_design_standardized``) through the
+        layers ``W_i``, ``b_i`` -> probabilities ``[n, K]`` or values
+        ``[n]``.  An output of several columns without a response domain
+        is an autoencoder's reconstruction, which this scorer does not
+        make."""
+        h = X
+        act = self.meta["activation"]
+        i = 0
+        while f"W_{i}" in self.arrays:
+            h = h @ self.arrays[f"W_{i}"] + self.arrays[f"b_{i}"]
+            if f"W_{i + 1}" in self.arrays:          # a hidden layer
+                h = np.tanh(h) if act == "tanh" else np.maximum(h, 0.0)
+            i += 1
+        if self.spec.get("response_domain"):
+            e = np.exp(h - h.max(axis=1, keepdims=True))
+            return e / e.sum(axis=1, keepdims=True)
+        if h.shape[1] != 1:
+            raise ValueError("an autoencoder's archive: the numpy scorer "
+                             "makes no reconstruction")
+        return h.reshape(-1) * self.meta.get("response_sigma", 1.0) \
+            + self.meta.get("response_mean", 0.0)
 
     def _packed(self, prefix=""):
         """Bitpacked node planes for one class group, packed once and

@@ -8,7 +8,10 @@ histograms of P(class 1) — here one ``bincount`` per class instead of its
 one-hot matmul — and the same trapezoid over the descending-threshold ROC
 polyline.  The multinomial confusion matrix and hit ratios are weighted
 one-hot products (a [K, n] x [n, K] and an [n] x [n, K] matmul), reduced
-without atomics on K or K*K slots.
+without atomics on K or K*K slots.  A custom metric (``make_metrics``'s
+``custom_metric_func``) joins each family's ``describe()``; the binomial
+gains/lift table (``metrics/gainslift.py``, a copy of the JAX package's)
+reads the same histograms' cumulatives.
 """
 
 from __future__ import annotations
@@ -21,6 +24,15 @@ import numpy as np
 import torch
 
 NBINS = 400  # AUC2's default number of threshold bins (hex/AUC2.java)
+
+
+def _merge_custom(self, base: dict) -> dict:
+    """``base`` with the custom metric's (name, value), when one was
+    computed."""
+    cm = getattr(self, "custom_metric", None)
+    if cm:
+        return {**base, cm["name"]: cm["value"]}
+    return base
 
 
 def _binomial_sums(p1, y, w, nbins: int) -> np.ndarray:
@@ -65,20 +77,28 @@ class ModelMetricsBinomial:
     tps: np.ndarray
     fps: np.ndarray
 
+    def gains_lift(self, groups: int = 16) -> dict:
+        """The quantile gains/lift table (hex/GainsLift.java)."""
+        from .gainslift import gains_lift_table
+        return gains_lift_table(self.thresholds, self.tps, self.fps,
+                                groups=groups)
+
     @property
     def ks(self) -> float:
+        """Kolmogorov-Smirnov: the largest TPR - FPR over the
+        thresholds."""
         npos, nneg = float(self.tps[-1]), float(self.fps[-1])
         if npos <= 0 or nneg <= 0:
             return float("nan")
         return float(np.max(self.tps / npos - self.fps / nneg))
 
     def describe(self) -> dict:
-        return {"auc": self.auc, "pr_auc": self.pr_auc,
-                "logloss": self.logloss, "rmse": self.rmse,
-                "gini": self.gini,
-                "mean_per_class_error": self.mean_per_class_error,
-                "max_f1": self.max_f1, "threshold": self.max_f1_threshold,
-                "ks": self.ks}
+        return _merge_custom(self, {
+            "auc": self.auc, "pr_auc": self.pr_auc, "logloss": self.logloss,
+            "rmse": self.rmse, "gini": self.gini,
+            "mean_per_class_error": self.mean_per_class_error,
+            "max_f1": self.max_f1, "threshold": self.max_f1_threshold,
+            "ks": self.ks})
 
 
 def binomial_metrics(p1, y, w, domain: Optional[List[str]] = None
@@ -162,9 +182,10 @@ class ModelMetricsMultinomial:
         return self.cm
 
     def describe(self) -> dict:
-        return {"logloss": self.logloss, "rmse": self.rmse,
-                "mean_per_class_error": self.mean_per_class_error,
-                "accuracy": self.accuracy}
+        return _merge_custom(self, {
+            "logloss": self.logloss, "rmse": self.rmse,
+            "mean_per_class_error": self.mean_per_class_error,
+            "accuracy": self.accuracy})
 
 
 def multinomial_metrics(probs, y, w, domain: List[str]
@@ -205,8 +226,9 @@ class ModelMetricsRegression:
     mean_residual_deviance: float
 
     def describe(self) -> dict:
-        return {"rmse": self.rmse, "mae": self.mae, "r2": self.r2,
-                "mean_residual_deviance": self.mean_residual_deviance}
+        return _merge_custom(self, {
+            "rmse": self.rmse, "mae": self.mae, "r2": self.r2,
+            "mean_residual_deviance": self.mean_residual_deviance})
 
 
 def regression_metrics(pred, y, w) -> ModelMetricsRegression:
@@ -229,15 +251,26 @@ def regression_metrics(pred, y, w) -> ModelMetricsRegression:
         mean_residual_deviance=mse)
 
 
-def make_metrics(di, raw, y, w):
+def make_metrics(di, raw, y, w, custom_metric_func=None):
     """Dispatch on the DataInfo's response type — the BigScore metric
     step: binomial on P(class 1), multinomial on the [n, K]
-    probabilities, regression on the predictions."""
+    probabilities, regression on the predictions.
+
+    ``custom_metric_func``: a UDF ``(predictions, y, w) -> (name,
+    value)`` on numpy arrays (water/udf/CMetricFunc); its result is kept
+    on the metrics (``custom_metric``) and joins ``describe()``."""
     if di.is_classifier:
         dom = [str(d) for d in di.response_domain]
         if len(dom) != 2:
-            return multinomial_metrics(raw, y, w, domain=dom)
-        p1 = raw[:, 1] if raw.ndim == 2 else raw
-        return binomial_metrics(p1, y, w, domain=dom)
-    pred = raw[:, 0] if raw.ndim == 2 else raw
-    return regression_metrics(pred, torch.nan_to_num(y), w)
+            m = multinomial_metrics(raw, y, w, domain=dom)
+        else:
+            p1 = raw[:, 1] if raw.ndim == 2 else raw
+            m = binomial_metrics(p1, y, w, domain=dom)
+    else:
+        pred = raw[:, 0] if raw.ndim == 2 else raw
+        m = regression_metrics(pred, torch.nan_to_num(y), w)
+    if custom_metric_func is not None:
+        name, value = custom_metric_func(
+            *(t.detach().cpu().numpy() for t in (raw, y, w)))
+        m.custom_metric = {"name": str(name), "value": float(value)}
+    return m

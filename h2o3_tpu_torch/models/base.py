@@ -5,10 +5,14 @@ hex/Model.java).
 A ModelBuilder validates its parameters, fits a DataInfo, runs ``_fit`` under
 a ``Job`` and returns a Model holding the learned state.  ``device`` picks
 where it trains: ``cuda`` unless the caller names another, and the frame
-must lie there.  Cross-validation, class balancing, streaming ingest,
-checkpoints and warm starts, checkpoint export and the async scheduler
-path are not ported yet: setting any of them raises, and so does an
-offset column for any builder but GLM.
+must lie there.  The shared options: cross-validation (``nfolds`` or a
+``fold_column``: ``models/cv.py``), class balancing (per-class weights
+folded into a weights column for the run), and a custom metric that joins
+every metrics ``describe()``.  Streaming ingest, checkpoints and warm
+starts, checkpoint export and the async scheduler path are not ported
+yet: setting any of them raises, and so does an offset column for any
+builder but GLM (the JAX package's tree builders and DeepLearning accept
+one and never read it).
 """
 
 from __future__ import annotations
@@ -29,11 +33,11 @@ from .datainfo import MEAN_IMPUTATION, DataInfo
 
 # parameter -> the value that leaves its feature off; anything else raises
 _NOT_PORTED = {
-    "nfolds": 0, "fold_column": None, "balance_classes": False,
-    "class_sampling_factors": None, "checkpoint": None,
-    "export_checkpoints_dir": None, "stream": False, "warm_start": None,
-    "custom_metric_func": None, "offset_column": None,
+    "checkpoint": None, "export_checkpoints_dir": None, "stream": False,
+    "warm_start": None, "offset_column": None,
 }
+# the synthetic weights column of a class-balanced run
+BALANCE_WEIGHTS = "_balance_weights_"
 
 
 @dataclasses.dataclass
@@ -53,14 +57,23 @@ class Parameters:
     stopping_tolerance: float = 1e-3
     # the device the model trains on: "cuda" unless named
     device: Optional[str] = None
+    # class balancing (hex/Model.Parameters _balance_classes): per-class
+    # weights (the deterministic form of the reference's oversampling)
+    # folded into the weights column for the run; validation metrics
+    # stay unbalanced
+    balance_classes: bool = False
+    class_sampling_factors: Optional[Sequence[float]] = None
+    # cross-validation (models/cv.py): nfolds > 1 or a fold column
+    nfolds: int = 0
+    fold_column: Optional[str] = None
+    fold_assignment: str = "auto"          # auto|random|modulo|stratified
+    keep_cross_validation_predictions: bool = False
+    # custom metric UDF: (predictions, y, w) -> (name, value)
+    # (water/udf/CMetricFunc), in model_performance's metrics
+    custom_metric_func: Optional[Any] = None
     # not ported yet: any value but the default raises (see _NOT_PORTED)
     checkpoint: Optional[str] = None
     export_checkpoints_dir: Optional[str] = None
-    balance_classes: bool = False
-    class_sampling_factors: Optional[Sequence[float]] = None
-    nfolds: int = 0
-    fold_column: Optional[str] = None
-    custom_metric_func: Optional[Any] = None
     stream: bool = False
     warm_start: Optional[Any] = None
 
@@ -81,6 +94,8 @@ class Model:
         self.output: Dict[str, Any] = {}
         self.training_metrics = None
         self.validation_metrics = None
+        self.cross_validation_metrics = None
+        self.cv_predictions: Optional[np.ndarray] = None
         self.scoring_history: List[dict] = []
         dkv.put(key, self)
 
@@ -126,7 +141,8 @@ class Model:
         from ..metrics.core import make_metrics
         di = self.datainfo
         raw = self._predict_raw(self._score_matrix(frame))
-        return make_metrics(di, raw, di.response(frame), di.weights(frame))
+        return make_metrics(di, raw, di.response(frame), di.weights(frame),
+                            custom_metric_func=self.params.custom_metric_func)
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.key}>"
@@ -140,6 +156,10 @@ class ModelBuilder:
     supervised = True
     # the builders whose training reads ``offset_column`` (GLM)
     takes_offset = False
+    # the builders whose metrics are make_metrics' (binomial, multinomial,
+    # regression), which cross-validation and the custom metric need; the
+    # isolation forests and uplift score with their own
+    standard_metrics = True
 
     def __init__(self, params: Parameters):
         self.params = params
@@ -160,6 +180,20 @@ class ModelBuilder:
             if p.response_column not in frame.names:
                 raise ValueError(
                     f"response_column {p.response_column!r} not in frame")
+        if not self.standard_metrics and (
+                self._cv_requested() or p.custom_metric_func is not None):
+            raise ValueError(
+                f"{self.algo}: nfolds, fold_column and custom_metric_func "
+                "need the binomial, multinomial or regression metrics, "
+                "which this model does not make")
+        if p.fold_column is not None and p.fold_column not in frame.names:
+            raise ValueError(f"fold_column {p.fold_column!r} not in frame")
+
+    def _cv_requested(self) -> bool:
+        """nfolds > 1, or a fold column (whose distinct values are the
+        folds)."""
+        p = self.params
+        return bool((p.nfolds and p.nfolds > 1) or p.fold_column)
 
     def _make_datainfo(self, frame: Frame) -> DataInfo:
         p = self.params
@@ -195,20 +229,95 @@ class ModelBuilder:
                     f"{dev} (Frame.from_numpy(..., device=...))")
         return dev
 
+    def _apply_balance(self, frame: Frame):
+        """balance_classes as per-class weights: (the frame with a
+        ``_balance_weights_`` column, the parameters that train on it),
+        or (frame, None) when there is nothing to balance.  Each class's
+        factor is ``class_sampling_factors`` or n / (K · its count),
+        times the user's weights."""
+        p = self.params
+        if not p.balance_classes or not self.supervised:
+            return frame, None
+        rvec = frame.vec(p.response_column)
+        if rvec.type != T_CAT:
+            return frame, None              # regression: nothing to balance
+        k = len(rvec.domain or [])
+        if k <= 0:
+            raise ValueError(
+                "balance_classes needs a categorical response with a "
+                "domain (got a cat column without one)")
+        codes = rvec.to_numpy()
+        counts = np.bincount(codes[codes >= 0], minlength=k).astype(float)
+        counts[counts == 0] = 1.0
+        if p.class_sampling_factors is not None:
+            factors = np.asarray(p.class_sampling_factors, float)
+        else:
+            factors = counts.sum() / (k * counts)
+        if len(factors) != k:
+            raise ValueError(
+                f"class_sampling_factors needs {k} entries, got "
+                f"{len(factors)}")
+        w = np.where(codes >= 0, factors[np.clip(codes, 0, k - 1)], 0.0)
+        if p.weights_column:
+            w = w * frame.vec(p.weights_column).to_numpy()
+        out = frame.with_vec(BALANCE_WEIGHTS, Vec.from_numpy(
+            w.astype(np.float64), T_NUM, device=frame.device))
+        return out, dataclasses.replace(p, weights_column=BALANCE_WEIGHTS)
+
+    def _balance_valid(self, valid: Optional[Frame],
+                       orig: Parameters) -> Optional[Frame]:
+        """The validation frame with the synthetic weights column holding
+        the USER's weights (or ones): validation metrics are never
+        class-balanced, as in the reference."""
+        if valid is None or BALANCE_WEIGHTS in valid.names:
+            return valid
+        uv = valid.vec(orig.weights_column).to_numpy() \
+            if orig.weights_column else np.ones(valid.nrows)
+        return valid.with_vec(BALANCE_WEIGHTS, Vec.from_numpy(
+            np.asarray(uv, np.float64), T_NUM, device=valid.device))
+
     def train(self, frame: Frame, valid: Optional[Frame] = None) -> Model:
         """Blocking train on ``params.device`` (``cuda`` unless named):
-        the trainModel/computeImpl path."""
+        the trainModel/computeImpl path, through cross-validation when
+        asked.  A class-balanced or fold-column run trains under
+        parameters installed for the run alone (its weights column, the
+        fold column among the ignored ones); the fitted model's DataInfo
+        keeps the user's weights column, so new frames score with their
+        own weights."""
         self._check_device(frame, valid)
         self._validate(frame)
-        di = self._make_datainfo(frame)
-        self.job = Job(f"{self.algo} train", dest_key=dkv.make_key(self.algo))
+        orig = self.params
+        frame, bal = self._apply_balance(frame)
+        if bal is not None:
+            self.params = bal
+            valid = self._balance_valid(valid, orig)
+        p = self.params
+        if p.fold_column and p.fold_column not in p.ignored_columns:
+            # the folds are not a feature
+            self.params = dataclasses.replace(
+                p, ignored_columns=tuple(p.ignored_columns)
+                + (p.fold_column,))
+        try:
+            di = self._make_datainfo(frame)
+            self.job = Job(f"{self.algo} train",
+                           dest_key=dkv.make_key(self.algo))
 
-        def fit(job: Job) -> Model:
-            t0 = time.time()
-            model = self._fit(job, frame, di, valid)
-            model.output.setdefault("run_time_s", time.time() - t0)
-            model.output.setdefault("training_frame_rows", frame.nrows)
-            self._post_fit(model, frame, valid)
-            return model
+            def fit(job: Job) -> Model:
+                t0 = time.time()
+                if self._cv_requested():
+                    from .cv import cross_validate
+                    model = cross_validate(self, job, frame, di, valid)
+                else:
+                    model = self._fit(job, frame, di, valid)
+                model.output.setdefault("run_time_s", time.time() - t0)
+                model.output.setdefault("training_frame_rows", frame.nrows)
+                self._post_fit(model, frame, valid)
+                return model
 
-        return self.job.run(fit)
+            model = self.job.run(fit)
+        finally:
+            self.params = orig
+        if bal is not None:
+            model.datainfo = dataclasses.replace(
+                model.datainfo, weights_column=orig.weights_column)
+        return model

@@ -3,12 +3,13 @@
 
 Trees train on raw values (numerics as they are, categoricals as codes)
 and read the column layout, the response domain and the per-frame
-response and weight views.  The linear families train on the design
-matrix (``make_matrix``): numerics mean-imputed and standardized, time
-columns shifted to the training base, categoricals one-hot with an NA
-bucket (unseen levels land there: the reference's adaptTestForTrain),
-and the intercept column, memoized on the frame; ``offsets`` gives GLM's
-offset column.
+response and weight views.  GLM and DeepLearning train on the design
+matrix (``make_matrix``; an autoencoder's layout has no response, and
+``coef_names`` names its reconstruction): numerics mean-imputed and
+standardized, time columns shifted to the training base, categoricals
+one-hot with an NA bucket (unseen levels land there: the reference's
+adaptTestForTrain), and the intercept column, memoized on the frame;
+``offsets`` gives GLM's offset column.
 """
 
 from __future__ import annotations

@@ -172,6 +172,7 @@ class IsolationForest(ModelBuilder):
     algo = "isolationforest"
     model_class = IsolationForestModel
     supervised = False
+    standard_metrics = False
 
     def __init__(self, params: Optional[IsolationForestParameters] = None,
                  **kw):

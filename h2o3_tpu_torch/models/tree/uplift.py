@@ -195,6 +195,7 @@ class UpliftDRF(SharedTree):
 
     algo = "upliftdrf"
     model_class = UpliftDRFModel
+    standard_metrics = False
 
     def __init__(self, params: Optional[UpliftDRFParameters] = None, **kw):
         super().__init__(params or UpliftDRFParameters(**kw))

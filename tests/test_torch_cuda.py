@@ -1044,3 +1044,95 @@ def test_small_glm_fit_matches_cpu(cuda):
         assert np.abs(b - bc).max() <= 1e-4 * np.abs(bc).max()
         np.testing.assert_array_equal(
             b, np.asarray(again.output["beta_std_flat"]))
+
+
+# ------------------------------------------------- DeepLearning and CV
+
+_DL_CFG = dict(response_column="dep_delayed_15min",
+               ignored_columns=["delay_class"], hidden=(32, 32),
+               precision="f32", mini_batch_size=256,
+               train_samples_per_iteration=256 * 20, epochs=1.875,
+               stopping_rounds=0, seed=3)
+
+
+def test_small_dl_train_matches_cpu(cuda):
+    """DeepLearning f32 on the card against the same train (the same
+    CPU-drawn initial weights, permutation and offsets, and the same
+    column rollups: their one-pass f32 sums differ by device) on the CPU:
+    60 steps, weights to 1e-4 of the largest, probabilities to 1e-5; a
+    second card train bitwise the first."""
+    from h2o3_tpu_torch.models import DeepLearning
+    frames = {d: _dart_frame(d, 8_192) for d in ("cuda", "cpu")}
+    for v, w in zip(frames["cuda"].vecs, frames["cpu"].vecs):
+        w._rollups = v.rollups()
+    m = {d: DeepLearning(device=d, **_DL_CFG).train(frames[d])
+         for d in frames}
+    assert m["cuda"].output["samples_trained"] == 60 * 256
+    again = DeepLearning(device="cuda", **_DL_CFG).train(frames["cuda"])
+    for (W, b), (Wc, bc), (W2, b2) in zip(m["cuda"].output["weights"],
+                                          m["cpu"].output["weights"],
+                                          again.output["weights"]):
+        assert np.abs(W - Wc).max() <= 1e-4 * np.abs(Wc).max()
+        assert np.abs(b - bc).max() <= 1e-4 * max(np.abs(bc).max(), 1e-3)
+        np.testing.assert_array_equal(W, W2)
+        np.testing.assert_array_equal(b, b2)
+    p = {d: m[d].predict(frames[d]).vec("YES").to_numpy() for d in m}
+    np.testing.assert_allclose(p["cuda"], p["cpu"], rtol=0, atol=1e-5)
+
+
+def test_dl_bf16_product_is_f32_before_the_bias(cuda):
+    """``precision="bf16"`` multiplies bf16 operands on the tensor cores
+    into an f32 product: within f32 accumulation of the f64 product of
+    the rounded operands, not the bf16-rounded product; its gradients are
+    f32; a bf16 train runs."""
+    from h2o3_tpu_torch.models import DeepLearning
+    from h2o3_tpu_torch.models import deeplearning as dl
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((512, 300), generator=gen, device=cuda,
+                    requires_grad=True)
+    w = torch.randn((300, 200), generator=gen, device=cuda,
+                    requires_grad=True)
+    out = dl.product(a, w, bf16=True)
+    assert out.dtype == torch.float32
+    exact = a.detach().bfloat16().double() @ w.detach().bfloat16().double()
+    err = (out.detach().double() - exact).abs().max().item()
+    rounded = (out.detach().bfloat16().double() - exact).abs().max().item()
+    assert err <= 1e-5 * exact.abs().max().item() < rounded
+    out.sum().backward()
+    assert a.grad.dtype == w.grad.dtype == torch.float32
+    fr = _dart_frame("cuda", 8_192)
+    m = DeepLearning(**dict(_DL_CFG, precision="bf16")).train(fr)
+    assert np.isfinite(m.training_metrics.logloss)
+
+
+def test_dl_f32_runs_with_tf32_off(cuda):
+    """The f32 path refuses to train with TF32 matmuls allowed, and
+    trains with them off (the default)."""
+    from h2o3_tpu_torch.models import DeepLearning
+    fr = _dart_frame("cuda", 4_096)
+    assert not torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            DeepLearning(**_DL_CFG).train(fr)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    assert np.isfinite(DeepLearning(**_DL_CFG).train(fr)
+                       .training_metrics.logloss)
+
+
+def test_cv_train_fold_count_and_launches(cuda):
+    """XGBoost with nfolds=3 on the card: 3 fold models, and one ``hist``
+    and one records launch a level of every tree of the 4 models (32 each
+    for 2 depth-4 trees)."""
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    fr = _dart_frame("cuda", 8_192)
+    before = (hist.HIST.launches, hist.SPLIT_RECORDS.launches)
+    m = XGBoost(response_column="dep_delayed_15min",
+                ignored_columns=["delay_class"], ntrees=2, max_depth=4,
+                nbins=64, seed=1, nfolds=3).train(fr)
+    torch.cuda.synchronize()
+    assert len(m.output["cv_fold_models"]) == 3
+    assert (hist.HIST.launches - before[0],
+            hist.SPLIT_RECORDS.launches - before[1]) == (32, 32)
+    assert np.isfinite(m.cross_validation_metrics.auc)

@@ -442,9 +442,11 @@ def _fallbacks(since):
 def test_fallbacks_recorded_and_wave_path_trains(frames):
     """A grid of an ineligible split mode falls back whole: every member
     trains on the wave path, none carries a cohort tag, and the reason
-    lands on the timeline.  Members whose option the port lacks (nfolds)
-    also fall back, and their own builder then raises, so each becomes a
-    failed entry; a grid of nothing else trains no model and says so."""
+    lands on the timeline.  Cross-validated members (nfolds) fall back
+    and train with their folds on the wave path.  Members whose option
+    the port lacks (export_checkpoints_dir) also fall back, and their own
+    builder then raises, so each becomes a failed entry; a grid of
+    nothing else trains no model and says so."""
     import time
     *_, fr = frames
     t0 = time.time()
@@ -453,10 +455,17 @@ def test_fallbacks_recorded_and_wave_path_trains(frames):
     assert len(g.models) == 2 and not g.failed_entries
     assert all(m.output.get("grid_cohort") is None for m in g.models)
     assert any("split_mode" in str(e.get("reason")) for e in _fallbacks(t0))
+    g = GridSearch(XGBoost, {"learn_rate": [0.1, 0.2]}, grid_batch="on",
+                   nfolds=2, **dict(_BASE, ntrees=2)).train(fr)
+    assert len(g.models) == 2 and not g.failed_entries
+    assert all(len(m.output["cv_fold_models"]) == 2
+               and m.cross_validation_metrics is not None for m in g.models)
+    assert any("nfolds" in str(e.get("reason")) for e in _fallbacks(t0))
     with pytest.raises(ValueError, match="NotImplementedError"):
         GridSearch(XGBoost, {"learn_rate": [0.1, 0.2]}, grid_batch="on",
-                   nfolds=2, **_BASE).train(fr)
-    assert any("nfolds" in str(e.get("reason")) for e in _fallbacks(t0))
+                   export_checkpoints_dir="/nonexistent", **_BASE).train(fr)
+    assert any("export_checkpoints_dir" in str(e.get("reason"))
+               for e in _fallbacks(t0))
     with pytest.raises(NotImplementedError, match="parallel"):
         GridSearch(XGBoost, _HP, parallelism=4, **_BASE)
 

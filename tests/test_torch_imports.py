@@ -7,6 +7,7 @@ import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -117,6 +118,9 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.models.tree.isofor\n"
         "import h2o3_tpu_torch.models.tree.uplift\n"
         "import h2o3_tpu_torch.metrics.uplift\n"
+        "import h2o3_tpu_torch.metrics.gainslift\n"
+        "import h2o3_tpu_torch.models.deeplearning\n"
+        "import h2o3_tpu_torch.models.cv\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -124,16 +128,21 @@ def test_import_adds_no_jax_module():
     added = json.loads(out.stdout.strip().splitlines()[-1])
     assert "h2o3_tpu_torch.serving.kernel" in added
     assert "h2o3_tpu_torch.models.tree.uplift" in added
+    assert "h2o3_tpu_torch.models.deeplearning" in added
+    assert "h2o3_tpu_torch.models.cv" in added
     assert not [m for m in added if _forbidden(m)]
 
 
 def test_copied_sources_are_copies():
-    """The native tokenizer and the uplift metrics are byte copies of the
-    JAX package's (host C++ and numpy only), kept inside the port."""
+    """The native tokenizer, the uplift metrics and the gains/lift table
+    are byte copies of the JAX package's (host C++ and numpy only), kept
+    inside the port."""
     for ours, theirs in (("h2o3_tpu_torch/csrc/fastcsv.cpp",
                           "h2o3_tpu/native/fastcsv.cpp"),
                          ("h2o3_tpu_torch/metrics/uplift.py",
-                          "h2o3_tpu/metrics/uplift.py")):
+                          "h2o3_tpu/metrics/uplift.py"),
+                         ("h2o3_tpu_torch/metrics/gainslift.py",
+                          "h2o3_tpu/metrics/gainslift.py")):
         with open(os.path.join(ROOT, ours), "rb") as a, \
                 open(os.path.join(ROOT, theirs), "rb") as b:
             assert a.read() == b.read(), ours
@@ -174,3 +183,10 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     m = XGBoost(response_column="y", ntrees=1, max_depth=2, nbins=4,
                 min_rows=1.0, device="cpu").train(fr)
     assert m.output["stacked"].values.device.type == "cpu"
+    from h2o3_tpu_torch.models import DeepLearning
+    for kw in (dict(), dict(nfolds=2), dict(balance_classes=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            DeepLearning(response_column="y", hidden=(2,), **kw).train(fr)
+    m = DeepLearning(response_column="y", hidden=(2,), epochs=1.0,
+                     device="cpu").train(fr)
+    assert np.isfinite(m.training_metrics.logloss)
