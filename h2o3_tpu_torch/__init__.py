@@ -16,9 +16,11 @@ online scoring plane and the tree-training main path:
   (``models.tree``: binning, the level kernels' wrappers in ``hist``,
   the growth loop in ``shared``, ``gbm``, ``xgboost``, and the batched
   grid cohorts of ``grid_batch``, ``drf``, ``dt``, ``isofor``:
-  IsolationForest and ExtendedIsolationForest, ``uplift``: UpliftDRF),
-  with the CUDA histogram and split-record kernels (XGBoost's DART
-  booster included), GLM (``glm``: IRLSM with COD, the lambda path,
+  IsolationForest and ExtendedIsolationForest, ``uplift``: UpliftDRF,
+  ``efb``: exclusive feature bundling), with the CUDA histogram and
+  split-record kernels (XGBoost's DART booster, GBM's ten
+  distributions, monotone constraints and probability calibration
+  included), GLM (``glm``: IRLSM with COD, the lambda path,
   L-BFGS, multinomial and ordinal, on the one-hot design of
   ``datainfo.make_matrix``), DeepLearning (``deeplearning``: the MLP
   and autoencoder, cuBLAS products in bf16 with f32 output or in full
@@ -41,6 +43,9 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 from .frame.parse import H2OFrame, import_file, upload_string
 from .models.deeplearning import DeepLearning, DeepLearningParameters
 from .models.glm import GLM, GLMParameters
+from .models.tree.gbm import GBM
+from .models.tree.xgboost import XGBoost
 
-__all__ = ["DeepLearning", "DeepLearningParameters", "GLM", "GLMParameters",
-           "H2OFrame", "import_file", "upload_string"]
+__all__ = ["DeepLearning", "DeepLearningParameters", "GBM", "GLM",
+           "GLMParameters", "H2OFrame", "XGBoost", "import_file",
+           "upload_string"]

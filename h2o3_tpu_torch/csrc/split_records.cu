@@ -17,7 +17,7 @@
 //   gain, bin, na_left, GL, HL, CL (at the bin, NA excluded),
 //   g_na, h_na, c_na, totG, totH, totC.
 //
-// Two entries, one body (a template on kRows):
+// Three entries, one body (a template on kRows and kMono):
 //   * split_records_launch: lambda, alpha, gamma, min_rows and
 //     min_child_weight are five scalars of the launch (the TPU kernel's
 //     [1, 8] SMEM block);
@@ -30,6 +30,15 @@
 //     five values once (one broadcast load each) into registers, and the
 //     rest is the scalar body.  The scalar instantiation compiles without
 //     those loads: the form costs it nothing.
+//   * split_records_mono_launch: the monotone form, the scalar parameters
+//     and a per-feature constraint mono [F] f32 (1 increasing, -1
+//     decreasing, 0 free).  It replaces no Pallas kernel: the JAX package
+//     searches a monotone level in XLA (hist.py::best_splits(mono=),
+//     :1331).  Row r's feature is r % F; each direction of a candidate is
+//     rejected (-inf) when c > 0 and vl > vr or c < 0 and vl < vr, with
+//     vl, vr the children's Newton values -soft(G, alpha) / ((H + lam) +
+//     1e-12) in the plain version's operation order
+//     (hist.py::newton_value).  Only a constrained row pays for it.
 //
 // The contract: bitwise equal to the plain torch version
 // (hist.py::_split_records_torch) on any H.  Its prefix sums run in
@@ -150,14 +159,37 @@ __device__ __forceinline__ void prefix_chain(float* x, int n) {
   }
 }
 
+// the soft-thresholded Newton value -(sign(g) max(|g| - alpha, 0)) /
+// ((h + lam) + 1e-12) of hist.py::newton_value, operation by operation
+__device__ __forceinline__ float newton_value(float g, float h, float lam,
+                                              float alpha) {
+  const float sgn =
+      g > 0.0f ? 1.0f : (g < 0.0f ? -1.0f : (isnan(g) ? g : 0.0f));
+  float m = __fsub_rn(fabsf(g), alpha);
+  m = isnan(m) ? m : (m > 0.0f ? m : 0.0f);
+  const float num = __fmul_rn(sgn, m);
+  return __fdiv_rn(-num, __fadd_rn(__fadd_rn(h, lam), 1e-12f));
+}
+
+// whether a candidate breaks the direction c of its feature (a NaN value
+// breaks nothing, as the plain version's comparisons are false on it)
+__device__ __forceinline__ bool breaks_mono(float c, float gl, float hl,
+                                            float gr, float hr, float lam,
+                                            float alpha) {
+  const float vl = newton_value(gl, hl, lam, alpha);
+  const float vr = newton_value(gr, hr, lam, alpha);
+  return (c > 0.0f && vl > vr) || (c < 0.0f && vl < vr);
+}
+
 // lanes of a per-row parameter record: lam, alpha, gamma, min_rows, mcw
 constexpr int kParamLanes = 8;
 
-template <bool kRows>
+template <bool kRows, bool kMono>
 __global__ void __launch_bounds__(kThreads)
 split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
                      float lam, float alpha, float gamma, float min_rows,
                      float mcw, int F, const float* __restrict__ params,
+                     const float* __restrict__ mono,
                      float* __restrict__ rec) {
   extern __shared__ __align__(16) float smem[];  // [3][Bp], warp winners
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -170,6 +202,8 @@ split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
     min_rows = __ldg(p + 3);
     mcw = __ldg(p + 4);
   }
+  // the row's constraint (0 when unconstrained: nothing is rejected)
+  const float cons = kMono ? __ldg(mono + row % F) : 0.0f;
   const int nbins = B - 1;
   const size_t plane = (size_t)LF * B;
   float* G = smem;
@@ -203,12 +237,16 @@ split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
     const float gr = __fsub_rn(__fsub_rn(totG, gl), gna);
     const float hr = __fsub_rn(__fsub_rn(totH, hl), hna);
     const float cr = __fsub_rn(__fsub_rn(totC, cl), cna);
-    const float gL = gain_dir(__fadd_rn(gl, gna), __fadd_rn(hl, hna),
-                              __fadd_rn(cl, cna), gr, hr, cr, parent, lam,
-                              alpha, gamma, min_rows, mcw);
-    const float gR = gain_dir(gl, hl, cl, __fadd_rn(gr, gna),
-                              __fadd_rn(hr, hna), __fadd_rn(cr, cna),
-                              parent, lam, alpha, gamma, min_rows, mcw);
+    const float glL = __fadd_rn(gl, gna), hlL = __fadd_rn(hl, hna);
+    const float grR = __fadd_rn(gr, gna), hrR = __fadd_rn(hr, hna);
+    float gL = gain_dir(glL, hlL, __fadd_rn(cl, cna), gr, hr, cr, parent,
+                        lam, alpha, gamma, min_rows, mcw);
+    float gR = gain_dir(gl, hl, cl, grR, hrR, __fadd_rn(cr, cna), parent,
+                        lam, alpha, gamma, min_rows, mcw);
+    if (kMono && cons != 0.0f) {
+      if (breaks_mono(cons, glL, hlL, gr, hr, lam, alpha)) gL = -INFINITY;
+      if (breaks_mono(cons, gl, hl, grR, hrR, lam, alpha)) gR = -INFINITY;
+    }
     const float gain = nan_max(gL, gR);
     const bool take = bidx == INT_MAX || (isnan(gain) && !isnan(best)) ||
                       gain > best;
@@ -255,10 +293,11 @@ split_records_kernel(const float* __restrict__ hist, int LF, int B, int Bp,
   }
 }
 
-template <bool kRows>
+template <bool kRows, bool kMono>
 int launch(const float* hist, int LF, int B, float lam, float alpha,
            float gamma, float min_rows, float mcw, int F,
-           const float* params, float* rec, cudaStream_t stream) {
+           const float* params, const float* mono, float* rec,
+           cudaStream_t stream) {
   if (LF <= 0) return (int)cudaSuccess;
   if (B < 3) return (int)cudaErrorInvalidValue;
   const int Bp = (B + 3) & ~3;         // 16-byte aligned planes
@@ -266,12 +305,13 @@ int launch(const float* hist, int LF, int B, float lam, float alpha,
   if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   if (smem > (size_t)kSmemDefault) {
     const cudaError_t e = cudaFuncSetAttribute(
-        split_records_kernel<kRows>,
+        split_records_kernel<kRows, kMono>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  split_records_kernel<kRows><<<LF, kThreads, smem, stream>>>(
-      hist, LF, B, Bp, lam, alpha, gamma, min_rows, mcw, F, params, rec);
+  split_records_kernel<kRows, kMono><<<LF, kThreads, smem, stream>>>(
+      hist, LF, B, Bp, lam, alpha, gamma, min_rows, mcw, F, params, mono,
+      rec);
   return (int)cudaGetLastError();
 }
 
@@ -283,8 +323,8 @@ extern "C" int split_records_launch(const float* hist, int LF, int B,
                                     float lam, float alpha, float gamma,
                                     float min_rows, float mcw, float* rec,
                                     cudaStream_t stream) {
-  return launch<false>(hist, LF, B, lam, alpha, gamma, min_rows, mcw, 1,
-                       nullptr, rec, stream);
+  return launch<false, false>(hist, LF, B, lam, alpha, gamma, min_rows, mcw,
+                              1, nullptr, nullptr, rec, stream);
 }
 
 // The per-row form: the same records with each row's five parameters
@@ -294,6 +334,19 @@ extern "C" int split_records_rows_launch(const float* hist, int LF, int B,
                                          int F, const float* params,
                                          float* rec, cudaStream_t stream) {
   if (F <= 0 || LF % F != 0) return (int)cudaErrorInvalidValue;
-  return launch<true>(hist, LF, B, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, F, params,
-                      rec, stream);
+  return launch<true, false>(hist, LF, B, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, F,
+                             params, nullptr, rec, stream);
+}
+
+// The monotone form: the scalar records with each candidate direction
+// rejected where it breaks its feature's constraint mono[r % F] (f32, [F]:
+// 1, -1 or 0).  Device pointers; LF a multiple of F.
+extern "C" int split_records_mono_launch(const float* hist, int LF, int B,
+                                         float lam, float alpha, float gamma,
+                                         float min_rows, float mcw, int F,
+                                         const float* mono, float* rec,
+                                         cudaStream_t stream) {
+  if (F <= 0 || LF % F != 0) return (int)cudaErrorInvalidValue;
+  return launch<false, true>(hist, LF, B, lam, alpha, gamma, min_rows, mcw,
+                             F, nullptr, mono, rec, stream);
 }

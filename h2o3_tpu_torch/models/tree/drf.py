@@ -16,9 +16,12 @@ classes grows K class trees a round, each fitting its one-hot column, as
 one batched build (``split_mode="fused"``: one histogram launch and one
 records launch per level whatever K is) or as a loop of K single builds
 (``"separate"``), bitwise alike; the K trees share the round's row
-sample.  Not ported here: checkpoints and continuation, progress
-snapshots and fault injection (runtime planes), EFB bundling and the
-autotuner.
+sample.  A wide sparse frame trains on EFB's bundled working codes
+(``shared.maybe_bundle``, as in the JAX package): the dense layout with
+its depth cap, mtries resolved against the working features, and the K
+class trees as a loop of single builds.  Not ported here: checkpoints and
+continuation, progress snapshots and fault injection (runtime planes),
+and the autotuner.
 """
 
 from __future__ import annotations
@@ -38,9 +41,10 @@ from ..datainfo import DataInfo
 from ..scorekeeper import metric_direction, stop_early
 from .binning import edges_matrix, fit_bins
 from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
-                     StackedTrees, TreeList, chunk_schedule,
+                     StackedTrees, TreeList, chunk_schedule, efb_bundles,
                      make_multinomial_scan_fn, make_tree_scan_fn,
-                     record_effective_depth, resolve_hist_layout,
+                     maybe_bundle, record_effective_depth,
+                     resolve_hist_layout,
                      resolve_hist_mode, resolve_split_mode,
                      resolve_tree_program, run_hist_crosscheck,
                      run_layout_crosscheck, run_split_crosscheck, traverse,
@@ -98,7 +102,11 @@ class DRF(SharedTree):
 
     def _col_rate(self, Fw: int, classifier: bool) -> float:
         """mtries -> the per-split column rate over the working features
-        (-1: sqrt(F) for classification, F/3 for regression; -2: all)."""
+        (-1: sqrt(F) for classification, F/3 for regression; -2: all).
+        Under a bundle plan the masks are drawn over the working features,
+        so the rate is resolved against their count, as in the JAX
+        package (a rate from the original count would leave ~1 feature a
+        split)."""
         mt = self.params.mtries
         if mt == -1:
             m = math.isqrt(Fw) if classifier else max(Fw // 3, 1)
@@ -117,22 +125,25 @@ class DRF(SharedTree):
                           seed=p.effective_seed(),
                           weights=w if p.weights_column else None,
                           histogram_type=p.histogram_type)
-        codes = binned.codes
         edges_mat = torch.from_numpy(
             edges_matrix(binned.edges, p.nbins)).to(dev)
         y = torch.where(torch.isnan(y), 0.0, y)
+        plan, codes, Fw, wbin_counts = maybe_bundle(binned, p, None,
+                                                    frame.nrows)
         N = codes.shape[1]
-        Fw = binned.nfeatures
         hier = use_hier_split_search(p)
         hist_mode = resolve_hist_mode(p)
-        split_mode = resolve_split_mode(p, hier=hier)
-        hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, hier=hier)
-        tree_program = resolve_tree_program(p)
+        split_mode = resolve_split_mode(p, plan=plan, hier=hier)
+        hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, plan=plan,
+                                          hier=hier)
+        tree_program = resolve_tree_program(p, plan=plan, hier=hier)
         seed = p.effective_seed()
         col_rate = self._col_rate(Fw, di.is_classifier)
 
         model = self.model_class(job.dest_key or dkv.make_key(self.algo),
                                  p, di)
+        if plan is not None:
+            model.output["efb_bundles"] = efb_bundles(plan)
         model.output["nclass_trees"] = K
         model.output["binning"] = {"nbins": p.nbins}
         model.output["tree_program"] = tree_program
@@ -158,14 +169,15 @@ class DRF(SharedTree):
             # then takes the subtraction path, the fused records and the
             # node-sparse levels
             kw = dict(max_depth=p.max_depth, nbins=p.nbins, F=Fw,
-                      n_padded=N, bin_counts=binned.bin_counts,
+                      n_padded=N, bin_counts=wbin_counts,
                       reg_lambda=p.reg_lambda, min_rows=p.min_rows,
                       min_split_improvement=p.min_split_improvement,
                       learn_rate=1.0, reg_alpha=p.reg_alpha, gamma=p.gamma,
                       min_child_weight=p.min_child_weight, nk=K)
             g0, h0 = -target * w, w.expand_as(target)
             if hist_mode == "check":
-                run_hist_crosscheck(codes, g0, h0, w, edges_mat, seed, **kw)
+                run_hist_crosscheck(codes, g0, h0, w, edges_mat, seed,
+                                    plan=plan, **kw)
                 hist_mode = "subtract"
             if split_mode == "check":
                 run_split_crosscheck(codes, g0, h0, w, edges_mat, seed,
@@ -181,9 +193,9 @@ class DRF(SharedTree):
                 model.output["hist_layout"] = hist_layout
 
         scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate, 1.0)
-        scan_kw = dict(bin_counts=binned.bin_counts, hist_mode=hist_mode,
+        scan_kw = dict(bin_counts=wbin_counts, hist_mode=hist_mode,
                        split_mode=split_mode, hist_layout=hist_layout,
-                       device=dev, hier=hier,
+                       device=dev, hier=hier, plan=plan,
                        sparse_depth_threshold=p.sparse_depth_threshold)
         scan_fn = make_multinomial_scan_fn(K, *scan_args, mode="drf",
                                            **scan_kw) if K > 1 \

@@ -1,9 +1,12 @@
 """GBM: gradient boosting on the level kernels — the gbtree path of
 ``h2o3_tpu/models/tree/gbm.py`` (hex/tree/gbm/GBM.java).
 
-Per boosting round: gradients of the loss (``distributions``), one tree
-grown level by level (``shared.make_build_tree_fn``), the Newton leaf
-values added to the scores F.  A response of K > 2 classes grows K class
+Per boosting round: gradients of the loss (``distributions``: the ten
+families of the JAX package and a custom one), one tree grown level by
+level (``shared.make_build_tree_fn``), the Newton leaf values added to
+the scores F.  Monotone constraints (``shared.resolve_mono``) and
+exclusive feature bundling (``shared.maybe_bundle``) change the level,
+not the loop.  A response of K > 2 classes grows K class
 trees a round on the softmax gradients (``shared.make_multinomial_scan_fn``:
 one batched build of the K trees, GBM.java buildNextKTrees).  Rounds run in
 chunks that end on the scoring intervals (``shared.chunk_schedule``);
@@ -34,13 +37,14 @@ from ..scorekeeper import metric_direction
 from .binning import edges_matrix, fit_bins
 from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
                      StackedTrees, Tree, TreeList, _row_sample, _scan_codes,
-                     chunk_schedule, draw_generator, make_build_tree_fn,
-                     make_multinomial_scan_fn, make_tree_scan_fn,
-                     record_effective_depth, resolve_hist_layout,
-                     resolve_hist_mode, resolve_split_mode,
-                     resolve_tree_program, run_hist_crosscheck,
-                     run_layout_crosscheck, run_split_crosscheck,
-                     stack_trees, traverse, use_hier_split_search)
+                     chunk_schedule, draw_generator, efb_bundles,
+                     make_build_tree_fn, make_multinomial_scan_fn,
+                     make_tree_scan_fn, maybe_bundle, record_effective_depth,
+                     resolve_hist_layout, resolve_hist_mode, resolve_mono,
+                     resolve_split_mode, resolve_tree_program,
+                     run_hist_crosscheck, run_layout_crosscheck,
+                     run_split_crosscheck, stack_trees, traverse,
+                     use_hier_split_search)
 
 
 def tree_scores(trees, X: torch.Tensor, K: int) -> torch.Tensor:
@@ -66,7 +70,21 @@ def dart_scales(kdrop: int, nu: float, normalize_type: str) -> tuple:
 
 @dataclasses.dataclass
 class GBMParameters(SharedTreeParameters):
-    pass
+    # a custom loss (water/udf/CDistributionFunc analog): an object with
+    # the protocol of distributions.CustomDistribution, in torch
+    custom_distribution_func: Optional[object] = None
+
+
+def params_distribution(p, nclasses: int, name: Optional[str] = None):
+    """The distribution a tree builder's parameters name (or ``name``),
+    with their Tweedie power, quantile and Huber alphas and custom
+    function."""
+    return make_distribution(
+        name or p.distribution, nclasses=nclasses,
+        tweedie_power=p.tweedie_power, quantile_alpha=p.quantile_alpha,
+        huber_alpha=p.huber_alpha,
+        custom_distribution_func=getattr(p, "custom_distribution_func",
+                                         None))
 
 
 class GBMModel(SharedTreeModel):
@@ -76,8 +94,8 @@ class GBMModel(SharedTreeModel):
         F = self._raw_scores(X)
         if self.output.get("nclass_trees", 1) > 1:
             return torch.softmax(F, dim=1)
-        dist = make_distribution(self.output["distribution"],
-                                 nclasses=self.datainfo.nclasses)
+        dist = params_distribution(self.params, self.datainfo.nclasses,
+                                   self.output["distribution"])
         if self.datainfo.is_classifier:
             p1 = dist.linkinv(F).clamp(0.0, 1.0)
             return torch.stack([1 - p1, p1], dim=1)
@@ -128,30 +146,48 @@ class GBM(SharedTree):
         p: GBMParameters = self.params
         K = di.nclasses if di.is_classifier and di.nclasses > 2 else 1
         dev = frame.device
-        dist = make_distribution(p.distribution, nclasses=di.nclasses)
+        dist = params_distribution(p, di.nclasses)
+        if K > 1 and getattr(p, "custom_distribution_func",
+                             None) is not None:
+            raise ValueError(
+                "custom_distribution_func is not supported for multinomial "
+                "responses (the K-tree softmax path has its own gradients)")
         if (K > 1) != (dist.name == "multinomial"):
             raise ValueError(
                 f"distribution {dist.name!r} does not fit a response of "
                 f"{di.nclasses} classes")
+        mono = resolve_mono(p, di)
+        if mono is not None and K > 1:
+            raise ValueError(
+                "monotone_constraints: multinomial is not supported")
+        if mono is not None and use_hier_split_search(p):
+            raise NotImplementedError(
+                "monotone_constraints do not compose with the hierarchical "
+                "split search (split_search='hier'); use the exact search")
         y, w = di.response(frame), di.weights(frame)
         binned = fit_bins(frame, [s.name for s in di.specs], nbins=p.nbins,
                           seed=p.effective_seed(),
                           weights=w if p.weights_column else None,
                           histogram_type=p.histogram_type)
-        codes = binned.codes
         edges_mat = torch.from_numpy(
             edges_matrix(binned.edges, p.nbins)).to(dev)
+        # EFB: a wide sparse frame trains on bundled working codes; the
+        # recorded trees stay in the original feature space
+        plan, codes, Fw, wbin_counts = maybe_bundle(binned, p, mono,
+                                                    frame.nrows)
         N = codes.shape[1]
-        Fw = binned.nfeatures
         hier = use_hier_split_search(p)
+        knobs = dict(mono=mono, plan=plan, hier=hier)
         hist_mode = resolve_hist_mode(p)
-        split_mode = resolve_split_mode(p, hier=hier)
-        hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, hier=hier)
-        tree_program = resolve_tree_program(p)
+        split_mode = resolve_split_mode(p, **knobs)
+        hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, **knobs)
+        tree_program = resolve_tree_program(p, **knobs)
         seed = p.effective_seed()
 
         model = self.model_class(job.dest_key or dkv.make_key(self.algo),
                                  p, di)
+        if plan is not None:
+            model.output["efb_bundles"] = efb_bundles(plan)
         model.output["distribution"] = dist.name
         model.output["binning"] = {"nbins": p.nbins}
         model.output["nclass_trees"] = K
@@ -182,7 +218,7 @@ class GBM(SharedTree):
             F_v = start(Xv.shape[0])
 
         common = dict(max_depth=p.max_depth, nbins=p.nbins, F=Fw,
-                      n_padded=N, bin_counts=binned.bin_counts,
+                      n_padded=N, bin_counts=wbin_counts,
                       reg_lambda=p.reg_lambda, min_rows=p.min_rows,
                       min_split_improvement=p.min_split_improvement,
                       learn_rate=p.learn_rate, reg_alpha=p.reg_alpha,
@@ -197,7 +233,7 @@ class GBM(SharedTree):
             kw = dict(common, nk=K)
             if hist_mode == "check":
                 run_hist_crosscheck(codes, g0 * w, h0 * w, w, edges_mat,
-                                    seed, **kw)
+                                    seed, mono=mono, plan=plan, **kw)
                 hist_mode = "subtract"
             if split_mode == "check":
                 run_split_crosscheck(codes, g0 * w, h0 * w, w, edges_mat,
@@ -217,16 +253,18 @@ class GBM(SharedTree):
             return self._fit_dart(
                 job, model, di, dist, codes, target, y, w, F, edges_mat,
                 binned, init_host, model._design(frame), vstate, hist_mode,
-                split_mode, hist_layout, hier, seed, K)
+                split_mode, hist_layout, hier, seed, K, Fw, wbin_counts,
+                mono, plan)
 
         scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate,
                      p.col_sample_rate_per_tree)
-        scan_kw = dict(bin_counts=binned.bin_counts, hist_mode=hist_mode,
+        scan_kw = dict(bin_counts=wbin_counts, hist_mode=hist_mode,
                        split_mode=split_mode, hist_layout=hist_layout,
-                       device=dev, hier=hier,
+                       device=dev, hier=hier, plan=plan,
                        sparse_depth_threshold=p.sparse_depth_threshold)
         scan_fn = make_multinomial_scan_fn(K, *scan_args, **scan_kw) \
-            if K > 1 else make_tree_scan_fn(dist, *scan_args, **scan_kw)
+            if K > 1 else make_tree_scan_fn(dist, *scan_args, mono=mono,
+                                            **scan_kw)
         model.output["hist_kernel"] = \
             "varbin" if scan_fn.build.use_varbin else "uniform"
         scalars = (p.reg_lambda, p.min_rows, p.min_split_improvement,
@@ -260,7 +298,8 @@ class GBM(SharedTree):
 
     def _fit_dart(self, job, model, di, dist, codes, target, y, w, F,
                   edges_mat, binned, init_host, X_tr, vstate, hist_mode,
-                  split_mode, hist_layout, hier, seed, K):
+                  split_mode, hist_layout, hier, seed, K, Fw, bin_counts,
+                  mono, plan):
         """The DART booster, one round at a time (the JAX package's loop,
         gbm.py:528-683): the dropped trees' scores S_D traversed over the
         raw design, gradients on F - S_D, the new tree grown at learn
@@ -271,22 +310,23 @@ class GBM(SharedTree):
         sets are its own; the row sample and per-split masks are the
         port's keyed streams (round t of chunk 0).  A round of K class
         trees is one batched build (``make_build_tree_fn(nk=K)``), or
-        under ``split_mode="separate"`` and the hierarchical search a
-        loop of K single builds, bitwise alike.  Trees stay a list while
+        under ``split_mode="separate"`` (which the resolvers give the
+        hierarchical search, constraints and a plan) a loop of K single
+        builds, bitwise alike.  Trees stay a list while
         training, since rescaling rewrites earlier trees, and are stacked
         at the end; a validation frame is scored from all trees at each
-        interval."""
+        interval.  ``codes`` are a bundle plan's working codes (``Fw``
+        features, ``bin_counts``) where one engages."""
         p = self.params
-        dev, Fw, N = codes.device, binned.nfeatures, codes.shape[1]
-        if hier:
-            split_mode, hist_layout = "separate", "dense"
+        dev, N = codes.device, codes.shape[1]
         batched = K > 1 and split_mode == "fused"
         build = make_build_tree_fn(
-            p.max_depth, p.nbins, Fw, N, bin_counts=binned.bin_counts,
+            p.max_depth, p.nbins, Fw, N, bin_counts=bin_counts,
             hist_mode=hist_mode, split_mode=split_mode,
             hist_layout=hist_layout, device=dev, hier=hier,
             nk=K if batched else 1,
-            sparse_depth_threshold=p.sparse_depth_threshold)
+            sparse_depth_threshold=p.sparse_depth_threshold, mono=mono,
+            plan=plan)
         model.output["hist_kernel"] = \
             "varbin" if build.use_varbin else "uniform"
         hcodes = _scan_codes(build, codes, p.nbins, hier)

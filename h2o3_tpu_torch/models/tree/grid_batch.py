@@ -20,12 +20,12 @@ invalid, its leaf values are 0 and its scores stay as they were.
 Anything that changes a tree's shape or the build's path falls back to
 the wave path of ``grid.py`` (``CohortFallback`` with the reason): the
 multinomial response, the hierarchical search, non-fused split modes,
-the crosscheck modes, DART, monotone constraints, CV folds, checkpoints,
-and the options the port has not ported, where the member's own builder
-then raises.  Not ported here: the JAX package's recovery journals,
-progress snapshots and ``grid_member`` fault injection
-(``runtime/{recovery,snapshot,failure}.py``), and whole-tree scan
-cohorts.
+the crosscheck modes, DART, monotone constraints, a custom distribution,
+calibration, an engaged EFB plan, CV folds, checkpoints, and the options
+the port has not ported, where the member's own builder then raises.
+Not ported here: the JAX package's recovery journals, progress snapshots
+and ``grid_member`` fault injection (``runtime/{recovery,snapshot,
+failure}.py``), and whole-tree scan cohorts.
 """
 
 from __future__ import annotations
@@ -209,12 +209,13 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     ``combos``.  Raises ``CohortFallback`` before any device work when
     the cohort cannot batch.
     """
-    from ..distributions import make_distribution
     from ..scorekeeper import METRIC_MAXIMIZE, metric_direction
     from .binning import edges_matrix, fit_bins
+    from .gbm import params_distribution
     from .shared import (StackedTrees, chunk_schedule,
-                         make_grid_scan_fn, record_effective_depth,
-                         resolve_hist_layout, resolve_hist_mode, traverse)
+                         make_grid_scan_fn, plan_for,
+                         record_effective_depth, resolve_hist_layout,
+                         resolve_hist_mode, traverse)
 
     G = len(combos)
     if G < 2:
@@ -242,7 +243,7 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
         raise CohortFallback(
             "multinomial response (class trees already occupy the batch "
             "axis)")
-    dist = make_distribution(p0.distribution, nclasses=di.nclasses)
+    dist = params_distribution(p0, di.nclasses)
     y, w = di.response(frame), di.weights(frame)
     y, init = rep._prep_targets(y, w, dist)
     binned = fit_bins(frame, [s.name for s in di.specs], nbins=p0.nbins,
@@ -252,6 +253,8 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     codes = binned.codes
     edges_mat = torch.from_numpy(edges_matrix(binned.edges, p0.nbins)).to(dev)
     N = codes.shape[1]
+    if plan_for(binned, p0, None, frame.nrows) is not None:
+        raise CohortFallback("EFB bundling engaged")
     Fw = binned.nfeatures
     hist_mode = resolve_hist_mode(p0)
     # past the threshold the cohort grows node-sparse levels, as each

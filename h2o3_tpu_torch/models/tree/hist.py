@@ -21,7 +21,8 @@ version:
   each;
 * ``split_records`` -> ``csrc/split_records.cu`` (JAX
   ``_make_pallas_split_records``, both forms: scalar parameters, or one
-  set per leaf for the batched grid); plain version
+  set per leaf for the batched grid; and a monotone form, which the JAX
+  package computes in XLA as ``best_splits(mono=)``); plain version
   ``_split_records_torch`` (the JAX package's ``_split_records_xla`` with
   its prefix sums taken in sequential order);
 * ``fine_hist`` -> ``csrc/fine_hist.cu`` (JAX ``_make_pallas_fine_hist``):
@@ -82,11 +83,17 @@ SLOT_COMPACT = native.Kernel("slot_compact", {
 SPLIT_RECORDS = native.Kernel("split_records", {
     "split_records_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _P, _P), _I),
     "split_records_rows_launch": ((_P, _I, _I, _I, _P, _P, _P), _I),
+    "split_records_mono_launch": ((_P, _I, _I, _F, _F, _F, _F, _F, _I, _P,
+                                   _P, _P), _I),
 })
 # the per-row form of the records kernel (per-leaf parameters), counted
 # apart from the scalar form's launches in ``SPLIT_RECORDS.launches``
 SPLIT_RECORDS_ROWS = native.KernelForm(SPLIT_RECORDS,
                                        "split_records (per-row)")
+# the monotone form (per-feature constraints: candidates whose child
+# values break a feature's direction are rejected), counted apart too
+SPLIT_RECORDS_MONO = native.KernelForm(SPLIT_RECORDS,
+                                       "split_records (monotone)")
 FINE_HIST = native.Kernel("fine_hist", {
     "fine_hist_launch": ((_P, _I, _L, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I,
                           _P, _I, _I, _I, _I, _P, _P), _I),
@@ -1253,7 +1260,7 @@ def _per_leaf(x, extra_dims: int):
 
 
 def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
-                         min_child_weight) -> torch.Tensor:
+                         min_child_weight, mono=None) -> torch.Tensor:
     """Per-(leaf, feature) winner records [L, F, 12] — the plain version
     of ``csrc/split_records.cu`` and the port of the JAX package's
     ``_split_records_xla`` (same formula; prefix sums in sequential f32
@@ -1261,7 +1268,10 @@ def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
     excluded), g_na, h_na, c_na, totG, totH, totC.  The five parameters
     are scalars, or f32 tensors of one value per leaf [L] (the per-row
     form), broadcast as [L, 1] against the totals and [L, 1, 1] against
-    the bins."""
+    the bins.  ``mono`` [F] f32 (1 increasing, -1 decreasing, 0 free)
+    rejects a candidate whose children's Newton values break its
+    feature's direction (c > 0 and vl > vr, or c < 0 and vl < vr), on
+    both NA ways: the JAX package's ``best_splits(mono=)``."""
     lam1, alpha1 = _per_leaf(reg_lambda, 1), _per_leaf(reg_alpha, 1)
     lam2, alpha2 = _per_leaf(reg_lambda, 2), _per_leaf(reg_alpha, 2)
     gamma2 = _per_leaf(gamma, 2)
@@ -1284,6 +1294,11 @@ def _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha, gamma,
                    + _score(gr, hr, lam2, alpha2)
                    - parent[..., None]) - gamma2
         ok = (cl >= rows2) & (cr >= rows2) & (hl >= mcw2) & (hr >= mcw2)
+        if mono is not None:
+            vl = newton_value(gl, hl, lam2, alpha2)
+            vr = newton_value(gr, hr, lam2, alpha2)
+            c = mono[None, :, None]
+            ok = ok & ~(((c > 0) & (vl > vr)) | ((c < 0) & (vl < vr)))
         return torch.where(ok, g, -torch.inf)
 
     gain_naL = gain_with_na(GL + g_na[..., None], HL + h_na[..., None],
@@ -1324,7 +1339,7 @@ def _leaf_params(L: int, device, *params) -> torch.Tensor:
 
 
 def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
-                  gamma=0.0, min_child_weight=0.0) -> torch.Tensor:
+                  gamma=0.0, min_child_weight=0.0, mono=None) -> torch.Tensor:
     """Per-(leaf, feature) winner records [L, F, 12] from H[3, L, F, B].
 
     The five parameters are scalars, or 1-D f32 tensors of one value per
@@ -1332,7 +1347,9 @@ def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
     per-member parameters repeated over their leaves).  CUDA tensors
     launch ``csrc/split_records.cu``: its scalar form when every parameter
     is a scalar (counted in ``SPLIT_RECORDS.launches``), else its per-row
-    form (``SPLIT_RECORDS_ROWS.launches``).  CPU tensors take
+    form (``SPLIT_RECORDS_ROWS.launches``); with ``mono`` (the per-feature
+    constraints [F] f32, scalar parameters only) its monotone form
+    (``SPLIT_RECORDS_MONO.launches``).  CPU tensors take
     ``_split_records_torch``."""
     if Hist.dim() != 4 or Hist.shape[0] != 3 or Hist.shape[-1] != nbins + 1:
         raise ValueError(f"Hist must be [3, L, F, {nbins + 1}], got "
@@ -1348,9 +1365,15 @@ def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
                 raise ValueError(f"a per-leaf parameter must be [{L}], got "
                                  f"{tuple(x.shape)}")
             per_leaf = True
+    if mono is not None:
+        if per_leaf:
+            raise ValueError("the monotone records take scalar parameters")
+        if tuple(mono.shape) != (F,) or mono.dtype != torch.float32 \
+                or mono.device != Hist.device:
+            raise ValueError(f"mono must be [{F}] f32 on {Hist.device}")
     if not _on_cuda(Hist, "split records"):
         return _split_records_torch(Hist, reg_lambda, min_rows, reg_alpha,
-                                    gamma, min_child_weight)
+                                    gamma, min_child_weight, mono)
     H = Hist.contiguous()
     rec = torch.empty((L, F, _REC_PLANES), dtype=torch.float32,
                       device=H.device)
@@ -1362,6 +1385,13 @@ def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
             rc = lib.split_records_rows_launch(
                 H.data_ptr(), L * F, B, F, block.data_ptr(), rec.data_ptr(),
                 stream)
+    elif mono is not None:
+        cons = mono.contiguous()
+        with torch.cuda.device(H.device):
+            rc = lib.split_records_mono_launch(
+                H.data_ptr(), L * F, B, float(reg_lambda), float(reg_alpha),
+                float(gamma), float(min_rows), float(min_child_weight), F,
+                cons.data_ptr(), rec.data_ptr(), stream)
     else:
         with torch.cuda.device(H.device):
             rc = lib.split_records_launch(
@@ -1371,7 +1401,8 @@ def split_records(Hist, nbins: int, reg_lambda, min_rows, reg_alpha=0.0,
     if rc != 0:
         raise RuntimeError(f"split_records kernel launch failed: CUDA "
                            f"error {rc}")
-    (SPLIT_RECORDS_ROWS if per_leaf else SPLIT_RECORDS).count()
+    (SPLIT_RECORDS_ROWS if per_leaf else SPLIT_RECORDS_MONO
+     if mono is not None else SPLIT_RECORDS).count()
     return rec
 
 
@@ -1422,17 +1453,20 @@ def finish_splits(rec, min_rows, min_split_improvement, feat_mask=None):
 
 def fused_best_splits(Hist, nbins: int, reg_lambda, min_rows,
                       min_split_improvement, feat_mask=None,
-                      reg_alpha=0.0, gamma=0.0, min_child_weight=0.0):
+                      reg_alpha=0.0, gamma=0.0, min_child_weight=0.0,
+                      mono=None):
     """Best split per leaf through the records wrapper: one records
-    launch, then the feature argmax (``split_mode="fused"``)."""
+    launch, then the feature argmax (``split_mode="fused"``; under
+    monotone constraints the records' monotone form, bitwise the JAX
+    package's ``best_splits(mono=)`` on integer-valued histograms)."""
     rec = split_records(Hist, nbins, reg_lambda, min_rows, reg_alpha,
-                        gamma, min_child_weight)
+                        gamma, min_child_weight, mono=mono)
     return finish_splits(rec, min_rows, min_split_improvement, feat_mask)
 
 
 def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
                    min_split_improvement, feat_mask=None, reg_alpha=0.0,
-                   gamma=0.0, min_child_weight=0.0):
+                   gamma=0.0, min_child_weight=0.0, **kw):
     """Best split per leaf of K trees: H [K, 3, L, F, B] -> ``split_fn``'s
     tuple (``fused_best_splits`` or ``best_splits``) with a leading K on
     every field.  The K*L leaves flatten into one call, tree-major (row
@@ -1440,7 +1474,8 @@ def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
     tree's result is bitwise its own call.  ``feat_mask`` is [K, L, F] or
     [K, F].  The parameters are scalars or one value per tree [K] (a
     batched grid's members), repeated over each tree's L leaves in the
-    flat order (the JAX package's ``perk``)."""
+    flat order (the JAX package's ``perk``).  ``kw`` goes to ``split_fn``
+    as it is (``mono``, or ``efb.best_splits_mixed``'s ``plan``)."""
     K, _, L, F, B = HistK.shape
     Hflat = HistK.transpose(0, 1).reshape(3, K * L, F, B)
     fm = None
@@ -1458,7 +1493,7 @@ def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
         return x
     out = split_fn(Hflat, nbins, perk(reg_lambda), perk(min_rows),
                    perk(min_split_improvement), fm, perk(reg_alpha),
-                   perk(gamma), perk(min_child_weight))
+                   perk(gamma), perk(min_child_weight), **kw)
     return tuple(x.view(K, L, *x.shape[1:]) for x in out)
 
 
@@ -1676,4 +1711,22 @@ def partition(codes, leaf, feat, bin_, na_left, valid, na_bin: int):
     """Send rows to child leaves: new_leaf = 2 * leaf + went_right
     (``partition_right``)."""
     right = partition_right(codes, leaf, feat, bin_, na_left, valid, na_bin)
+    return (2 * leaf + right.to(torch.int32)).to(torch.int32)
+
+
+def partition_ranged(codes, leaf, feat, lo, hi, inv, na_left, valid,
+                     na_bin: int):
+    """``partition`` with a bin RANGE as the right child's condition (the
+    JAX package's ``partition_ranged``, hist.py:1998): right = inv XOR
+    (lo < code <= hi), NA follows ``na_left``, a terminal node sends every
+    row left.  EFB's bundle splits are member sub-ranges of a bundled bin
+    axis (``efb.best_splits_mixed``); a plain prefix split is lo = bin,
+    hi = nbins, inv = False.  ``codes`` [F, N] (the working codes), leaf
+    [N] or [K, N] with the tables [L] or [K, L]."""
+    li = leaf.long()
+    f = feat.long().gather(-1, li)
+    c = codes.gather(0, f.view(-1, leaf.shape[-1])).view(f.shape)
+    in_range = (c > lo.gather(-1, li)) & (c <= hi.gather(-1, li))
+    right = torch.where(c == na_bin, ~na_left.gather(-1, li),
+                        inv.gather(-1, li) ^ in_range) & valid.gather(-1, li)
     return (2 * leaf + right.to(torch.int32)).to(torch.int32)

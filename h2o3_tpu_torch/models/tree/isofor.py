@@ -178,6 +178,13 @@ class IsolationForest(ModelBuilder):
                  **kw):
         super().__init__(params or IsolationForestParameters(**kw))
 
+    def _validate(self, frame: Frame) -> None:
+        super()._validate(frame)
+        if self.params.monotone_constraints:
+            raise ValueError(
+                "monotone_constraints is only enforced for GBM/XGBoost; "
+                f"{self.algo} would silently ignore it")
+
     def _make_datainfo(self, frame: Frame) -> DataInfo:
         p = self.params
         return DataInfo.fit(

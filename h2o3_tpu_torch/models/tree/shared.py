@@ -28,9 +28,17 @@ as a loop of K single-tree builds (``split_mode="separate"``, the oracle
 it is bitwise).  A grid cohort's G members grow through the same batched
 build, each with its own parameters (``make_grid_scan_fn``).  Every
 tree's random draws come from generators keyed by (seed, chunk, tree,
-class) (``draw_generator``), so both paths draw the same.  The JAX
-package's other build programs (the whole-tree scan, EFB and monotone
-constraints) wait for later slices and raise when asked for.
+class) (``draw_generator``), so both paths draw the same.
+
+Monotone constraints (``resolve_mono``) and exclusive feature bundling
+(``maybe_bundle``, ``efb``) grow dense levels: a monotone level searches
+through the records kernel's monotone form and carries per-node value
+bounds; a bundled level searches the working features with
+``efb.best_splits_mixed`` and routes rows with ``hist.partition_ranged``.
+A calibrated binomial model (``calibrate_model``) maps its class-1
+probability through a Platt or isotonic curve (``SharedTree._post_fit``).
+The whole-tree scan program waits for a later slice and raises when
+asked for.
 """
 
 from __future__ import annotations
@@ -44,14 +52,14 @@ import torch
 
 from ...export.mojo import datainfo_meta
 from ...frame.frame import Frame
-from ...frame.vec import T_CAT, T_TIME
+from ...frame.vec import T_CAT, T_NUM, T_TIME, Vec
 from ...runtime.config import config
 from ...runtime.device import resolve_device
 from ..base import Model, ModelBuilder, Parameters
 from ..datainfo import DataInfo
 from ..distributions import Multinomial
 from ..scorekeeper import stop_early
-from . import hist
+from . import efb, hist
 
 
 @dataclasses.dataclass
@@ -98,20 +106,104 @@ class SharedTreeParameters(Parameters):
     # then the fine bins of the FINE_K best super-bins per (leaf,
     # feature)); anything else, "auto" included, the exact full-bin search
     split_search: str = "auto"
+    # {column: 1 | -1 | 0}: numeric features, GBM/XGBoost binomial and
+    # regression only (split rejection plus propagated value bounds, the
+    # XGBoost mechanism)
     monotone_constraints: Optional[dict] = None
+    tweedie_power: float = 1.5
+    quantile_alpha: float = 0.5
+    huber_alpha: float = 0.9
+    # the JAX package's histogram accumulation type; the port's
+    # histograms are exact int64 fixed-point sums at every setting, so
+    # this and ``reproducible`` are accepted, kept in the parameters and
+    # change no tree
+    hist_precision: str = "bf16"
+    # probability calibration on a held-out frame (hex/tree
+    # CalibrationHelper): binomial models only
+    calibrate_model: bool = False
+    calibration_frame: Optional[object] = None
+    calibration_method: str = "platt"    # platt | isotonic
+    reproducible: bool = False
+    # exclusive feature bundling of wide sparse frames (efb.py): "auto"
+    # engages where the packed histogram cost drops enough; "off" never
+    efb: str = "auto"
 
 
 _LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
 # super-bins refined per (leaf, feature) by the hierarchical search: the
 # JAX package's make_build_tree_fn default, which GBM.train never changes
 FINE_K = 2
+# the builders that enforce monotone constraints
+_MONO_ALGOS = ("gbm", "xgboost")
 
 
-def check_tree_params(p) -> None:
-    """Raise on the tree options the port has not ported yet."""
-    if p.monotone_constraints:
-        raise NotImplementedError(
-            f"monotone_constraints are not ported yet ({_LATER})")
+def check_tree_params(p, algo: str) -> None:
+    """The tree options' checks before training (the JAX package's
+    ``SharedTree._validate``, shared.py:2652): monotone constraints only
+    for GBM/XGBoost; calibration needs a frame and platt or isotonic."""
+    if getattr(p, "monotone_constraints", None) and algo not in _MONO_ALGOS:
+        raise ValueError(
+            "monotone_constraints is only enforced for GBM/XGBoost; "
+            f"{algo} would silently ignore it")
+    if getattr(p, "calibrate_model", False):
+        if getattr(p, "calibration_frame", None) is None:
+            raise ValueError("calibrate_model=True needs calibration_frame")
+        if getattr(p, "calibration_method", "platt") not in ("platt",
+                                                             "isotonic"):
+            raise ValueError("calibration_method: platt | isotonic")
+
+
+def resolve_mono(params, di) -> Optional[tuple]:
+    """``monotone_constraints`` -> one float per feature in
+    ``di.specs`` order (1, -1 or 0), or None when nothing is constrained
+    (the JAX package's ``resolve_mono``)."""
+    mc = getattr(params, "monotone_constraints", None)
+    if not mc:
+        return None
+    names = [s.name for s in di.specs]
+    vec = [0.0] * len(names)
+    for col, direction in mc.items():
+        if col not in names:
+            raise ValueError(f"monotone_constraints: unknown column "
+                             f"{col!r}")
+        if di.specs[names.index(col)].type == T_CAT:
+            raise ValueError(f"monotone_constraints: {col!r} is "
+                             "categorical; numeric features only")
+        if direction not in (1, -1, 0):
+            raise ValueError(f"monotone_constraints[{col!r}] must be "
+                             f"1, -1 or 0, got {direction!r}")
+        vec[names.index(col)] = float(direction)
+    if not any(vec):
+        return None                      # all zeros: unconstrained
+    return tuple(vec)
+
+
+def plan_for(binned, params, mono, nrows: int):
+    """EFB's gate (the JAX package's ``maybe_bundle`` before it maps the
+    codes): the plan of ``efb.plan_bundles`` unless ``efb`` is off,
+    monotone constraints are set or the hierarchical search runs; None
+    where no plan wins."""
+    mode = str(getattr(params, "efb", "auto")).lower()
+    if mode in ("off", "false", "0") or mono is not None \
+            or use_hier_split_search(params):
+        return None
+    return efb.plan_bundles(binned.codes, binned.bin_counts, binned.nbins,
+                            nrows)
+
+
+def maybe_bundle(binned, params, mono, nrows: int):
+    """``plan_for``'s plan and what a train grows on: (plan or None, the
+    working codes, their feature count, their bin counts)."""
+    plan = plan_for(binned, params, mono, nrows)
+    if plan is None:
+        return None, binned.codes, binned.nfeatures, binned.bin_counts
+    return (plan, efb.apply_bundles(binned.codes, plan, binned.nbins),
+            plan.n_working, plan.bin_counts)
+
+
+def efb_bundles(plan) -> int:
+    """The number of bundles of a plan (``model.output["efb_bundles"]``)."""
+    return sum(1 for w in plan.working if w[0] == "bundle")
 
 
 # ------------------------------------------------------------- trees
@@ -323,24 +415,43 @@ def use_hier_split_search(params) -> bool:
     return getattr(params, "split_search", "auto") == "hier"
 
 
-def resolve_split_mode(params, hier: bool = False) -> str:
-    """"auto" is "fused"; the hierarchical search has no fused path, so
-    under it every mode but "separate" becomes "separate" (the JAX
-    package's resolver: its split crosscheck does not run there)."""
+def own_search(*, mono=None, plan=None, hier: bool = False) -> bool:
+    """Whether the level searches with a function of its own: the
+    hierarchical search (``best_splits_hier``), monotone constraints (the
+    records' monotone form) and a bundle plan (``efb.best_splits_mixed``).
+    These have neither the fused search nor the node-sparse layout in the
+    JAX package (its resolvers, shared.py:1518-1650), so the knob
+    resolvers below take "separate" and the dense layout under them, and
+    the builders receive those resolved values.  The one place this rule
+    is decided."""
+    return hier or mono is not None or plan is not None
+
+
+def resolve_split_mode(params, *, mono=None, plan=None,
+                       hier: bool = False) -> str:
+    """"auto" is "fused"; every mode becomes "separate" under
+    ``own_search`` (the JAX package's resolver, shared.py:1518; its split
+    crosscheck does not run there).  "separate" then records the JAX
+    package's mode: the level's own search runs whatever it says (see
+    ``make_build_tree_fn``)."""
     mode = str(getattr(params, "split_mode", "auto")).lower()
     if mode == "auto":
         mode = "fused"
     if mode not in ("fused", "separate", "check"):
         raise ValueError(
             f"split_mode={mode!r}: use auto | fused | separate | check")
-    return "separate" if hier else mode
+    if own_search(mono=mono, plan=plan, hier=hier):
+        return "separate"
+    return mode
 
 
-def resolve_hist_layout(params, *, hist_mode=None, hier: bool = False) -> str:
+def resolve_hist_layout(params, *, hist_mode=None, mono=None, plan=None,
+                        hier: bool = False) -> str:
     """The builder's layout, "dense" or "sparse", or "check" for the
     trainer to resolve with ``run_layout_crosscheck`` (the JAX package's
     ``resolve_hist_layout``, shared.py:1553-1589).  "auto" is "sparse",
-    and "dense" under the hierarchical search and under
+    and "dense" (with the dense layout's depth cap) under monotone
+    constraints, a bundle plan, the hierarchical search and
     hist_mode="full" (no carry to subtract from); an explicit "sparse"
     raises there.  "sparse" means node-sparse levels from the clamped
     ``sparse_depth_threshold`` on; the builder applies the threshold.
@@ -356,28 +467,44 @@ def resolve_hist_layout(params, *, hist_mode=None, hier: bool = False) -> str:
     if layout == "dense":
         return "dense"
     hm = hist_mode if hist_mode is not None else resolve_hist_mode(params)
-    # the JAX package's sparse_layout_active (shared.py:1539), less the
-    # options the port has not ported: hist_mode="check" trains subtract
-    if hier or hm not in ("subtract", "check"):
+    # the JAX package's sparse_layout_active (shared.py:1539):
+    # hist_mode="check" trains subtract
+    if own_search(mono=mono, plan=plan, hier=hier) \
+            or hm not in ("subtract", "check"):
         if layout == "sparse":
             raise ValueError(
                 "hist_layout='sparse' does not compose with "
-                "hist_mode='full' or the hierarchical split search; use "
-                "hist_layout='auto' to downgrade automatically")
+                "hist_mode='full', monotone constraints, EFB bundling or "
+                "the hierarchical split search; use hist_layout='auto' "
+                "to downgrade automatically")
         return "dense"
     return "check" if layout == "check" else "sparse"
 
 
-def resolve_tree_program(params) -> str:
+def resolve_tree_program(params, *, mono=None, plan=None,
+                         hier: bool = False) -> str:
+    """"level" (and "auto").  Where the JAX package's scan cannot grow
+    the build (monotone constraints, a bundle plan, the hierarchical
+    search: its ``resolve_tree_program``, shared.py:1630) "check"
+    resolves to "level" and "scan" raises its ValueError; elsewhere both
+    raise, the scan program not being ported yet."""
     prog = str(getattr(params, "tree_program", "auto")).lower()
+    if prog not in ("level", "scan", "auto", "check"):
+        raise ValueError(
+            f"tree_program={prog!r}: use auto | level | scan | check")
     if prog in ("auto", "level"):
         return "level"
-    if prog in ("scan", "check"):
-        raise NotImplementedError(
-            f"tree_program={prog!r}: the whole-tree scan program is not "
-            f"ported yet ({_LATER}); use 'auto' or 'level'")
-    raise ValueError(
-        f"tree_program={prog!r}: use auto | level | scan | check")
+    if own_search(mono=mono, plan=plan, hier=hier):
+        if prog == "check":
+            return "level"
+        raise ValueError(
+            "tree_program='scan' does not compose with monotone "
+            "constraints, EFB bundling or the hierarchical split "
+            "search; use tree_program='auto' to downgrade "
+            "automatically")
+    raise NotImplementedError(
+        f"tree_program={prog!r}: the whole-tree scan program is not "
+        f"ported yet ({_LATER}); use 'auto' or 'level'")
 
 
 def varbin_kernel_engages(bin_counts, nbins: int, F: int,
@@ -471,10 +598,17 @@ def _per_k(x, extra_dims: int):
     return x
 
 
-def _leaf_values(children, reg_lambda, reg_alpha, learn_rate):
+def _clip(x, lo, hi):
+    """``jnp.clip(x, lo, hi)``: max with lo, then min with hi."""
+    return torch.minimum(torch.maximum(x, lo), hi)
+
+
+def _leaf_values(children, reg_lambda, reg_alpha, learn_rate, bounds=None):
     """The Newton leaf values [..., 2^depth] (x learn_rate) and covers of
     the last level's child sums [..., 2^(depth-1), 6]; the parameters are
-    scalars or one value per tree [K] of children [K, L, 6]."""
+    scalars or one value per tree [K] of children [K, L, 6].  ``bounds``
+    (lo, hi) [..., 2^depth]: a monotone build's value bounds, which clamp
+    the values before the learning rate."""
     gl, hl, cl, gr, hr, cr = children.unbind(-1)
     lam, alpha = _per_k(reg_lambda, 1), _per_k(reg_alpha, 1)
 
@@ -483,6 +617,8 @@ def _leaf_values(children, reg_lambda, reg_alpha, learn_rate):
                            0.0)
     vals = _pairs(torch.stack([newton(gl, hl, cl), newton(gr, hr, cr)],
                               dim=-1))
+    if bounds is not None:
+        vals = _clip(vals, *bounds)
     vals = (vals * _per_k(learn_rate, 1)).to(torch.float32)
     cover = _pairs(torch.stack([cl, cr], dim=-1)).to(torch.float32)
     return vals, cover
@@ -565,7 +701,8 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                        bin_counts=None, hist_mode: str = "subtract",
                        split_mode: str = "fused", hist_layout: str = "dense",
                        device=None, hier: bool = False, nk: int = 1,
-                       sparse_depth_threshold: int = 8):
+                       sparse_depth_threshold: int = 8, mono=None,
+                       plan=None):
     """A function that grows one tree on the device (the JAX package's
     ``make_build_tree_fn`` with tree_program="level"), or, with ``nk`` >
     1, the K trees of a multinomial or forest round or the G members of a
@@ -605,6 +742,10 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     the fine histogram of the ``FINE_K`` chosen super-bins
     (``fine_hist``) and ``best_splits_hier``.  ``hist_mode`` does not
     apply to it, and it takes ``split_mode="separate"`` and one tree.
+    ``split_mode`` chooses between the fused records and the separate
+    oracle for the exact unconstrained search alone: hier, ``mono`` and
+    ``plan`` each search with their own function (``own_search``), and
+    the resolvers hand them "separate".
 
     ``hist_layout="sparse"`` (JAX ``shared.py:631-766``, ``:812-857``)
     grows node-sparse levels from ``sparse_geometry``'s first sparse
@@ -620,6 +761,23 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     more alive children than slots, the later pairs are dropped and those
     children stay leaves.  It takes hist_mode="subtract" and the exact
     search.
+
+    ``mono`` (one float per feature, ``resolve_mono``; JAX
+    ``shared.py:955-959``, ``:1117-1136``, ``:1153-1156``): every level
+    searches through the records kernel's monotone form
+    (``hist.fused_best_splits(mono=)``: the card never runs the plain
+    search here), per-node value bounds lo/hi
+    [K, L] start at -inf/inf, the children's clipped Newton values give
+    their midpoint, the bounds tighten by the chosen feature's direction
+    and interleave (left, right), and the leaf values are clamped to them
+    before the learning rate.  ``plan`` (an ``efb.BundlePlan``; JAX
+    ``:1073-1107``): ``codes`` are the plan's working codes and F, the
+    bin counts its working ones; every level searches with
+    ``efb.best_splits_mixed`` (the raw features through the records
+    kernel) and routes rows with ``hist.partition_ranged``, and the
+    recorded levels keep original (feature, threshold) pairs
+    (``edges_mat`` is the original features').  Both take the dense
+    layout and the exact search.
 
     ``device`` (``cuda`` unless given, raising without CUDA) decides the
     histogram layout (``varbin_kernel_engages``).  Every histogram of a
@@ -643,10 +801,18 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         raise ValueError(f"hist_layout={hist_layout!r}: use 'dense' or "
                          "'sparse' here ('auto' and 'check' are resolved "
                          "by the trainer)")
-    if hist_layout == "sparse" and (hist_mode != "subtract" or hier):
+    if hist_layout == "sparse" and (hist_mode != "subtract" or hier
+                                    or mono is not None or plan is not None):
         raise ValueError("hist_layout='sparse' takes hist_mode='subtract' "
-                         "(the slot carry is the subtraction carry) and the "
-                         "exact search")
+                         "(the slot carry is the subtraction carry), the "
+                         "exact search and no monotone constraints or "
+                         "bundle plan")
+    if hier and (mono is not None or plan is not None):
+        raise ValueError("monotone constraints and EFB bundling do not "
+                         "compose with the hierarchical split search")
+    if mono is not None and plan is not None:
+        raise ValueError("feature bundling (EFB) does not compose with "
+                         "monotone constraints")
     B = nbins + 1
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
                                     hist_layout)
@@ -664,6 +830,20 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         for d in range(sparse_from, max_depth)]
     split_fn = hist.fused_best_splits if split_mode == "fused" \
         else hist.best_splits
+    split_kw = {}
+    if mono is not None:
+        if len(mono) != F:
+            raise ValueError(f"mono has {len(mono)} entries for {F} "
+                             "features")
+        mono_t = torch.tensor(mono, dtype=torch.float32, device=device)
+        split_fn, split_kw = hist.fused_best_splits, {"mono": mono_t}
+    elif plan is not None:
+        if plan.n_working != F:
+            raise ValueError(f"the plan has {plan.n_working} working "
+                             f"features, the build {F}")
+
+        def split_fn(H, nbins, *args):
+            return efb.best_splits_mixed(H, nbins, plan, *args)
     if hier:
         S, W = hist.superbin_geometry(nbins)
         fine_fns = [hist.make_fine_hist_fn(2 ** d, F, W, FINE_K, nbins)
@@ -719,6 +899,10 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
         levels = []
         alive = None
         carry = None
+        bounds = None
+        if mono is not None:
+            bounds = (torch.full((K, 1), -torch.inf, device=codes.device),
+                      torch.full((K, 1), torch.inf, device=codes.device))
         for d in range(max_depth):
             L = 2 ** d
             mask = None
@@ -786,17 +970,25 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                 split = hist.batched_splits(
                     split_fn, H, nbins, reg_lambda, min_rows,
                     min_split_improvement, mask, reg_alpha, gamma,
-                    min_child_weight)
-            feat, bin_, na_left, gain, valid, children = split
+                    min_child_weight, **split_kw)
+            feat, bin_, na_left, gain, valid, children = split[:6]
             if d > 0:
                 valid, children = _collapse_dead(valid, alive, children)
             alive = _pairs(torch.stack([valid, valid], dim=-1))
+            if bounds is not None:
+                bounds = _mono_bounds(bounds, children, feat, valid,
+                                      mono_t, reg_lambda, reg_alpha)
             thr = edges_mat[feat.long(), bin_.clamp(0, nbins - 1).long()]
-            leaf = hist.partition(codes, leaf, feat, bin_, na_left, valid,
-                                  nbins)
+            if plan is not None:
+                wfeat, lo_w, hi_w, inv_w = split[6:]
+                leaf = hist.partition_ranged(codes, leaf, wfeat, lo_w, hi_w,
+                                             inv_w, na_left, valid, nbins)
+            else:
+                leaf = hist.partition(codes, leaf, feat, bin_, na_left,
+                                      valid, nbins)
             levels.append((feat, thr, na_left, valid))
         vals, cover = _leaf_values(children, reg_lambda, reg_alpha,
-                                   learn_rate)
+                                   learn_rate, bounds)
         return levels, vals, cover, leaf
 
     def build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
@@ -820,6 +1012,30 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     build.bin_counts = bc
     build.nk = nk
     return build
+
+
+def _mono_bounds(bounds, children, feat, valid, mono_t, reg_lambda,
+                 reg_alpha):
+    """A monotone level's children's value bounds (the JAX package's
+    propagation, shared.py:1117-1136): the children's Newton values
+    clipped to their parent's bounds give the midpoint; a constrained
+    split caps the left child's upper bound (increasing) or lower bound
+    (decreasing) at it and the right child's the other way; interleaved
+    (left, right), [K, 2L]."""
+    lo, hi = bounds
+    lam, alpha = _per_k(reg_lambda, 1), _per_k(reg_alpha, 1)
+    vL = _clip(hist.newton_value(children[..., 0], children[..., 1], lam,
+                                 alpha), lo, hi)
+    vR = _clip(hist.newton_value(children[..., 3], children[..., 4], lam,
+                                 alpha), lo, hi)
+    mid = 0.5 * (vL + vR)
+    c = mono_t[feat.long()] * valid.to(torch.float32)
+    hi_l = torch.where(c > 0, torch.minimum(hi, mid), hi)
+    lo_l = torch.where(c < 0, torch.maximum(lo, mid), lo)
+    hi_r = torch.where(c < 0, torch.minimum(hi, mid), hi)
+    lo_r = torch.where(c > 0, torch.maximum(lo, mid), lo)
+    return (_pairs(torch.stack([lo_l, lo_r], dim=-1)),
+            _pairs(torch.stack([hi_l, hi_r], dim=-1)))
 
 
 def member_rates(rate, K: int) -> tuple:
@@ -857,7 +1073,8 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                       col_sample_rate_per_tree: float, bin_counts=None,
                       hist_mode: str = "subtract", split_mode: str = "fused",
                       hist_layout: str = "dense", device=None,
-                      hier: bool = False, sparse_depth_threshold: int = 8):
+                      hier: bool = False, sparse_depth_threshold: int = 8,
+                      mono=None, plan=None):
     """A chunk of boosting or bagging rounds (the JAX package's
     ``make_tree_scan_fn`` as a plain loop over the chunk's trees):
     gradients -> row and column samples -> grow -> F update.  ``dist`` is
@@ -868,16 +1085,17 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
     min_split_improvement, learn_rate, col_sample_rate, reg_alpha, gamma,
     min_child_weight) -> (F, StackedTrees of the chunk)``; tree t of chunk
     ``chunk_no`` draws from ``draw_generator(seed, chunk_no, t, ...)``,
-    class 0.  The hierarchical search builds with split_mode="separate"
-    and the dense layout, as there."""
-    if hier:
-        split_mode, hist_layout = "separate", "dense"
+    class 0.  The hierarchical search, monotone constraints ``mono`` and
+    a bundle plan ``plan`` (``codes`` then the working codes) take
+    split_mode="separate" and the dense layout, as the resolvers give
+    them (``own_search``)."""
     bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode=split_mode,
                                hist_layout=hist_layout, device=device,
                                hier=hier,
-                               sparse_depth_threshold=sparse_depth_threshold)
+                               sparse_depth_threshold=sparse_depth_threshold,
+                               mono=mono, plan=plan)
 
     def scan_fn(codes, y, w, F0, edges_mat, seed, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -920,7 +1138,7 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
                              split_mode: str = "fused",
                              hist_layout: str = "dense", device=None,
                              hier: bool = False, mode: str = "multinomial",
-                             sparse_depth_threshold: int = 8):
+                             sparse_depth_threshold: int = 8, plan=None):
     """A chunk of rounds of K class trees (the JAX package's
     ``make_multinomial_scan_fn``, shared.py:2108, as a plain loop): per
     round the gradients, one row sample shared by the K trees, a column
@@ -934,8 +1152,9 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
     (``make_build_tree_fn(nk=K)``: one histogram and one records launch
     per level whatever K is); ``"separate"`` loops over K single builds
     with the plain records, the oracle the batched path is bitwise (the
-    same generators, ``draw_generator``).  The hierarchical search takes
-    the K loop, as there.
+    same generators, ``draw_generator``).  The hierarchical search and a
+    bundle plan (``plan``: ``codes`` the working codes) take the K loop
+    and the dense layout, as the resolvers give them (``own_search``).
 
     Returns ``scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
     reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -944,8 +1163,6 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
     one-hot response, F0 and F the [K, N] scores, class-major."""
     if mode not in ("multinomial", "drf"):
         raise ValueError(f"mode={mode!r}: use 'multinomial' or 'drf'")
-    if hier:
-        split_mode, hist_layout = "separate", "dense"
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
                                     hist_layout)
     batched = split_mode == "fused" and K > 1
@@ -954,7 +1171,8 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
                                split_mode=split_mode,
                                hist_layout=hist_layout, device=device,
                                hier=hier, nk=K if batched else 1,
-                               sparse_depth_threshold=sparse_depth_threshold)
+                               sparse_depth_threshold=sparse_depth_threshold,
+                               plan=plan)
 
     def scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -1123,14 +1341,16 @@ def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
                         reg_lambda=0.0, min_rows=1.0,
                         min_split_improvement=1e-5, learn_rate=0.1,
                         reg_alpha=0.0, gamma=0.0, min_child_weight=0.0,
-                        nk: int = 1, atol=1e-4):
+                        nk: int = 1, atol=1e-4, mono=None, plan=None):
     """The hist_mode="check" assert: grow one tree with the subtraction
     path and one with the full rebuild (dense levels, at the dense
     effective depth, as in the JAX package) on the same inputs and raise
     AssertionError on any divergence of split structure, row routing or
     leaf values (exactly tied gains are the one legitimate cause).  ``nk``
     > 1 checks the batched K-tree build (g and h [K, N]) at its own
-    geometry, both ways with the fused records, as the JAX package."""
+    geometry, both ways with the fused records, as the JAX package.
+    ``mono`` and ``plan`` grow both builds under the constraints or on
+    the plan's working codes."""
     outs = {}
     scal = (reg_lambda, min_rows, min_split_improvement, learn_rate, 1.0,
             None, reg_alpha, gamma, min_child_weight)
@@ -1138,7 +1358,8 @@ def run_hist_crosscheck(codes, g, h, w, edges_mat, seed: int, *, max_depth,
         fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                 bin_counts=bin_counts, hist_mode=mode,
                                 split_mode="fused" if nk > 1 else "separate",
-                                device=codes.device, nk=nk)
+                                device=codes.device, nk=nk, mono=mono,
+                                plan=plan)
         outs[mode] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal,
                                 nk)
     lv_s, v_s, leaf_s = outs["subtract"]
@@ -1281,11 +1502,83 @@ def run_layout_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
 
 # ------------------------------------------------------------ the model
 
+def fit_calibration(p1: np.ndarray, y: np.ndarray, method: str) -> dict:
+    """The calibration curve of class-1 probabilities ``p1`` against the
+    response ``y`` (host numpy, the JAX package's ``_post_fit`` with its
+    types: f32 probabilities clipped to [1e-12, 1 - 1e-12], rows with a
+    finite response): Platt's logistic (``platt_fit``), or the isotonic
+    regression (``isotonic._pav``) of y over the probabilities in sorted
+    order, whose knots ``np.interp`` reads."""
+    p1 = np.clip(p1, 1e-12, 1 - 1e-12)
+    ok = np.isfinite(y)
+    p1, y = p1[ok], y[ok]
+    if method == "isotonic":
+        from ..isotonic import _pav
+        order = np.argsort(p1)
+        ys = _pav(y[order].astype(np.float64), np.ones(len(y), np.float64))
+        return {"method": "isotonic", "x": p1[order], "y": ys}
+    a, b = platt_fit(p1, y)
+    return {"method": "platt", "a": a, "b": b}
+
+
+def platt_fit(p1: np.ndarray, y: np.ndarray):
+    """Platt scaling: the logistic regression of y on p1, (a, b) of
+    1 / (1 + exp(-(a p1 + b))), by IRLS in numpy on the host, from (1, 0),
+    at most 25 steps, stopping when |da| + |db| < 1e-9 (the JAX
+    package's loop, operation for operation)."""
+    a, b = 1.0, 0.0
+    for _ in range(25):
+        eta = a * p1 + b
+        mu = 1.0 / (1.0 + np.exp(-eta))
+        wq = np.maximum(mu * (1 - mu), 1e-9)
+        z = eta + (y - mu) / wq
+        X2 = np.stack([p1, np.ones_like(p1)], axis=1)
+        A = (X2 * wq[:, None]).T @ X2
+        rhs = (X2 * wq[:, None]).T @ z
+        sol = np.linalg.solve(A + 1e-9 * np.eye(2), rhs)
+        if abs(sol[0] - a) + abs(sol[1] - b) < 1e-9:
+            a, b = float(sol[0]), float(sol[1])
+            break
+        a, b = float(sol[0]), float(sol[1])
+    return a, b
+
+
 class SharedTreeModel(Model):
     """Tree-ensemble model: scores through ``traverse`` on the device."""
 
     # a forest averages its trees (DRF, DT); a boosted model sums them
     tree_average = False
+
+    def _calibration_curve(self, p1: np.ndarray) -> np.ndarray:
+        """Class-1 probabilities -> calibrated ones, on the host (the JAX
+        package's ``_calibration_curve``): Platt's logistic 1 / (1 +
+        exp(-(a p1 + b))) or the isotonic knots' ``np.interp``."""
+        cal = self.output.get("calibration")
+        if cal is None:
+            raise ValueError("model was not calibrated "
+                             "(calibrate_model=True + calibration_frame)")
+        if cal["method"] == "platt":
+            return 1.0 / (1.0 + np.exp(-(cal["a"] * p1 + cal["b"])))
+        return np.interp(p1, cal["x"], cal["y"])
+
+    def calibrated_probabilities(self, frame: Frame) -> np.ndarray:
+        """P(class 1) after calibration (CalibrationHelper.predict)."""
+        raw = self._predict_raw(self._score_matrix(frame))[: frame.nrows]
+        raw = raw.cpu().numpy()
+        return self._calibration_curve(raw[:, 1] if raw.ndim == 2 else raw)
+
+    def predict(self, frame: Frame) -> Frame:
+        """``Model.predict``, and for a calibrated model ``cal_p0`` and
+        ``cal_p1``: the curve of the class-1 probability column."""
+        out = super().predict(frame)
+        if self.output.get("calibration") is not None:
+            dom = self.datainfo.response_domain
+            p1 = self._calibration_curve(out.vec(str(dom[1])).to_numpy())
+            out = out.with_vec("cal_p0", Vec.from_numpy(
+                1.0 - p1, T_NUM, device=frame.device))
+            out = out.with_vec("cal_p1", Vec.from_numpy(
+                p1, T_NUM, device=frame.device))
+        return out
 
     def _score_matrix(self, frame: Frame) -> torch.Tensor:
         return self._design(frame)
@@ -1347,6 +1640,13 @@ class SharedTreeModel(Model):
             "init_score": [float(v) for v in np.asarray(init)] if K > 1
             else float(init),
         }
+        custom = getattr(self.params, "custom_distribution_func", None)
+        if custom is not None and hasattr(custom, "linkinv"):
+            # the JAX package writes such a model with an identity link,
+            # so that its archive would score otherwise than its predict
+            raise ValueError(
+                "to_archive: the custom distribution defines linkinv, "
+                "which the archive's links (identity, log) cannot carry")
         arrays = {}
         for k, sk in enumerate(stacks):
             pre = f"k{k}_" if K > 1 else ""
@@ -1371,7 +1671,36 @@ class SharedTree(ModelBuilder):
 
     def _validate(self, frame) -> None:
         super()._validate(frame)
-        check_tree_params(self.params)
+        p = self.params
+        check_tree_params(p, self.algo)
+        if getattr(p, "calibrate_model", False):
+            cal = p.calibration_frame
+            if cal.device != frame.device:
+                raise ValueError(f"the calibration frame lies on "
+                                 f"{cal.device}, the training frame on "
+                                 f"{frame.device}")
+            rc = p.response_column
+            dom = frame.vec(rc).domain if rc in frame.names else None
+            if dom is not None and len(dom) != 2:
+                raise ValueError("calibration supports binomial models only")
+
+    def _post_fit(self, model, frame, valid) -> None:
+        """Probability calibration on the held-out ``calibration_frame``
+        (hex/tree/CalibrationHelper; the JAX package's ``_post_fit``,
+        shared.py:2674): its class-1 probabilities, scored on the model's
+        device, against its response, through ``fit_calibration``."""
+        p = self.params
+        if not getattr(p, "calibrate_model", False):
+            return
+        cal_fr = p.calibration_frame
+        di = model.datainfo
+        if not di.is_classifier or di.nclasses != 2:
+            raise ValueError("calibration supports binomial models only")
+        raw = model._predict_raw(model._score_matrix(cal_fr))
+        raw = raw[: cal_fr.nrows].cpu().numpy()
+        y = di.response(cal_fr)[: cal_fr.nrows].cpu().numpy()
+        model.output["calibration"] = fit_calibration(
+            raw[:, 1] if raw.ndim == 2 else raw, y, p.calibration_method)
 
     def _make_datainfo(self, frame: Frame) -> DataInfo:
         p = self.params

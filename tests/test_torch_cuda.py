@@ -1136,3 +1136,102 @@ def test_cv_train_fold_count_and_launches(cuda):
     assert (hist.HIST.launches - before[0],
             hist.SPLIT_RECORDS.launches - before[1]) == (32, 32)
     assert np.isfinite(m.cross_validation_metrics.auc)
+
+
+# (L, F, nbins, kind): the bench's root and deepest level, a ragged bin
+# count, integer and real stats (both with populated NA bins), NaN planes
+_MONO_CASES = [(1, 8, 256, "integer"), (32, 8, 256, "real"),
+               (64, 13, 33, "integer"), (7, 5, 31, "real"),
+               (4, 8, 256, "nan_g"), (4, 8, 256, "nan_h")]
+
+
+@pytest.mark.parametrize("L,F,nbins,kind", _MONO_CASES)
+def test_split_records_mono_equal_plain(cuda, L, F, nbins, kind):
+    """The monotone form of the records kernel against its plain version
+    on the card and on the CPU, bitwise (NaN bits included), counted in
+    its own form; with every constraint 0 it is bitwise the scalar
+    form."""
+    rng = np.random.default_rng(L * 100 + F + nbins + 7)
+    H = _records_hist(rng, L, F, nbins, kind)
+    H[..., -1] = np.abs(H[..., -1]) + 1.0          # NA bins with mass
+    Hd = torch.from_numpy(H).to(cuda)
+    mono = torch.from_numpy(rng.integers(-1, 2, F).astype(np.float32))
+    md = mono.to(cuda)
+    for prm in ((1.0, 1.0, 0.0, 0.0, 1.0), (0.0, 10.0, 0.5, 0.1, 0.0)):
+        lam, mr, alpha, gamma, mcw = prm
+        before = (hist.SPLIT_RECORDS_MONO.launches,
+                  hist.SPLIT_RECORDS.launches)
+        got = hist.split_records(Hd, nbins, lam, mr, alpha, gamma, mcw,
+                                 mono=md)
+        again = hist.split_records(Hd, nbins, lam, mr, alpha, gamma, mcw,
+                                   mono=md)
+        want = hist._split_records_torch(Hd, lam, mr, alpha, gamma, mcw, md)
+        cpu = hist._split_records_torch(Hd.cpu(), lam, mr, alpha, gamma,
+                                        mcw, mono)
+        torch.cuda.synchronize()
+        assert (hist.SPLIT_RECORDS_MONO.launches,
+                hist.SPLIT_RECORDS.launches) == (before[0] + 2, before[1])
+        assert same_bits(got, want) and same_bits(again, got)
+        np.testing.assert_array_equal(got.cpu().numpy(), cpu.numpy())
+        free = hist.split_records(Hd, nbins, lam, mr, alpha, gamma, mcw,
+                                  mono=torch.zeros_like(md))
+        assert same_bits(free, hist.split_records(Hd, nbins, lam, mr, alpha,
+                                                  gamma, mcw))
+
+
+def _onehot_cols(n=20_000, groups=4, levels=10, seed=3):
+    """A one-hot-wide frame (exclusive columns within a group), two
+    numerics and a response that rises in num0."""
+    rng = np.random.default_rng(seed)
+    cols, gidx = {}, []
+    for g in range(groups):
+        z = rng.integers(0, levels, n)
+        gidx.append(z)
+        for lv in range(levels):
+            cols[f"g{g}_l{lv}"] = (z == lv).astype(np.float32)
+    for j in range(2):
+        cols[f"num{j}"] = rng.normal(size=n).astype(np.float32)
+    cols["y"] = ((gidx[0] % 3 == 0) * 2.0 + 0.5 * (gidx[1] % 2)
+                 + np.sin(2.0 * cols["num0"]) + cols["num0"]
+                 + 0.05 * rng.normal(size=n)).astype(np.float32)
+    return cols
+
+
+def test_small_bundled_and_monotone_trains_match_cpu(cuda):
+    """A bundled GBM (efb="auto") and a monotone GBM on the card against
+    the same trains on the CPU: the same bundles, the same splits at every
+    valid node, leaf values to rtol 1e-4; the monotone build launches the
+    records kernel's monotone form once a level of every tree, the scalar
+    form never; the bundled one its scalar form (the raw features)."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    cols = _onehot_cols()
+    cfg = dict(response_column="y", ntrees=3, max_depth=4, nbins=64, seed=1,
+               score_tree_interval=10 ** 9)
+    for extra in ({}, {"monotone_constraints": {"num0": 1}}):
+        models, launches = {}, {}
+        for dev in ("cuda", "cpu"):
+            fr = Frame.from_numpy(cols, device=dev)
+            before = (hist.SPLIT_RECORDS.launches,
+                      hist.SPLIT_RECORDS_MONO.launches)
+            models[dev] = GBM(device=dev, **cfg, **extra).train(fr)
+            launches[dev] = (hist.SPLIT_RECORDS.launches - before[0],
+                             hist.SPLIT_RECORDS_MONO.launches - before[1])
+        a, b = models["cuda"], models["cpu"]
+        if extra:
+            assert "efb_bundles" not in a.output
+            assert launches["cuda"] == (0, 12)
+        else:
+            assert a.output["efb_bundles"] == b.output["efb_bundles"] >= 1
+            assert launches["cuda"] == (12, 0)
+        for ta, tb in zip(a.output["trees"], b.output["trees"]):
+            for d in range(len(ta.feat)):
+                va, vb = ta.valid[d].cpu().numpy(), tb.valid[d].numpy()
+                np.testing.assert_array_equal(va, vb)
+                np.testing.assert_array_equal(ta.feat[d].cpu().numpy()[va],
+                                              tb.feat[d].numpy()[vb])
+                np.testing.assert_array_equal(ta.thr[d].cpu().numpy()[va],
+                                              tb.thr[d].numpy()[vb])
+            np.testing.assert_allclose(ta.values.cpu().numpy(),
+                                       tb.values.numpy(), rtol=1e-4,
+                                       atol=1e-6)

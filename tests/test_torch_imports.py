@@ -121,6 +121,8 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.metrics.gainslift\n"
         "import h2o3_tpu_torch.models.deeplearning\n"
         "import h2o3_tpu_torch.models.cv\n"
+        "import h2o3_tpu_torch.models.tree.efb\n"
+        "import h2o3_tpu_torch.models.isotonic\n"
         "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -130,6 +132,8 @@ def test_import_adds_no_jax_module():
     assert "h2o3_tpu_torch.models.tree.uplift" in added
     assert "h2o3_tpu_torch.models.deeplearning" in added
     assert "h2o3_tpu_torch.models.cv" in added
+    assert "h2o3_tpu_torch.models.tree.efb" in added
+    assert "h2o3_tpu_torch.models.isotonic" in added
     assert not [m for m in added if _forbidden(m)]
 
 
@@ -190,3 +194,39 @@ def test_training_entry_points_raise_without_cuda(monkeypatch):
     m = DeepLearning(response_column="y", hidden=(2,), epochs=1.0,
                      device="cpu").train(fr)
     assert np.isfinite(m.training_metrics.logloss)
+
+
+def test_tree_option_entry_points_raise_without_cuda(monkeypatch):
+    """The new distributions, monotone constraints, a bundled frame and a
+    calibrated train raise without CUDA unless told device="cpu"."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models import DRF
+    from h2o3_tpu_torch.models.tree.gbm import GBM
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    rng = np.random.default_rng(0)
+    n = 64
+    z = rng.integers(0, 8, n)
+    cols = {f"c{k}": (z == k % 8).astype(float) for k in range(40)}
+    cols.update(x=rng.normal(size=n), cnt=rng.poisson(2.0, n).astype(float),
+                yb=np.where(rng.random(n) < 0.5, "a", "b").astype(object))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fr = Frame.from_numpy(cols, device="cpu")
+    cases = [
+        (GBM, dict(response_column="cnt", distribution="poisson",
+                   ignored_columns=["yb"])),
+        (XGBoost, dict(response_column="cnt", objective="reg:tweedie",
+                       ignored_columns=["yb"])),
+        (GBM, dict(response_column="cnt", monotone_constraints={"x": 1},
+                   ignored_columns=["yb"])),
+        (DRF, dict(response_column="cnt", ignored_columns=["yb"])),
+        (GBM, dict(response_column="yb", calibrate_model=True,
+                   calibration_frame=fr, ignored_columns=["cnt"])),
+    ]
+    for cls, kw in cases:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(ntrees=1, max_depth=2, **kw).train(fr)
+        m = cls(ntrees=1, max_depth=2, min_rows=1.0, device="cpu",
+                **kw).train(fr)
+        assert m.output["stacked"].values.device.type == "cpu"
+    assert m.output["calibration"]["method"] == "platt"
+
