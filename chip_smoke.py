@@ -336,6 +336,32 @@ Phases (any failure exits non-zero and prints no result line):
              the curve equal to its refit on the CPU from the card's
              probabilities (Platt's (a, b) to 1e-8), the isotonic curve
              non-decreasing, the held-out log loss before and after.
+40. scan — on the bench frame at 1M rows, ``XGBoost(max_depth=6,
+             nbins=256, ntrees=20, tree_program="scan")``: every tree a
+             captured CUDA graph's replay (``shared.SCAN_GRAPHS``: one
+             capture, one replay a tree), the launches recorded in one
+             capture (6 ``hist`` on the uniform axis, 6 ``split_records``)
+             times the replays equal to the level train's, every tree
+             bitwise the level train's; the scan and the level train
+             through the port's plain versions (``port_plain_route``, the
+             plain versions captured too) bitwise the kernels' train; a
+             second scan train bitwise; at depth 4 one replay a tree
+             again, 4 + 4 launches a replay; 5 K = 3 ``delay_class``
+             rounds (one replay a round) and a G = 4 cohort (one replay a
+             cohort round, the per-row records) bitwise their level
+             trains; ``tree_program="check"`` resolved to "level" on the
+             bench frame (the packed histogram engages) and run clean, then
+             trained "scan", on 6 continuous columns that fill every bin;
+41. scan headline — at 10M rows, exact and multinomial (K = 3), the
+             level and the scan train in turns (level, scan, scan, level;
+             a 20-tree or 20-round warmup, 50 timed): trees/s, the graph
+             pool and the device's peak memory, and a profiled 10-tree
+             train of each program: device operations a tree (round),
+             busy ms and the idle share;
+42. TreeSHAP — the phase-40 scan model's contributions on 256 rows: each
+             row plus BiasTerm within 1e-5 of the f32 margin, equal bitwise
+             to the archive ``ScoringModel``'s, and ``varimp`` listing
+             every feature.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -5009,6 +5035,326 @@ def option_phases(Frame, XGBoost, GBM, DRF, kernels, hist, shared, gbm,
     return row, elaunch
 
 
+# --------------------------- 40-42: the whole-tree program, TreeSHAP
+
+SCAN_TREES = 20                 # phase 40's trains at 1M rows
+SCAN_ROUNDS = 5                 # its K = 3 rounds and cohort rounds
+SCAN_WARM, SCAN_TIMED = 20, 50  # phase 41's trees (rounds) at 10M rows
+SCAN_PROFILE = 20               # the profiled train of each program
+SHAP_ROWS = 256                 # phase 42's rows
+# phase 42: a row's TreeSHAP contributions plus BiasTerm (an f64 sum)
+# against the f32 margin of the card's traversal: 20 trees of f32 adds
+# leave each margin within ~20 ulps (~1e-6 at |F| < 8)
+SHAP_MARGIN_ATOL = 1e-5
+
+
+def check_scan_counts(what, graphs, ntrees, depth, level_launch,
+                      kernels_launch, records="split_records"):
+    """A scan train's graph counts: one capture, one replay a tree (round,
+    cohort round), ``depth`` histogram and ``records`` launches recorded
+    in the graph, which times the replays must equal the level train's
+    launches, and the wrappers' own counts the warm-up's launches plus
+    the capture's records."""
+    per = dict(graphs.per_replay)
+    want = {"hist": depth, records: depth}
+    if graphs.captures != 1 or graphs.replays != ntrees or per != want:
+        raise AssertionError(
+            f"{what}: {graphs.captures} capture(s), {graphs.replays} "
+            f"replays for {ntrees} trees, {per} launches a replay; expected "
+            f"1, {ntrees}, {want}")
+    for k, v in want.items():
+        if level_launch is not None and v * ntrees != level_launch[k]:
+            raise AssertionError(
+                f"{what}: {k} {v} a replay x {ntrees} replays != the level "
+                f"train's {level_launch[k]}")
+        if kernels_launch[k] != 2 * v:
+            raise AssertionError(
+                f"{what}: the wrappers counted {kernels_launch[k]} {k} "
+                f"launches; expected {2 * v} (warm-up and capture)")
+
+
+def scan_models_equal(a, b, what):
+    why = stacks_differ(a, b)
+    if why:
+        raise AssertionError(f"{what}: differs on {why}")
+
+
+def continuous_frame(cols, Frame, n):
+    """The bench response beside 6 continuous columns (normal draws from
+    default_rng(40)), each of which fills every bin of a 256-bin axis, so
+    the packed histogram does not engage."""
+    rng = np.random.default_rng(40)
+    out = {f"c{j}": rng.normal(size=n).astype(np.float32) for j in range(6)}
+    out["dep_delayed_15min"] = cols["dep_delayed_15min"][:n]
+    return Frame.from_numpy(out)
+
+
+def scan_phase(Frame, XGBoost, GridSearch, kernels, hist, shared, card):
+    """Phase 40: the whole-tree program at 1M rows.  Returns the 20-tree
+    scan model and its frame's columns (phase 42's)."""
+    import torch
+    from h2o3_tpu_torch.testing import delay_class
+    graphs = shared.SCAN_GRAPHS
+    cols, types, domains = make_airlines_like(1_000_000)
+    cols["delay_class"] = delay_class(cols)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    cfg = dict(BENCH_CFG, ignored_columns=["delay_class"])
+    t0 = time.perf_counter()
+    for k in kernels:
+        k.launches = 0
+    m_lv = XGBoost(ntrees=SCAN_TREES, **cfg).train(fr)
+    lv_launch = launches_of(kernels)
+    depth = as_stacks(m_lv)[0].depth
+    for k in kernels:
+        k.launches = 0
+    graphs.reset()
+    t1 = time.perf_counter()
+    m_sc = XGBoost(ntrees=SCAN_TREES, tree_program="scan", **cfg).train(fr)
+    torch.cuda.synchronize()
+    sc_s = time.perf_counter() - t1
+    if m_sc.output["tree_program"] != "scan" \
+            or m_sc.output["hist_kernel"] != "uniform":
+        raise AssertionError(f"the scan train reports {m_sc.output}")
+    check_scan_counts("scan train", graphs, SCAN_TREES, depth, lv_launch,
+                      launches_of(kernels))
+    pool = graphs.pool_bytes
+    scan_models_equal(m_lv, m_sc, "the scan train against the level train")
+    log(f"scan train: XGBoost(max_depth=6, nbins=256, ntrees={SCAN_TREES}, "
+        f"tree_program='scan') on {fr.nrows} rows in {sc_s:.3f} s {card}: "
+        f"{graphs.captures} capture, {graphs.replays} graph replays (one a "
+        f"tree), {graphs.per_replay} launches a replay x {graphs.replays} = "
+        f"the level train's hist {lv_launch['hist']} and split_records "
+        f"{lv_launch['split_records']} (level train on the "
+        f"{m_lv.output['hist_kernel']} layout); graph pool "
+        f"{pool / 2**20:.1f} MiB; every tree bitwise the level train's")
+
+    before = launches_of(kernels)
+    with port_plain_route(hist):
+        m_pl = XGBoost(ntrees=SCAN_TREES, tree_program="scan",
+                       **cfg).train(fr)
+        m_pl_lv = XGBoost(ntrees=SCAN_TREES, **cfg).train(fr)
+    if launches_of(kernels) != before:
+        raise AssertionError("the plain-route scan train launched a kernel")
+    scan_models_equal(m_lv, m_pl, "the scan train through the plain "
+                      "versions against the level train")
+    scan_models_equal(m_lv, m_pl_lv, "the level train through the plain "
+                      "versions against the kernels'")
+    m2 = XGBoost(ntrees=SCAN_TREES, tree_program="scan", **cfg).train(fr)
+    scan_models_equal(m_sc, m2, "a second scan train")
+    log(f"scan plain route: the scan and the level train with every "
+        f"kernel swapped for the port's plain version (captured too), and a "
+        f"second scan train: bitwise the kernels' level train")
+
+    # depth 4: one replay a tree again, 4 launches of each a replay
+    c4 = dict(cfg, max_depth=4)
+    for k in kernels:
+        k.launches = 0
+    m4_lv = XGBoost(ntrees=SCAN_TREES, **c4).train(fr)
+    lv4 = launches_of(kernels)
+    for k in kernels:
+        k.launches = 0
+    graphs.reset()
+    m4 = XGBoost(ntrees=SCAN_TREES, tree_program="scan", **c4).train(fr)
+    check_scan_counts("depth-4 scan train", graphs, SCAN_TREES, 4, lv4,
+                      launches_of(kernels))
+    scan_models_equal(m4_lv, m4, "the depth-4 scan train")
+    log(f"scan depth 4: {graphs.replays} replays for {SCAN_TREES} trees "
+        f"(one a tree, as at depth 6), {graphs.per_replay} launches a "
+        f"replay; bitwise the depth-4 level train")
+
+    # K = 3 on delay_class: one replay a round
+    mcfg = dict(MULTI_CFG)
+    for k in kernels:
+        k.launches = 0
+    mk_lv = XGBoost(ntrees=SCAN_ROUNDS, **mcfg).train(fr)
+    lvk = launches_of(kernels)
+    for k in kernels:
+        k.launches = 0
+    graphs.reset()
+    mk = XGBoost(ntrees=SCAN_ROUNDS, tree_program="scan", **mcfg).train(fr)
+    check_scan_counts("K = 3 scan train", graphs, SCAN_ROUNDS, depth, lvk,
+                      launches_of(kernels))
+    kpool = graphs.pool_bytes
+    scan_models_equal(mk_lv, mk, "the K = 3 scan train")
+    # a G = 4 cohort: one replay a cohort round
+    for k in kernels:
+        k.launches = 0
+    g_lv = by_combo(grid_search(GridSearch, XGBoost, GRID_HP, SCAN_ROUNDS,
+                                ignored_columns=["delay_class"])
+                    .train(fr).models, GRID_HP)
+    glv = launches_of(kernels)
+    for k in kernels:
+        k.launches = 0
+    graphs.reset()
+    g_sc = by_combo(grid_search(GridSearch, XGBoost, GRID_HP, SCAN_ROUNDS,
+                                ignored_columns=["delay_class"],
+                                tree_program="scan").train(fr).models,
+                    GRID_HP)
+    check_scan_counts("cohort scan", graphs, SCAN_ROUNDS, depth, glv,
+                      launches_of(kernels), records="split_records (per-row)")
+    per = dict(graphs.per_replay)
+    if len(g_sc) != len(combos(GRID_HP)) or any(
+            m.output["tree_program"] != "scan"
+            or m.output.get("grid_cohort") is None for m in g_sc.values()):
+        raise AssertionError("the scan grid did not train one scan cohort")
+    for key, m in g_sc.items():
+        scan_models_equal(g_lv[key], m, f"cohort member {key} under scan")
+    log(f"scan K = 3 and cohort: {SCAN_ROUNDS} delay_class rounds, "
+        f"{SCAN_ROUNDS} replays (one a round of 3 trees), graph pool "
+        f"{kpool / 2**20:.1f} MiB; a G = {len(g_sc)} cohort, {SCAN_ROUNDS} "
+        f"replays (one a cohort round), {per} launches a replay; each "
+        f"bitwise its level train")
+
+    # "check": on the bench frame the packed histogram engages, so it
+    # resolves to the level program; on continuous columns it runs
+    m_bk = XGBoost(ntrees=2, tree_program="check", **cfg).train(fr)
+    frc = continuous_frame(cols, Frame, fr.nrows)
+    ccfg = dict(BENCH_CFG)
+    m_ck = XGBoost(ntrees=SCAN_ROUNDS, tree_program="check", **ccfg) \
+        .train(frc)
+    if m_ck.output["tree_program"] != "scan" \
+            or m_bk.output["tree_program"] != "level":
+        raise AssertionError(
+            f"tree_program='check' resolved to "
+            f"{m_ck.output['tree_program']!r} on the continuous frame and "
+            f"{m_bk.output['tree_program']!r} on the bench frame")
+    scan_models_equal(XGBoost(ntrees=SCAN_ROUNDS, **ccfg).train(frc), m_ck,
+                      "the checked scan train on the continuous frame")
+    log(f"scan check: tree_program='check' on the bench frame resolved to "
+        f"{m_bk.output['tree_program']!r} (hist layout "
+        f"{m_bk.output['hist_kernel']}); on 6 continuous columns x "
+        f"{frc.nrows} rows it ran its crosscheck clean and trained "
+        f"{m_ck.output['tree_program']!r} (hist layout "
+        f"{m_ck.output['hist_kernel']}), bitwise the level train; phase "
+        f"40 in {time.perf_counter() - t0:.1f} s")
+    del fr, frc
+    return m_sc, cols, types, domains
+
+
+def scan_turns(XGBoost, fr, cfg, unit, card):
+    """Phase 41 for one configuration at 10M rows: the level and the scan
+    train in turns (level, scan, scan, level), each a SCAN_WARM warmup
+    then SCAN_TIMED timed; then a profiled SCAN_PROFILE train of each:
+    device operations a tree (round) and the idle share."""
+    import torch
+    from h2o3_tpu_torch.models.tree import shared
+    rates = {"level": [], "scan": []}
+    pool, cap_s = 0, []
+    for prog in ("level", "scan", "scan", "level"):
+        c = dict(cfg, tree_program=prog)
+        XGBoost(ntrees=SCAN_WARM, **c).train(fr)
+        torch.cuda.synchronize()
+        shared.SCAN_GRAPHS.reset()
+        t0 = time.perf_counter()
+        XGBoost(ntrees=SCAN_TIMED, **c).train(fr)
+        torch.cuda.synchronize()
+        rates[prog].append(SCAN_TIMED / (time.perf_counter() - t0))
+        if prog == "scan":
+            pool = shared.SCAN_GRAPHS.pool_bytes
+            cap_s.append(shared.SCAN_GRAPHS.capture_s)
+    prof = {}
+    for prog in ("level", "scan"):
+        c = dict(cfg, tree_program=prog)
+        t0 = time.perf_counter()
+        XGBoost(ntrees=SCAN_PROFILE, **c).train(fr)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        kern, busy = device_profile(
+            lambda: XGBoost(ntrees=SCAN_PROFILE, **c).train(fr))
+        if busy <= 0:
+            prof[prog] = "no device time in the trace: not measured"
+            continue
+        ops = sum(e.count for e in kern) / SCAN_PROFILE
+        prof[prog] = (f"{ops:g} device ops a {unit}, busy "
+                      f"{busy / SCAN_PROFILE:.2f} ms a {unit} against "
+                      f"{wall / SCAN_PROFILE * 1e3:.2f} of wall: idle share "
+                      f"{idle_share(busy, wall):.3f}; top: " + "; ".join(
+                          f"{e.key[:60]} {e.self_device_time_total / 1e3 / SCAN_PROFILE:.3f}"
+                          f" ({e.count / SCAN_PROFILE:g})" for e in kern[:8]))
+    return rates, pool, cap_s, prof
+
+
+def scan_headline(Frame, XGBoost, card):
+    """Phase 41: the whole-tree program at 10M rows, exact and
+    multinomial, in turns with the level program."""
+    import torch
+    from h2o3_tpu_torch.testing import delay_class
+    t0 = time.perf_counter()
+    cols, types, domains = make_airlines_like(10_000_000)
+    cols["delay_class"] = delay_class(cols)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    del cols
+    torch.cuda.synchronize()
+    for name, cfg, unit, K in (
+            ("exact", dict(BENCH_CFG, ignored_columns=["delay_class"]),
+             "tree", 1),
+            ("multinomial", MULTI_CFG, "round", K_CLASSES)):
+        torch.cuda.reset_peak_memory_stats()
+        rates, pool, cap_s, prof = scan_turns(XGBoost, fr, cfg, unit, card)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"scan headline {name} at {fr.nrows} rows "
+            f"(XGBoost(max_depth=6, nbins=256), {SCAN_WARM}-{unit} warmup, "
+            f"{SCAN_TIMED} timed, in turns level, scan, scan, level) "
+            f"{card}: trees/s level "
+            + " and ".join(f"{K * v:.3f}" for v in rates["level"])
+            + ", scan " + " and ".join(f"{K * v:.3f}" for v in rates["scan"])
+            + f"; the timed scan train's one capture (a warm-up {unit} "
+            f"and the recording) " + " and ".join(f"{v:.3f}" for v in cap_s)
+            + f" s; graph pool {pool / 2**30:.3f} GiB, device peak "
+            f"{peak / 2**30:.3f} GiB; profile level: {prof['level']}; "
+            f"profile scan: {prof['scan']}")
+    log(f"phase 41 in {time.perf_counter() - t0:.1f} s")
+
+
+def shap_phase(m, cols, types, domains, Frame, card):
+    """Phase 42: TreeSHAP of the phase-40 scan model on SHAP_ROWS rows."""
+    from h2o3_tpu_torch.export.mojo import from_reference
+    t0 = time.perf_counter()
+    sub = {k: v[:SHAP_ROWS] for k, v in cols.items()}
+    fr = Frame.from_numpy(sub, types=types, domains=domains)
+    got = m.predict_contributions(fr)
+    contrib = m._contributions(fr)
+    names = [s.name for s in m.datainfo.specs]
+    if got.names != names + ["BiasTerm"] or contrib.shape != (
+            SHAP_ROWS, len(names) + 1) or not np.isfinite(contrib).all():
+        raise AssertionError(f"contributions {got.names} {contrib.shape}")
+    margin = m._raw_scores(m._design(fr))[:SHAP_ROWS].cpu().numpy()
+    gap = float(np.max(np.abs(contrib.sum(axis=1) - margin)))
+    if gap > SHAP_MARGIN_ATOL:
+        raise AssertionError(f"contributions + BiasTerm miss the f32 margin "
+                             f"by {gap:.3e} > {SHAP_MARGIN_ATOL}")
+    frame_gap = float(np.max(np.abs(np.stack(
+        [v.to_numpy()[:SHAP_ROWS] for v in got.vecs], 1) - contrib)))
+    sm = from_reference(*m.to_archive())
+    feats = {k: v for k, v in sub.items() if k in names}
+    arch = sm.predict_contributions(feats)
+    if arch["names"] != names + ["BiasTerm"] \
+            or not np.array_equal(arch["contributions"], contrib):
+        raise AssertionError("the archive's contributions differ from the "
+                             "model's")
+    vi = m.varimp()
+    if sorted(vi) != sorted(names) or max(vi.values()) != 1.0:
+        raise AssertionError(f"varimp {vi}")
+    log(f"TreeSHAP of the {m.output['ntrees_trained']}-tree scan model on "
+        f"{SHAP_ROWS} rows {card}: rows + BiasTerm within {gap:.3e} of the "
+        f"f32 margin (limit {SHAP_MARGIN_ATOL}); the frame's f32 columns "
+        f"within {frame_gap:.3e} of the f64 values; the archive "
+        f"ScoringModel's contributions bitwise the model's; varimp (cover) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in vi.items())
+        + f"; {time.perf_counter() - t0:.1f} s on the host")
+
+
+def scan_phases(Frame, XGBoost, GridSearch, kernels, hist, shared, card):
+    """Phases 40-42."""
+    m, cols, types, domains = scan_phase(Frame, XGBoost, GridSearch,
+                                         kernels, hist, shared, card)
+    mark("phase 40")
+    scan_headline(Frame, XGBoost, card)
+    mark("phase 41")
+    shap_phase(m, cols, types, domains, Frame, card)
+    mark("phase 42")
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -5621,6 +5967,9 @@ def main() -> dict:
     log(f"EFB launches on the bundled 1M-row train: hist {elaunch['hist']}"
         f", split_records {elaunch['split_records']} (rows 3 and 4 at the "
         f"working features)")
+    # ------------------ 40-42 the whole-tree program as a graph, TreeSHAP
+    scan_phases(Frame, XGBoost, GridSearch, kernels_train, hist, shared,
+                card)
 
     return {"kernels": [traverse_row] + rows, "device": device}
 

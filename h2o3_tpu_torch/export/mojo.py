@@ -3,7 +3,8 @@
 The archive is the JAX package's format (``h2o3_tpu/export/mojo.py``
 ``export_mojo``): a zip holding ``model.json`` (algo, featurization
 layout, link/metadata) and ``arrays.npz`` (the learned tensors).
-``import_mojo`` loads it into the port's numpy ``ScoringModel``;
+``import_mojo`` loads it into the port's numpy ``ScoringModel``, and a
+real H2O MOJO (``model.ini``) through ``h2o_mojo.load_h2o_mojo``;
 ``from_reference`` takes the same ``(meta, arrays)`` pair in memory.
 """
 
@@ -47,20 +48,23 @@ def from_reference(meta: dict, arrays: Dict[str, np.ndarray]) \
                         {k: np.asarray(v) for k, v in arrays.items()})
 
 
-def import_mojo(path: str) -> ScoringModel:
-    """Load a portable archive written by ``export_mojo``.
+def import_mojo(path: str):
+    """Load a portable archive for offline scoring — MojoModel.load.
 
-    Real H2O MOJO zips (``model.ini`` + blobs) are not read yet: their
-    importer (``h2o3_tpu/export/h2o_mojo.py``) is still to be ported.
+    Accepts both the portable archives written by ``export_mojo``
+    (model.json + arrays.npz: a ``ScoringModel``) and real H2O MOJO zips
+    or extracted MOJO directories (model.ini + blobs: an
+    ``h2o_mojo.H2OMojoModel``, scored on the host in numpy), as the JAX
+    package's ``import_mojo`` does (hex/genmodel/ModelMojoReader.java:25).
     """
+    from .h2o_mojo import is_h2o_mojo, load_h2o_mojo
+    if is_h2o_mojo(path):
+        return load_h2o_mojo(path)
     with zipfile.ZipFile(path) as z:
-        names = set(z.namelist())
-        if "model.json" not in names:
-            kind = ("an H2O MOJO (model.ini)" if "model.ini" in names
-                    else "not a portable model archive")
+        if "model.json" not in z.namelist():
             raise ValueError(
-                f"{path!r} is {kind}; h2o3_tpu_torch reads only archives "
-                "with model.json + arrays.npz (export_mojo's format)")
+                f"{path!r} is not a portable model archive (model.json + "
+                "arrays.npz) nor an H2O MOJO (model.ini)")
         meta = json.loads(z.read("model.json"))
         npz = np.load(io.BytesIO(z.read("arrays.npz")))
         arrays = {k: npz[k] for k in npz.files}

@@ -9,7 +9,8 @@ serving plane packs (``tree``: GBM/XGBoost/DRF, and ``isolation``), the
 numpy oracle behind ``PackedScorer``'s ``"ref"``/``"check"`` score
 modes, for ``glm`` (the standardized one-hot design, the family's
 link) and for ``deeplearning`` (the same design through the layers:
-tanh or rectifier, softmax or the de-standardized regression).  The
+tanh or rectifier, softmax or the de-standardized regression); tree
+models also give their TreeSHAP contributions (``treeshap.py``).  The
 archive format lives in mojo.py.
 """
 
@@ -135,11 +136,42 @@ class ScoringModel:
         raise ValueError(f"no standalone scorer for family {family!r}")
 
     def predict_contributions(self, data) -> dict:
-        """TreeSHAP contributions: not ported yet (needs the port of
-        ``h2o3_tpu/export/treeshap.py``)."""
-        raise NotImplementedError(
-            "predict_contributions needs treeshap, which h2o3_tpu_torch "
-            "has not ported yet")
+        """TreeSHAP contributions — EasyPredictModelWrapper
+        ``predictContributions`` analog (binomial/regression tree models;
+        the JAX package's ``ScoringModel.predict_contributions``).
+
+        Returns {"names": [...features, "BiasTerm"], "contributions":
+        [n, F+1]}; rows sum to the margin prediction.
+        """
+        if self.meta.get("family") != "tree":
+            raise ValueError("contributions are for tree models")
+        if int(self.meta.get("nclass_trees", 1)) > 1:
+            raise ValueError("contributions support binomial/regression "
+                             "models only")
+        if "covers" not in self.arrays:
+            raise ValueError("artifact has no covers; re-export from a "
+                             "model trained with cover recording")
+        from . import treeshap
+        T = int(self.meta["ntrees"])
+        depth = int(self.meta["depth"])
+        trees = []
+        for t in range(T):
+            trees.append(treeshap._ShapTree(
+                [self.arrays[f"feat_{d}"][t] for d in range(depth)],
+                [self.arrays[f"thr_{d}"][t] for d in range(depth)],
+                [self.arrays[f"na_left_{d}"][t] for d in range(depth)],
+                [self.arrays[f"valid_{d}"][t] for d in range(depth)],
+                self.arrays["values"][t], self.arrays["covers"][t]))
+        data = {k: np.asarray(v) for k, v in data.items()}
+        n = len(next(iter(data.values())))
+        X = self._design_raw(data, n).astype(np.float64)
+        if self.meta.get("tree_average", False):
+            scale, init = 1.0 / max(T, 1), 0.0
+        else:
+            scale, init = 1.0, float(self.meta["init_score"])
+        contribs = treeshap.ensemble_contributions(trees, X, init, scale)
+        names = [s["name"] for s in self.spec["specs"]] + ["BiasTerm"]
+        return {"names": names, "contributions": contribs}
 
     # ------------------------------------------------------------ families
     def _linkinv(self, eta):

@@ -16,7 +16,10 @@ classes grows K class trees a round, each fitting its one-hot column, as
 one batched build (``split_mode="fused"``: one histogram launch and one
 records launch per level whatever K is) or as a loop of K single builds
 (``"separate"``), bitwise alike; the K trees share the round's row
-sample.  A wide sparse frame trains on EFB's bundled working codes
+sample.  Under ``tree_program="scan"`` (dense levels: ``hist_layout=
+"dense"`` or a depth within ``sparse_depth_threshold``) each tree or
+round is the whole-tree program.  A wide sparse frame trains on EFB's
+bundled working codes
 (``shared.maybe_bundle``, as in the JAX package): the dense layout with
 its depth cap, mtries resolved against the working features, and the K
 class trees as a loop of single builds.  Not ported here: checkpoints and
@@ -47,7 +50,8 @@ from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
                      resolve_hist_layout,
                      resolve_hist_mode, resolve_split_mode,
                      resolve_tree_program, run_hist_crosscheck,
-                     run_layout_crosscheck, run_split_crosscheck, traverse,
+                     run_layout_crosscheck, run_program_crosscheck,
+                     run_split_crosscheck, traverse,
                      use_hier_split_search)
 
 
@@ -136,7 +140,9 @@ class DRF(SharedTree):
         split_mode = resolve_split_mode(p, plan=plan, hier=hier)
         hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, plan=plan,
                                           hier=hier)
-        tree_program = resolve_tree_program(p, plan=plan, hier=hier)
+        tree_program = resolve_tree_program(
+            p, hist_layout=hist_layout, plan=plan, hier=hier,
+            bin_counts=wbin_counts, F=Fw, n_padded=N, device=dev)
         seed = p.effective_seed()
         col_rate = self._col_rate(Fw, di.is_classifier)
 
@@ -163,11 +169,11 @@ class DRF(SharedTree):
             F_v = torch.zeros((K, Xv.shape[0]) if K > 1 else (Xv.shape[0],),
                               dtype=torch.float32, device=dev)
 
-        if "check" in (hist_mode, split_mode, hist_layout):
+        if "check" in (hist_mode, split_mode, hist_layout, tree_program):
             # the crosschecks on the forest's mean-fit gradients (g = -y,
             # h = 1), the K class trees as one batched build; training
-            # then takes the subtraction path, the fused records and the
-            # node-sparse levels
+            # then takes the subtraction path, the fused records, the
+            # node-sparse levels and the whole-tree program
             kw = dict(max_depth=p.max_depth, nbins=p.nbins, F=Fw,
                       n_padded=N, bin_counts=wbin_counts,
                       reg_lambda=p.reg_lambda, min_rows=p.min_rows,
@@ -191,12 +197,20 @@ class DRF(SharedTree):
                     col_sample_rate=col_rate, **kw)
                 hist_layout = "sparse"
                 model.output["hist_layout"] = hist_layout
+            if tree_program == "check":
+                run_program_crosscheck(
+                    codes, g0, h0, w, edges_mat, seed, hist_mode=hist_mode,
+                    split_mode=split_mode, col_sample_rate=col_rate,
+                    **{k: v for k, v in kw.items() if k != "bin_counts"})
+                tree_program = "scan"
+                model.output["tree_program"] = tree_program
 
         scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate, 1.0)
         scan_kw = dict(bin_counts=wbin_counts, hist_mode=hist_mode,
                        split_mode=split_mode, hist_layout=hist_layout,
                        device=dev, hier=hier, plan=plan,
-                       sparse_depth_threshold=p.sparse_depth_threshold)
+                       sparse_depth_threshold=p.sparse_depth_threshold,
+                       tree_program=tree_program)
         scan_fn = make_multinomial_scan_fn(K, *scan_args, mode="drf",
                                            **scan_kw) if K > 1 \
             else make_tree_scan_fn("drf", *scan_args, **scan_kw)

@@ -43,7 +43,8 @@ from .shared import (SharedTree, SharedTreeModel, SharedTreeParameters,
                      resolve_hist_layout, resolve_hist_mode, resolve_mono,
                      resolve_split_mode, resolve_tree_program,
                      run_hist_crosscheck, run_layout_crosscheck,
-                     run_split_crosscheck, stack_trees, traverse,
+                     run_program_crosscheck, run_split_crosscheck,
+                     stack_trees, traverse,
                      use_hier_split_search)
 
 
@@ -181,7 +182,9 @@ class GBM(SharedTree):
         hist_mode = resolve_hist_mode(p)
         split_mode = resolve_split_mode(p, **knobs)
         hist_layout = resolve_hist_layout(p, hist_mode=hist_mode, **knobs)
-        tree_program = resolve_tree_program(p, **knobs)
+        tree_program = resolve_tree_program(
+            p, hist_layout=hist_layout, bin_counts=wbin_counts, F=Fw,
+            n_padded=N, device=dev, **knobs)
         seed = p.effective_seed()
 
         model = self.model_class(job.dest_key or dkv.make_key(self.algo),
@@ -223,12 +226,13 @@ class GBM(SharedTree):
                       min_split_improvement=p.min_split_improvement,
                       learn_rate=p.learn_rate, reg_alpha=p.reg_alpha,
                       gamma=p.gamma, min_child_weight=p.min_child_weight)
-        if "check" in (hist_mode, split_mode, hist_layout):
+        if "check" in (hist_mode, split_mode, hist_layout, tree_program):
             # the crosschecks on the real first-round gradients (the exact
             # search, also when training takes the hierarchical one), with
             # the K class trees of a multinomial round as one batched
             # build; then training proceeds on the subtraction path, the
-            # fused split search and the node-sparse levels
+            # fused split search, the node-sparse levels and the
+            # whole-tree program
             g0, h0 = dist.grad_hess(target, F)
             kw = dict(common, nk=K)
             if hist_mode == "check":
@@ -247,6 +251,14 @@ class GBM(SharedTree):
                     col_sample_rate=p.col_sample_rate, **kw)
                 hist_layout = "sparse"
                 model.output["hist_layout"] = hist_layout
+            if tree_program == "check":
+                run_program_crosscheck(
+                    codes, g0 * w, h0 * w, w, edges_mat, seed,
+                    hist_mode=hist_mode, split_mode=split_mode,
+                    col_sample_rate=p.col_sample_rate,
+                    **{k: v for k, v in kw.items() if k != "bin_counts"})
+                tree_program = "scan"
+                model.output["tree_program"] = tree_program
 
         if getattr(p, "booster", "gbtree") == "dart":
             vstate = (valid, Xv, y_v, w_v) if valid is not None else None
@@ -254,14 +266,15 @@ class GBM(SharedTree):
                 job, model, di, dist, codes, target, y, w, F, edges_mat,
                 binned, init_host, model._design(frame), vstate, hist_mode,
                 split_mode, hist_layout, hier, seed, K, Fw, wbin_counts,
-                mono, plan)
+                mono, plan, tree_program)
 
         scan_args = (p.max_depth, p.nbins, Fw, N, p.sample_rate,
                      p.col_sample_rate_per_tree)
         scan_kw = dict(bin_counts=wbin_counts, hist_mode=hist_mode,
                        split_mode=split_mode, hist_layout=hist_layout,
                        device=dev, hier=hier, plan=plan,
-                       sparse_depth_threshold=p.sparse_depth_threshold)
+                       sparse_depth_threshold=p.sparse_depth_threshold,
+                       tree_program=tree_program)
         scan_fn = make_multinomial_scan_fn(K, *scan_args, **scan_kw) \
             if K > 1 else make_tree_scan_fn(dist, *scan_args, mono=mono,
                                             **scan_kw)
@@ -299,7 +312,7 @@ class GBM(SharedTree):
     def _fit_dart(self, job, model, di, dist, codes, target, y, w, F,
                   edges_mat, binned, init_host, X_tr, vstate, hist_mode,
                   split_mode, hist_layout, hier, seed, K, Fw, bin_counts,
-                  mono, plan):
+                  mono, plan, tree_program):
         """The DART booster, one round at a time (the JAX package's loop,
         gbm.py:528-683): the dropped trees' scores S_D traversed over the
         raw design, gradients on F - S_D, the new tree grown at learn
@@ -316,7 +329,9 @@ class GBM(SharedTree):
         training, since rescaling rewrites earlier trees, and are stacked
         at the end; a validation frame is scored from all trees at each
         interval.  ``codes`` are a bundle plan's working codes (``Fw``
-        features, ``bin_counts``) where one engages."""
+        features, ``bin_counts``) where one engages.  Under
+        ``tree_program="scan"`` a round is the whole-tree program (on a
+        card one graph replay a round; its learn rate is always 1)."""
         p = self.params
         dev, N = codes.device, codes.shape[1]
         batched = K > 1 and split_mode == "fused"
@@ -326,7 +341,7 @@ class GBM(SharedTree):
             hist_layout=hist_layout, device=dev, hier=hier,
             nk=K if batched else 1,
             sparse_depth_threshold=p.sparse_depth_threshold, mono=mono,
-            plan=plan)
+            plan=plan, tree_program=tree_program)
         model.output["hist_kernel"] = \
             "varbin" if build.use_varbin else "uniform"
         hcodes = _scan_codes(build, codes, p.nbins, hier)

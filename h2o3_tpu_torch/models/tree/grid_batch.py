@@ -25,7 +25,8 @@ calibration, an engaged EFB plan, CV folds, checkpoints, and the options
 the port has not ported, where the member's own builder then raises.
 Not ported here: the JAX package's recovery journals, progress snapshots
 and ``grid_member`` fault injection (``runtime/{recovery,snapshot,
-failure}.py``), and whole-tree scan cohorts.
+failure}.py``).  Under ``tree_program="scan"`` a cohort round is the
+whole-tree program (``make_grid_scan_fn(tree_program="scan")``).
 """
 
 from __future__ import annotations
@@ -93,9 +94,6 @@ def _eligibility(builder_cls, p) -> Optional[str]:
     for knob in ("hist_mode", "hist_layout", "tree_program"):
         if str(getattr(p, knob, "auto")).lower() == "check":
             return f"{knob}=check (per-member crosscheck diagnostics)"
-    if str(getattr(p, "tree_program", "auto")).lower() == "scan":
-        return "tree_program=scan (whole-tree scan cohorts are not " \
-               "ported yet)"
     if str(getattr(p, "efb", "auto")).lower() == "on":
         return "efb=on (bundled working codes are per-plan)"
     if getattr(p, "calibrate_model", False):
@@ -215,7 +213,7 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     from .shared import (StackedTrees, chunk_schedule,
                          make_grid_scan_fn, plan_for,
                          record_effective_depth, resolve_hist_layout,
-                         resolve_hist_mode, traverse)
+                         resolve_hist_mode, resolve_tree_program, traverse)
 
     G = len(combos)
     if G < 2:
@@ -260,15 +258,25 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     # past the threshold the cohort grows node-sparse levels, as each
     # member's own train does: its depth does not depend on G
     hist_layout = resolve_hist_layout(p0, hist_mode=hist_mode)
+    # "scan" grows each round as the whole-tree program; where the
+    # members' own trains would refuse it, so does the cohort
+    try:
+        tree_program = resolve_tree_program(
+            p0, hist_layout=hist_layout, bin_counts=binned.bin_counts, F=Fw,
+            n_padded=N, device=dev)
+    except ValueError as e:
+        raise CohortFallback(str(e))
     scan_fn = make_grid_scan_fn(
         G, dist, p0.max_depth, p0.nbins, Fw, N,
         bin_counts=binned.bin_counts, hist_mode=hist_mode,
         hist_layout=hist_layout, device=dev,
-        sparse_depth_threshold=p0.sparse_depth_threshold)
+        sparse_depth_threshold=p0.sparse_depth_threshold,
+        tree_program=tree_program)
 
     algo = rep.algo
     obs.set_gauge("grid_cohort_size", float(G), algo=algo)
-    obs.record("grid_cohort_start", algo=algo, size=G, tree_program="level")
+    obs.record("grid_cohort_start", algo=algo, size=G,
+               tree_program=tree_program)
     t_start = time.time()
     models, jobs = [], []
     for g, b in enumerate(builders):
@@ -276,7 +284,7 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
         m.output["distribution"] = dist.name
         m.output["binning"] = {"nbins": p0.nbins}
         m.output["nclass_trees"] = 1
-        m.output["tree_program"] = "level"
+        m.output["tree_program"] = tree_program
         m.output["split_search"] = "exact"
         m.output["hist_kernel"] = \
             "varbin" if scan_fn.build.use_varbin else "uniform"

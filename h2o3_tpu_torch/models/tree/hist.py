@@ -393,6 +393,18 @@ def _device_meta(layout: HistLayout, L: int, device: str, planes: int = 3,
             int(tiles.shape[0]), smem, len(set(tiles[:, 0].tolist())))
 
 
+def prepare_uniform(F: int, B: int, widths, device) -> None:
+    """Upload the device tables of the uniform-axis launches at each
+    leaf count L in ``widths`` (``_device_meta``) and read the card's SM
+    count, ahead of a CUDA graph capture, where a host-to-device copy
+    would wait for the stream; nothing on another device."""
+    if torch.device(device).type != "cuda":
+        return
+    for L in widths:
+        _device_meta(uniform_layout(F, B), L, str(device), 3, False)
+    _sm_count(str(device))
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(device: str) -> int:
     return torch.cuda.get_device_properties(
@@ -572,12 +584,15 @@ def hist_uniform_torch(codes, leaf, stats, L: int, B: int, planes: int = 3,
     kl = torch.arange(K, device=dev)[:, None] * L + lf         # [K, n]
     idx = (kl[:, None, :] * F
            + torch.arange(F, device=dev)[None, :, None]) * B + c
-    ok = ok.expand(K, F, n)
+    # rows outside the histogram add to one spare slot past its end (a
+    # mask would pick them with a host synchronisation, which a CUDA
+    # graph cannot capture)
+    total = K * L * F * B
+    idx = torch.where(ok, idx, total).expand(K, F, n)
     src = qs[:, :, None, :].expand(K, planes, F, n).transpose(0, 1)
-    out = torch.zeros((planes, K * L * F * B), dtype=torch.int64,
-                      device=dev)
-    out.index_add_(1, idx.expand(K, F, n)[ok], src[:, ok])
-    H = _dequantize(out.view(planes, K, L, F, B).transpose(0, 1),
+    out = torch.zeros((planes, total + 1), dtype=torch.int64, device=dev)
+    out.index_add_(1, idx.reshape(-1), src.reshape(planes, -1))
+    H = _dequantize(out[:, :total].view(planes, K, L, F, B).transpose(0, 1),
                     _plane_inv(scale, planes)).contiguous()
     return H[0] if single else H
 
@@ -740,7 +755,6 @@ def make_batched_level_fn(d: int, K: int, F: int, B: int, bin_counts=None):
     rebuild (``hist_mode="full"``, the crosscheck oracle) is
     ``local_hist`` at 2^d leaves."""
     bc = tuple(bin_counts) if bin_counts is not None else None
-    Lp = 2 ** max(d - 1, 0)
     Lc = 2 ** d
 
     def level(codes, leaf, stats, carry=None, scale=None):
@@ -750,42 +764,135 @@ def make_batched_level_fn(d: int, K: int, F: int, B: int, bin_counts=None):
             return H, H
         if carry is None:
             raise ValueError(f"level {d} needs the previous level's carry")
-        n = codes.shape[1]
-        cap = n // 2
-        dev = codes.device
         # rows per child of every tree: one shared-memory histogram of
         # k * Lc + leaf (exact in f64)
-        cnt = torch.histc((leaf + _tree_offsets(K, Lc, str(dev))).double(),
-                          bins=K * Lc, min=0, max=K * Lc).view(K, Lc)
-        small_is_left = cnt[:, 0::2] <= cnt[:, 1::2]                # [K, Lp]
-        chosen_child = torch.stack([small_is_left, ~small_is_left],
-                                   dim=2).view(K, Lc)
-        chosen = chosen_child.gather(1, leaf.long())                # [K, n]
-        # each tree's running count of its chosen rows: one scan over the
-        # K*n flattened rows (a scan along a [K, n] row runs K blocks),
-        # less the count of the trees before it
-        c_flat = torch.cumsum(chosen.view(-1), dim=0).view(K, n)
-        c_incl = c_flat - torch.nn.functional.pad(c_flat[:-1, -1:], (0, 0,
-                                                                     1, 0))
-        # the chosen rows' numbers, in order, to each tree's prefix; every
-        # other row to the spare slot ``cap``.  Slots from a tree's count
-        # on (the spare one included) take leaf -1 and add nothing.
-        target = torch.where(chosen, c_incl - 1, cap)
-        rows = torch.zeros((K, cap + 1), dtype=torch.int64, device=dev) \
-            .scatter_(1, target, torch.arange(n, device=dev).expand(K, n))
-        kept = torch.arange(cap + 1, device=dev) < c_incl[:, -1:]
-        ccodes = codes.index_select(1, rows.view(-1)).view(
-            F, K, cap + 1).transpose(0, 1)                   # [K, F, cap+1]
-        pleaf = torch.where(kept, leaf.gather(1, rows) >> 1, -1)
-        st = stats.gather(2, rows[:, None, :].expand(K, 3, cap + 1))
-        Hs = local_hist(ccodes, pleaf, st, Lp, F, B, bc, scale)
-        Ho = carry - Hs
-        Ho[:, 1:].clamp_min_(0.0)
-        sl = small_is_left[:, None, :, None, None]
-        Hl = torch.where(sl, Hs, Ho)
-        Hr = torch.where(sl, Ho, Hs)
-        H = torch.stack([Hl, Hr], dim=3).view(K, 3, Lc, F, B)
+        cnt = torch.histc(
+            (leaf + _tree_offsets(K, Lc, str(codes.device))).double(),
+            bins=K * Lc, min=0, max=K * Lc).view(K, Lc)
+        H = _subtract_children(codes, leaf, stats, carry, scale, cnt, F, B,
+                               bc)
         return H, H
+
+    return level
+
+
+def _subtract_children(codes, leaf, stats, carry, scale, cnt, F: int, B: int,
+                       bc=None) -> torch.Tensor:
+    """The children's histograms [K, 3, Lc, F, B] of one level by
+    smaller-sibling compaction, given the rows per child ``cnt`` [K, Lc]
+    and the parents' histograms ``carry`` [K, 3, Lc/2, F, B]: every tree
+    picks its own smaller siblings, their rows are compacted into a prefix
+    of n // 2 + 1 rows per tree, one launch histograms the K prefixes at
+    the parent geometry, and each larger sibling is its parent minus the
+    smaller in f32, h/w clamped at 0."""
+    K, Lc = cnt.shape
+    Lp = Lc // 2
+    n = codes.shape[1]
+    cap = n // 2
+    dev = codes.device
+    small_is_left = cnt[:, 0::2] <= cnt[:, 1::2]                    # [K, Lp]
+    chosen_child = torch.stack([small_is_left, ~small_is_left],
+                               dim=2).view(K, Lc)
+    chosen = chosen_child.gather(1, leaf.long())                    # [K, n]
+    # each tree's running count of its chosen rows: one scan over the K*n
+    # flattened rows (a scan along a [K, n] row runs K blocks), less the
+    # count of the trees before it
+    c_flat = torch.cumsum(chosen.view(-1), dim=0).view(K, n)
+    c_incl = c_flat - torch.nn.functional.pad(c_flat[:-1, -1:], (0, 0, 1, 0))
+    # the chosen rows' numbers, in order, to each tree's prefix; every other
+    # row to the spare slot ``cap``.  Slots from a tree's count on (the
+    # spare one included) take leaf -1 and add nothing.
+    target = torch.where(chosen, c_incl - 1, cap)
+    rows = torch.zeros((K, cap + 1), dtype=torch.int64, device=dev) \
+        .scatter_(1, target, torch.arange(n, device=dev).expand(K, n))
+    kept = torch.arange(cap + 1, device=dev) < c_incl[:, -1:]
+    ccodes = codes.index_select(1, rows.view(-1)).view(
+        F, K, cap + 1).transpose(0, 1)                       # [K, F, cap+1]
+    pleaf = torch.where(kept, leaf.gather(1, rows) >> 1, -1)
+    st = stats.gather(2, rows[:, None, :].expand(K, 3, cap + 1))
+    Hs = local_hist(ccodes, pleaf, st, Lp, F, B, bc, scale)
+    Ho = carry - Hs
+    Ho[:, 1:].clamp_min_(0.0)
+    sl = small_is_left[:, None, :, None, None]
+    Hl = torch.where(sl, Hs, Ho)
+    Hr = torch.where(sl, Ho, Hs)
+    return torch.stack([Hl, Hr], dim=3).view(K, 3, Lc, F, B)
+
+
+def make_batched_scan_level_fn(W: int, K: int, F: int, B: int):
+    """The subtraction level of the whole-tree scan program for K trees
+    (the JAX package's ``make_batched_scan_level_fn``, hist.py:830): one
+    program for every level below the root, at a fixed child width ``W``
+    (the deepest level's 2^(D-1)) and parent width W/2, on the uniform
+    bin axis (the scan forfeits the packed layout, as the reference does).
+
+    ``fn(codes, leaf, stats, carry, scale, dead=None) -> (H, carry)``:
+    codes [F, n] shared, leaf [K, n] with every row in [0, W), stats [K,
+    3, n], ``scale`` the trees' [K, 2, 3] ``stat_scale``, carry the
+    previous level's first W/2 child slots [K, 3, W/2, F, B]; H [K, 3, W,
+    F, B] and the next carry, H's first W/2 slots (a view).  The
+    compaction is ``make_batched_level_fn``'s at width W: a slot that no
+    row reaches counts 0 rows on both sides, histograms exact zeros and
+    subtracts to exact zeros, so the padded slots are inert and the live
+    2^d slots are bitwise the level program's.  The rows per child come
+    from ``_child_counts``: plain device work, which the graph of a tree
+    captures (``torch.histc``, the level program's count, asks CUDA for
+    the device's free memory on every call).
+
+    ``dead`` (a 0-dim bool tensor: no node of any tree is alive) is the
+    reference's early exit: every row then sits on an even child, and the
+    level is the parent passthrough (clamped parent left, zeros right),
+    which is what the compaction gives.  On the CPU the passthrough is
+    taken without the compaction; inside a CUDA graph, which has no
+    branch, the compaction runs and gives the same bits."""
+    if W < 2 or W & (W - 1):
+        raise ValueError(f"scan level width must be a power of two >= 2, "
+                         f"got {W}")
+    Wp = W // 2
+
+    def level(codes, leaf, stats, carry, scale, dead=None):
+        if dead is not None and not codes.is_cuda and bool(dead):
+            Hoc = carry.clone()
+            Hoc[:, 1:].clamp_min_(0.0)
+            H = torch.stack([Hoc, torch.zeros_like(Hoc)],
+                            dim=3).view(K, 3, W, F, B)
+            return H, H[:, :, :Wp]
+        H = _subtract_children(codes, leaf, stats, carry, scale,
+                               _child_counts(leaf, W), F, B)
+        return H, H[:, :, :Wp]
+
+    return level
+
+
+# rows a block of ``_child_counts``: no count then takes more integer adds
+# than this, however the rows fall
+_COUNT_BLOCK = 1 << 16
+
+
+def _child_counts(leaf: torch.Tensor, W: int) -> torch.Tensor:
+    """Rows per child [K, W] of leaf [K, n] (every row in [0, W)): int64
+    adds into one count per (block of ``_COUNT_BLOCK`` rows, child), then
+    a sum over the blocks.  Exact in any order of the adds."""
+    K, n = leaf.shape
+    nb = max(1, -(-n // _COUNT_BLOCK))
+    blk = torch.arange(n, device=leaf.device) // _COUNT_BLOCK
+    idx = blk * W + leaf
+    one = torch.ones((), dtype=torch.int64, device=leaf.device)
+    cnt = torch.zeros((K, nb * W), dtype=torch.int64, device=leaf.device)
+    cnt.scatter_add_(1, idx, one.expand(K, n))
+    return cnt.view(K, nb, W).sum(dim=1)
+
+
+def make_scan_level_fn(W: int, F: int, B: int):
+    """``make_batched_scan_level_fn`` for one tree (the JAX package's
+    ``make_scan_level_fn``, hist.py:738): leaf [n], stats [3, n], scale
+    [2, 3], carry [3, W/2, F, B] -> (H [3, W, F, B], carry)."""
+    batched = make_batched_scan_level_fn(W, 1, F, B)
+
+    def level(codes, leaf, stats, carry, scale, dead=None):
+        H, nxt = batched(codes, leaf[None], stats[None], carry[None],
+                         scale[None], dead)
+        return H[0], nxt[0]
 
     return level
 
@@ -1489,7 +1596,7 @@ def batched_splits(split_fn, HistK, nbins: int, reg_lambda, min_rows,
             if tuple(x.shape) != (K,):
                 raise ValueError(f"a per-tree parameter must be [{K}], got "
                                  f"{tuple(x.shape)}")
-            return x.repeat_interleave(L)
+            return x[:, None].expand(K, L).reshape(-1)
         return x
     out = split_fn(Hflat, nbins, perk(reg_lambda), perk(min_rows),
                    perk(min_split_improvement), fm, perk(reg_alpha),

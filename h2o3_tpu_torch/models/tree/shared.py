@@ -37,13 +37,21 @@ bounds; a bundled level searches the working features with
 ``efb.best_splits_mixed`` and routes rows with ``hist.partition_ranged``.
 A calibrated binomial model (``calibrate_model``) maps its class-1
 probability through a Platt or isotonic curve (``SharedTree._post_fit``).
-The whole-tree scan program waits for a later slice and raises when
-asked for.
+
+``tree_program="scan"`` grows the dense exact build as the whole-tree
+program (``_make_scan_build``): the root level, then one fixed-width
+level program at the deepest level's width for every level below it,
+bitwise the level program; on a CUDA device a tree (a round, a cohort
+round) is one captured ``torch.cuda.CUDAGraph`` replayed once a tree.
+A tree model explains itself through TreeSHAP (``predict_contributions``,
+``export/treeshap.py``) and ``varimp``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 import warnings
 from typing import List, Optional, Sequence
 
@@ -100,7 +108,10 @@ class SharedTreeParameters(Parameters):
     # the first node-sparse level (clamped to the dense memory cap and to
     # >= 1: the root level is always dense)
     sparse_depth_threshold: int = 8
-    # "level" (and "auto"); the whole-tree scan program is not ported yet
+    # "level" grows a tree level by level; "scan" as one whole-tree
+    # program (on a card one CUDA graph replay a tree); "check" grows the
+    # first tree both ways, raises on divergence, then trains "scan";
+    # "auto" is "level"
     tree_program: str = "auto"
     # "hier" takes the hierarchical search (a coarse super-bin histogram,
     # then the fine bins of the FINE_K best super-bins per (leaf,
@@ -129,7 +140,6 @@ class SharedTreeParameters(Parameters):
     efb: str = "auto"
 
 
-_LATER = "ROADMAP Queue 1, 'Rest of the tree family'"
 # super-bins refined per (leaf, feature) by the hierarchical search: the
 # JAX package's make_build_tree_fn default, which GBM.train never changes
 FINE_K = 2
@@ -481,30 +491,65 @@ def resolve_hist_layout(params, *, hist_mode=None, mono=None, plan=None,
     return "check" if layout == "check" else "sparse"
 
 
-def resolve_tree_program(params, *, mono=None, plan=None,
-                         hier: bool = False) -> str:
-    """"level" (and "auto").  Where the JAX package's scan cannot grow
-    the build (monotone constraints, a bundle plan, the hierarchical
-    search: its ``resolve_tree_program``, shared.py:1630) "check"
-    resolves to "level" and "scan" raises its ValueError; elsewhere both
-    raise, the scan program not being ported yet."""
+_SCAN_OWN_SEARCH = ("tree_program='scan' does not compose with monotone "
+                    "constraints, EFB bundling or the hierarchical split "
+                    "search; use tree_program='auto' to downgrade "
+                    "automatically")
+_SCAN_SPARSE = ("tree_program='scan' requires the dense layout at every "
+                "level (the scan body is one fixed-width program; "
+                "node-sparse slot maps reshape per level); use "
+                "hist_layout='dense' or tree_program='auto'")
+_SCAN_DEPTH = ("tree_program='scan' needs effective max_depth >= 2 (a "
+               "depth-1 tree is the root level only: nothing to scan); use "
+               "tree_program='auto' to downgrade automatically")
+
+
+def resolve_tree_program(params, *, hist_layout: str = "dense", mono=None,
+                         plan=None, hier: bool = False, bin_counts=None,
+                         F: Optional[int] = None,
+                         n_padded: Optional[int] = None,
+                         device=None) -> str:
+    """The build's tree program, "level" or "scan", or "check" for the
+    trainer to resolve with ``run_program_crosscheck`` (the JAX package's
+    ``resolve_tree_program``, shared.py:1603, and its envelope).  "auto"
+    is "level", the program the JAX package trains with its autotuner
+    off.  The scan grows the dense layout with the uniform histogram and
+    the exact unconstrained search at effective depth >= 2: an explicit
+    "scan" raises under monotone constraints, a bundle plan or the
+    hierarchical search (``own_search``), where node-sparse levels
+    engage (``hist_layout`` "sparse" or "check" deeper than the first
+    sparse level) and at effective depth < 2, and forfeits the packed
+    histogram where it would engage; "check" resolves to "level" in all
+    of these cases and where the packed layout engages
+    (``varbin_kernel_engages`` on ``device``: on a CUDA device whenever
+    it saves work).  The effective depth is taken with ``F`` and
+    ``n_padded`` when both are given."""
     prog = str(getattr(params, "tree_program", "auto")).lower()
     if prog not in ("level", "scan", "auto", "check"):
         raise ValueError(
             f"tree_program={prog!r}: use auto | level | scan | check")
     if prog in ("auto", "level"):
         return "level"
-    if own_search(mono=mono, plan=plan, hier=hier):
-        if prog == "check":
-            return "level"
-        raise ValueError(
-            "tree_program='scan' does not compose with monotone "
-            "constraints, EFB bundling or the hierarchical split "
-            "search; use tree_program='auto' to downgrade "
-            "automatically")
-    raise NotImplementedError(
-        f"tree_program={prog!r}: the whole-tree scan program is not "
-        f"ported yet ({_LATER}); use 'auto' or 'level'")
+    blocked = own_search(mono=mono, plan=plan, hier=hier)
+    md = int(getattr(params, "max_depth", 5))
+    nb = int(getattr(params, "nbins", 64))
+    thr = int(getattr(params, "sparse_depth_threshold", 8))
+    if F is not None and n_padded is not None:
+        md = effective_max_depth(md, nb, F, n_padded, hist_layout)
+    t0 = max(1, min(thr, dense_mem_cap(nb, F)) if F is not None else thr)
+    sparse = hist_layout in ("sparse", "check") and md > t0
+    if prog == "scan":
+        if blocked:
+            raise ValueError(_SCAN_OWN_SEARCH)
+        if sparse:
+            raise ValueError(_SCAN_SPARSE)
+        if md < 2:
+            raise ValueError(_SCAN_DEPTH)
+        return "scan"
+    if blocked or sparse or md < 2 or varbin_kernel_engages(
+            bin_counts, nb, F or 0, device or "cpu"):
+        return "level"
+    return "check"
 
 
 def varbin_kernel_engages(bin_counts, nbins: int, F: int,
@@ -702,11 +747,15 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
                        split_mode: str = "fused", hist_layout: str = "dense",
                        device=None, hier: bool = False, nk: int = 1,
                        sparse_depth_threshold: int = 8, mono=None,
-                       plan=None):
+                       plan=None, tree_program: str = "level"):
     """A function that grows one tree on the device (the JAX package's
-    ``make_build_tree_fn`` with tree_program="level"), or, with ``nk`` >
-    1, the K trees of a multinomial or forest round or the G members of a
-    grid cohort at once.
+    ``make_build_tree_fn``), or, with ``nk`` > 1, the K trees of a
+    multinomial or forest round or the G members of a grid cohort at
+    once.  ``tree_program="scan"`` returns the whole-tree scan program
+    instead (``_make_scan_build``: the same arguments and results, bitwise
+    the level program's), with the JAX package's refusals: monotone
+    constraints, a bundle plan, the hierarchical search, engaged
+    node-sparse levels and an effective depth below 2 raise ValueError.
 
     ``build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
     min_split_improvement, learn_rate, col_sample_rate, tree_mask,
@@ -813,12 +862,26 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     if mono is not None and plan is not None:
         raise ValueError("feature bundling (EFB) does not compose with "
                          "monotone constraints")
+    if tree_program not in ("level", "scan"):
+        raise ValueError(f"tree_program={tree_program!r}: use 'level' or "
+                         "'scan' here ('auto' and 'check' are resolved by "
+                         "the trainer)")
+    if tree_program == "scan" and own_search(mono=mono, plan=plan,
+                                             hier=hier):
+        raise ValueError(_SCAN_OWN_SEARCH)
     B = nbins + 1
     max_depth = effective_max_depth(max_depth, nbins, F, n_padded,
                                     hist_layout)
     sparse_from, A_lv, Ap_lv = sparse_geometry(
         max_depth, nbins, F, sparse_depth_threshold, hist_layout)
     device = resolve_device(device)
+    if tree_program == "scan":
+        if sparse_from < max_depth:
+            raise ValueError(_SCAN_SPARSE)
+        if max_depth < 2:
+            raise ValueError(_SCAN_DEPTH)
+        return _make_scan_build(max_depth, nbins, F, hist_mode, nk,
+                                split_mode)
     use_varbin = not hier and varbin_kernel_engages(bin_counts, nbins, F,
                                                     device)
     bc = tuple(bin_counts) if use_varbin else None
@@ -1049,6 +1112,296 @@ def member_rates(rate, K: int) -> tuple:
     return rates
 
 
+# ------------------------------------------------- the whole-tree program
+
+@dataclasses.dataclass
+class ScanGraphCounts:
+    """What the captured tree programs did on the card: graphs captured,
+    replays (one a tree, a round or a cohort round), the kernel launches
+    one replay of the last capture makes (the wrappers count a launch
+    where they record it into the graph, once per capture; a replay
+    counts nothing), the device memory of the last capture's private
+    pool (the allocator's reserve grown across the capture) and the wall
+    seconds of the captures (warm-up, recording and their syncs)."""
+
+    captures: int = 0
+    replays: int = 0
+    per_replay: dict = dataclasses.field(default_factory=dict)
+    pool_bytes: int = 0
+    capture_s: float = 0.0
+
+    def reset(self) -> None:
+        self.captures = self.replays = self.pool_bytes = 0
+        self.capture_s = 0.0
+        self.per_replay = {}
+
+
+SCAN_GRAPHS = ScanGraphCounts()
+
+
+def _launch_counts() -> dict:
+    """Every training kernel's (and form's) launch count, by name."""
+    return {k.name: k.launches for k in (
+        hist.HIST, hist.HIST_WINDOWS, hist.SPLIT_RECORDS,
+        hist.SPLIT_RECORDS_ROWS, hist.SPLIT_RECORDS_MONO, hist.FINE_HIST,
+        hist.SLOT_COMPACT)}
+
+
+class _TreeGraph:
+    """One tree program captured as a ``torch.cuda.CUDAGraph``: static
+    input buffers (the stats, the padded split masks, the per-tree
+    parameters), the graph and its static outputs.  The body runs once on
+    a side stream under ``torch.cuda.set_sync_debug_mode("error")``, so
+    that any host synchronisation in it raises, then is captured;
+    ``run`` copies the inputs in, replays, and clones the outputs, which
+    the next replay overwrites.  ``codes`` and ``edges_mat`` are read in
+    place: the graph keeps them."""
+
+    def __init__(self, body, codes, edges_mat, stats, masks, params,
+                 tables):
+        dev = codes.device
+        self.codes, self.edges_mat = codes, edges_mat
+        self.stats = stats.clone()
+        self.masks = None if masks is None else masks.clone()
+        self.params = tuple(p.clone() if isinstance(p, torch.Tensor) else p
+                            for p in params)
+        # the histogram launches' device tables, uploaded once (a copy
+        # from the host waits for the stream): (F, B, the widths L)
+        hist.prepare_uniform(*tables, dev)
+
+        def call():
+            return body(codes, self.stats, self.masks, edges_mat,
+                        self.params)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            mode = torch.cuda.get_sync_debug_mode()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                call()
+            finally:
+                torch.cuda.set_sync_debug_mode(mode)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        before = _launch_counts()
+        reserved = torch.cuda.memory_reserved(dev)
+        # captured on the side stream directly: ``torch.cuda.graph`` would
+        # also collect the host's garbage and empty the allocator's cache
+        # at every train's capture
+        self.graph = torch.cuda.CUDAGraph()
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self.graph.capture_begin()
+            try:
+                self.out = call()
+            except BaseException:
+                with contextlib.suppress(Exception):
+                    self.graph.capture_end()
+                raise
+            self.graph.capture_end()
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        SCAN_GRAPHS.capture_s += time.perf_counter() - t0
+        after = _launch_counts()
+        SCAN_GRAPHS.captures += 1
+        SCAN_GRAPHS.per_replay = {k: after[k] - before[k] for k in after
+                                  if after[k] != before[k]}
+        # a private pool takes fresh segments: the reserve's growth
+        SCAN_GRAPHS.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def run(self, stats, masks, params):
+        self.stats.copy_(stats)
+        if masks is not None:
+            self.masks.copy_(masks)
+        for dst, src in zip(self.params, params):
+            if isinstance(dst, torch.Tensor):
+                dst.copy_(src)
+        self.graph.replay()
+        SCAN_GRAPHS.replays += 1
+        levels, vals, cover, leaf = self.out
+        return ([tuple(x.clone() for x in lv) for lv in levels],
+                vals.clone(), cover.clone(), leaf.clone())
+
+
+def _graph_key(codes, edges_mat, stats, masks, params) -> tuple:
+    """A captured tree program's signature: the tensors it reads in place,
+    the shapes of its inputs, and every scalar parameter (a tensor
+    parameter is copied in, so only its shape counts)."""
+    def sig(t):
+        return (t.data_ptr(), tuple(t.shape), tuple(t.stride()), t.dtype)
+    return (sig(codes), sig(edges_mat), tuple(stats.shape),
+            None if masks is None else tuple(masks.shape),
+            tuple(("t", tuple(p.shape), p.dtype)
+                  if isinstance(p, torch.Tensor) else ("f", float(p))
+                  for p in params))
+
+
+def _scan_masks(gens, rates, tree_mask, D: int, W: int, F: int, device):
+    """The per-split column masks of a scanned build, drawn before it
+    runs, level by level at their true [K, 2^d, F] shapes and in the
+    level program's order (each tree's generator, only where its own rate
+    is below 1), anded with the tree masks and padded to [D, K, W, F]
+    with False; None where nothing is sampled."""
+    K = len(gens)
+    if min(rates) >= 1.0 and tree_mask is None:
+        return None
+    out = torch.zeros((D, K, W, F), dtype=torch.bool, device=device)
+    for d in range(D):
+        L = 2 ** d
+        m = torch.stack([
+            split_column_mask(L, F, r, gk) if r < 1.0 else
+            torch.ones((L, F), dtype=torch.bool, device=device)
+            for r, gk in zip(rates, gens)])
+        if tree_mask is not None:
+            m = m & tree_mask[:, None, :]
+        out[d, :, :L] = m
+    return out
+
+
+def _make_scan_build(max_depth: int, nbins: int, F: int, hist_mode: str,
+                     nk: int, split_mode: str):
+    """The ``tree_program="scan"`` build (the JAX package's
+    ``_make_scan_build``, shared.py:1167): the root level, then levels 1
+    to D-1 as iterations of one fixed-width program at W = 2^(D-1), the
+    deepest level's child count.
+
+    A shallower level leaves the slots from 2^d on empty, and they are
+    inert: they histogram exact zeros, the split search finds them
+    invalid and ``valid &= alive`` kills whatever it finds, so each
+    level's live 2^d slots, the routing and the leaf values are bitwise
+    the level program's (the histograms are exact integer sums, whatever
+    the width).  The level is ``hist.make_batched_scan_level_fn`` under
+    hist_mode="subtract" and a full rebuild at W (``hist.local_hist``)
+    under "full"; the histogram is the uniform one, as in the reference,
+    which forfeits the packed layout.  The per-level column masks are
+    drawn before the program runs (``_scan_masks``).  The carried
+    ``dead`` predicate (no node alive) skips, on the CPU, the histogram
+    and the partition, whose results it already knows.
+
+    On a CUDA device the program is one ``torch.cuda.CUDAGraph`` a tree
+    (with ``nk`` > 1, a round or a cohort round): captured for its
+    signature (``_graph_key``; a new signature captures anew, and a train
+    has one) and replayed once a tree
+    (``_TreeGraph``; counted in ``SCAN_GRAPHS``).  A capture that fails
+    raises: no scan runs eagerly on a card.  On the CPU the same body
+    runs eagerly.  ``build`` takes and returns what the level build
+    does."""
+    B = nbins + 1
+    D = max_depth
+    W = 2 ** (D - 1)
+    Wp = W // 2
+    subtract = hist_mode == "subtract"
+    lev0 = hist.make_batched_level_fn(0, nk, F, B)
+    scan_lev = hist.make_batched_scan_level_fn(W, nk, F, B)
+    split_fn = hist.fused_best_splits if split_mode == "fused" \
+        else hist.best_splits
+    tables = (F, B, (1, Wp if subtract else W))
+
+    def body(codes, stats, masks, edges_mat, params):
+        (reg_lambda, min_rows, min_split_improvement, learn_rate, reg_alpha,
+         gamma, min_child_weight) = params
+        K, _, N = stats.shape
+        dev = codes.device
+        scale = hist.stat_scale(stats)                       # [K, 2, 3]
+
+        def split(H, mask):
+            return hist.batched_splits(
+                split_fn, H, nbins, reg_lambda, min_rows,
+                min_split_improvement, mask, reg_alpha, gamma,
+                min_child_weight)[:6]
+
+        def record(feat, bin_, na_left, valid, L):
+            thr = edges_mat[feat.long(), bin_.clamp(0, nbins - 1).long()]
+            return tuple(x[:, :L] for x in (feat, thr, na_left, valid))
+
+        # the root, outside the scan: no carry, no sibling
+        leaf = torch.zeros((K, N), dtype=torch.int32, device=dev)
+        H, _ = lev0(codes, leaf, stats, None, scale)
+        if subtract:
+            carry = torch.nn.functional.pad(H, (0, 0, 0, 0, 0, Wp - 1))
+        feat, bin_, na_left, _, valid, children = split(
+            H, None if masks is None else masks[0][:, :1])
+        leaf = hist.partition(codes, leaf, feat, bin_, na_left, valid, nbins)
+        levels = [record(feat, bin_, na_left, valid, 1)]
+        alive = torch.nn.functional.pad(
+            _pairs(torch.stack([valid, valid], dim=-1)), (0, W - 2))
+        for d in range(1, D):
+            dead = ~alive.any()
+            if subtract:
+                H, carry = scan_lev(codes, leaf, stats, carry, scale, dead)
+            else:
+                H = hist.local_hist(codes, leaf, stats, W, F, B, None, scale)
+            feat, bin_, na_left, _, valid, ch = split(
+                H, None if masks is None else masks[d])
+            valid, children = _collapse_dead(valid, alive, ch)
+            # the next level reads its first 2^(d+1) <= W slots: the
+            # interleave of the first W/2 parents covers them
+            alive = _pairs(torch.stack([valid[:, :Wp], valid[:, :Wp]],
+                                       dim=-1))
+            if not codes.is_cuda and bool(dead):
+                leaf = 2 * leaf             # every node terminal: all left
+            else:
+                leaf = hist.partition(codes, leaf, feat, bin_, na_left,
+                                      valid, nbins)
+            levels.append(record(feat, bin_, na_left, valid, 2 ** d))
+        vals, cover = _leaf_values(children, reg_lambda, reg_alpha,
+                                   learn_rate)
+        return levels, vals, cover, leaf
+
+    graphs = {}                 # the graph of the last signature
+    narrow = {}
+
+    def grow(codes, stats, masks, edges_mat, params):
+        if not codes.is_cuda:
+            return body(codes, stats, masks, edges_mat, params)
+        if codes.dtype != torch.int16 and B <= torch.iinfo(torch.int16).max:
+            # the graph reads int16 codes: half the bytes of every code
+            # gather and histogram pass; made once a train (the graphs
+            # key on the copy)
+            sig = (codes.data_ptr(), tuple(codes.shape), codes.stride())
+            if narrow.get("sig") != sig:
+                narrow.update(sig=sig, src=codes,
+                              codes=codes.to(torch.int16))
+            codes = narrow["codes"]
+        key = _graph_key(codes, edges_mat, stats, masks, params)
+        if key not in graphs:
+            graphs.clear()
+            graphs[key] = _TreeGraph(body, codes, edges_mat, stats, masks,
+                                     params, tables)
+        return graphs[key].run(stats, masks, params)
+
+    def build(codes, g, h, w, edges_mat, gen, reg_lambda, min_rows,
+              min_split_improvement, learn_rate, col_sample_rate,
+              tree_mask, reg_alpha, gamma, min_child_weight, hcodes=None):
+        params = (reg_lambda, min_rows, min_split_improvement, learn_rate,
+                  reg_alpha, gamma, min_child_weight)
+        if nk > 1:
+            stats = torch.stack([g, h, w.expand_as(g)], dim=1) \
+                .to(torch.float32)
+            gens, tm = list(gen), tree_mask
+        else:
+            stats = torch.stack([g, h, w]).to(torch.float32)[None]
+            gens = [gen]
+            tm = None if tree_mask is None else tree_mask[None]
+        masks = _scan_masks(gens, member_rates(col_sample_rate, len(gens)),
+                            tm, D, W, F, codes.device)
+        levels, vals, cover, leaf = grow(codes, stats, masks, edges_mat,
+                                         params)
+        if nk > 1:
+            return levels, vals, cover, leaf
+        return ([tuple(x[0] for x in lv) for lv in levels], vals[0],
+                cover[0], leaf[0])
+
+    build.max_depth = max_depth
+    build.use_varbin = False
+    build.bin_counts = None
+    build.nk = nk
+    build.program = "scan"
+    build.graphs = graphs
+    return build
+
+
 def _scan_codes(bt_fn, codes, nbins: int, hier: bool):
     """The codes a chunk's levels read besides the raw ones, made once per
     chunk: super-bin codes under ``hier``, packed ones under varbin."""
@@ -1074,7 +1427,7 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
                       hist_mode: str = "subtract", split_mode: str = "fused",
                       hist_layout: str = "dense", device=None,
                       hier: bool = False, sparse_depth_threshold: int = 8,
-                      mono=None, plan=None):
+                      mono=None, plan=None, tree_program: str = "level"):
     """A chunk of boosting or bagging rounds (the JAX package's
     ``make_tree_scan_fn`` as a plain loop over the chunk's trees):
     gradients -> row and column samples -> grow -> F update.  ``dist`` is
@@ -1088,14 +1441,16 @@ def make_tree_scan_fn(dist, max_depth: int, nbins: int, F: int,
     class 0.  The hierarchical search, monotone constraints ``mono`` and
     a bundle plan ``plan`` (``codes`` then the working codes) take
     split_mode="separate" and the dense layout, as the resolvers give
-    them (``own_search``)."""
+    them (``own_search``).  ``tree_program="scan"`` grows each tree as
+    the whole-tree program (on a card one graph replay a tree)."""
     bt_fn = make_build_tree_fn(max_depth, nbins, F, n_padded,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode=split_mode,
                                hist_layout=hist_layout, device=device,
                                hier=hier,
                                sparse_depth_threshold=sparse_depth_threshold,
-                               mono=mono, plan=plan)
+                               mono=mono, plan=plan,
+                               tree_program=tree_program)
 
     def scan_fn(codes, y, w, F0, edges_mat, seed, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -1138,7 +1493,8 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
                              split_mode: str = "fused",
                              hist_layout: str = "dense", device=None,
                              hier: bool = False, mode: str = "multinomial",
-                             sparse_depth_threshold: int = 8, plan=None):
+                             sparse_depth_threshold: int = 8, plan=None,
+                             tree_program: str = "level"):
     """A chunk of rounds of K class trees (the JAX package's
     ``make_multinomial_scan_fn``, shared.py:2108, as a plain loop): per
     round the gradients, one row sample shared by the K trees, a column
@@ -1155,6 +1511,8 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
     same generators, ``draw_generator``).  The hierarchical search and a
     bundle plan (``plan``: ``codes`` the working codes) take the K loop
     and the dense layout, as the resolvers give them (``own_search``).
+    ``tree_program="scan"`` grows the round (or each tree of the K loop)
+    as the whole-tree program: on a card one graph replay a round.
 
     Returns ``scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
     reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -1172,7 +1530,7 @@ def make_multinomial_scan_fn(K: int, max_depth: int, nbins: int, F: int,
                                hist_layout=hist_layout, device=device,
                                hier=hier, nk=K if batched else 1,
                                sparse_depth_threshold=sparse_depth_threshold,
-                               plan=plan)
+                               plan=plan, tree_program=tree_program)
 
     def scan_fn(codes, Y1, w, F0, edges_mat, seed, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -1226,7 +1584,8 @@ def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
                       n_padded: int, bin_counts=None,
                       hist_mode: str = "subtract",
                       hist_layout: str = "dense", device=None,
-                      sparse_depth_threshold: int = 8):
+                      sparse_depth_threshold: int = 8,
+                      tree_program: str = "level"):
     """A chunk of G-member grid rounds (the JAX package's
     ``make_grid_scan_fn``, shared.py:2235, as a plain loop): the members
     of a cohort share the codes, the response and the tree shape, and
@@ -1235,7 +1594,9 @@ def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
     trees: one histogram launch and one records launch (its per-row form)
     per level whatever G is, at the dense or the node-sparse slot
     geometry alike, so a deep cohort grows the trees of its members' own
-    trains (the JAX package pins its cohorts to the dense layout).
+    trains (the JAX package pins its cohorts to the dense layout).  Under
+    ``tree_program="scan"`` a cohort round is the whole-tree program: on
+    a card one graph replay a round.
 
     Returns ``scan_fn(codes, y, w, F0, edges_mat, seeds, chunk_no, nchunk,
     reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -1262,7 +1623,8 @@ def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
                                bin_counts=bin_counts, hist_mode=hist_mode,
                                split_mode="fused", hist_layout=hist_layout,
                                device=device, nk=G,
-                               sparse_depth_threshold=sparse_depth_threshold)
+                               sparse_depth_threshold=sparse_depth_threshold,
+                               tree_program=tree_program)
 
     def scan_fn(codes, y, w, F0, edges_mat, seeds, chunk_no, nchunk,
                 reg_lambda, min_rows, min_split_improvement, learn_rate,
@@ -1500,6 +1862,56 @@ def run_layout_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
                 f"(max abs diff {np.max(np.abs(v_d[k] - v_s[k]))})")
 
 
+def run_program_crosscheck(codes, g, h, w, edges_mat, seed: int, *,
+                           max_depth, nbins, F, n_padded,
+                           hist_mode="subtract", split_mode="fused",
+                           reg_lambda=0.0, min_rows=1.0,
+                           min_split_improvement=1e-5, learn_rate=0.1,
+                           col_sample_rate=1.0, reg_alpha=0.0, gamma=0.0,
+                           min_child_weight=0.0, nk: int = 1):
+    """The tree_program="check" assert (the JAX package's
+    ``run_program_crosscheck``, shared.py:1931): grow one round's tree,
+    or its ``nk`` class trees as one batched build (g and h [K, N]), with
+    the whole-tree scan program and with the level program on the same
+    inputs and draws (dense levels, the uniform histogram), and raise
+    AssertionError unless they agree bitwise: every level's feature,
+    threshold, NA direction and valid flag, the leaf values and the final
+    leaf of every row.  The reference compares thresholds and values to
+    f32 tolerance, because its histograms' row blocking depends on the
+    slot width; the port's histograms are exact int64 sums whatever the
+    width, so any difference is a fault, and a tolerance would hide it."""
+    hm = hist_mode if hist_mode in ("subtract", "full") else "subtract"
+    sm = split_mode if split_mode in ("fused", "separate") else "fused"
+    scal = (reg_lambda, min_rows, min_split_improvement, learn_rate,
+            col_sample_rate, None, reg_alpha, gamma, min_child_weight)
+    outs = {}
+    for prog in ("level", "scan"):
+        fn = make_build_tree_fn(max_depth, nbins, F, n_padded, hist_mode=hm,
+                                split_mode="fused" if nk > 1 else sm,
+                                device=codes.device, nk=nk,
+                                tree_program=prog)
+        outs[prog] = _grow_host(fn, codes, g, h, w, edges_mat, seed, scal,
+                                nk)
+    (lv_l, v_l, leaf_l), (lv_s, v_s, leaf_s) = outs["level"], outs["scan"]
+
+    def bits(x):
+        return x.view(np.int32) if x.dtype == np.float32 else x
+    for d, (a, b) in enumerate(zip(lv_l, lv_s)):
+        for name, i in (("feat", 0), ("thr", 1), ("na_left", 2),
+                        ("valid", 3)):
+            if not np.array_equal(bits(a[i]), bits(b[i])):
+                raise AssertionError(
+                    f"tree_program='check': scan and level builds disagree "
+                    f"on {name} at level {d}")
+    if not np.array_equal(leaf_l, leaf_s):
+        raise AssertionError("tree_program='check': final leaf routing "
+                             "differs between the scan and level builds")
+    if not np.array_equal(bits(v_l), bits(v_s)):
+        raise AssertionError(
+            "tree_program='check': leaf values differ between the scan and "
+            f"level builds (max abs diff {np.max(np.abs(v_l - v_s))})")
+
+
 # ------------------------------------------------------------ the model
 
 def fit_calibration(p1: np.ndarray, y: np.ndarray, method: str) -> dict:
@@ -1579,6 +1991,93 @@ class SharedTreeModel(Model):
             out = out.with_vec("cal_p1", Vec.from_numpy(
                 p1, T_NUM, device=frame.device))
         return out
+
+    def _host_trees(self) -> list:
+        """Every tree with its arrays on the host, each stack's planes
+        brought over once: a list of ``Tree``s of numpy arrays, round by
+        round and, for K class-tree stacks, class by class within a round
+        (the JAX package's order of its ``trees``)."""
+        st = self.output["stacked"]
+        stacks = st if isinstance(st, list) else [st]
+        host = []
+        for sk in stacks:
+            lv = [[x.cpu().numpy() for x in level] for level in sk.levels]
+            vals = sk.values.cpu().numpy()
+            cov = None if sk.covers is None else sk.covers.cpu().numpy()
+            host.append([Tree([l[0][t] for l in lv], [l[1][t] for l in lv],
+                              [l[2][t] for l in lv], [l[3][t] for l in lv],
+                              vals[t], None if cov is None else cov[t])
+                         for t in range(sk.ntrees)])
+        return [tk for rnd in zip(*host) for tk in rnd]
+
+    def varimp(self, frame: Optional[Frame] = None,
+               method: str = "cover") -> dict:
+        """Variable importances — hex/tree VarImp analog (the JAX
+        package's ``varimp``, shared.py:2477).
+
+        ``method="cover"``: per-feature sum of training covers at the
+        nodes that split on it (cover-weighted split frequency; from the
+        recorded leaf covers, no data pass).  ``method="shap"``: mean
+        |TreeSHAP contribution| over ``frame`` (needs a frame;
+        binomial/regression only).  Returns {feature: relative
+        importance}, scaled so the max is 1, every feature listed."""
+        from ...export import treeshap
+        names = [s.name for s in self.datainfo.specs]
+        if method == "shap":
+            if frame is None:
+                raise ValueError("varimp(method='shap') needs a frame")
+            # the f32 contributions of the predict_contributions frame, in
+            # f64, as the reference reads them back
+            contrib = self._contributions(frame)[:, :-1] \
+                .astype(np.float32).astype(np.float64)
+            imp = np.abs(contrib).mean(axis=0)
+        else:
+            imp = np.zeros(len(names))
+            for t in treeshap.shap_trees_from_model(self._host_trees()):
+                for d in range(t.depth):
+                    valid = t.valid[d]
+                    cover = t.cover[d]
+                    feats = t.feat[d]
+                    for i in np.flatnonzero(valid):
+                        imp[int(feats[i])] += cover[i]
+        mx = imp.max()
+        rel = imp / mx if mx > 0 else imp
+        order = np.argsort(-rel)
+        return {names[i]: float(rel[i]) for i in order}
+
+    def _contributions(self, frame: Frame) -> np.ndarray:
+        """[n, F+1] f64 TreeSHAP contributions and BiasTerm of the
+        frame's rows: the design from ``_design`` to the host once, the
+        trees' arrays once (``_host_trees``)."""
+        from ...export import treeshap
+        if self.output.get("nclass_trees", 1) > 1:
+            raise ValueError("predict_contributions supports binomial and "
+                             "regression models only (reference parity)")
+        st = treeshap.shap_trees_from_model(self._host_trees())
+        X = self._design(frame)[: frame.nrows].cpu().numpy() \
+            .astype(np.float64)
+        if self.tree_average:
+            scale, init = 1.0 / max(len(st), 1), 0.0
+        else:
+            scale, init = 1.0, float(np.asarray(self.output["init_score"]))
+        return treeshap.ensemble_contributions(st, X, init, scale)
+
+    def predict_contributions(self, frame: Frame) -> Frame:
+        """Per-feature TreeSHAP contributions + BiasTerm (margin space),
+        a frame on the model's device (the JAX package's
+        ``predict_contributions``, shared.py:2512).
+
+        Reference: EasyPredictModelWrapper.predictContributions /
+        PredictTreeSHAPTask — binomial and regression models only, exact
+        Shapley values per Lundberg's TreeSHAP from the per-node covers
+        recorded at training, on the host.  ``sum(contributions) +
+        BiasTerm`` equals the raw margin (GBM/XGBoost) or the averaged
+        leaf sum (DRF)."""
+        contribs = self._contributions(frame)
+        names = [s.name for s in self.datainfo.specs] + ["BiasTerm"]
+        return Frame(names, [Vec.from_numpy(contribs[:, j], T_NUM,
+                                            device=frame.device)
+                             for j in range(len(names))])
 
     def _score_matrix(self, frame: Frame) -> torch.Tensor:
         return self._design(frame)

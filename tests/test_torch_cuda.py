@@ -1235,3 +1235,118 @@ def test_small_bundled_and_monotone_trains_match_cpu(cuda):
             np.testing.assert_allclose(ta.values.cpu().numpy(),
                                        tb.values.numpy(), rtol=1e-4,
                                        atol=1e-6)
+
+
+# ------------------------------------------- the whole-tree program (scan)
+
+def _scan_cols(n=20_000, seed=7):
+    rng = np.random.default_rng(seed)
+    cols = {f"x{j}": rng.normal(size=n).astype(np.float32) for j in range(4)}
+    cols["k"] = rng.integers(0, 9, n).astype(np.float32)
+    z = cols["x0"] + np.sin(cols["x1"]) + 0.3 * (cols["k"] > 4)
+    cols["y"] = np.where(z + 0.3 * rng.normal(size=n) > 0.2, "a", "b") \
+        .astype(object)
+    cols["c"] = np.where(z < -0.5, "lo", np.where(z < 0.7, "mid", "hi")) \
+        .astype(object)
+    return cols
+
+
+def _same_stacks(a, b):
+    sa = a.output["stacked"] if isinstance(a.output["stacked"], list) \
+        else [a.output["stacked"]]
+    sb = b.output["stacked"] if isinstance(b.output["stacked"], list) \
+        else [b.output["stacked"]]
+    for x, y in zip(sa, sb):
+        assert (x.ntrees, x.depth) == (y.ntrees, y.depth)
+        for la, lb in zip(x.levels, y.levels):
+            for p, q in zip(la, lb):
+                assert (same_bits(p, q) if p.is_floating_point()
+                        else torch.equal(p, q))
+        assert same_bits(x.values, y.values)
+
+
+@pytest.mark.parametrize("kind", ["binomial", "multinomial"])
+def test_scan_train_is_one_graph_replay_a_tree(cuda, kind):
+    """An XGBoost under tree_program="scan" on the card: one capture, one
+    graph replay a tree (a round of K = 3 trees for the multinomial
+    response), the capture's recorded launches one ``hist`` and one
+    ``split_records`` a level, a private pool, and every tree bitwise the
+    card's level train."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models.tree import shared
+    from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+    cols = _scan_cols()
+    resp, other = ("y", "c") if kind == "binomial" else ("c", "y")
+    cfg = dict(response_column=resp, ignored_columns=[other], ntrees=4,
+               max_depth=5, nbins=64, seed=1, score_tree_interval=10 ** 9)
+    fr = Frame.from_numpy(cols, device="cuda")
+    lv = XGBoost(device="cuda", **cfg).train(fr)
+    shared.SCAN_GRAPHS.reset()
+    sc = XGBoost(device="cuda", tree_program="scan", **cfg).train(fr)
+    g = shared.SCAN_GRAPHS
+    assert sc.output["tree_program"] == "scan"
+    assert (g.captures, g.replays) == (1, 4)
+    assert g.per_replay == {"hist": 5, "split_records": 5}
+    assert g.pool_bytes > 0
+    _same_stacks(lv, sc)
+
+
+def test_scan_replays_keep_each_trees_arrays(cuda):
+    """One scan build grows two trees (two replays of its one graph): the
+    first tree's arrays, cloned out of the graph's static outputs, are
+    unchanged by the second replay, and each tree is bitwise the level
+    build's on the same inputs."""
+    from h2o3_tpu_torch.models.tree import shared
+    rng = np.random.default_rng(11)
+    F, N, nbins = 6, 50_000, 32
+    codes = torch.from_numpy(rng.integers(0, nbins + 1, (F, N))
+                             .astype(np.int16)).to(cuda)
+    edges = torch.sort(torch.randn(F, nbins), dim=1).values.to(cuda)
+    kw = dict(device=cuda, split_mode="fused")
+    scan = shared.make_build_tree_fn(5, nbins, F, N, tree_program="scan",
+                                     **kw)
+    level = shared.make_build_tree_fn(5, nbins, F, N, **kw)
+    out, want = [], []
+    for t in range(2):
+        g = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(cuda)
+        h = torch.ones_like(g)
+        args = (codes, g, h, torch.ones_like(g), edges)
+        tail = (0.0, 1.0, 1e-5, 0.1, 0.8, None, 0.0, 0.0, 0.0)
+        out.append(scan(*args, shared.draw_generator(1, 0, t, 0, cuda),
+                        *tail))
+        want.append(level(*args, shared.draw_generator(1, 0, t, 0, cuda),
+                          *tail))
+    assert len(scan.graphs) == 1
+    for got, ref in zip(out, want):
+        for la, lb in zip(got[0], ref[0]):
+            for p, q in zip(la, lb):
+                assert (same_bits(p, q) if p.is_floating_point()
+                        else torch.equal(p, q))
+        assert same_bits(got[1], ref[1]) and torch.equal(got[3], ref[3])
+
+
+def test_scan_warmup_raises_on_a_host_sync(cuda, monkeypatch):
+    """The tree program's warm-up runs under
+    ``torch.cuda.set_sync_debug_mode("error")``: a host synchronisation in
+    it raises instead of being captured, and the mode is restored."""
+    from h2o3_tpu_torch.models.tree import hist, shared
+    real = hist.partition
+
+    def syncing(codes, leaf, *a):
+        int(leaf.max())                  # reads a device value on the host
+        return real(codes, leaf, *a)
+    monkeypatch.setattr(hist, "partition", syncing)
+    rng = np.random.default_rng(2)
+    F, N, nbins = 3, 4096, 16
+    codes = torch.from_numpy(rng.integers(0, nbins, (F, N))
+                             .astype(np.int16)).to(cuda)
+    g = torch.from_numpy(rng.normal(size=N).astype(np.float32)).to(cuda)
+    build = shared.make_build_tree_fn(3, nbins, F, N, device=cuda,
+                                      tree_program="scan")
+    mode = torch.cuda.get_sync_debug_mode()
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        build(codes, g, torch.ones_like(g), torch.ones_like(g),
+              torch.zeros((F, nbins), device=cuda),
+              shared.draw_generator(1, 0, 0, 0, cuda), 0.0, 1.0, 1e-5, 0.1,
+              1.0, None, 0.0, 0.0, 0.0)
+    assert torch.cuda.get_sync_debug_mode() == mode

@@ -7,8 +7,10 @@ level expanded back to the dense [2^d] contract.  The same numpy inputs
 from one seed go through the JAX function and its port: the slot maps,
 the sparse level's histograms, and binomial and 3-class (``delay_class``)
 forests trained by both packages (each JAX forest in one test) on the
-airlines-shaped bench frame at 4,096 rows, depth 12, threshold 4 (levels
-4-11 sparse), 3 trees,
+airlines-shaped bench frame at 4,096 rows, threshold 4, 3 trees, at
+depth 8 (levels 4-7 sparse; the JAX package compiles one program a
+level, so the depth sets these tests' seconds), the other forests at
+depth 12 (levels 4-11),
 ``sample_rate=1`` and ``mtries=-2`` (unsampled: the two packages' random
 bits differ by design).  A shrunken slot budget makes both drop the same
 pairs.  The port is also held against itself: the sparse level bitwise
@@ -47,6 +49,8 @@ from h2o3_tpu_torch.testing import delay_class, same_bits
 
 N = 4096
 DEPTH = 12
+# the depth of the two forests held level by level against the JAX package
+_FOREST_DEPTH = 8
 _DRF = dict(ntrees=3, max_depth=DEPTH, nbins=32, sample_rate=1.0,
             mtries=-2, seed=1, sparse_depth_threshold=4,
             score_tree_interval=10 ** 9)
@@ -70,10 +74,10 @@ def frames():
 
 
 def _train(kind, cols, jfr, fr):
-    """Both packages' forests of one kind (each JAX forest is trained by
-    one test only: under the suite's workers a shared fixture would train
-    it once per worker)."""
-    cfg = dict(_DRF, **_KINDS[kind])
+    """Both packages' forests of one kind at ``_FOREST_DEPTH`` (each JAX
+    forest is trained by one test only: under the suite's workers a
+    shared fixture would train it once per worker)."""
+    cfg = dict(_DRF, max_depth=_FOREST_DEPTH, **_KINDS[kind])
     return JDRF(**cfg).train(jfr), DRF(device="cpu", **cfg).train(fr)
 
 
@@ -121,16 +125,16 @@ def _dropped(model, depth, threshold, F, nbins):
 def _assert_forests_match(kind, jm, tm, jfr, fr):
     """At every level of every (class) tree the same valid, feature, NA
     direction and bitwise thresholds as the JAX package's, dense levels
-    0-3 and sparse levels 4-11 alike, leaf values to rtol 1e-5 (both
+    0-3 and sparse levels 4-7 alike, leaf values to rtol 1e-5 (both
     resolve "auto" to the sparse layout); the averaged predictions to
     1e-5; the training AUC, rmse and gini (binomial) or accuracy and mean
     per-class error (3-class), and the logloss, within 1e-5.  A binomial
     forest's logloss is NaN in both packages (leaves of one class give
     probabilities of 0 and 1)."""
     assert tm.output["hist_layout"] == jm.output["hist_layout"] == "sparse"
-    assert tm.output["effective_max_depth"] == DEPTH
+    assert tm.output["effective_max_depth"] == _FOREST_DEPTH
     assert tm.output["nclass_trees"] == (3 if kind == "multinomial" else 1)
-    _assert_same_trees(jm, tm, DEPTH)
+    _assert_same_trees(jm, tm, _FOREST_DEPTH)
     dom = ["LONG", "NO", "SHORT"] if kind == "multinomial" else ["NO", "YES"]
     got, want = tm.predict(fr), jm.predict(jfr)
     for c in dom:
@@ -156,7 +160,7 @@ def test_binomial_drf_matches_jax_and_its_export(frames):
     jmeta, jarr = jmojo._extract(jm)
     meta, arr = tm.to_archive()
     assert meta["tree_average"] is jmeta["tree_average"] is True
-    assert meta["depth"] == jmeta["depth"] == DEPTH
+    assert meta["depth"] == jmeta["depth"] == _FOREST_DEPTH
     assert set(arr) == set(jarr)
     for key, x in arr.items():
         assert x.shape == jarr[key].shape and x.dtype == jarr[key].dtype

@@ -152,6 +152,50 @@ def test_copied_sources_are_copies():
             assert a.read() == b.read(), ours
 
 
+def _code_after_docstring(path: str) -> str:
+    text = open(os.path.join(ROOT, path)).read()
+    body = ast.parse(text).body
+    assert isinstance(body[0], ast.Expr)            # the module docstring
+    return "\n".join(text.splitlines()[body[0].end_lineno:])
+
+
+def test_explain_and_h2o_mojo_modules_are_copies_without_jax():
+    """TreeSHAP and the H2O MOJO reader are the JAX package's numpy
+    modules copied into the port: the same code under their own module
+    docstring, importing neither jax nor h2o3_tpu, and their import adds
+    no JAX module."""
+    for name in ("treeshap", "h2o_mojo"):
+        assert _code_after_docstring(f"h2o3_tpu_torch/export/{name}.py") \
+            == _code_after_docstring(f"h2o3_tpu/export/{name}.py"), name
+    code = ("import json, sys\n"
+            "before = set(sys.modules)\n"
+            "import h2o3_tpu_torch.export.treeshap\n"
+            "import h2o3_tpu_torch.export.h2o_mojo\n"
+            "import h2o3_tpu_torch.export.mojo\n"
+            "print(json.dumps(sorted(set(sys.modules) - before)))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    added = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "h2o3_tpu_torch.export.treeshap" in added
+    assert "h2o3_tpu_torch.export.h2o_mojo" in added
+    assert not [m for m in added if _forbidden(m)]
+
+
+def test_scan_program_runs_on_cuda_unless_told(monkeypatch):
+    """The whole-tree program resolves an omitted device like the other
+    builds: without CUDA it raises, given the CPU it builds (and never
+    captures a graph there)."""
+    from h2o3_tpu_torch.models.tree import shared
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        shared.make_build_tree_fn(4, 16, 3, 256, tree_program="scan")
+    build = shared.make_build_tree_fn(4, 16, 3, 256, device="cpu",
+                                      tree_program="scan")
+    assert build.program == "scan" and not build.use_varbin
+    assert build.graphs == {}
+
+
 def test_entry_points_raise_without_cuda(monkeypatch):
     from h2o3_tpu_torch.serving import batcher, kernel
     from h2o3_tpu_torch.export.scoring import ScoringModel

@@ -231,10 +231,12 @@ def test_archive_round_trip(trained, tmp_path):
 
 
 def test_import_mojo_rejects_h2o_mojo(tmp_path):
+    """A zip with a model.ini goes to the H2O MOJO reader, which rejects
+    this one: its [info] names no algo it reads."""
     path = str(tmp_path / "h2o.zip")
     with zipfile.ZipFile(path, "w") as z:
         z.writestr("model.ini", "[info]\nalgorithm = gbm\n")
-    with pytest.raises(ValueError, match="H2O MOJO"):
+    with pytest.raises(NotImplementedError, match="H2O MOJO"):
         import_mojo(path)
 
 
@@ -294,7 +296,8 @@ def test_score_mode_knob_and_ref(synth_scorer):
     ps.score(X, score_mode="check")
     with pytest.raises(ValueError, match="score_mode"):
         ps.score(X, score_mode="bogus")
-    with pytest.raises(NotImplementedError, match="treeshap"):
+    # the synthetic archive records no covers, which TreeSHAP needs
+    with pytest.raises(ValueError, match="covers"):
         ps.ref.predict_contributions({"x0": [0.0]})
 
 

@@ -3,6 +3,7 @@
 
     python tools/chip_phases.py options      # phases 36-39
     python tools/chip_phases.py efb          # phase 38
+    python tools/chip_phases.py scan         # phases 40-42
 
 Each line carries the card's name and power limit.  Run from the
 repository root; it needs one CUDA card and nvcc.  To time the training
@@ -32,7 +33,7 @@ def smoke():
 
 def main() -> None:
     import torch
-    if len(sys.argv) != 2 or sys.argv[1] not in ("options", "efb"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("options", "efb", "scan"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("chip_phases: no CUDA device")
@@ -45,7 +46,7 @@ def main() -> None:
     cs.log(smi)
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.frame import Frame
-    from h2o3_tpu_torch.models import DRF
+    from h2o3_tpu_torch.models import DRF, GridSearch
     from h2o3_tpu_torch.models.tree import gbm, hist, shared
     from h2o3_tpu_torch.models.tree.gbm import GBM
     from h2o3_tpu_torch.models.tree.xgboost import XGBoost
@@ -59,6 +60,9 @@ def main() -> None:
         row, _ = cs.option_phases(Frame, XGBoost, GBM, DRF, kernels, hist,
                                   shared, gbm, card)
         cs.log(str(row))
+    elif what == "scan":
+        cs.scan_phases(Frame, XGBoost, GridSearch, kernels, hist, shared,
+                       card)
     else:
         cols, types, domains = cs.make_airlines_like(1_000_000)
         cs.efb_phase(cols, types, domains, kernels, GBM, DRF, Frame, hist,
