@@ -361,7 +361,49 @@ Phases (any failure exits non-zero and prints no result line):
 42. TreeSHAP — the phase-40 scan model's contributions on 256 rows: each
              row plus BiasTerm within 1e-5 of the f32 margin, equal bitwise
              to the archive ``ScoringModel``'s, and ``varimp`` listing
-             every feature.
+             every feature;
+43. KMeans, Aggregator — on the bench frame with its categoricals
+             one-hot (P as printed), ``KMeans(k=10)`` with the
+             ``furthest`` and the ``plus_plus`` init at 100k rows against
+             the same fit on the CPU (the same initial rows; centres and
+             within-SS within ``ALGO_LIMITS``, which two planted faults,
+             TF32 allowed and the last row block dropped, must break), a
+             second fit bitwise; ``Aggregator(target_num_exemplars=100)``
+             at 20k rows against the CPU's; KMeans timed at 1M and 10M
+             rows with a profiled second fit (busy, idle share),
+             Aggregator at 1M, and the seconds of the distances' host
+             reads;
+44. PCA, SVD, GLRM — ``PCA(k=10, transform="demean")`` at 1M rows
+             against the same fit with an f64 Gram on the card
+             (eigenvalues; the eigenvectors of components separated by
+             1% from their neighbours), both faults; each method and
+             ``SVD(nv=10)`` against the CPU at 100k rows; each timed at
+             10M rows (the device's peak); ``GLRM(k=5)`` ALS against the
+             CPU at 100k rows (a dropped row block must break it), timed
+             at 1M, and the proximal path (absolute loss, L1) timed at
+             1M, its accept/reject sequence and objective as the CPU's
+             at 20k;
+45. NaiveBayes, Quantile, TargetEncoder, isotonic — NaiveBayes against
+             the CPU at 100k rows with both faults, timed at 10M;
+             Quantile and a ``k_fold`` TargetEncoder timed at 10M rows,
+             and at 1M with a profiled second fit, bitwise the CPU's;
+             IsotonicRegression at 1M rows, thresholds bitwise the
+             CPU's;
+46. CoxPH, PSVM, Word2Vec — CoxPH on a survival response made from the
+             bench columns at 1M rows (Efron with 22 strata and a start
+             column, and Breslow) against an f64 oracle on the card
+             (dropped rows must break its limits) and the CPU; PSVM
+             against the CPU at 20k rows (a dropped block of rows must
+             break it), timed at 100k rows (rank 1024);
+             Word2Vec against the CPU on a seeded 100k-token corpus
+             (unsummed duplicate updates as the fault), timed on 1M
+             tokens.  TF32 leaves the GLRM, CoxPH and PSVM products as
+             f32 rounds them (matrix-vector and narrow products): its
+             readings are printed;
+47. archives — KMeans, PCA, SVD, NaiveBayes and IsotonicRegression
+             trained on the card at 1M rows: each archive's numpy
+             ``ScoringModel`` scores 4,096 rows as ``predict`` (labels
+             equal, values rtol 1e-4).
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -5355,6 +5397,965 @@ def scan_phases(Frame, XGBoost, GridSearch, kernels, hist, shared, card):
     mark("phase 42")
 
 
+# ------------------------------------------------------------------------
+# phases 43-47: the unsupervised, survival and feature-engineering families
+ALGO_CHECK_ROWS = 1_000_000      # the f64 oracles, timed fits, archives
+ALGO_TIMED_ROWS = 10_000_000     # seconds a fit, busy and idle share
+ALGO_CPU_ROWS = 100_000          # the card against the CPU (and the
+#                                  faults) where the CPU fit is slow; PSVM
+ALGO_TINY_ROWS = 20_000          # the CPU side of the 100-exemplar, the
+#                                  proximal and the PSVM fits
+ALGO_CORPUS_TOKENS = 1_000_000   # Word2Vec's synthetic corpus (its CPU
+ALGO_CPU_TOKENS = 100_000        # comparison and faults on this many)
+# the response and phase 45's fold and rising-response columns
+BENCH_IGNORED = ["dep_delayed_15min", "fold", "yr"]
+_BIG = {}                        # the 10M-row frame of phases 43-45
+# limits of the card's fits against the same fits on the CPU (or on the
+# f64 oracle on the card); each lies between the sound reading and the
+# planted faults' (chip_smoke.py phases 43-46)
+ALGO_LIMITS = {
+    "kmeans centres": 1e-4, "kmeans within-SS": 1e-5,
+    "aggregator exemplars": 1e-4,
+    "pca eigenvalues": 1e-5, "pca eigenvectors": 1e-5,
+    # the card against the CPU: the randomized sketch's QR factors round
+    # apart, and its unconverged components with them
+    "pca eigenvalues, cpu": 1e-5, "pca eigenvectors, cpu": 1e-3,
+    "glrm objective": 1e-4,
+    # the reference's class variances are E[x^2] - E[x]^2 of f32 sums:
+    # `year` (1997 +- 6) keeps ~2 digits of its variance, and the two
+    # devices' sums round apart there
+    "naivebayes probabilities": 1e-2,
+    "coxph coefficients": 1e-4, "coxph -log PL": 1e-6,
+    # L-BFGS on the card and on the CPU take other line-search steps
+    "psvm objective": 1e-3,
+    "word2vec embeddings": 1e-5,
+}
+
+
+def rel_gap(a, b):
+    """max |a - b| over max |b| (inf where the shapes differ or a value
+    is not finite)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    if a.shape != b.shape or not (np.isfinite(a).all()
+                                  and np.isfinite(b).all()):
+        return float("inf")
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def rel(a, b):
+    """|a / b - 1| (inf where not finite)."""
+    v = abs(float(a) / float(b) - 1.0) if float(b) != 0 else float("inf")
+    return v if np.isfinite(v) else float("inf")
+
+
+@contextlib.contextmanager
+def tf32_allowed():
+    """A planted fault: TF32 products (10-bit mantissas) allowed."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def last_block_dropped(datainfo):
+    """A planted fault: the last row block of every blocked reduction
+    dropped (``datainfo.row_blocks`` without its last range; a single
+    block loses its second half)."""
+    real = datainfo.row_blocks
+
+    def blocks(N, P):
+        b = real(N, P)
+        return b[:-1] if len(b) > 1 else [(0, b[0][1] // 2)]
+    datainfo.row_blocks = blocks
+    try:
+        yield
+    finally:
+        datainfo.row_blocks = real
+
+
+def hold(what, sound, faults, limit, card):
+    """The sound reading within ``limit``; every planted fault's beyond."""
+    log(f"{what} {card}: {sound:.3e} (limit {limit:g}); planted faults: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()))
+    if not sound <= limit:
+        raise AssertionError(f"{what}: {sound:.3e} over its limit {limit}")
+    for k, v in faults.items():
+        if not v > limit:
+            raise AssertionError(f"{what}: the planted fault '{k}' passes "
+                                 f"the limit {limit} ({v:.3e})")
+
+
+def fault_gap(gap, n=2):
+    """A planted fault's reading: ``gap()``, or inf in each of its ``n``
+    places where the faulty fit raises (it was caught)."""
+    try:
+        return gap()
+    except (ValueError, RuntimeError) as e:
+        log(f"  (the planted fault raised: {type(e).__name__}: {e})")
+        return (float("inf"),) * n
+
+
+def same_outputs(m, m2, keys, what):
+    """A second card train bitwise the first on ``keys``."""
+    for k in keys:
+        a, b = m.output[k], m2.output[k]
+        if isinstance(a, dict):
+            a, b = list(a.values()), list(b.values())
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"{what}: a second card train differs in "
+                                 f"{k}")
+
+
+def fit_timed(make):
+    """(model, seconds) of one fit, synchronized."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = make()
+    torch.cuda.synchronize()
+    return m, time.perf_counter() - t0
+
+
+def fit_report(what, make, card, m_timed=None, secs=None):
+    """A fit timed (unless given), then a second fit profiled: seconds a
+    fit, device busy ms and ops, idle share.  Returns both models (the
+    caller holds the second bitwise the first)."""
+    if m_timed is None:
+        m_timed, secs = fit_timed(make)
+    out = []
+    kern, busy = device_profile(lambda: out.append(make()))
+    ops = sum(e.count for e in kern)
+    log(f"{what} {card}: {secs:.3f} s a fit, device busy {busy:.1f} ms "
+        f"({ops} device ops), idle share {idle_share(busy, secs):.3f}")
+    return m_timed, out[0]
+
+
+def card_and_cpu(Frame, cols, types=None, domains=None):
+    """``cols`` on the card and on the CPU, the CPU frame with the card
+    frame's rollups (``share_rollups``: both standardize alike)."""
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    frc = Frame.from_numpy(cols, types=types, domains=domains, device="cpu")
+    share_rollups(fr, frc)
+    return fr, frc
+
+
+def bench_frames(n, Frame, cpu=True):
+    """The bench frame at ``n`` rows on the card (and on the CPU)."""
+    cols, types, domains = make_airlines_like(n)
+    if cpu:
+        return (cols,) + card_and_cpu(Frame, cols, types, domains)
+    return cols, Frame.from_numpy(cols, types=types, domains=domains), None
+
+
+def drop_designs(*frames):
+    """Free the design matrices memoized on ``frames``."""
+    import torch
+    for f in frames:
+        if f is not None:
+            f._matrix_cache.clear()
+    torch.cuda.empty_cache()
+
+
+def kmeans_gap(m, ref):
+    """(centres over the largest, within-SS relative) against ``ref``."""
+    return (rel_gap(m.output["centers"], ref.output["centers"]),
+            rel(m.training_metrics.tot_withinss,
+                ref.training_metrics.tot_withinss))
+
+
+def kmeans_on_cpu(KMeans, cfg, frc, m, card):
+    """The CPU's side of a card fit ``m``: the CPU's own initial rows
+    from the same draws, equal to the card's up to the first near tie (a
+    row whose f64 distance to the centres before it lies within 1e-5 of
+    the card's pick: the f32 distances of the two devices round apart
+    there, and the seeding follows its pick), then Lloyd on the CPU from
+    the card's initial rows.  Returns a stand-in with the CPU's centres
+    and within-SS."""
+    from h2o3_tpu_torch.runtime.job import Job
+    b = KMeans(device="cpu", **cfg)
+    di = b._make_datainfo(frc)
+    X, w = di.make_matrix(frc), di.weights(frc)
+    b._init_centers(X, w, cfg["k"], np.random.default_rng(cfg["seed"]), di)
+    rows, rows_c = m.output["init_rows"], b.init_rows
+    first = next((i for i, (a, c) in enumerate(zip(rows, rows_c))
+                  if a != c), None)
+    if first is None:
+        log(f"kmeans {cfg['init']}: the CPU's initial rows are the card's")
+    else:
+        Xh = X.numpy().astype(np.float64)
+        C = Xh[rows[:first]]
+
+        def d2(r):
+            return float(((Xh[r][None, :] - C) ** 2).sum(axis=1).min())
+        tie = rel(d2(rows_c[first]), d2(rows[first]))
+        log(f"kmeans {cfg['init']}: the CPU's initial rows are the card's "
+            f"up to centre {first}, a near tie (f64 distances {tie:.3e} "
+            f"apart) {card}")
+        if tie > 1e-5:
+            raise AssertionError(f"kmeans {cfg['init']}: the card's initial "
+                                 f"rows {rows} differ from the CPU's "
+                                 f"{rows_c}")
+    res = b._run_lloyd(Job("kmeans on the CPU"), X, w,
+                       X.numpy()[np.asarray(rows)], "cpu")
+    return lloyd_fit(res, di)
+
+
+def lloyd_fit(res, di):
+    """A stand-in model of ``_run_lloyd``'s result: de-standardized
+    centres as ``KMeans._fit`` reports them, and the within-SS."""
+    centers, withinss, counts, tot, iters = res
+    destd = centers.copy()
+    col = 0
+    for s in di.specs:
+        if s.width == 1:
+            destd[:, col] = centers[:, col] * s.sigma + s.mean
+        col += s.width
+
+    class Fit:
+        output = {"centers": destd, "iterations": iters}
+
+        class training_metrics:
+            tot_withinss = tot
+    return Fit
+
+
+def kmeans_phase(Frame, models, datainfo, card):
+    """Phase 43: KMeans (k = 10, furthest and plus_plus) and Aggregator
+    (100 exemplars)."""
+    t_phase = time.perf_counter()
+    KMeans, Aggregator = models.KMeans, models.Aggregator
+    _, fr, frc = bench_frames(ALGO_CPU_ROWS, Frame)
+    P = None
+    for init in ("furthest", "plus_plus"):
+        cfg = dict(k=10, init=init, seed=43, max_iterations=10,
+                   ignored_columns=BENCH_IGNORED)
+        m, secs = fit_timed(lambda: KMeans(**cfg).train(fr))
+        P = m.datainfo.nfeatures
+        mc = kmeans_on_cpu(KMeans, cfg, frc, m, card)
+        gap = kmeans_gap(m, mc)
+        faults = {}
+        with tf32_allowed():
+            faults["TF32"] = fault_gap(
+                lambda: kmeans_gap(KMeans(**cfg).train(fr), mc))
+        with last_block_dropped(datainfo):
+            faults["last row block dropped"] = fault_gap(
+                lambda: kmeans_gap(KMeans(**cfg).train(fr), mc))
+        for i, name in enumerate(("kmeans centres", "kmeans within-SS")):
+            hold(f"kmeans {init} k=10 at {fr.nrows} rows (P = {P}): "
+                 f"{name} against the CPU's", gap[i],
+                 {k: v[i] for k, v in faults.items()}, ALGO_LIMITS[name],
+                 card)
+        same_outputs(m, KMeans(**cfg).train(fr),
+                     ("centers", "init_rows", "iterations"),
+                     f"kmeans {init}")
+        log(f"kmeans {init} at {fr.nrows} rows: {m.output['iterations']} "
+            f"iterations ({mc.output['iterations']} on the CPU); a second "
+            f"train bitwise")
+    drop_designs(fr, frc)
+    del fr, frc
+    # Aggregator: 100 exemplars (99 host reads of the distances a fit),
+    # against the CPU at 20k rows
+    _, fs, fsc = bench_frames(ALGO_TINY_ROWS, Frame)
+    acfg = dict(target_num_exemplars=100, seed=43,
+                ignored_columns=BENCH_IGNORED)
+    a, asecs = fit_timed(lambda: Aggregator(**acfg).train(fs))
+    ac = Aggregator(device="cpu", **acfg).train(fsc)
+    if a.output["num_exemplars"] != ac.output["num_exemplars"]:
+        raise AssertionError("aggregator: the exemplar counts differ")
+    ex, exc = a.aggregated_frame, ac.aggregated_frame
+    agap = max(rel_gap(ex.vec(c).to_numpy(), exc.vec(c).to_numpy())
+               for c in ex.names if ex.vec(c).type != "cat")
+    same_outputs(a, Aggregator(**acfg).train(fs), ("mapping_counts",),
+                 "aggregator")
+    hold(f"aggregator at {fs.nrows} rows: exemplars against the CPU's",
+         agap, {}, ALGO_LIMITS["aggregator exemplars"], card)
+    log(f"aggregator 100 exemplars at {fs.nrows} rows {card}: "
+        f"{a.output['num_exemplars']} exemplars as the CPU's, numerics "
+        f"and counts {agap:.3e} of the largest, {asecs:.3f} s a fit (the "
+        f"d2 host reads {a.output['init_read_s']:.3f} s); a second train "
+        f"bitwise")
+    drop_designs(fs, fsc)
+    del fs, fsc
+    # 1M and 10M rows on the card: seconds a fit (Aggregator at 1M: at
+    # 10M its 99 host draws over 10M distances take ~30 s a fit)
+    for n in (ALGO_CHECK_ROWS, ALGO_TIMED_ROWS):
+        kmeans_timed(Frame, KMeans, Aggregator, n, P, card)
+    log(f"phase 43 (KMeans, Aggregator) {time.perf_counter() - t_phase:.1f}"
+        " s")
+
+
+def big_frame(Frame):
+    """The 10M-row bench frame with ``add_columns``' two, on the card,
+    made once for phases 43-45."""
+    if "fr" not in _BIG:
+        n = ALGO_TIMED_ROWS
+        cols, types, domains = make_airlines_like(n)
+        _BIG["fr"] = Frame.from_numpy(add_columns(cols, n, 45), types=types,
+                                      domains=domains)
+    return _BIG["fr"]
+
+
+def kmeans_timed(Frame, KMeans, Aggregator, n, P, card):
+    """Phase 43 on the card at ``n`` rows: seconds a fit of each init and
+    of the 100-exemplar Aggregator, a second fit bitwise."""
+    fr = big_frame(Frame) if n == ALGO_TIMED_ROWS else \
+        bench_frames(n, Frame, cpu=False)[1]
+    acfg = dict(target_num_exemplars=100, seed=43,
+                ignored_columns=BENCH_IGNORED)
+    for init in ("furthest", "plus_plus"):
+        cfg = dict(k=10, init=init, seed=43, max_iterations=10,
+                   ignored_columns=BENCH_IGNORED)
+        if init == "furthest":
+            _, secs = fit_timed(lambda: KMeans(**cfg).train(fr))
+            log(f"kmeans {init} k=10 at {fr.nrows} rows {card}: {secs:.3f}"
+                f" s with the design ({P} columns, "
+                f"{fr.padded_rows * P * 4 / 2**30:.2f} GiB) built in it")
+        m, m2 = fit_report(f"kmeans {init} k=10 at {fr.nrows} rows",
+                           lambda: KMeans(**cfg).train(fr), card)
+        same_outputs(m, m2, ("centers",), f"kmeans {init} at 10M")
+        log(f"kmeans {init} at {fr.nrows} rows: {m.output['iterations']} "
+            f"iterations, the d2 host reads {m.output['init_read_s']:.3f} "
+            f"s a fit")
+    if n <= ALGO_CHECK_ROWS:
+        a, asecs = fit_timed(lambda: Aggregator(**acfg).train(fr))
+        log(f"aggregator 100 exemplars at {fr.nrows} rows {card}: "
+            f"{asecs:.3f} s a fit, the 99 d2 host reads "
+            f"{a.output['init_read_s']:.3f} s, {a.output['num_exemplars']} "
+            f"exemplars")
+    drop_designs(fr)
+
+
+def separated(vals, tol=1e-2):
+    """The components whose eigenvalue lies more than ``tol`` (relative)
+    from both neighbours: their eigenvectors are determined."""
+    v = np.asarray(vals, np.float64)
+    keep = []
+    for i in range(len(v)):
+        gaps = [abs(v[i] - v[j]) / max(abs(v[i]), 1e-30)
+                for j in (i - 1, i + 1) if 0 <= j < len(v)]
+        keep.append(all(g > tol for g in gaps))
+    return np.asarray(keep, bool)
+
+
+def pca_gap(m, ref, pca):
+    """(the eigenvalues' max difference over the largest eigenvalue, the
+    separated eigenvectors' max difference after the sign convention)
+    against ``ref``.  An eigenvalue moves by at most the norm of the
+    Gram's error (Weyl), so the first is scaled by the largest: on the
+    demeaned bench frame the ten span seven decades, and the smallest
+    carries the f32 Gram's error of the largest."""
+    ev, evr = (np.asarray(x.output["std_deviation"]) ** 2 for x in (m, ref))
+    if ev.shape != evr.shape or not np.isfinite(ev).all():
+        return (float("inf"), float("inf"))
+    keep = separated(evr)
+    V, Vr = (pca.sign_convention(x.output["eigenvectors"])[:, keep]
+             for x in (m, ref))
+    return (rel_gap(ev, evr),
+            float(np.abs(V - Vr).max()) if keep.any() else 0.0)
+
+
+def gram_f64_pca(X, w, mu, sd):
+    """``pca._gram`` with the products in f64 on the card (its own 1 GiB
+    row blocks): the oracle the f32 Gram is held against."""
+    import torch
+    N, P = X.shape
+    rb = max(1, (1 << 30) // (8 * P))
+    G = torch.zeros((P, P), dtype=torch.float64, device=X.device)
+    mu64, sd64, w64 = mu.double(), sd.double(), w.double()
+    for r0 in range(0, N, rb):
+        Xt = (X[r0:r0 + rb].double() - mu64) * sd64
+        G.addmm_(Xt.t(), Xt * w64[r0:r0 + rb, None])
+    return G
+
+
+def pca_phase(Frame, models, pca, datainfo, card):
+    """Phase 44: PCA (k = 10, each method) and SVD at 1M rows against the
+    CPU and an f64 Gram on the card, each method timed at 10M rows; GLRM
+    k = 5 at 1M rows, ALS and the proximal path."""
+    import torch
+    t_phase = time.perf_counter()
+    PCA, SVD, GLRM = models.PCA, models.SVD, models.GLRM
+    _, fr, frc = bench_frames(ALGO_CHECK_ROWS, Frame)
+    base = dict(k=10, transform="demean", seed=44,
+                ignored_columns=BENCH_IGNORED)
+    cfg = dict(pca_method="gram_s_v_d", **base)
+    m, secs = fit_timed(lambda: PCA(**cfg).train(fr))
+    P = m.datainfo.nfeatures
+    real = pca._gram
+    pca._gram = gram_f64_pca
+    try:
+        m64 = PCA(**cfg).train(fr)
+    finally:
+        pca._gram = real
+    gap = pca_gap(m, m64, pca)
+    faults = {}
+    with tf32_allowed():
+        faults["TF32"] = fault_gap(
+            lambda: pca_gap(PCA(**cfg).train(fr), m64, pca))
+    with last_block_dropped(datainfo):
+        faults["last row block dropped"] = fault_gap(
+            lambda: pca_gap(PCA(**cfg).train(fr), m64, pca))
+    ev64 = np.asarray(m64.output["std_deviation"]) ** 2
+    nsep = int(separated(ev64).sum())
+    for i, name in enumerate(("pca eigenvalues", "pca eigenvectors")):
+        # TF32's rounding of the inputs scales the Gram's entries nearly
+        # uniformly and leaves the separated components' directions
+        # (each dominated by one wide numeric column) where f32 puts
+        # them: only the dropped block must break the eigenvectors
+        fi = {k: v[i] for k, v in faults.items()
+              if i == 0 or k != "TF32"}
+        hold(f"pca gram_s_v_d k=10 at {fr.nrows} rows (P = {P}; {nsep} of "
+             f"10 components separated by 1%): {name} against the f64 "
+             f"Gram's", gap[i], fi, ALGO_LIMITS[name], card)
+    log(f"pca eigenvectors under TF32: {faults['TF32'][1]:.3e} from the "
+        f"f64 Gram's (f32: {gap[1]:.3e})")
+    log(f"pca eigenvalues (f64 Gram): {np.array2string(ev64, precision=6)}")
+    m, m2 = fit_report(f"pca gram_s_v_d k=10 at {fr.nrows} rows",
+                       lambda: PCA(**cfg).train(fr), card, m, secs)
+    same_outputs(m, m2, ("eigenvectors", "std_deviation"), "pca")
+    drop_designs(fr, frc)
+    del fr, frc
+    # each method and SVD against the CPU at 100k rows
+    _, fr, frc = bench_frames(ALGO_CPU_ROWS, Frame)
+    for method in ("gram_s_v_d", "power", "randomized"):
+        c2 = dict(base, pca_method=method)
+        mm, s2 = fit_timed(lambda: PCA(**c2).train(fr))
+        g = pca_gap(mm, PCA(device="cpu", **c2).train(frc), pca)
+        log(f"pca {method} k=10 at {fr.nrows} rows {card}: {s2:.3f} s a "
+            f"fit")
+        for i, name in enumerate(("pca eigenvalues, cpu",
+                                  "pca eigenvectors, cpu")):
+            hold(f"pca {method} at {fr.nrows} rows: {name.split(',')[0]} "
+                 f"against the CPU's", g[i], {}, ALGO_LIMITS[name], card)
+        same_outputs(mm, PCA(**c2).train(fr), ("eigenvectors",),
+                     f"pca {method}")
+    scfg = dict(nv=10, transform="demean", keep_u=False,
+                ignored_columns=BENCH_IGNORED)
+    s, ssecs = fit_timed(lambda: SVD(**scfg).train(fr))
+    dg = rel_gap(s.output["d"], SVD(device="cpu", **scfg).train(frc)
+                 .output["d"])
+    hold(f"svd at {fr.nrows} rows: d against the CPU's", dg, {},
+         ALGO_LIMITS["pca eigenvalues, cpu"], card)
+    same_outputs(s, SVD(**scfg).train(fr), ("d", "v"), "svd")
+    log(f"svd nv=10 at {fr.nrows} rows {card}: {ssecs:.3f} s a fit; d "
+        f"{dg:.3e} of the largest from the CPU's; a second train bitwise")
+    # GLRM k = 5: ALS against the CPU's at 100k rows, timed at 1M; the
+    # proximal path (absolute loss, L1 on X) against the CPU at 20k rows,
+    # timed at 1M
+    gcfg = dict(k=5, transform="standardize", gamma_x=0.1, gamma_y=0.1,
+                max_iterations=30, seed=44, multi_loss="quadratic",
+                ignored_columns=BENCH_IGNORED)
+    g, gsecs = fit_timed(lambda: GLRM(**gcfg).train(fr))
+    gc = GLRM(device="cpu", **gcfg).train(frc)
+
+    def ggap(x):
+        return (rel(x.output["objective"], gc.output["objective"]),)
+    with tf32_allowed():
+        tf = fault_gap(lambda: ggap(GLRM(**gcfg).train(fr)), 1)[0]
+    with last_block_dropped(datainfo):
+        dropped = fault_gap(lambda: ggap(GLRM(**gcfg).train(fr)), 1)[0]
+    # the ALS products are k = 5 wide: cuBLAS runs them without the
+    # tensor cores, so TF32 leaves them f32 (its reading is printed)
+    hold(f"glrm ALS k=5 at {fr.nrows} rows: objective against the CPU's",
+         ggap(g)[0], {"last row block dropped": dropped},
+         ALGO_LIMITS["glrm objective"], card)
+    log(f"glrm ALS under TF32: {tf:.3e} from the CPU's")
+    same_outputs(g, GLRM(**gcfg).train(fr), ("archetypes", "objective"),
+                 "glrm ALS")
+    log(f"glrm ALS k=5 at {fr.nrows} rows: {gsecs:.3f} s a fit, "
+        f"{g.output['iterations']} iterations; a second train bitwise")
+    drop_designs(fr, frc)
+    del fr, frc, gc
+    pcfg = dict(k=5, transform="standardize", loss="absolute",
+                regularization_x="l1", gamma_x=0.05, init="random",
+                max_iterations=20, seed=44, ignored_columns=BENCH_IGNORED)
+    _, fr, _ = bench_frames(ALGO_CHECK_ROWS, Frame, cpu=False)
+    g, g2 = fit_report(f"glrm ALS k=5 at {fr.nrows} rows",
+                       lambda: GLRM(**gcfg).train(fr), card)
+    same_outputs(g, g2, ("archetypes", "objective"), "glrm ALS at 1M")
+    gp, gp2 = fit_report(f"glrm proximal (absolute, L1) k=5 at {fr.nrows} "
+                         f"rows", lambda: GLRM(**pcfg).train(fr), card)
+    same_outputs(gp, gp2, ("archetypes", "objective", "accepted"),
+                 "glrm proximal")
+    drop_designs(fr)
+    del fr
+    _, fs, fsc = bench_frames(ALGO_TINY_ROWS, Frame)
+    for c, asserted in ((pcfg, True),):
+        a, b = GLRM(**c).train(fs), GLRM(device="cpu", **c).train(fsc)
+        pgap = rel(a.output["objective"], b.output["objective"])
+        acc, accc = a.output["accepted"], b.output["accepted"]
+        part = next((i for i, (x, y) in enumerate(zip(acc, accc))
+                     if x != y), None)
+        log(f"glrm proximal ({c['loss']}, "
+            f"{c.get('multi_loss', 'categorical')} on the "
+            f"categoricals, L1) at {fs.nrows} rows {card}: accept/reject "
+            + ("as the CPU's" if part is None else
+               f"as the CPU's up to iteration {part}")
+            + f" ({sum(acc)} of {len(acc)} accepted), objective "
+            f"{pgap:.3e} from the CPU's")
+        if asserted:
+            hold(f"glrm proximal at {fs.nrows} rows: iterations before the "
+                 f"accept/reject sequences part", 0 if part is None
+                 else len(acc) - part, {}, 0, card)
+            hold(f"glrm proximal at {fs.nrows} rows: objective against the "
+                 f"CPU's", pgap, {}, ALGO_LIMITS["glrm objective"], card)
+    drop_designs(fs, fsc)
+    del fs, fsc
+    # 10M rows: seconds a fit of each method
+    fr = big_frame(Frame)
+    torch.cuda.reset_peak_memory_stats()
+    _, s0 = fit_timed(lambda: PCA(**cfg).train(fr))
+    log(f"pca gram_s_v_d at {fr.nrows} rows {card}: {s0:.3f} s with the "
+        f"design ({P} columns, {fr.padded_rows * P * 4 / 2**30:.2f} GiB) "
+        f"built in it")
+    for method in ("gram_s_v_d", "power", "randomized"):
+        c2 = dict(base, pca_method=method)
+        mm, mm2 = fit_report(f"pca {method} k=10 at {fr.nrows} rows",
+                             lambda: PCA(**c2).train(fr), card)
+        same_outputs(mm, mm2, ("eigenvectors",), f"pca {method} at 10M")
+    s, s2 = fit_report(f"svd nv=10 at {fr.nrows} rows",
+                       lambda: SVD(**scfg).train(fr), card)
+    same_outputs(s, s2, ("d", "v"), "svd at 10M")
+    log(f"pca and svd at {fr.nrows} rows: device peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    drop_designs(fr)
+    del fr
+    log(f"phase 44 (PCA, SVD, GLRM) {time.perf_counter() - t_phase:.1f} s")
+
+
+def nb_probs(m, fr, n=None):
+    """[n, 2] class probabilities of ``m.predict`` on ``fr``."""
+    pred = m.predict(fr)
+    dom = m.datainfo.response_domain
+    return np.stack([pred.vec(d).to_numpy()[:n] for d in dom], axis=1)
+
+
+def add_columns(cols, n, seed):
+    """The bench columns plus a 5-fold column and a numeric response
+    rising with distance (phase 45's TargetEncoder and isotonic fits)."""
+    rng = np.random.default_rng(seed)
+    cols = dict(cols)
+    cols["fold"] = rng.integers(0, 5, n).astype(np.float32)
+    cols["yr"] = (np.log1p(cols["distance"]) + rng.normal(scale=0.5, size=n)
+                  ).astype(np.float32)
+    return cols
+
+
+def small_families_phase(Frame, models, datainfo, card):
+    """Phase 45: NaiveBayes, Quantile and TargetEncoder (k_fold) at 10M
+    rows, IsotonicRegression at 1M rows, each against the CPU."""
+    t_phase = time.perf_counter()
+    NaiveBayes, Quantile = models.NaiveBayes, models.Quantile
+    TargetEncoder = models.TargetEncoder
+    IsotonicRegression = models.IsotonicRegression
+    # NaiveBayes at 100k rows: against the CPU, with the planted faults
+    _, fr, frc = bench_frames(ALGO_CPU_ROWS, Frame)
+    cfg = dict(response_column="dep_delayed_15min", laplace=1.0)
+    m, secs = fit_timed(lambda: NaiveBayes(**cfg).train(fr))
+    mc = NaiveBayes(device="cpu", **cfg).train(frc)
+    pc = nb_probs(mc, frc)
+
+    def gap(x):
+        return float(np.abs(nb_probs(x, fr) - pc).max())
+    faults = {}
+    with tf32_allowed():
+        faults["TF32"] = fault_gap(
+            lambda: (gap(NaiveBayes(**cfg).train(fr)),), 1)[0]
+    with last_block_dropped(datainfo):
+        faults["last row block dropped"] = fault_gap(
+            lambda: (gap(NaiveBayes(**cfg).train(fr)),), 1)[0]
+    hold(f"naivebayes at {fr.nrows} rows (P = {m.datainfo.nfeatures}): "
+         f"probabilities against the CPU's", gap(m), faults,
+         ALGO_LIMITS["naivebayes probabilities"], card)
+    same_outputs(m, NaiveBayes(**cfg).train(fr),
+                 ("_log_cat_table", "_num_mu", "apriori"), "naivebayes")
+    log(f"naivebayes at {fr.nrows} rows: {secs:.3f} s a fit; a second "
+        f"train bitwise")
+    drop_designs(fr, frc)
+    del fr, frc, mc
+    # 10M rows: NaiveBayes, Quantile and TargetEncoder timed; Quantile and
+    # TargetEncoder bitwise the CPU's at 1M rows
+    qcfg = dict(ignored_columns=["fold", "yr"],
+                probs=(0.001, 0.01, 0.1, 0.25, 0.5, 0.75, 0.9, 0.99, 0.999))
+    tcfg = dict(response_column="dep_delayed_15min",
+                data_leakage_handling="k_fold", fold_column="fold",
+                columns=["carrier", "origin", "dest"], noise=0.01, seed=45,
+                ignored_columns=["yr"])
+    for n in (ALGO_TIMED_ROWS, ALGO_CHECK_ROWS):
+        if n == ALGO_CHECK_ROWS:
+            cols, types, domains = make_airlines_like(n)
+            fr, frc = card_and_cpu(Frame, add_columns(cols, n, 45), types,
+                                   domains)
+        else:
+            fr = big_frame(Frame)
+            ncfg = dict(cfg, ignored_columns=["fold", "yr"])
+            _, s0 = fit_timed(lambda: NaiveBayes(**ncfg).train(fr))
+            log(f"naivebayes at {n} rows {card}: {s0:.3f} s with the "
+                f"design built in it")
+            m, m2 = fit_report(f"naivebayes at {n} rows",
+                               lambda: NaiveBayes(**ncfg).train(fr), card)
+            same_outputs(m, m2, ("_log_cat_table", "_num_mu"),
+                         "naivebayes at 10M")
+            drop_designs(fr)
+        if n == ALGO_TIMED_ROWS:
+            # host numpy (interpolation, bincounts): one fit each here,
+            # profiled and held bitwise at 1M rows
+            for what, b in (("quantile", Quantile(**qcfg)),
+                            ("targetencoder k_fold", TargetEncoder(**tcfg))):
+                _, secs = fit_timed(lambda: b.train(fr))
+                log(f"{what} at {n} rows {card}: {secs:.3f} s a fit")
+            drop_designs(fr)
+            continue
+        q, q2 = fit_report(f"quantile at {n} rows",
+                           lambda: Quantile(**qcfg).train(fr), card)
+        t, t2 = fit_report(f"targetencoder k_fold at {n} rows",
+                           lambda: TargetEncoder(**tcfg).train(fr), card)
+        if q2.output["quantiles"] != q.output["quantiles"]:
+            raise AssertionError("quantile: a second fit differs")
+        for c in tcfg["columns"]:
+            for key in ("sums", "counts", "fold_sums", "fold_counts"):
+                if not np.array_equal(t.output["encoding_tables"][c][key],
+                                      t2.output["encoding_tables"][c][key]):
+                    raise AssertionError("targetencoder: a second fit "
+                                         "differs")
+        if n == ALGO_CHECK_ROWS:
+            t0 = time.perf_counter()
+            enc = t.transform(fr, as_training=True)
+            log(f"targetencoder at {n} rows: the training transform "
+                f"{time.perf_counter() - t0:.3f} s (host numpy)")
+            qc = Quantile(device="cpu", **qcfg).train(frc)
+            if q.output["quantiles"] != qc.output["quantiles"]:
+                raise AssertionError("quantile: the card's table differs "
+                                     "from the CPU's")
+            encc = TargetEncoder(device="cpu", **tcfg).train(frc) \
+                .transform(frc, as_training=True)
+            for c in tcfg["columns"]:
+                if not np.array_equal(enc.vec(f"{c}_te").to_numpy(),
+                                      encc.vec(f"{c}_te").to_numpy()):
+                    raise AssertionError(f"targetencoder: {c}_te differs "
+                                         "from the CPU's")
+            log(f"quantile and targetencoder k_fold at {n} rows {card}: "
+                f"the quantile table ({len(q.output['quantiles'])} columns "
+                f"x {len(qcfg['probs'])} probabilities) and the 3 "
+                f"encodings of the training transform bitwise the CPU's; "
+                f"second fits bitwise")
+            drop_designs(frc)
+            del frc
+        drop_designs(fr)
+        del fr
+    # IsotonicRegression at 1M rows (distance -> yr)
+    n = ALGO_CHECK_ROWS
+    cols, types, domains = make_airlines_like(n)
+    cols = add_columns(cols, n, 45)
+    iso_cols = {"distance": cols["distance"], "yr": cols["yr"]}
+    fr, frc = card_and_cpu(Frame, iso_cols)
+    icfg = dict(response_column="yr", out_of_bounds="clip")
+    i, i2 = fit_report(f"isotonic at {n} rows",
+                       lambda: IsotonicRegression(**icfg).train(fr), card)
+    ic = IsotonicRegression(device="cpu", **icfg).train(frc)
+    for key in ("thresholds_x", "thresholds_y"):
+        if not (np.array_equal(i.output[key], ic.output[key])
+                and np.array_equal(i.output[key], i2.output[key])):
+            raise AssertionError(f"isotonic: {key} differs from the CPU's "
+                                 "or from a second fit")
+    log(f"isotonic at {n} rows {card}: {len(i.output['thresholds_x'])} "
+        f"thresholds bitwise the CPU's and a second fit's; rmse "
+        f"{i.training_metrics.rmse:.6f}")
+    log(f"phase 45 (NaiveBayes, Quantile, TargetEncoder, isotonic) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def survival_columns(n, seed=46):
+    """A survival response made from the bench columns: hazards from the
+    standardized departure time, distance and weekend, exponential event
+    and censoring times rounded to ties, a start time on 30% of rows."""
+    cols, types, domains = make_airlines_like(n)
+    rng = np.random.default_rng(seed)
+    z = {c: (cols[c] - cols[c].mean()) / cols[c].std()
+         for c in ("crs_dep_time", "distance")}
+    lam = np.exp(0.3 * z["crs_dep_time"] - 0.2 * z["distance"]
+                 + 0.1 * (cols["day_of_week"] >= 6))
+    T = rng.exponential(1.0 / lam)
+    C = rng.exponential(2.0, n)
+    stop = np.round(np.minimum(T, C), 2) + 0.01
+    out = {c: cols[c] for c in ("year", "month", "day_of_week",
+                                "crs_dep_time", "distance", "carrier")}
+    out["stop"] = stop
+    out["start"] = np.where(rng.random(n) < 0.3,
+                            np.round(stop * rng.uniform(0, 0.8, n), 2), 0.0)
+    out["event"] = (T <= C).astype(np.float64)
+    return out, {"carrier": "cat"}, {"carrier": domains["carrier"]}
+
+
+def cox_f64(coxph):
+    """``coxph._cox_stats`` with every float input in f64 on the card:
+    the oracle the f32 statistics are held against."""
+    import torch
+    real = coxph._cox_stats
+
+    def stats(*args, **kw):
+        args = [a.double() if torch.is_tensor(a) and a.is_floating_point()
+                else a for a in args]
+        return real(*args, **kw)
+    return stats
+
+
+def cox_rows_dropped(coxph):
+    """A planted fault: the weights of the last eighth of the sorted rows
+    zeroed (a row block the risk-set sums never see)."""
+    real = coxph._cox_stats
+
+    def stats(X, w, *args, **kw):
+        w = w.clone()
+        w[-(len(w) // 8):] = 0.0
+        return real(X, w, *args, **kw)
+    return stats
+
+
+def cox_gap(m, ref):
+    b, br = (np.asarray(x.output["beta_std"]) for x in (m, ref))
+    return (rel_gap(b, br), rel(m.output["neg_log_partial_likelihood"],
+                                ref.output["neg_log_partial_likelihood"]))
+
+
+@contextlib.contextmanager
+def swapped(module, name, fn):
+    real = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+def weights_rows_dropped(real):
+    """A planted fault: ``DataInfo.weights`` with its last eighth of rows
+    zeroed (a row block the objective never sees)."""
+    def weights(self, frame):
+        w = real(self, frame).clone()
+        w[-(len(w) // 8):] = 0.0
+        return w
+    return weights
+
+
+def synthetic_corpus(n_tokens, seed=46, vocab=5000):
+    """A seeded corpus of ``n_tokens`` words: Zipf-like unigram draws over
+    ``vocab`` words in sentences of 5-20 words (None between them)."""
+    rng = np.random.default_rng(seed)
+    p = 1.0 / (np.arange(vocab) + 10.0)
+    ids = rng.choice(vocab, size=n_tokens, p=p / p.sum())
+    names = np.array([f"w{i}" for i in range(vocab)], dtype=object)
+    lens = rng.integers(5, 21, n_tokens // 5 + 1)
+    ends = np.cumsum(lens)
+    ends = ends[ends < n_tokens]
+    words = np.insert(names[ids], ends, None)
+    return words
+
+
+def survival_psvm_w2v_phase(Frame, models, coxph, psvm, w2v, card):
+    """Phase 46: CoxPH at 1M rows against the CPU and an f64 oracle on
+    the card; PSVM at 100k rows (rank 1024); Word2Vec on a seeded ~1M
+    token corpus."""
+    import torch
+    t_phase = time.perf_counter()
+    CoxPH, PSVM, Word2Vec = models.CoxPH, models.PSVM, models.Word2Vec
+    n = ALGO_CHECK_ROWS
+    cols, types, domains = survival_columns(n)
+    fr, frc = card_and_cpu(Frame, cols, types, domains)
+    for cfg in (dict(ties="efron", stratify_by="carrier",
+                     start_column="start"),
+                dict(ties="breslow")):
+        cfg = dict(stop_column="stop", event_column="event",
+                   ignored_columns=[c for c in ("carrier", "start")
+                                    if c not in cfg.values()], **cfg)
+        m, secs = fit_timed(lambda: CoxPH(**cfg).train(fr))
+        mc = CoxPH(device="cpu", **cfg).train(frc)
+        with swapped(coxph, "_cox_stats", cox_f64(coxph)):
+            m64 = CoxPH(**cfg).train(fr)
+        faults = {}
+        with tf32_allowed():
+            tf = fault_gap(lambda: cox_gap(CoxPH(**cfg).train(fr), m64))
+        with swapped(coxph, "_cox_stats", cox_rows_dropped(coxph)):
+            faults["last rows dropped"] = fault_gap(
+                lambda: cox_gap(CoxPH(**cfg).train(fr), m64))
+        gap = cox_gap(m, m64)
+        what = f"coxph {cfg['ties']}" + (" with 22 strata and a start "
+                                         "column" if "stratify_by" in cfg
+                                         else "")
+        for i, name in enumerate(("coxph coefficients", "coxph -log PL")):
+            hold(f"{what} at {n} rows: {name} against the f64 oracle's",
+                 gap[i], {k: v[i] for k, v in faults.items()},
+                 ALGO_LIMITS[name], card)
+        # X @ beta is a matrix-vector product, which cuBLAS runs without
+        # the tensor cores: TF32 leaves it f32 (its reading is printed)
+        log(f"{what} under TF32: coefficients {tf[0]:.3e}, -log PL "
+            f"{tf[1]:.3e} from the f64 oracle's")
+        cg = cox_gap(m, mc)
+        conc = [x.training_metrics["concordance"] for x in (m, mc)]
+        log(f"{what} against the CPU's {card}: coefficients {cg[0]:.3e}, "
+            f"-log PL {cg[1]:.3e}; concordance {conc[0]:.6f} (CPU "
+            f"{conc[1]:.6f})")
+        for i, name in enumerate(("coxph coefficients", "coxph -log PL")):
+            hold(f"{what} at {n} rows: {name} against the CPU's", cg[i],
+                 {}, ALGO_LIMITS[name], card)
+        m, m2 = fit_report(f"{what} at {n} rows ({m.output['iterations']} "
+                           f"Newton iterations, concordance included)",
+                           lambda: CoxPH(**cfg).train(fr), card, m, secs)
+        same_outputs(m, m2, ("beta_std", "neg_log_partial_likelihood"),
+                     what)
+    drop_designs(fr, frc)
+    del fr, frc
+    # PSVM: against the CPU at 20k rows (rank 565), timed at 100k rows
+    # (rank 1024)
+    _, fs, fsc = bench_frames(ALGO_TINY_ROWS, Frame)
+    pcfg = dict(response_column="dep_delayed_15min", seed=46,
+                max_iterations=100)
+    p, psecs = fit_timed(lambda: PSVM(**pcfg).train(fs))
+    pc = PSVM(device="cpu", **pcfg).train(fsc)
+
+    def pgap(x):
+        return rel(x.output["objective"], pc.output["objective"])
+    with tf32_allowed():
+        tf = pgap(PSVM(**pcfg).train(fs))
+    with swapped(psvm.DataInfo, "weights",
+                 weights_rows_dropped(psvm.DataInfo.weights)):
+        dropped = pgap(PSVM(**pcfg).train(fs))
+    hold(f"psvm rank {p.output['rank']} at {fs.nrows} rows (P = "
+         f"{p.datainfo.nfeatures}): objective against the CPU's",
+         pgap(p), {"last rows dropped": dropped},
+         ALGO_LIMITS["psvm objective"], card)
+    # TF32 moves the objective no further than the two devices' L-BFGS
+    # paths part (printed)
+    log(f"psvm under TF32: objective {tf:.3e} from the CPU's")
+    drop_designs(fs, fsc)
+    del fs, fsc
+    _, fs, _ = bench_frames(ALGO_CPU_ROWS, Frame, cpu=False)
+    p, p2 = fit_report(f"psvm at {fs.nrows} rows", lambda: PSVM(**pcfg)
+                       .train(fs), card)
+    same_outputs(p, p2, ("beta", "objective"), "psvm")
+    log(f"psvm at {fs.nrows} rows: rank {p.output['rank']}, "
+        f"{p.output['iterations']} L-BFGS iterations, "
+        f"{p.output['svs_count']} support vectors, AUC "
+        f"{p.training_metrics.auc:.6f}; a second train bitwise")
+    drop_designs(fs)
+    del fs
+    # Word2Vec on ~1M tokens
+    words = synthetic_corpus(ALGO_CPU_TOKENS)
+    wf = Frame.from_numpy({"words": words}, types={"words": "str"},
+                          device="cpu")
+    wcfg = dict(vec_size=100, window_size=5, min_word_freq=5, epochs=1,
+                seed=46)
+    w, wsecs = fit_timed(lambda: Word2Vec(**wcfg).train(wf))
+    wc = Word2Vec(device="cpu", **wcfg).train(wf)
+    E = wc.output["embeddings"]
+
+    def wgap(x):
+        return rel_gap(x.output["embeddings"], E)
+    faults = {}
+
+    def last_write_wins(T, idx, vals):
+        T.index_put_((idx,), vals, accumulate=False)
+    with swapped(w2v, "_accumulate", last_write_wins):
+        faults["duplicate updates not summed"] = wgap(
+            Word2Vec(**wcfg).train(wf))
+    hold(f"word2vec on {len(words)} rows ({w.output['vocab_size']} words, "
+         f"{w.output['pairs_trained']} pairs, {w.output['steps']} steps): "
+         f"embeddings against the CPU's", wgap(w), faults,
+         ALGO_LIMITS["word2vec embeddings"], card)
+
+    syn, sync = (list(x.find_synonyms("w3", 5)) for x in (w, wc))
+    log(f"word2vec {card}: find_synonyms('w3') {syn} "
+        f"({'as' if syn == sync else 'NOT as'} the CPU's)")
+    if syn != sync:
+        raise AssertionError("word2vec: find_synonyms differs from the CPU")
+    big = Frame.from_numpy({"words": synthetic_corpus(ALGO_CORPUS_TOKENS)},
+                           types={"words": "str"}, device="cpu")
+    w, w2 = fit_report(f"word2vec on {big.nrows} rows, 1 epoch",
+                       lambda: Word2Vec(**wcfg).train(big), card)
+    same_outputs(w, w2, ("embeddings",), "word2vec")
+    log(f"word2vec on {big.nrows} rows: {w.output['vocab_size']} words, "
+        f"{w.output['pairs_trained']} pairs, {w.output['steps']} steps; a "
+        f"second train bitwise")
+    log(f"phase 46 (CoxPH, PSVM, Word2Vec) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    torch.cuda.empty_cache()
+
+
+def archive_phase(Frame, models, from_reference, card):
+    """Phase 47: each new archive's numpy ``ScoringModel`` against the
+    card's ``predict`` on 4,096 rows of 1M-row models: labels equal,
+    values rtol 1e-4."""
+    t_phase = time.perf_counter()
+    n, k = ALGO_CHECK_ROWS, 4096
+    cols, types, domains = make_airlines_like(n)
+    cols = add_columns(cols, n, 47)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    rows = {c: np.asarray(v)[:k] for c, v in cols.items()}
+    unsup = dict(ignored_columns=BENCH_IGNORED + ["fold", "yr"])
+    fits = [
+        models.KMeans(k=10, seed=47, **unsup),
+        models.PCA(k=10, transform="demean", **unsup),
+        models.SVD(nv=10, transform="demean", keep_u=False, **unsup),
+        models.NaiveBayes(response_column="dep_delayed_15min",
+                          ignored_columns=["fold", "yr"]),
+    ]
+    iso = Frame.from_numpy({"distance": cols["distance"], "yr": cols["yr"]})
+    done = []
+    for b in fits + [models.IsotonicRegression(response_column="yr")]:
+        m = b.train(iso if b.algo == "isotonicregression" else fr)
+        got = from_reference(*m.to_archive()).predict(rows)
+        pred = m.predict(iso if b.algo == "isotonicregression" else fr)
+        if m.algo == "naivebayes":
+            ok = (np.array_equal(got["predict"],
+                                 pred.vec("predict").decoded()[:k])
+                  and np.allclose(got["probabilities"], nb_probs(m, fr, k),
+                                  rtol=1e-4, atol=1e-6))
+        elif m.algo == "kmeans":
+            ok = np.array_equal(got["predict"],
+                                pred.vecs[0].to_numpy()[:k].astype(float))
+        else:
+            want = np.stack([v.to_numpy()[:k] for v in pred.vecs], axis=1)
+            if m.algo == "svd":
+                want = want * np.asarray(m.output["d"])[None, :]
+            ok = np.allclose(got["predict"], want.reshape(-1), rtol=1e-4,
+                             atol=1e-4 * np.nanmax(np.abs(want)),
+                             equal_nan=True)
+        if not ok:
+            raise AssertionError(f"the {m.algo} archive's numpy scorer "
+                                 "differs from the card's predict")
+        done.append(m.algo)
+        drop_designs(fr)
+    log(f"archives {card}: the numpy ScoringModel of {done} scores {k} rows "
+        f"as the card's predict (labels equal, values rtol 1e-4)")
+    log(f"phase 47 (archives) {time.perf_counter() - t_phase:.1f} s")
+
+
+def algo_phases(Frame, card):
+    """Phases 43-47: the unsupervised, survival and feature-engineering
+    families on the card."""
+    import torch
+    from h2o3_tpu_torch import models
+    from h2o3_tpu_torch.export.mojo import from_reference
+    from h2o3_tpu_torch.models import coxph, datainfo, pca, psvm
+    from h2o3_tpu_torch.models import word2vec as w2v
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the families' products "
+                             "must be full f32")
+    t0 = time.perf_counter()
+    kmeans_phase(Frame, models, datainfo, card)
+    pca_phase(Frame, models, pca, datainfo, card)
+    small_families_phase(Frame, models, datainfo, card)
+    survival_psvm_w2v_phase(Frame, models, coxph, psvm, w2v, card)
+    archive_phase(Frame, models, from_reference, card)
+    _BIG.clear()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls came on during phases 43-47")
+    log(f"phases 43-47 {time.perf_counter() - t0:.1f} s {card}")
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -5970,6 +6971,8 @@ def main() -> dict:
     # ------------------ 40-42 the whole-tree program as a graph, TreeSHAP
     scan_phases(Frame, XGBoost, GridSearch, kernels_train, hist, shared,
                 card)
+    # ------------ 43-47 unsupervised, survival and feature engineering
+    algo_phases(Frame, card)
 
     return {"kernels": [traverse_row] + rows, "device": device}
 

@@ -24,8 +24,13 @@ online scoring plane and the tree-training main path:
   L-BFGS, multinomial and ordinal, on the one-hot design of
   ``datainfo.make_matrix``), DeepLearning (``deeplearning``: the MLP
   and autoencoder, cuBLAS products in bf16 with f32 output or in full
-  f32, ``torch.optim``'s ADADELTA or SGD) and the grid search
-  (``grid``: ``GridSearch``).
+  f32, ``torch.optim``'s ADADELTA or SGD), the grid search
+  (``grid``: ``GridSearch``), and the unsupervised, survival and
+  feature-engineering families: ``kmeans``, ``aggregator``, ``pca``
+  (PCA and SVD), ``glrm``, ``naivebayes``, ``quantile`` (with the
+  ``quantile`` function), ``isotonic``, ``coxph``, ``psvm``,
+  ``targetencoder`` and ``word2vec`` (cuBLAS f32 products reduced over
+  row blocks, host f64 solves, the JAX package's numpy draws).
 * ``metrics`` — binomial (with gains/lift), multinomial, regression and
   uplift metrics, and a custom metric.
 * ``export``  — the numpy ``ScoringModel``, the archive reader
@@ -41,11 +46,16 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
 from .frame.parse import H2OFrame, import_file, upload_string
+from .models import (PSVM, SVD, Aggregator, CoxPH, GLRM, IsotonicRegression,
+                     KMeans, NaiveBayes, PCA, Quantile, TargetEncoder,
+                     Word2Vec, quantile)
 from .models.deeplearning import DeepLearning, DeepLearningParameters
 from .models.glm import GLM, GLMParameters
 from .models.tree.gbm import GBM
 from .models.tree.xgboost import XGBoost
 
-__all__ = ["DeepLearning", "DeepLearningParameters", "GBM", "GLM",
-           "GLMParameters", "H2OFrame", "XGBoost", "import_file",
-           "upload_string"]
+__all__ = ["Aggregator", "CoxPH", "DeepLearning", "DeepLearningParameters",
+           "GBM", "GLM", "GLMParameters", "GLRM", "H2OFrame",
+           "IsotonicRegression", "KMeans", "NaiveBayes", "PCA", "PSVM",
+           "Quantile", "SVD", "TargetEncoder", "Word2Vec", "XGBoost",
+           "import_file", "quantile", "upload_string"]

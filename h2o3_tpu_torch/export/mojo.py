@@ -36,6 +36,17 @@ def datainfo_meta(di) -> dict:
     }
 
 
+def archive_meta(model, family: str) -> dict:
+    """The metadata every archive of ``model`` carries (the JAX
+    package's ``_extract`` head) with its scorer's ``family``."""
+    di = model.datainfo
+    return {"algo": model.algo, "format_version": 1,
+            "datainfo": datainfo_meta(di),
+            "default_threshold": float(model.default_threshold())
+            if di.is_classifier else 0.5,
+            "family": family}
+
+
 def from_reference(meta: dict, arrays: Dict[str, np.ndarray]) \
         -> ScoringModel:
     """Carry a model across from the JAX package.

@@ -9,9 +9,11 @@ serving plane packs (``tree``: GBM/XGBoost/DRF, and ``isolation``), the
 numpy oracle behind ``PackedScorer``'s ``"ref"``/``"check"`` score
 modes, for ``glm`` (the standardized one-hot design, the family's
 link) and for ``deeplearning`` (the same design through the layers:
-tanh or rectifier, softmax or the de-standardized regression); tree
-models also give their TreeSHAP contributions (``treeshap.py``).  The
-archive format lives in mojo.py.
+tanh or rectifier, softmax or the de-standardized regression), for
+``kmeans``, ``pca`` (PCA and SVD) and ``naivebayes`` on the same design,
+and for ``isotonic`` on its feature column; tree models also give their
+TreeSHAP contributions (``treeshap.py``).  The archive format lives in
+mojo.py.
 """
 
 from __future__ import annotations
@@ -21,6 +23,9 @@ from typing import Dict
 import numpy as np
 
 from ..serving import pack as _pack
+
+# the families scored on the standardized one-hot design
+_STANDARDIZED = ("glm", "deeplearning", "kmeans", "pca", "naivebayes")
 
 
 class ScoringModel:
@@ -105,10 +110,11 @@ class ScoringModel:
             data = {k: np.asarray(v) for k, v in data.items()}
         n = len(next(iter(data.values())))
         family = self.meta["family"]
-        if family in ("glm", "deeplearning"):
-            X = self._design_standardized(data, n)
-            raw = self._score_glm(X) if family == "glm" \
-                else self._score_deeplearning(X)
+        if family in _STANDARDIZED:
+            raw = getattr(self, f"_score_{family}")(
+                self._design_standardized(data, n))
+        elif family == "isotonic":
+            raw = self._score_isotonic(data)
         else:
             raw = self.score_raw(self._design_raw(data, n))
         domain = self.spec.get("response_domain")
@@ -269,3 +275,43 @@ class ScoringModel:
         mean_len = self._traverse(X) / max(T, 1)
         c = max(self.meta["c_norm"], 1e-9)
         return np.exp2(-mean_len / c)
+
+    def _score_kmeans(self, X):
+        """The nearest standardized centre's index, as a float [n]."""
+        C = self.arrays["centers_std"]
+        d2 = ((X[:, None, :] - C[None, :, :]) ** 2).sum(axis=2)
+        return np.argmin(d2, axis=1).astype(np.float64)
+
+    def _score_pca(self, X):
+        """The rows in the fitted transform's space times the components
+        [n, k] (``predict`` returns them flattened, as the JAX package's
+        scorer does)."""
+        mu, sd = self.arrays["mu"], self.arrays["sd"]
+        Xt = (X - mu[None, :]) * sd[None, :]
+        return Xt @ self.arrays["eigenvectors"]
+
+    def _score_naivebayes(self, X):
+        """The class probabilities [n, K]: the level table's product plus
+        the Gaussian terms of the numeric columns."""
+        ll = X @ self.arrays["log_cat_table"] \
+            + self.arrays["log_prior"][None, :]
+        idx = self.arrays["num_idx"].astype(int)
+        if len(idx):
+            Xn = X[:, idx]
+            mu = self.arrays["num_mu"]
+            diff = Xn[:, None, :] - mu[None, :, :]
+            ll = ll - (diff * diff * self.arrays["num_inv2var"][None]
+                       + self.arrays["num_logsd"][None]).sum(axis=2)
+        ll -= ll.max(axis=1, keepdims=True)
+        p = np.exp(ll)
+        return p / p.sum(axis=1, keepdims=True)
+
+    def _score_isotonic(self, data):
+        """The thresholds' linear interpolation of the feature column,
+        NaN outside them under ``out_of_bounds="na"``."""
+        x = np.asarray(data[self.meta["feature"]], np.float64)
+        tx, ty = self.arrays["thresholds_x"], self.arrays["thresholds_y"]
+        pred = np.interp(x, tx, ty)
+        if self.meta.get("out_of_bounds") == "na":
+            pred = np.where((x < tx[0]) | (x > tx[-1]), np.nan, pred)
+        return np.where(np.isnan(x), np.nan, pred)

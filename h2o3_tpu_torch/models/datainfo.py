@@ -25,6 +25,17 @@ from ..frame.vec import T_CAT, T_TIME, Vec
 
 MEAN_IMPUTATION = "mean_imputation"
 SKIP = "skip"
+# the row block of a reduction over a design matrix: the per-block
+# temporaries (a weighted or transformed copy of the block) stay this size
+BLOCK_BYTES = 1 << 30
+
+
+def row_blocks(N: int, P: int):
+    """The ``(start, stop)`` row ranges of an [N, P] f32 matrix in blocks
+    of at most ``BLOCK_BYTES``: the unsupervised families reduce over
+    them, so no [N, P] temporary beside the design exists."""
+    rb = max(1, BLOCK_BYTES // (4 * max(int(P), 1)))
+    return [(r0, min(int(N), r0 + rb)) for r0 in range(0, int(N), rb)]
 
 
 @dataclasses.dataclass

@@ -415,23 +415,16 @@ class GLMModel(Model):
         metadata and the standardized coefficients ``beta`` ([P], or [P,
         K] for multinomial).  The archive's scorer has no ordinal form, in
         either package, so an ordinal model raises."""
-        from ..export.mojo import datainfo_meta
+        from ..export.mojo import archive_meta
         fam = self.output.get("family", "gaussian")
         if fam == "ordinal":
             raise ValueError("an ordinal GLM has no archive form: the "
                              "numpy scorer scores no cumulative-logit "
                              "thresholds")
-        di = self.datainfo
-        meta = {
-            "algo": self.algo, "format_version": 1,
-            "datainfo": datainfo_meta(di),
-            "default_threshold": float(self.default_threshold())
-            if di.is_classifier else 0.5,
-            "family": "glm",
-            "link": {"binomial": "logit", "quasibinomial": "logit",
-                     "poisson": "log", "gamma": "log", "tweedie": "log",
-                     "negativebinomial": "log"}.get(fam, "identity"),
-        }
+        meta = archive_meta(self, "glm")
+        meta["link"] = {"binomial": "logit", "quasibinomial": "logit",
+                        "poisson": "log", "gamma": "log", "tweedie": "log",
+                        "negativebinomial": "log"}.get(fam, "identity")
         return meta, {"beta": np.asarray(self.output["beta_std"],
                                          np.float64)}
 

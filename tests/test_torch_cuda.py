@@ -1350,3 +1350,132 @@ def test_scan_warmup_raises_on_a_host_sync(cuda, monkeypatch):
               shared.draw_generator(1, 0, 0, 0, cuda), 0.0, 1.0, 1e-5, 0.1,
               1.0, None, 0.0, 0.0, 0.0)
     assert torch.cuda.get_sync_debug_mode() == mode
+
+
+# ------------------------------------------- the unsupervised families
+def _algo_frames(cuda, n=4096, seed=15):
+    """A small frame on the card and the same on the CPU: three numerics
+    (one with NaN), a 5-level categorical, a binary response, a numeric
+    response, a fold column and a survival time and event."""
+    from h2o3_tpu_torch.frame import Frame
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, 3))
+    c = rng.integers(0, 5, n)
+    eta = X[:, 0] - 0.5 * X[:, 1] + 0.3 * (c == 2)
+    T = rng.exponential(1.0 / np.exp(0.6 * X[:, 0]))
+    C = rng.exponential(2.0, n)
+    cols = {"x0": X[:, 0], "x1": X[:, 1] * 3, "x2": X[:, 2],
+            "c": np.array(list("abcde"), dtype=object)[c],
+            "y": np.where(rng.random(n) < 1 / (1 + np.exp(-eta)), "p",
+                          "n").astype(object),
+            "yr": eta + rng.normal(size=n),
+            "fold": rng.integers(0, 3, n).astype(float),
+            "stop": np.round(np.minimum(T, C), 1) + 0.05,
+            "event": (T <= C).astype(float)}
+    cols["x2"][rng.random(n) < 0.05] = np.nan
+    fr, frc = (Frame.from_numpy(cols, device=d) for d in (cuda, "cpu"))
+    for v, w in zip(fr.vecs, frc.vecs):
+        if v.data is not None:           # both standardize alike
+            w._rollups = v.rollups()
+    return fr, frc
+
+
+_UNSUP = ["y", "yr", "fold", "stop", "event"]
+_ALGO_CASES = {
+    "kmeans": (dict(k=4, seed=1, ignored_columns=_UNSUP),
+               ("centers", "init_rows")),
+    "aggregator": (dict(target_num_exemplars=20, seed=1,
+                        ignored_columns=_UNSUP), ("mapping_counts",)),
+    "pca": (dict(k=3, transform="standardize", pca_method="randomized",
+                 seed=1, ignored_columns=_UNSUP), ("eigenvectors",)),
+    "svd": (dict(nv=3, transform="demean", ignored_columns=_UNSUP),
+            ("d", "v")),
+    "glrm": (dict(k=2, loss="huber", multi_loss="huber",
+                  regularization_x="l1", gamma_x=0.05, max_iterations=10,
+                  seed=1, transform="standardize", ignored_columns=_UNSUP),
+             ("objective", "accepted")),
+    "naivebayes": (dict(response_column="y", laplace=1.0,
+                        ignored_columns=["yr", "fold", "stop", "event"]),
+                   ("_log_cat_table", "_num_mu")),
+    "quantile": (dict(ignored_columns=["c", "y"]), ("quantiles",)),
+    "isotonicregression": (dict(response_column="yr", ignored_columns=[
+        "x1", "x2", "c", "y", "fold", "stop", "event"]),
+        ("thresholds_x", "thresholds_y")),
+    "coxph": (dict(stop_column="stop", event_column="event", ties="efron",
+                   ignored_columns=["c", "y", "yr", "fold"]),
+              ("beta_std", "neg_log_partial_likelihood")),
+    "psvm": (dict(response_column="y", seed=1, max_iterations=200,
+                  ignored_columns=["yr", "fold", "stop", "event"]),
+             ("objective",)),
+    "targetencoder": (dict(response_column="y", columns=["c"],
+                           data_leakage_handling="k_fold",
+                           fold_column="fold", noise=0.01, seed=1),
+                      ("encoding_tables",)),
+}
+
+
+def _outputs_close(a, b, key):
+    """Card against CPU: arrays to 1e-4 of the largest; other values
+    equal."""
+    x, y = a.output[key], b.output[key]
+    if key in ("encoding_tables", "quantiles", "init_rows", "accepted",
+               "mapping_counts"):
+        assert repr(x) == repr(y), key
+        return
+    x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+    if key in ("eigenvectors", "v"):
+        from h2o3_tpu_torch.models.pca import sign_convention
+        x, y = sign_convention(x), sign_convention(y)
+    assert np.abs(x - y).max() <= 1e-4 * max(np.abs(y).max(), 1e-30), key
+
+
+@pytest.mark.parametrize("algo", sorted(_ALGO_CASES))
+def test_unsupervised_family_card_against_cpu(cuda, algo):
+    """Each new family trains on the card by default: the fit against
+    the same fit on the CPU (the same draws; arrays to 1e-4 of the
+    largest, selections and host tables equal; for the proximal GLRM
+    (huber losses: continuous gradients) and PSVM, whose iterates part
+    in the last bits, the objective and the accept/reject sequence), and
+    a second card train bitwise the first in every array it outputs."""
+    from h2o3_tpu_torch import models
+    cls = {m.algo: m for m in (models.KMeans, models.Aggregator,
+                               models.PCA, models.SVD, models.GLRM,
+                               models.NaiveBayes, models.Quantile,
+                               models.IsotonicRegression, models.CoxPH,
+                               models.PSVM, models.TargetEncoder)}[algo]
+    cfg, keys = _ALGO_CASES[algo]
+    fr, frc = _algo_frames(cuda)
+    m, m2 = cls(**cfg).train(fr), cls(**cfg).train(fr)
+    mc = cls(device="cpu", **cfg).train(frc)
+    for key in keys:
+        _outputs_close(m, mc, key)
+    for key, v in m.output.items():
+        if isinstance(v, np.ndarray) or key in keys:
+            assert repr(v) == repr(m2.output[key]), key
+            if not isinstance(v, (dict, list)):
+                assert np.array_equal(np.asarray(v),
+                                      np.asarray(m2.output[key])), key
+
+
+def test_word2vec_card_against_cpu(cuda):
+    """Word2Vec on the card: the CPU's vocabulary, embeddings to 1e-4 of
+    the largest (the same pairs and negatives), a second train bitwise
+    (duplicate rows summed in a fixed order)."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models import Word2Vec
+    rng = np.random.default_rng(4)
+    words = []
+    for _ in range(600):
+        words += [f"w{i}" for i in rng.integers(0, 40, rng.integers(3, 12))]
+        words.append(None)
+    fr = Frame.from_numpy({"w": np.array(words, dtype=object)},
+                          types={"w": "str"}, device="cpu")
+    cfg = dict(vec_size=16, epochs=3, min_word_freq=2, seed=2,
+               batch_size=256, sent_sample_rate=0.01)
+    m, m2 = Word2Vec(**cfg).train(fr), Word2Vec(**cfg).train(fr)
+    mc = Word2Vec(device="cpu", **cfg).train(fr)
+    assert m.output["device"].type == "cuda"
+    assert m.output["words"] == mc.output["words"]
+    E, Ec = m.output["embeddings"], mc.output["embeddings"]
+    assert np.abs(E - Ec).max() <= 1e-4 * np.abs(Ec).max()
+    assert np.array_equal(E, m2.output["embeddings"])

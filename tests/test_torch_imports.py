@@ -15,6 +15,9 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "h2o3_tpu_torch")
 
 _FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu")
+# the unsupervised, survival and feature-engineering families
+_UNSUPERVISED = ("kmeans", "aggregator", "pca", "glrm", "naivebayes",
+                 "quantile", "coxph", "psvm", "targetencoder", "word2vec")
 
 
 def _forbidden(module: str) -> bool:
@@ -123,7 +126,9 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.models.cv\n"
         "import h2o3_tpu_torch.models.tree.efb\n"
         "import h2o3_tpu_torch.models.isotonic\n"
-        "print(json.dumps(sorted(set(sys.modules) - before)))\n")
+        + "".join(f"import h2o3_tpu_torch.models.{m}\n"
+                  for m in _UNSUPERVISED)
+        + "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
@@ -134,6 +139,8 @@ def test_import_adds_no_jax_module():
     assert "h2o3_tpu_torch.models.cv" in added
     assert "h2o3_tpu_torch.models.tree.efb" in added
     assert "h2o3_tpu_torch.models.isotonic" in added
+    for m in _UNSUPERVISED:
+        assert f"h2o3_tpu_torch.models.{m}" in added
     assert not [m for m in added if _forbidden(m)]
 
 
@@ -274,3 +281,51 @@ def test_tree_option_entry_points_raise_without_cuda(monkeypatch):
         assert m.output["stacked"].values.device.type == "cpu"
     assert m.output["calibration"]["method"] == "platt"
 
+
+def test_unsupervised_families_are_exported_and_need_cuda(monkeypatch):
+    """``h2o3_tpu_torch.models`` and the package export the new builders
+    and ``quantile``; each builder raises without CUDA unless told
+    device="cpu", and trains on the CPU when told."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import models
+    from h2o3_tpu_torch.frame import Frame
+    names = ("KMeans", "Aggregator", "PCA", "SVD", "GLRM", "NaiveBayes",
+             "Quantile", "IsotonicRegression", "CoxPH", "PSVM",
+             "TargetEncoder", "Word2Vec", "quantile")
+    for n in names:
+        assert getattr(models, n) is getattr(h2o3_tpu_torch, n), n
+        assert n in models.__all__ and n in h2o3_tpu_torch.__all__, n
+    rng = np.random.default_rng(0)
+    n = 64
+    cols = {"x": rng.normal(size=n), "z": rng.normal(size=n),
+            "t": rng.exponential(size=n) + 0.1,
+            "e": (rng.random(n) < 0.7).astype(float),
+            "y": np.where(rng.random(n) < 0.5, "a", "b").astype(object)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fr = Frame.from_numpy(cols, device="cpu")
+    unsup = dict(ignored_columns=["t", "e", "y"])
+    cases = [
+        (models.KMeans, dict(k=2, **unsup)),
+        (models.Aggregator, dict(target_num_exemplars=4, **unsup)),
+        (models.PCA, dict(k=1, **unsup)), (models.SVD, dict(nv=1, **unsup)),
+        (models.GLRM, dict(k=1, **unsup)),
+        (models.NaiveBayes, dict(response_column="y",
+                                 ignored_columns=["t", "e"])),
+        (models.Quantile, dict(ignored_columns=["y"])),
+        (models.IsotonicRegression, dict(response_column="z",
+                                         ignored_columns=["t", "e", "y"])),
+        (models.CoxPH, dict(stop_column="t", event_column="e",
+                            ignored_columns=["y"])),
+        (models.PSVM, dict(response_column="y", ignored_columns=["t", "e"],
+                           max_iterations=3)),
+        (models.TargetEncoder, dict(response_column="z",
+                                    ignored_columns=["x", "t", "e"])),
+    ]
+    for cls, kw in cases:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(**kw).train(fr)
+        m = cls(device="cpu", **kw).train(fr)
+        assert m.algo == cls.algo
+    with pytest.raises(RuntimeError, match="CUDA"):
+        models.quantile(fr)
+    assert set(models.quantile(fr, device="cpu")) == {"x", "z", "t", "e"}

@@ -4,6 +4,7 @@
     python tools/chip_phases.py options      # phases 36-39
     python tools/chip_phases.py efb          # phase 38
     python tools/chip_phases.py scan         # phases 40-42
+    python tools/chip_phases.py algos        # phases 43-47
 
 Each line carries the card's name and power limit.  Run from the
 repository root; it needs one CUDA card and nvcc.  To time the training
@@ -33,7 +34,8 @@ def smoke():
 
 def main() -> None:
     import torch
-    if len(sys.argv) != 2 or sys.argv[1] not in ("options", "efb", "scan"):
+    if len(sys.argv) != 2 or sys.argv[1] not in ("options", "efb", "scan",
+                                                  "algos"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("chip_phases: no CUDA device")
@@ -46,6 +48,9 @@ def main() -> None:
     cs.log(smi)
     from h2o3_tpu_torch import native
     from h2o3_tpu_torch.frame import Frame
+    if sys.argv[1] == "algos":           # no kernel of the port on their path
+        cs.algo_phases(Frame, card)
+        return
     from h2o3_tpu_torch.models import DRF, GridSearch
     from h2o3_tpu_torch.models.tree import gbm, hist, shared
     from h2o3_tpu_torch.models.tree.gbm import GBM
