@@ -27,7 +27,7 @@ Phases (any failure exits non-zero and prints no result line):
              answer is checked against the numpy ScoringModel, and the
              kernel's launch count must equal the batcher's launches;
 6. times   — each kernel and its plain version timed with CUDA events
-             (median of 50 launches) beside the least time the card
+             (median of 20 launches) beside the least time the card
              could take for the same work (bytes over 3.35 TB/s, f32
              operations over 67 TFLOP/s: the H100 SXM data sheet); the
              traversal's sector reckoning, and the traversal of both
@@ -210,7 +210,7 @@ Phases (any failure exits non-zero and prints no result line):
              typed "cat": every column bitwise ``Frame.from_numpy`` built
              with the parser's domains (the str of each code as a float,
              sorted as strings), a second import bitwise the first, the
-             first 1M rows through the stdlib tokenizer bitwise the native
+             first 250k rows through the stdlib tokenizer bitwise the native
              engine's (the same codes; labels "5" for "5.0"); rows/s,
              MB/s, the stage seconds and the device peak;
 24. import train — launch counts set to 0, then 20 trees of the bench
@@ -354,11 +354,11 @@ Phases (any failure exits non-zero and prints no result line):
              trained "scan", on 6 continuous columns that fill every bin;
 41. scan headline — at 10M rows, exact and multinomial (K = 3), the
              level and the scan train in turns (level, scan, scan, level;
-             a 20-tree or 20-round warmup, 50 timed): trees/s, the graph
-             pool and the device's peak memory, and a profiled 10-tree
+             a 5-tree or 5-round warmup, 20 timed): trees/s, the graph
+             pool and the device's peak memory, and a profiled 20-tree
              train of each program: device operations a tree (round),
              busy ms and the idle share;
-42. TreeSHAP — the phase-40 scan model's contributions on 256 rows: each
+42. TreeSHAP — the phase-40 scan model's contributions on 64 rows: each
              row plus BiasTerm within 1e-5 of the f32 margin, equal bitwise
              to the archive ``ScoringModel``'s, and ``varimp`` listing
              every feature;
@@ -403,7 +403,33 @@ Phases (any failure exits non-zero and prints no result line):
 47. archives — KMeans, PCA, SVD, NaiveBayes and IsotonicRegression
              trained on the card at 1M rows: each archive's numpy
              ``ScoringModel`` scores 4,096 rows as ``predict`` (labels
-             equal, values rtol 1e-4).
+             equal, values rtol 1e-4);
+48. AdaBoost, RuleFit — on the bench frame with a numeric response
+             ``yr`` (``add_columns``): launch counts set to 0 before
+             AdaBoost at its defaults (50 learners, depth 3) at 1M rows,
+             which must launch ``hist`` and ``split_records`` learners x
+             depth times and give bitwise the alphas, splits and leaf
+             values of the same fit through the port's plain versions
+             (``port_plain_route``) and of a second fit; timed at 10M
+             rows; RuleFit (30 generator trees, ``rules_and_linear``, its
+             L1 GLM at one lambda, ``RULEFIT_LAMBDA``) at 1M rows: trees
+             x depth launches, its rule columns bitwise the plain route's
+             generator's, a second fit bitwise, its GLM's coefficients
+             against the same GLM refitted with the Gram in f64;
+49. StackedEnsemble, GAM, ANOVAGLM, ModelSelection — at 1M rows (maxr
+             at 100k), each fit timed and profiled and bitwise a second,
+             and held against the same fit with the Gram (maxrsweep: its
+             cross products) in f64 on the card, each limit
+             (``COMP_LIMITS``) between the sound reading and the planted
+             faults' (TF32; a dropped row block); the SE's GBM base's
+             launches counted; maxrsweep also at 10M rows;
+50. archives — ``export_mojo`` of every exportable family trained on
+             the card, read back by ``import_mojo``: bitwise the
+             ``ScoringModel`` of ``to_archive()``; AdaBoost refused.
+             The kernels line gains ``hist (composite trains)`` and
+             ``split_records (composite trains)``: the launches of
+             AdaBoost's learners, RuleFit's generator and the SE's GBM
+             base, timed on one captured AdaBoost learner's levels.
 
 Phases 12 and 13 also time the three histogram paths of their captured
 trees (1M and 10M rows) in turns with the tiles without copies (which
@@ -440,11 +466,14 @@ import numpy as np
 T_START = time.perf_counter()
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 F32_OPS_PER_S = 67e12            # H100 SXM f32, outside the tensor cores
-REPS = 50
+REPS = 20
 # the plain versions and the one-call library yardsticks: tens of ms a
 # call at 10M rows, so a median of a few launches holds them
 YARDSTICK_REPS = 5
-SPIN_CYCLES = 20_000_000         # ~10 ms of device clock
+SPIN_CYCLES = 1_000_000          # ~0.5 ms of device clock, doubled
+                                 # where a call takes longer to enqueue,
+SPIN_MAX = 20_000_000            # up to ~10 ms (a call that synchronizes
+                                 # outlasts any spin)
 # the node-sparse kernels' launch counts of a train that grows no sparse
 # level
 NO_SLOT = {"hist (slot windows)": 0, "slot_compact": 0}
@@ -454,19 +483,43 @@ LARGE_BATCH = 600_000
 TURN_BATCHES = (1, 8, 64, 256, 1024)
 
 
+# seconds spent in cuda_ms and in device_profile, reported at each mark
+SPENT = {"cuda_ms": 0.0, "cuda_ms calls": 0, "profiles": 0.0,
+         "profile calls": 0}
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """``msg`` after the script's elapsed seconds."""
+    print(f"[{time.perf_counter() - T_START:7.1f}] {msg}", flush=True)
 
 
 def mark(phase: str) -> None:
-    """The script's elapsed seconds at the end of a phase."""
-    log(f"[{time.perf_counter() - T_START:.1f} s] {phase} done")
+    """The end of a phase, with the seconds so far in the timing helpers."""
+    log(f"{phase} done; so far {SPENT['cuda_ms']:.1f} s in "
+        f"{SPENT['cuda_ms calls']} cuda_ms calls, {SPENT['profiles']:.1f} s "
+        f"in {SPENT['profile calls']} profiled runs")
+
+
+_COLUMNS = {}                    # make_airlines_like's 10M-row columns
 
 
 def make_airlines_like(n):
     """The bench frame: bench.py's ``make_airlines_like`` (the same draws
     from ``np.random.default_rng(0)``), 5 numeric and 3 categorical
-    columns and a binary response."""
+    columns and a binary response.  The 10M-row columns are drawn once
+    and handed out read-only, in a new dict each call."""
+    if n == 10_000_000:
+        if n not in _COLUMNS:
+            cols, types, domains = _airlines_columns(n)
+            for v in cols.values():
+                v.setflags(write=False)
+            _COLUMNS[n] = cols, types, domains
+        cols, types, domains = _COLUMNS[n]
+        return dict(cols), dict(types), dict(domains)
+    return _airlines_columns(n)
+
+
+def _airlines_columns(n):
     rng = np.random.default_rng(0)
     cols = {
         "year": rng.integers(1987, 2008, n).astype(np.float32),
@@ -614,26 +667,37 @@ def probe_sass(native) -> dict:
 def cuda_ms(fn, reps: int = REPS, spin: bool = True) -> float:
     """Median time of one call between two CUDA events, over ``reps``.
 
-    With ``spin`` the stream is first held busy (``torch.cuda._sleep``,
-    about 10 ms) so the host has enqueued the call before the first
-    event fires: the events then hold device work only.  Without it
-    they also hold the time the device waits for the host to enqueue
+    With ``spin`` the stream is first held busy (``torch.cuda._sleep``)
+    so the host has enqueued the call before the first event fires: the
+    events then hold device work only.  Where the device reached the
+    first event before the host had enqueued the call, the sample is
+    dropped and the spin doubled, up to ``SPIN_MAX`` (a call that
+    synchronizes the host outlasts any spin).  Without ``spin`` the
+    events also hold the time the device waits for the host to enqueue
     the call (the wrapper's Python and the launch)."""
     import torch
+    t0 = time.perf_counter()
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    cycles = SPIN_CYCLES
+    while len(times) < reps:
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         if spin:
-            torch.cuda._sleep(SPIN_CYCLES)
+            torch.cuda._sleep(cycles)
         a.record()
         fn()
         b.record()
+        late = spin and cycles < SPIN_MAX and a.query()
         b.synchronize()
+        if late:
+            cycles = min(2 * cycles, SPIN_MAX)
+            continue
         times.append(a.elapsed_time(b))
+    SPENT["cuda_ms"] += time.perf_counter() - t0
+    SPENT["cuda_ms calls"] += 1
     return float(np.median(times))
 
 
@@ -742,11 +806,12 @@ def packed_plane(h, s):
     return h[:, s::3]
 
 
-def capture_levels(fr, XGBoost, hist):
-    """Train one tree with the histogram and records wrappers watched:
-    the inputs each level gave ``hist_varbin`` (with the tree's
-    fixed-point scale; a tree's own, also where the level launched it as
-    a batch of one) and ``split_records``."""
+def capture_levels(fr, XGBoost, hist, train=None):
+    """Train one tree (``train()`` if given, else one bench XGBoost tree)
+    with the histogram and records wrappers watched: the inputs each
+    level gave ``hist_varbin`` (with the tree's fixed-point scale; a
+    tree's own, also where the level launched it as a batch of one) and
+    ``split_records``."""
     hv, sr = [], []
     real_hv, real_sr = hist.hist_varbin, hist.split_records
 
@@ -767,7 +832,10 @@ def capture_levels(fr, XGBoost, hist):
 
     hist.hist_varbin, hist.split_records = spy_hv, spy_sr
     try:
-        XGBoost(ntrees=1, **BENCH_CFG).train(fr)
+        if train is None:
+            XGBoost(ntrees=1, **BENCH_CFG).train(fr)
+        else:
+            train()
     finally:
         hist.hist_varbin, hist.split_records = real_hv, real_sr
     return hv, sr
@@ -1334,24 +1402,46 @@ def host_op_us(n: int = 4000) -> float:
     return (time.perf_counter() - t0) / n * 1e6
 
 
+class DeviceOp:
+    """One device operation of a trace: its name (``key``), launches
+    (``count``) and device microseconds (``self_device_time_total``), the
+    fields of a ``key_averages`` entry."""
+    __slots__ = ("key", "count", "self_device_time_total")
+
+    def __init__(self, key):
+        self.key, self.count, self.self_device_time_total = key, 0, 0.0
+
+
 def device_profile(train):
-    """One profiled ``train()``: its device kernels (``key_averages``
-    entries with device time, the largest first) and their busy ms."""
+    """One profiled ``train()``, the device traced alone (CUPTI, no CPU op
+    events): its device operations (``DeviceOp``s with device time, the
+    largest first) and their busy ms.  The trace's raw events are summed
+    by name here: ``key_averages`` builds an event tree first, which
+    costs ~0.2 ms of host time an event."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         train()
         torch.cuda.synchronize()
-    # device kernels only: a user annotation on the device timeline (such
-    # as torch.optim's "Optimizer.step#...") spans kernels counted already
-    kern = [e for e in prof.key_averages()
-            if str(getattr(e, "device_type", "")).endswith("CUDA")
-            and e.self_device_time_total > 0
-            and not getattr(e, "is_user_annotation", False)
-            and not e.key.startswith("Optimizer.")]
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    return kern, sum(e.self_device_time_total for e in kern) / 1e3
+    ops = {}
+    for e in prof.profiler.kineto_results.events():
+        # device kernels, copies and sets; a user annotation on the device
+        # timeline (such as torch.optim's "Optimizer.step#...") spans
+        # kernels counted already
+        if e.device_type() != DeviceType.CUDA or e.is_user_annotation() \
+                or e.name().startswith("Optimizer."):
+            continue
+        op = ops.get(e.name()) or ops.setdefault(e.name(), DeviceOp(e.name()))
+        op.count += 1
+        op.self_device_time_total += e.duration_ns() / 1e3
+    kern = sorted((op for op in ops.values()
+                   if op.self_device_time_total > 0),
+                  key=lambda op: -op.self_device_time_total)
+    SPENT["profiles"] += time.perf_counter() - t0
+    SPENT["profile calls"] += 1
+    return kern, sum(op.self_device_time_total for op in kern) / 1e3
 
 
 def idle_share(busy_ms, wall_s):
@@ -3201,6 +3291,7 @@ def slot_headline(DRF, Frame, hist, shared, card, slot):
 
 IMPORT_ROWS = 10_000_000
 IMPORT_SMALL = 1_000_000
+STDLIB_ROWS = 250_000            # the stdlib tokenizer's rows (Python)
 # the bench's categorical codes: written as numbers, imported as "cat"
 IMPORT_CATS = {"carrier": "cat", "origin": "cat", "dest": "cat"}
 XGB_IMPORT_TREES = 20
@@ -3353,17 +3444,20 @@ def import_phase(Frame, tmp, card):
     small = os.path.join(tmp, "bench1m.csv")
     write_csv(small, cols, rows=IMPORT_SMALL)
     nat = import_file(small, col_types=IMPORT_CATS)
+    head = os.path.join(tmp, "bench_head.csv")
+    write_csv(head, cols, rows=STDLIB_ROWS)
     t0 = time.perf_counter()
-    names, raw = parse._parse_csv_stdlib(small, None, None, None)
+    names, raw = parse._parse_csv_stdlib(head, None, None, None)
     std = Frame(names, [parse._column_to_vec(raw[c], c, IMPORT_CATS.get(c))
                         for c in names])
     torch.cuda.synchronize()
     std_s = time.perf_counter() - t0
-    frames_bitwise(nat, std, "stdlib engine vs native", same_domains=False)
+    frames_bitwise(import_file(head, col_types=IMPORT_CATS), std,
+                   "stdlib engine vs native", same_domains=False)
     log(f"import checks: every column of the {n}-row import bitwise "
         f"Frame.from_numpy with the parser's domains (labels '0.0', '1.0', "
         f"... of the codes, sorted as strings); a second import "
-        f"({imp2_s:.3f} s) bitwise the first; the first {IMPORT_SMALL} rows "
+        f"({imp2_s:.3f} s) bitwise the first; the first {STDLIB_ROWS} rows "
         f"through the stdlib engine ({std_s:.2f} s) bitwise the native "
         f"engine's (the same codes; labels '5' for '5.0') {card}")
     return fr, exp, cols, small, nat
@@ -4531,37 +4625,15 @@ def option_responses(cols, seed=36):
     return out
 
 
-@contextlib.contextmanager
 def port_plain_route(hist):
     """``hist_varbin``, ``hist_uniform``, ``split_records`` (every form)
     and ``slot_compact`` swapped for the port's own plain torch versions
     on the card while the block runs (``plain_route`` swaps in this
     script's f64 histograms instead): the fixed-point contract makes a
-    train through them bitwise the kernels' train."""
-    real = (hist.hist_varbin, hist.hist_uniform, hist.split_records,
-            hist.slot_compact)
-
-    def varbin(gcodes, leaf, stats, L, bc, B, scale=None, row_start=None):
-        return hist.hist_varbin_torch(gcodes, leaf, stats, L,
-                                      hist.packed_layout(tuple(bc), B),
-                                      scale)
-
-    def uniform(codes, leaf, stats, L, B, planes=3, scale=None,
-                row_start=None):
-        return hist.hist_uniform_torch(codes, leaf, stats, L, B, planes,
-                                       scale)
-
-    def records(Hist, nbins, *args, mono=None):
-        return hist._split_records_torch(Hist, *args, mono)
-
-    (hist.hist_varbin, hist.hist_uniform, hist.split_records,
-     hist.slot_compact) = (varbin, uniform, records,
-                           hist.slot_compact_torch)
-    try:
-        yield
-    finally:
-        (hist.hist_varbin, hist.hist_uniform, hist.split_records,
-         hist.slot_compact) = real
+    train through them bitwise the kernels' train
+    (``h2o3_tpu_torch.testing.plain_route``)."""
+    from h2o3_tpu_torch.testing import plain_route as port_route
+    return port_route(hist)
 
 
 def launches_of(kernels):
@@ -5081,9 +5153,9 @@ def option_phases(Frame, XGBoost, GBM, DRF, kernels, hist, shared, gbm,
 
 SCAN_TREES = 20                 # phase 40's trains at 1M rows
 SCAN_ROUNDS = 5                 # its K = 3 rounds and cohort rounds
-SCAN_WARM, SCAN_TIMED = 20, 50  # phase 41's trees (rounds) at 10M rows
+SCAN_WARM, SCAN_TIMED = 5, 20   # phase 41's trees (rounds) at 10M rows
 SCAN_PROFILE = 20               # the profiled train of each program
-SHAP_ROWS = 256                 # phase 42's rows
+SHAP_ROWS = 64                  # phase 42's rows
 # phase 42: a row's TreeSHAP contributions plus BiasTerm (an f64 sum)
 # against the f32 margin of the card's traversal: 20 trees of f32 adds
 # leave each margin within ~20 ulps (~1e-6 at |F| < 8)
@@ -6356,6 +6428,556 @@ def algo_phases(Frame, card):
     log(f"phases 43-47 {time.perf_counter() - t0:.1f} s {card}")
 
 
+# ------------------------------------------- phases 48-50: composites
+COMP_ROWS = 1_000_000            # the fits held against their oracles
+COMP_TIMED_ROWS = 10_000_000     # AdaBoost's and maxrsweep's timed fits
+COMP_SELECT_ROWS = 100_000       # maxr: ~60 GLM fits of a subset each
+COMP_EXPORT_ROWS = 20_000        # the archives' trains
+# RuleFit's L1 GLM at one lambda: a fit runs its 50 IRLS iterations of
+# host coordinate descent at any lambda (PERF.md §6), the search 30
+RULEFIT_LAMBDA = 1e-3
+COMP_IGNORED = ["fold"]
+# each family's limit against its f64 oracle on the card, between the
+# sound reading and the planted faults' (TF32; a dropped row block):
+# sound / TF32 / dropped as PERF.md §6 records them (NVIDIA H100 80GB
+# HBM3, 700 W; every reading repeats bitwise, each fit being
+# deterministic)
+COMP_LIMITS = {
+    # the rule design is singular (a rule is the sum of its two
+    # children's): its L1 coefficients are not unique, and the f32 and
+    # f64 solves part on its ties (2.645e-3; fitted values 6.827e-4);
+    # phase 31's coefficient limit, which its planted faults break
+    "rulefit coefficients": 1e-2,
+    # the metalearner's coefficients: 2.430e-6 / 2.462e-4 / inf
+    "stackedensemble coefficients": 3e-5,
+    # GAM cr, binomial, probabilities: 7.161e-4 / 2.569e-3 / 3.653e-2
+    # (the GLM's IRLS stops at beta_epsilon, phase 31's 1e-3 regime)
+    "gam probabilities": 1.5e-3,
+    # ANOVAGLM binomial, ss or probabilities: 4.269e-4 / 1.420e-2 /
+    # 3.131e-2
+    "anovaglm": 2e-3,
+    # maxrsweep, 1 predictor: 5.159e-6 / 1.654e-3 / 4.401e-4
+    "maxrsweep": 1e-4,
+}
+
+
+def composite_frame(n, Frame):
+    """The bench frame at ``n`` rows with ``add_columns``' fold column
+    (ignored) and numeric response ``yr``, on the card."""
+    cols, types, domains = make_airlines_like(n)
+    cols = add_columns(cols, n, 48)
+    return cols, Frame.from_numpy(cols, types=types, domains=domains)
+
+
+def cross_products_f64(X, y, w):
+    """``modelselection.cross_products`` with the product in f64 on the
+    card: the oracle of maxrsweep's f32 one (its own 1 GiB row blocks)."""
+    import torch
+    N, P = X.shape
+    rb = max(1, (1 << 30) // (8 * (P + 1)))
+    C = torch.zeros((P + 1, P + 1), dtype=torch.float64, device=X.device)
+    for r0 in range(0, N, rb):
+        Zb = torch.cat([X[r0:r0 + rb], y[r0:r0 + rb, None]], dim=1).double()
+        C.addmm_((Zb * w[r0:r0 + rb, None].double()).t(), Zb)
+    return C
+
+
+@contextlib.contextmanager
+def gram_variant(kind, glm, datainfo, ms):
+    """The GLM Gram and maxrsweep's cross products as they are (None), in
+    f64 ("f64", the oracle; the cross products rounded to f64 once, where
+    the port's round to f32), or under a planted fault: TF32 allowed
+    ("tf32"), or the last row block dropped ("dropped":
+    ``without_last_block`` for the Gram, ``last_block_dropped`` for the
+    cross products)."""
+    real_gram, real_cp = glm.weighted_gram, ms.cross_products
+    if kind == "f64":
+        glm.weighted_gram = gram_f64
+        ms.cross_products = cross_products_f64
+    elif kind == "dropped":
+        glm.weighted_gram = without_last_block(glm, real_gram)
+    try:
+        if kind == "tf32":
+            with tf32_allowed():
+                yield
+        elif kind == "dropped":
+            with last_block_dropped(datainfo):
+                yield
+        else:
+            yield
+    finally:
+        glm.weighted_gram, ms.cross_products = real_gram, real_cp
+
+
+FAULTS = {"tf32": "TF32 allowed", "dropped": "last row block dropped"}
+
+
+def held_fit(what, make, gap, limit, mods, card, oracle=True, same=None):
+    """A fit timed and profiled (``fit_report``: seconds a fit, busy,
+    idle share), the profiled second fit bitwise the first (``same(m,
+    m2)`` raises otherwise); with ``oracle`` the sound reading ``gap(m,
+    m64)`` against the same fit with the f64 Gram or product within
+    ``limit`` and the two planted faults' readings beyond it.  Returns
+    the first model."""
+    m, m2 = fit_report(what, make, card)
+    if same is not None:
+        same(m, m2)
+    if not oracle:
+        return m
+    with gram_variant("f64", *mods):
+        m64 = make()
+    planted = {}
+    for kind, label in FAULTS.items():
+        with gram_variant(kind, *mods):
+            v = fault_gap(lambda: gap(make(), m64), 1)
+        planted[label] = v[0] if isinstance(v, tuple) else v
+    hold(what, gap(m, m64), planted, limit, card)
+    return m
+
+
+def coef_gap(key):
+    """The relative gap of two fits' GLM coefficients; ``key`` names the
+    output holding the GLM's DKV key (None: the model is the GLM)."""
+    from h2o3_tpu_torch.runtime import dkv
+
+    def gap(m, ref):
+        a, b = ((dkv.get(x.output[key]) if key else x) for x in (m, ref))
+        return rel_gap(a.output["beta_std_flat"], b.output["beta_std_flat"])
+    return gap
+
+
+def prob_gap(frame, key, col):
+    """The largest difference of two fits' ``col`` probabilities on
+    ``frame`` (as phase 31's third reading); ``key`` names the output
+    holding the GLM's DKV key.  Fitted values, unlike the coefficients
+    of the bench frame's rare one-hot levels, are well determined."""
+    from h2o3_tpu_torch.runtime import dkv
+
+    def gap(m, ref):
+        p, q = ((dkv.get(x.output[key]) if key else x) for x in (m, ref))
+        return rel_gap(p.predict(frame).vec(col).to_numpy(),
+                       q.predict(frame).vec(col).to_numpy())
+    return gap
+
+
+def same_coefs(key, what):
+    """A second fit's GLM coefficients bitwise the first's."""
+    from h2o3_tpu_torch.runtime import dkv
+
+    def same(m, m2):
+        a, b = (dkv.get(x.output[key]).output["beta_std_flat"]
+                for x in (m, m2))
+        if not np.array_equal(np.asarray(a), np.asarray(b)):
+            raise AssertionError(f"{what}: a second card fit differs")
+    return same
+
+
+def composite_launches(kernels, counted, name, want):
+    """The ``hist`` and ``split_records`` launches of one composite
+    train since ``counted`` (a ``launches_of`` snapshot), held to
+    ``want`` of each and no other training kernel."""
+    now = launches_of(kernels)
+    got = {k: now[k] - counted[k] for k in now}
+    check_launches(name, got, {"hist": want, "split_records": want})
+    log(f"{name}: hist {got['hist']}, split_records "
+        f"{got['split_records']} launches (expected {want} each)")
+    return got
+
+
+def same_learners(m, m2, what):
+    """Two AdaBoost fits bitwise: alphas and every learner's levels and
+    leaf values."""
+    import torch
+    if m.output["alphas"] != m2.output["alphas"]:
+        raise AssertionError(f"{what}: the alphas differ")
+    a, b = m.output["stacked"], m2.output["stacked"]
+    for la, lb in zip(a.levels, b.levels):
+        for u, v in zip(la, lb):
+            if not torch.equal(u, v):
+                raise AssertionError(f"{what}: a learner's splits differ")
+    if not torch.equal(a.values, b.values):
+        raise AssertionError(f"{what}: the leaf values differ")
+
+
+def adaboost_phase(fr, fr10, kernels, hist, card):
+    """Phase 48, AdaBoost at its defaults (50 learners, depth 3): at 1M
+    rows learners x depth launches of ``hist`` and ``split_records``,
+    bitwise (alphas, splits, leaf values) the same fit through the port's
+    plain versions and a second fit; timed and profiled at 10M rows.
+    Returns (its launches, the captured levels of one learner)."""
+    import torch
+    from h2o3_tpu_torch.models import AdaBoost
+    cfg = dict(response_column="dep_delayed_15min",
+               ignored_columns=COMP_IGNORED + ["yr"], seed=48)
+    counted = launches_of(kernels)
+    m, secs = fit_timed(lambda: AdaBoost(**cfg).train(fr))
+    depth = m.output["stacked"].depth
+    built = m.output["ntrees_trained"] + int(
+        m.output["ntrees_trained"] < m.params.nlearners)
+    tally = composite_launches(kernels, counted, "AdaBoost at 1M rows",
+                               built * depth)
+    with port_plain_route(hist):
+        mp = AdaBoost(**cfg).train(fr)
+    same_learners(m, mp, "AdaBoost through the port's plain versions")
+    m2 = AdaBoost(**cfg).train(fr)
+    same_learners(m, m2, "AdaBoost, a second fit")
+    a = m.output["alphas"]
+    log(f"AdaBoost at {fr.nrows} rows {card}: {secs:.3f} s a fit, "
+        f"{len(a)} learners of depth {depth}, alphas {a[0]:.6g} .. "
+        f"{a[-1]:.6g}, AUC {m.training_metrics.auc:.6f}; every learner's "
+        f"splits, leaf values and alpha bitwise the plain route's and a "
+        f"second fit's")
+    hv, sr = capture_levels(fr, None, hist, train=lambda: AdaBoost(
+        **dict(cfg, nlearners=1)).train(fr))
+    if not len(hv) == len(sr) == depth:
+        raise AssertionError(f"an AdaBoost learner's levels: {len(hv)} "
+                             f"packed hist and {len(sr)} records launches "
+                             f"captured, {depth} levels")
+    m10, m10b = fit_report(f"AdaBoost at {fr10.nrows} rows",
+                           lambda: AdaBoost(**cfg).train(fr10), card)
+    same_learners(m10, m10b, "AdaBoost at 10M rows, a second fit")
+    torch.cuda.synchronize()
+    return tally, hv, sr
+
+
+def rulefit_phase(fr, kernels, hist, mods, card):
+    """Phase 48, RuleFit at its defaults (30 generator trees of depth 3,
+    ``rules_and_linear``) with one lambda at 1M rows on ``yr``: its
+    generator's trees x depth launches; its rule columns bitwise those of
+    the plain route's generator; a second fit bitwise; its L1
+    GLM's coefficients against the same GLM refitted over its rule frame
+    with the Gram in f64 (limit as phase 31's; phase 31's planted faults
+    break it there), the fitted values' gap printed.  Returns its
+    launches."""
+    import torch
+    from h2o3_tpu_torch.models import GLM, RuleFit
+    from h2o3_tpu_torch.runtime import dkv
+    cfg = dict(response_column="yr", ignored_columns=COMP_IGNORED
+               + ["dep_delayed_15min"], seed=48, lambda_=RULEFIT_LAMBDA)
+    counted = launches_of(kernels)
+    t0 = time.perf_counter()
+    rf, secs = fit_timed(lambda: RuleFit(**cfg).train(fr))
+    tally = composite_launches(
+        kernels, counted, "RuleFit's generator at 1M rows",
+        rf.params.rule_generation_ntrees * rf.params.max_rule_length)
+    with port_plain_route(hist):
+        gen_plain = RuleFit(**cfg)._grow_generator(fr)
+    plain = type(rf)(rf.key + "_plain", rf.params, rf.datainfo)
+    plain.output.update(rf.output, rule_model_key=gen_plain.key)
+    R = rf.rule_columns(fr)
+    if not torch.equal(R.view(torch.int32),
+                       plain.rule_columns(fr).view(torch.int32)):
+        raise AssertionError("RuleFit's rule columns differ from the plain "
+                             "route's")
+    log(f"RuleFit at {fr.nrows} rows {card}: {R.shape[0]} rules of "
+        f"{rf.params.rule_generation_ntrees} trees, the [R, N] rule "
+        f"columns bitwise the plain route's generator's "
+        f"({time.perf_counter() - t0:.1f} s since the fit began)")
+    del R
+    # the second fit untraced: tracing its ~36,000 device ops costs ~10 s
+    # of host time (its busy and idle share: PERF.md §6)
+    same_coefs("glm_key", "RuleFit")(rf, RuleFit(**cfg).train(fr))
+    log(f"RuleFit at {fr.nrows} rows (L1 GLM at lambda {RULEFIT_LAMBDA:g}) "
+        f"{card}: {secs:.3f} s a fit; a second fit bitwise")
+    glm_m = dkv.get(rf.output["glm_key"])
+    gframe = rf._glm_frame(fr, with_response=True)
+    t1 = time.perf_counter()
+    with gram_variant("f64", *mods):
+        g64 = GLM(response_column="yr", alpha=1.0, lambda_=RULEFIT_LAMBDA,
+                  seed=48).train(gframe)
+    log(f"RuleFit's L1 GLM refitted with the Gram in f64 {card}: "
+        f"{time.perf_counter() - t1:.3f} s ({irls_iterations(g64)} IRLS "
+        f"iterations); the phase's RuleFit {time.perf_counter() - t0:.1f} "
+        f"s so far")
+    p, p64 = (x.predict(gframe).vec("predict").to_numpy()
+              for x in (glm_m, g64))
+    gap = coef_gap(None)(glm_m, g64)
+    hold(f"RuleFit's L1 GLM coefficients against the f64 Gram's "
+         f"({irls_iterations(glm_m)} IRLS iterations, "
+         f"{int(np.count_nonzero(glm_m.output['beta_std_flat']))} of "
+         f"{len(glm_m.output['beta_std_flat'])} non-zero; fitted values "
+         f"{rel_gap(p, p64):.3e} of the largest)", gap, {},
+         COMP_LIMITS["rulefit coefficients"], card)
+    return tally
+
+
+def ensemble_phase(fr, kernels, mods, card):
+    """Phase 49, StackedEnsemble: a GBM (20 trees) and a GLM base at 1M
+    rows, each with nfolds=3 and kept CV predictions (the GBM's launches
+    counted: 4 trains x 20 trees x depth), a GLM metalearner; the fit
+    (the GLM base and the metalearner) timed, profiled and bitwise a
+    second, and its metalearner held against the same fit with the
+    Grams in f64, two planted faults.  Returns the GBM's launches."""
+    import torch
+    from h2o3_tpu_torch import models
+    binary = dict(response_column="dep_delayed_15min",
+                  ignored_columns=COMP_IGNORED + ["yr"], seed=49)
+    cv = dict(binary, nfolds=3, keep_cross_validation_predictions=True)
+    counted = launches_of(kernels)
+    gbm_base, secs = fit_timed(lambda: models.GBM(ntrees=20, **cv)
+                               .train(fr))
+    tally = composite_launches(
+        kernels, counted, "StackedEnsemble's GBM base (nfolds=3) at 1M "
+        "rows", 4 * 20 * gbm_base.output["stacked"].depth)
+    log(f"StackedEnsemble's GBM base at {fr.nrows} rows {card}: "
+        f"{secs:.3f} s (4 trains of 20 trees)")
+
+    def se():
+        return models.StackedEnsemble(
+            base_models=[gbm_base, models.GLM(**cv).train(fr)],
+            **binary).train(fr)
+    held_fit(f"StackedEnsemble (a GLM base with nfolds=3 and the GLM "
+             f"metalearner) at {fr.nrows} rows", se,
+             coef_gap("metalearner_key"),
+             COMP_LIMITS["stackedensemble coefficients"], mods, card,
+             same=same_coefs("metalearner_key", "StackedEnsemble"))
+    drop_designs(fr)
+    torch.cuda.synchronize()
+    return tally
+
+
+def gam_anova_phase(fr, mods, card):
+    """Phase 49, GAM (``cr`` on the binary response held against the f64
+    Gram with two planted faults; ``tp`` over two columns and the
+    monotone ``is`` on ``yr`` timed and bitwise a second fit) and
+    ANOVAGLM on the binary response (its table and full model against
+    the f64 Gram's, two planted faults), at 1M rows."""
+    from h2o3_tpu_torch import models
+    from h2o3_tpu_torch.runtime import dkv
+    reg = dict(response_column="yr",
+               ignored_columns=COMP_IGNORED + ["dep_delayed_15min"], seed=49)
+    # the held fits take the binary response: a gaussian fit's weights
+    # are 1, and TF32 rounds nothing of the one-hot columns' products, so
+    # it moved the yr fits' coefficients by about f32's own error over
+    # 1M rows (4.919e-5 against 2.5e-5, PERF.md §6); the IRLS weights of
+    # a binomial fit are not exact in TF32 (phase 31)
+    binary = dict(response_column="dep_delayed_15min",
+                  ignored_columns=COMP_IGNORED + ["yr"], seed=49)
+    for bs, gcols, kw in (("cr", ["crs_dep_time"], binary),
+                          ("tp", [["crs_dep_time", "distance"]], reg),
+                          ("is", ["distance"], reg)):
+        # GAM's GLM takes every column of the frame but the smooths' (as
+        # in the JAX package, whatever ignored_columns says): give it the
+        # features and the response only
+        frg = fr[[c for c in fr.names if c not in kw["ignored_columns"]]]
+
+        def gam_gap(m, ref):           # on the GAM's expanded frame
+            return prob_gap(m._expand(frg), "glm_key", "YES")(m, ref)
+        held_fit(f"GAM bs={bs} on {kw['response_column']} at {fr.nrows} "
+                 f"rows", lambda: models.GAM(gam_columns=gcols, bs=bs, **kw)
+                 .train(frg), gam_gap,
+                 COMP_LIMITS["gam probabilities"], mods, card,
+                 oracle=bs == "cr", same=same_coefs("glm_key", "GAM"))
+    del frg
+
+    def anova_gap(m, ref):
+        """The sums of squares' largest difference over the full
+        deviance, or the full model's probabilities', the larger."""
+        dev = dkv.get(ref.output["full_model"]).output["residual_deviance"]
+        ss = max(abs(a["ss"] - b["ss"]) for a, b in zip(
+            m.output["anova_table"], ref.output["anova_table"])) / dev
+        return max(ss, prob_gap(fr, "full_model", "YES")(m, ref))
+
+    def same_table(m, m2):
+        if repr(m.output["anova_table"]) != repr(m2.output["anova_table"]):
+            raise AssertionError("ANOVAGLM: a second card fit differs")
+    a = held_fit(f"ANOVAGLM (binomial) at {fr.nrows} rows",
+                 lambda: models.ANOVAGLM(**binary).train(fr), anova_gap,
+                 COMP_LIMITS["anovaglm"], mods, card, same=same_table)
+    log("ANOVAGLM table: " + "; ".join(
+        f"{r['predictor']} df {r['df']:g} F {r['f']:.4g} p {r['p']:.3e}"
+        for r in a.output["anova_table"]))
+    drop_designs(fr)
+
+
+def selection_phase(Frame, fr, fr10, mods, card):
+    """Phase 49, ModelSelection on ``yr``: ``maxrsweep`` at 1M rows for
+    one predictor timed, profiled, bitwise a second fit and held against
+    the same search with the cross products in f64, two planted faults;
+    its 3-predictor search timed at 10M rows; ``maxr`` for 3 predictors
+    at 100k rows (each candidate a GLM fit) timed, profiled and
+    bitwise."""
+    from h2o3_tpu_torch import models
+    reg = dict(response_column="yr",
+               ignored_columns=COMP_IGNORED + ["dep_delayed_15min"], seed=49)
+
+    def sweep_gap(m, ref):
+        if [r["predictors"] for r in m.output["subsets"]] != \
+                [r["predictors"] for r in ref.output["subsets"]]:
+            return float("inf")
+        return max(max(rel_gap(list(r["coefficients"].values()),
+                               list(q["coefficients"].values())),
+                       abs(r["metric"] - q["metric"]))
+                   for r, q in zip(m.output["subsets"],
+                                   ref.output["subsets"]))
+
+    def same_subsets(m, m2):
+        def key(x):          # every size's subset, R2 and coefficients
+            return repr([{k: v for k, v in r.items() if k != "model_key"}
+                         for r in x.output["subsets"]])
+        if key(m) != key(m2):
+            raise AssertionError("ModelSelection: a second card fit "
+                                 "differs")
+
+    def sweep(frame, k):
+        return lambda: models.ModelSelection(
+            mode="maxrsweep", max_predictor_number=k, **reg).train(frame)
+    held_fit(f"ModelSelection maxrsweep (1 predictor) at {fr.nrows} rows",
+             sweep(fr, 1), sweep_gap, COMP_LIMITS["maxrsweep"], mods, card,
+             same=same_subsets)
+    drop_designs(fr)
+    # host sweeps (the 1M search's busy and idle share above): one fit,
+    # timed; its second fit bitwise is the 1M search's
+    sw, secs = fit_timed(sweep(fr10, 3))
+    log(f"ModelSelection maxrsweep (3 predictors) at {fr10.nrows} rows "
+        f"{card}: {secs:.3f} s a fit")
+    drop_designs(fr10)
+    _, frs = composite_frame(COMP_SELECT_ROWS, Frame)
+    mx = held_fit(f"ModelSelection maxr (3 predictors) at {frs.nrows} rows",
+                  lambda: models.ModelSelection(
+                      mode="maxr", max_predictor_number=3, **reg)
+                  .train(frs), None, None, mods, card, oracle=False,
+                  same=same_subsets)
+    log("ModelSelection subsets (maxr at 100k rows | maxrsweep at 10M): "
+        + "; ".join(f"{r['size']}: {', '.join(r['predictors'])} R2 "
+                    f"{r['metric']:.6f} | {', '.join(q['predictors'])} R2 "
+                    f"{q['metric']:.6f}" for r, q in zip(
+                        mx.output["subsets"], sw.output["subsets"])))
+
+
+def export_phase(Frame, card):
+    """Phase 50: ``export_mojo`` of every exportable family trained on
+    the card (20k rows of the bench frame), read back by ``import_mojo``:
+    its scores of 4,096 rows bitwise the ``ScoringModel`` of
+    ``to_archive()``; AdaBoost refused (``no portable export``)."""
+    import tempfile
+    from h2o3_tpu_torch import models
+    from h2o3_tpu_torch.export.mojo import (export_mojo, from_reference,
+                                            import_mojo)
+    t_phase = time.perf_counter()
+    n, k = COMP_EXPORT_ROWS, 4096
+    cols, fr = composite_frame(n, Frame)
+    rows = {c: np.asarray(v)[:k] for c, v in cols.items()}
+    sup = dict(response_column="dep_delayed_15min",
+               ignored_columns=COMP_IGNORED + ["yr"], seed=50)
+    unsup = dict(ignored_columns=COMP_IGNORED + ["yr", "dep_delayed_15min"],
+                 seed=50)
+    builders = [
+        models.GBM(ntrees=5, **sup), models.XGBoost(ntrees=5, **sup),
+        models.DRF(ntrees=3, **sup), models.DecisionTree(max_depth=6, **sup),
+        models.GLM(**sup), models.DeepLearning(hidden=(16,), epochs=1.0,
+                                               **sup),
+        models.IsolationForest(ntrees=5, **unsup),
+        models.KMeans(k=5, **unsup), models.PCA(k=3, **unsup),
+        models.SVD(nv=3, **unsup), models.NaiveBayes(**sup),
+    ]
+    iso = Frame.from_numpy({"distance": cols["distance"], "yr": cols["yr"]})
+    done = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for b in builders + [models.IsotonicRegression(
+                response_column="yr")]:
+            m = b.train(iso if b.algo == "isotonicregression" else fr)
+            path = export_mojo(m, os.path.join(tmp, f"{m.algo}.zip"))
+            got = import_mojo(path).predict(rows)
+            want = from_reference(*m.to_archive()).predict(rows)
+            for key in want:
+                a, w = np.asarray(got[key]), np.asarray(want[key])
+                if a.dtype != w.dtype or not np.array_equal(
+                        a, w, equal_nan=a.dtype.kind == "f"):
+                    raise AssertionError(f"the {m.algo} archive read back "
+                                         f"scores {key} otherwise")
+            done.append(m.algo)
+        ada = models.AdaBoost(nlearners=2, **sup).train(fr)
+        try:
+            export_mojo(ada, os.path.join(tmp, "no.zip"))
+        except ValueError as e:
+            if "no portable export" not in str(e):
+                raise
+        else:
+            raise AssertionError("export_mojo wrote an AdaBoost archive")
+    log(f"export_mojo {card}: {done} written, read back by import_mojo "
+        f"and scoring {k} rows bitwise as to_archive()'s ScoringModel; "
+        f"adaboost refused (no portable export)")
+    log(f"phase 50 (archives) {time.perf_counter() - t_phase:.1f} s")
+
+
+def composite_phases(Frame, kernels, hist, card):
+    """Phases 48-50: the composite builders and the archive writer, on
+    the bench frame at full width (rows cut per fit, PERF.md).  Returns
+    the kernel rows of the composite trains: ``hist`` and
+    ``split_records`` with the launches of AdaBoost's learners, RuleFit's
+    generator and the StackedEnsemble's GBM base (counts set to 0 before
+    the first), timed on the levels of one captured AdaBoost learner at
+    1M rows."""
+    import torch
+    from h2o3_tpu_torch.models import datainfo, glm
+    from h2o3_tpu_torch.models import modelselection as ms
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls are on: the composites' GLM "
+                             "Grams must be full f32")
+    t0 = time.perf_counter()
+    mods = (glm, datainfo, ms)
+    _, fr = composite_frame(COMP_ROWS, Frame)
+    _, fr10 = composite_frame(COMP_TIMED_ROWS, Frame)
+    log(f"composite frames: {fr.nrows} and {fr10.nrows} rows on the card "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for k in kernels:
+        k.launches = 0
+    tally, hv, sr = adaboost_phase(fr, fr10, kernels, hist, card)
+    got = rulefit_phase(fr, kernels, hist, mods, card)
+    tally = {k: tally[k] + got[k] for k in tally}
+    drop_designs(fr)
+    log(f"phase 48 (AdaBoost, RuleFit) {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    got = ensemble_phase(fr, kernels, mods, card)
+    tally = {k: tally[k] + got[k] for k in tally}
+    gam_anova_phase(fr, mods, card)
+    selection_phase(Frame, fr, fr10, mods, card)
+    del fr, fr10
+    drop_designs()
+    log(f"phase 49 (StackedEnsemble, GAM, ANOVAGLM, ModelSelection) "
+        f"{time.perf_counter() - t1:.1f} s")
+    export_phase(Frame, card)
+    err = {"hist": 0.0}
+    for g, leaf, st, L, bc, B, sc in hv:
+        want = hist.hist_varbin_torch(g, leaf, st, L,
+                                      hist.packed_layout(bc, B), sc)
+        got_h = hist.hist_varbin(g, leaf, st, L, bc, B, sc)
+        torch.cuda.synchronize()
+        err["hist"] = max(err["hist"], max_diff(got_h, want))
+        if err["hist"] != 0.0:
+            raise AssertionError("hist_varbin != plain on an AdaBoost "
+                                 "learner's level")
+    err["split_records"] = check_records(sr, hist, "AdaBoost learner")
+    tot = time_train_kernels(hv, sr, hist, "AdaBoost learner, 1M rows")
+    del hv, sr
+    rows = []
+    for kname, src, rep, lib in (
+            ("hist", "h2o3_tpu_torch/csrc/hist.cu",
+             "h2o3_tpu/models/tree/hist.py:256; "
+             "h2o3_tpu/models/tree/hist.py:80", True),
+            ("split_records", "h2o3_tpu_torch/csrc/split_records.cu",
+             "h2o3_tpu/models/tree/hist.py:1526", False)):
+        v = tot[kname]
+        rows.append({
+            "name": f"{kname} (composite trains)", "route": "cuda",
+            "source": src, "replaces": rep, "launches": tally[kname],
+            "max_abs_err": err[kname], "ms": v[0], "plain_ms": v[1],
+            "bound_ms": v[2], "bound_by": bound(v[4], v[5])[1],
+            "library_ms": v[3] if lib else None,
+        })
+    log(f"composite trains' launches {card}: hist {tally['hist']}, "
+        f"split_records {tally['split_records']} (AdaBoost's learners, "
+        f"RuleFit's generator, the StackedEnsemble's GBM base); per "
+        f"AdaBoost learner at 1M rows: " + "; ".join(
+            f"{r['name']} {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
+            f"bound {r['bound_ms']:.5f})" for r in rows))
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 matmuls came on during phases 48-50")
+    log(f"phases 48-50 {time.perf_counter() - t0:.1f} s {card}")
+    return rows
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -6496,7 +7118,7 @@ def main() -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    log(smi)                            # as nvidia-smi gives it
+    print(smi, flush=True)              # as nvidia-smi gives it
     log(f"device: {name} | torch {torch.__version__} cuda "
         f"{torch.version.cuda} | count {torch.cuda.device_count()}")
     card = f"({smi})"
@@ -6973,6 +7595,9 @@ def main() -> dict:
                 card)
     # ------------ 43-47 unsupervised, survival and feature engineering
     algo_phases(Frame, card)
+    mark("phases 43-47")
+    # ----------------- 48-50 the composite builders and the archive writer
+    rows += composite_phases(Frame, kernels_train, hist, card)
 
     return {"kernels": [traverse_row] + rows, "device": device}
 

@@ -30,12 +30,16 @@ online scoring plane and the tree-training main path:
   (PCA and SVD), ``glrm``, ``naivebayes``, ``quantile`` (with the
   ``quantile`` function), ``isotonic``, ``coxph``, ``psvm``,
   ``targetencoder`` and ``word2vec`` (cuBLAS f32 products reduced over
-  row blocks, host f64 solves, the JAX package's numpy draws).
+  row blocks, host f64 solves, the JAX package's numpy draws), and the
+  composite builders that fit through GLM and the trees: ``adaboost``,
+  ``rulefit``, ``ensemble`` (StackedEnsemble), ``gam``, ``anovaglm``
+  and ``modelselection``.
 * ``metrics`` — binomial (with gains/lift), multinomial, regression and
   uplift metrics, and a custom metric.
-* ``export``  — the numpy ``ScoringModel``, the archive reader
-  (``import_mojo``) and ``from_reference`` for models trained by the
-  JAX package or by the port (``model.to_archive()``).
+* ``export``  — the numpy ``ScoringModel``, the archive writer
+  (``export_mojo``) and reader (``import_mojo``), and ``from_reference``
+  for models trained by the JAX package or by the port
+  (``model.to_archive()``).
 * ``serving`` — the bitpacked ensemble (``pack``), the device scorer
   with its CUDA traversal kernel (``kernel``), and the micro-batcher
   with the published-model registry (``batcher``).
@@ -45,10 +49,18 @@ online scoring plane and the tree-training main path:
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
+from .export.mojo import export_mojo, import_mojo
 from .frame.parse import H2OFrame, import_file, upload_string
-from .models import (PSVM, SVD, Aggregator, CoxPH, GLRM, IsotonicRegression,
-                     KMeans, NaiveBayes, PCA, Quantile, TargetEncoder,
-                     Word2Vec, quantile)
+from .models import (ANOVAGLM, GAM, PSVM, SVD, AdaBoost, AdaBoostModel,
+                     AdaBoostParameters, Aggregator, ANOVAGLMModel,
+                     ANOVAGLMParameters, CoxPH, GAMModel, GAMParameters,
+                     GLRM, IsotonicRegression, KMeans, ModelSelection,
+                     ModelSelectionModel, ModelSelectionParameters,
+                     NaiveBayes, PCA, Quantile, RuleFit, RuleFitModel,
+                     RuleFitParameters, StackedEnsemble,
+                     StackedEnsembleModel, StackedEnsembleParameters,
+                     TargetEncoder, Word2Vec, quantile)
+from .models import COMPOSITES
 from .models.deeplearning import DeepLearning, DeepLearningParameters
 from .models.glm import GLM, GLMParameters
 from .models.tree.gbm import GBM
@@ -58,4 +70,5 @@ __all__ = ["Aggregator", "CoxPH", "DeepLearning", "DeepLearningParameters",
            "GBM", "GLM", "GLMParameters", "GLRM", "H2OFrame",
            "IsotonicRegression", "KMeans", "NaiveBayes", "PCA", "PSVM",
            "Quantile", "SVD", "TargetEncoder", "Word2Vec", "XGBoost",
-           "import_file", "quantile", "upload_string"]
+           "export_mojo", "import_file", "import_mojo", "quantile",
+           "upload_string"] + list(COMPOSITES)

@@ -1,8 +1,10 @@
-"""Portable model archive reader, and the carrier from the JAX package.
+"""Portable model archive writer and reader, and the carrier from the
+JAX package.
 
 The archive is the JAX package's format (``h2o3_tpu/export/mojo.py``
 ``export_mojo``): a zip holding ``model.json`` (algo, featurization
 layout, link/metadata) and ``arrays.npz`` (the learned tensors).
+``export_mojo`` writes a model's ``to_archive()`` pair into one;
 ``import_mojo`` loads it into the port's numpy ``ScoringModel``, and a
 real H2O MOJO (``model.ini``) through ``h2o_mojo.load_h2o_mojo``;
 ``from_reference`` takes the same ``(meta, arrays)`` pair in memory.
@@ -45,6 +47,30 @@ def archive_meta(model, family: str) -> dict:
             "default_threshold": float(model.default_threshold())
             if di.is_classifier else 0.5,
             "family": family}
+
+
+def no_portable_export(model):
+    """Raise the JAX package's error for a model whose family has no
+    archive form (``_extract``'s last branch)."""
+    raise ValueError(f"no portable export for algo {model.algo!r}")
+
+
+def export_mojo(model, path: str) -> str:
+    """Write the portable archive of ``model`` to ``path`` — the JAX
+    package's ``export_mojo`` (Model.download_mojo analog): its
+    ``to_archive()`` metadata as ``model.json`` and its arrays as a
+    compressed ``arrays.npz``, in one zip.  A family without an archive
+    form raises ``no portable export``."""
+    to_archive = getattr(model, "to_archive", None)
+    if to_archive is None:
+        no_portable_export(model)
+    meta, arrays = to_archive()
+    buf = io.BytesIO()
+    np.savez_compressed(buf, **arrays)
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED) as z:
+        z.writestr("model.json", json.dumps(meta, indent=1))
+        z.writestr("arrays.npz", buf.getvalue())
+    return path
 
 
 def from_reference(meta: dict, arrays: Dict[str, np.ndarray]) \

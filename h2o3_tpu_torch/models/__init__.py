@@ -1,24 +1,33 @@
 """Models: the training contract with its shared options
 (cross-validation in ``cv``), the GBM distributions (``distributions``:
 the JAX package's ten families and a custom one), the tree family, GLM,
-DeepLearning, the grid search, and the unsupervised, survival and
+DeepLearning, the grid search, the unsupervised, survival and
 feature-engineering families (KMeans, Aggregator, PCA/SVD, GLRM,
 NaiveBayes, Quantile, IsotonicRegression, CoxPH, PSVM, TargetEncoder,
-Word2Vec)."""
+Word2Vec), and the composite builders that fit through GLM and the trees
+(AdaBoost, RuleFit, StackedEnsemble, GAM, ANOVAGLM, ModelSelection)."""
 
+from .adaboost import AdaBoost, AdaBoostModel, AdaBoostParameters
 from .aggregator import Aggregator
+from .anovaglm import ANOVAGLM, ANOVAGLMModel, ANOVAGLMParameters
 from .coxph import CoxPH
 from .deeplearning import DeepLearning, DeepLearningParameters
 from .distributions import CustomDistribution, make_distribution
+from .ensemble import (StackedEnsemble, StackedEnsembleModel,
+                       StackedEnsembleParameters)
+from .gam import GAM, GAMModel, GAMParameters
 from .glm import GLM, GLMParameters
 from .glrm import GLRM
 from .grid import Grid, GridSearch
 from .isotonic import IsotonicRegression
 from .kmeans import KMeans
+from .modelselection import (ModelSelection, ModelSelectionModel,
+                             ModelSelectionParameters)
 from .naivebayes import NaiveBayes
 from .pca import PCA, SVD
 from .psvm import PSVM
 from .quantile import Quantile, quantile
+from .rulefit import RuleFit, RuleFitModel, RuleFitParameters
 from .targetencoder import TargetEncoder
 from .tree.drf import DRF
 from .tree.dt import DecisionTree
@@ -28,10 +37,19 @@ from .tree.uplift import UpliftDRF
 from .tree.xgboost import XGBoost, XGBoostParameters
 from .word2vec import Word2Vec
 
+# the composite builders with their model and parameter classes
+COMPOSITES = ("AdaBoost", "AdaBoostModel", "AdaBoostParameters", "ANOVAGLM",
+              "ANOVAGLMModel", "ANOVAGLMParameters", "GAM", "GAMModel",
+              "GAMParameters", "ModelSelection", "ModelSelectionModel",
+              "ModelSelectionParameters", "RuleFit", "RuleFitModel",
+              "RuleFitParameters", "StackedEnsemble", "StackedEnsembleModel",
+              "StackedEnsembleParameters")
+
 __all__ = ["Aggregator", "CoxPH", "CustomDistribution", "DRF",
            "DecisionTree", "DeepLearning", "DeepLearningParameters",
            "ExtendedIsolationForest", "GBM", "GBMParameters", "GLM",
            "GLMParameters", "GLRM", "Grid", "GridSearch", "IsolationForest",
            "IsotonicRegression", "KMeans", "NaiveBayes", "PCA", "PSVM",
            "Quantile", "SVD", "TargetEncoder", "UpliftDRF", "Word2Vec",
-           "XGBoost", "XGBoostParameters", "make_distribution", "quantile"]
+           "XGBoost", "XGBoostParameters", "make_distribution",
+           "quantile"] + list(COMPOSITES)

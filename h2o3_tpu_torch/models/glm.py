@@ -302,24 +302,36 @@ def _solve_penalized(gram: np.ndarray, xtwz: np.ndarray, n: float,
         beta[nonneg] = np.maximum(beta[nonneg], 0.0)
     d = np.diag(G).copy()
     Gb = G @ beta
+    # the sweep's scalars as Python floats and G's columns as contiguous
+    # rows: the same IEEE-754 double operations in the same order as on
+    # numpy scalars and strided columns, several times faster
+    Gt = np.ascontiguousarray(G.T)
+    cs, ds, l1s, l2s = c.tolist(), d.tolist(), l1.tolist(), l2.tolist()
+    pen = (penalize > 0).tolist()
+    clamp = nonneg.tolist() if constrained else [False] * len(beta)
+    b = beta.tolist()
     for _ in range(max_inner):
         delta = 0.0
-        for j in range(len(beta)):
-            r = c[j] - (Gb[j] - d[j] * beta[j])
-            if penalize[j] > 0:
-                bj = np.sign(r) * max(abs(r) - l1[j], 0.0) \
-                    / (d[j] + l2[j] + 1e-12)
+        for j in range(len(b)):
+            r = cs[j] - (Gb.item(j) - ds[j] * b[j])
+            if pen[j]:
+                # np.sign: +-1, 0.0 at either zero, NaN kept
+                sgn = 1.0 if r > 0 else -1.0 if r < 0 else \
+                    0.0 if r == 0 else r
+                bj = sgn * max(abs(r) - l1s[j], 0.0) \
+                    / (ds[j] + l2s[j] + 1e-12)
             else:
-                bj = r / (d[j] + 1e-12)
-            if constrained and nonneg[j]:
+                bj = r / (ds[j] + 1e-12)
+            if clamp[j]:
                 bj = max(bj, 0.0)
-            diff = bj - beta[j]
+            diff = bj - b[j]
             if diff != 0.0:
-                Gb += G[:, j] * diff
+                Gb += Gt[j] * diff
                 delta = max(delta, abs(diff))
-                beta[j] = bj
+                b[j] = bj
         if delta < tol:
             break
+    beta[:] = b
     return beta
 
 

@@ -282,6 +282,7 @@ class _EITree:
 
 class ExtendedIsolationForestModel(SharedTreeModel):
     algo = "extendedisolationforest"
+    exportable = False
 
     def _path_lengths(self, X: torch.Tensor) -> torch.Tensor:
         dev = X.device

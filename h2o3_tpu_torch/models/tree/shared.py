@@ -1077,6 +1077,53 @@ def make_build_tree_fn(max_depth: int, nbins: int, F: int, n_padded: int,
     return build
 
 
+def build_tree(codes, g, h, w, edges, nbins: int, max_depth: int,
+               reg_lambda: float, min_rows: float,
+               min_split_improvement: float, learn_rate: float, gen,
+               col_sample_rate: float = 1.0, tree_col_mask=None,
+               reg_alpha: float = 0.0, gamma: float = 0.0,
+               min_child_weight: float = 0.0, hier: bool = False, mono=None,
+               hist_mode: str = "subtract", split_mode: str = "fused",
+               hist_layout: str = "dense", sparse_depth_threshold: int = 8,
+               tree_program: str = "level", bin_counts=None):
+    """Grow one tree: the JAX package's convenience wrapper around
+    ``make_build_tree_fn`` (shared.py:2401).  ``edges`` is the per-feature
+    edge list or an [F, nbins] matrix, ``gen`` the ``torch.Generator`` of
+    the per-split column draws (``draw_generator``) in place of the JAX
+    package's key, ``bin_counts`` the features' bins in use (the packed
+    histogram engages on a card where it saves work).  ``mono`` or
+    ``hier`` force the separate search, the dense layout and the level
+    program, as there.  Returns (``Tree``, the final leaf of every row
+    [N]), on the codes' device."""
+    from .binning import edges_matrix
+    F, N = codes.shape
+    dev = codes.device
+    if isinstance(edges, (list, tuple)):
+        edges = edges_matrix(edges, nbins)
+    edges_mat = torch.as_tensor(edges, dtype=torch.float32, device=dev)
+    # no mask is every column (the JAX package's ones(F))
+    tm = None if tree_col_mask is None else torch.as_tensor(
+        tree_col_mask, dtype=torch.bool, device=dev)
+    if mono is not None or hier:
+        split_mode = "separate"          # no fused path for these builds
+        hist_layout = "dense"            # nor a sparse one
+        tree_program = "level"           # nor a scan one
+    fn = make_build_tree_fn(max_depth, nbins, F, N, bin_counts=bin_counts,
+                            hist_mode=hist_mode, split_mode=split_mode,
+                            hist_layout=hist_layout, device=dev, hier=hier,
+                            sparse_depth_threshold=sparse_depth_threshold,
+                            mono=mono, tree_program=tree_program)
+    levels, vals, cover, leaf = fn(codes, g, h, w, edges_mat, gen,
+                                   reg_lambda, min_rows,
+                                   min_split_improvement, learn_rate,
+                                   col_sample_rate, tm, reg_alpha, gamma,
+                                   min_child_weight)
+    tree = Tree([lv[0] for lv in levels], [lv[1] for lv in levels],
+                [lv[2] for lv in levels], [lv[3] for lv in levels], vals,
+                cover=cover)
+    return tree, leaf
+
+
 def _mono_bounds(bounds, children, feat, valid, mono_t, reg_lambda,
                  reg_alpha):
     """A monotone level's children's value bounds (the JAX package's
@@ -1960,6 +2007,10 @@ class SharedTreeModel(Model):
 
     # a forest averages its trees (DRF, DT); a boosted model sums them
     tree_average = False
+    # whether the portable archive's tree scorer scores this model as its
+    # predict does (``to_archive``); the JAX package exports none of the
+    # others either
+    exportable = True
 
     def _calibration_curve(self, p1: np.ndarray) -> np.ndarray:
         """Class-1 probabilities -> calibrated ones, on the host (the JAX
@@ -2119,7 +2170,12 @@ class SharedTreeModel(Model):
         as K groups of those arrays under the prefixes ``k0_``, ``k1_``,
         ... with ``nclass_trees`` = K and one initial score per class.
         ``tree_average`` is true for a forest (DRF, DT): its scorers divide
-        the sum of the trees by their number."""
+        the sum of the trees by their number.  A model the tree scorer
+        cannot score (``exportable`` false) raises the JAX package's
+        ``no portable export`` error."""
+        if not self.exportable:
+            from ...export.mojo import no_portable_export
+            no_portable_export(self)
         di = self.datainfo
         st = self.output["stacked"]
         K = self.output.get("nclass_trees", 1)
@@ -2168,6 +2224,9 @@ class SharedTreeModel(Model):
 class SharedTree(ModelBuilder):
     """Common training pieces: datainfo, targets, interval scoring."""
 
+    # train a numeric response as classes (AdaBoost)
+    force_classification = False
+
     def _validate(self, frame) -> None:
         super()._validate(frame)
         p = self.params
@@ -2208,7 +2267,8 @@ class SharedTree(ModelBuilder):
             ignored_columns=p.ignored_columns,
             weights_column=p.weights_column,
             offset_column=p.offset_column, standardize=False,
-            missing_values_handling="mean_imputation")
+            missing_values_handling="mean_imputation",
+            force_classification=self.force_classification)
 
     def _prep_targets(self, y, w, dist):
         """(y with NaN -> 0, the initial score)."""

@@ -140,6 +140,7 @@ def _leaf_probs(leaf, wv, y, treat, nseg: int):
 
 class UpliftDRFModel(SharedTreeModel):
     algo = "upliftdrf"
+    exportable = False
 
     def _predict_raw(self, X: torch.Tensor) -> torch.Tensor:
         """[N, 3]: uplift, p(y=1 | treated), p(y=1 | control)."""

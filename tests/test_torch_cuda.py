@@ -1479,3 +1479,152 @@ def test_word2vec_card_against_cpu(cuda):
     E, Ec = m.output["embeddings"], mc.output["embeddings"]
     assert np.abs(E - Ec).max() <= 1e-4 * np.abs(Ec).max()
     assert np.array_equal(E, m2.output["embeddings"])
+
+
+# -------------------------------------------- the composite builders
+def _composite_frames(cuda, n=20_000):
+    """The bench frame's draws at ``n`` rows with a numeric response
+    ``yr``, on the card and on the CPU, the CPU frame with the card
+    frame's rollups (both standardize alike)."""
+    from bench import make_airlines_like
+    from h2o3_tpu_torch.frame import Frame
+    cols, types, domains = make_airlines_like(n)
+    rng = np.random.default_rng(48)
+    cols["yr"] = (0.002 * (cols["crs_dep_time"] / 100 - 12) ** 2
+                  - 0.0005 * cols["distance"] / 100
+                  + 0.1 * rng.normal(size=n)).astype(np.float32)
+    fr, frc = (Frame.from_numpy(cols, types=types, domains=domains,
+                                device=d) for d in (cuda, "cpu"))
+    for v, w in zip(fr.vecs, frc.vecs):
+        if v.data is not None:
+            w._rollups = v.rollups()
+    return fr, frc
+
+
+def _same_levels(a, b):
+    for la, lb in zip(a.levels, b.levels):
+        for u, v in zip(la, lb):
+            assert torch.equal(u.cpu(), v.cpu())
+    assert torch.equal(a.values.cpu(), b.values.cpu())
+
+
+def test_adaboost_card_equals_its_plain_route(cuda):
+    """AdaBoost on the card: one ``hist`` and one records launch per
+    level of every learner (10 learners x 3 levels); every learner's
+    splits, leaf values and alphas bitwise the same fit through the port's
+    plain versions on the card (``testing.plain_route``); a second fit
+    bitwise the first."""
+    from h2o3_tpu_torch.models import AdaBoost
+    from h2o3_tpu_torch.testing import plain_route
+    fr, _ = _composite_frames(cuda)
+    cfg = dict(response_column="dep_delayed_15min", ignored_columns=["yr"],
+               nlearners=10, seed=1)
+    before = _launch_counts()
+    m = AdaBoost(**cfg).train(fr)
+    torch.cuda.synchronize()
+    assert _launched(before) == (30, 0, 0, 30)
+    m2 = AdaBoost(**cfg).train(fr)
+    with plain_route(hist):
+        mp = AdaBoost(**cfg).train(fr)
+    for other in (m2, mp):
+        assert other.output["alphas"] == m.output["alphas"]
+        _same_levels(m.output["stacked"], other.output["stacked"])
+
+
+def test_rulefit_card_rules_and_glm(cuda):
+    """RuleFit on the card: the generator's launches (trees x levels),
+    the rule columns bitwise those of the plain route's fit, the L1
+    GLM's fitted values within 1e-4 of the largest of the same GLM
+    fitted on the CPU over the card's rule frame (its coefficients are
+    not unique: a rule is the sum of its two children's, so the design
+    is singular and the two solves part there), a second fit bitwise."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.models import GLM, RuleFit
+    from h2o3_tpu_torch.runtime import dkv
+    from h2o3_tpu_torch.testing import plain_route
+    fr, frc = _composite_frames(cuda)
+    cfg = dict(response_column="yr", ignored_columns=["dep_delayed_15min"],
+               rule_generation_ntrees=4, lambda_=1e-3, seed=1)
+    before = _launch_counts()
+    m = RuleFit(**cfg).train(fr)
+    torch.cuda.synchronize()
+    assert _launched(before) == (12, 0, 0, 12)
+    m2 = RuleFit(**cfg).train(fr)
+    with plain_route(hist):
+        mp = RuleFit(**cfg).train(fr)
+    R = m.rule_columns(fr)
+    assert torch.equal(R, m2.rule_columns(fr))
+    assert torch.equal(R, mp.rule_columns(fr))
+    glm, glm2 = (dkv.get(x.output["glm_key"]) for x in (m, m2))
+    b = np.asarray(glm.output["beta_std_flat"])
+    assert np.array_equal(b, np.asarray(glm2.output["beta_std_flat"]))
+    gf = m._glm_frame(fr, with_response=True)
+    gfc = Frame(gf.names, [_vec_on(v, "cpu") for v in gf.vecs])
+    for v, w in zip(gf.vecs, gfc.vecs):
+        w._rollups = v.rollups()
+    gc = GLM(response_column="yr", alpha=1.0, lambda_=1e-3, seed=1,
+             device="cpu").train(gfc)
+    p = glm.predict(gf).vec("predict").to_numpy()
+    pc = gc.predict(gfc).vec("predict").to_numpy()
+    assert np.abs(p - pc).max() <= 1e-4 * np.abs(pc).max()
+
+
+def _vec_on(v, device):
+    """A copy of a device Vec on ``device``."""
+    from h2o3_tpu_torch.frame.vec import Vec
+    return Vec(v.data.to(device), v.type, v.nrows, domain=v.domain)
+
+
+@pytest.mark.parametrize("family", ["stackedensemble", "gam", "anovaglm",
+                                    "modelselection"])
+def test_composite_family_card_against_cpu(cuda, family):
+    """StackedEnsemble (GBM and GLM bases, nfolds=3), GAM (cr), ANOVAGLM
+    and ModelSelection (maxr and maxrsweep) on the card against the same
+    fit on the CPU: coefficients within 1e-4 of the largest, the ANOVA
+    sums of squares within 1e-4 of the full deviance, the same subsets
+    with R^2 within 1e-5; a second card fit bitwise the first."""
+    from h2o3_tpu_torch import models
+    from h2o3_tpu_torch.runtime import dkv
+    fr, frc = _composite_frames(cuda)
+    reg = dict(response_column="yr", ignored_columns=["dep_delayed_15min"],
+               seed=1)
+
+    def fit(dev, frame):
+        if family == "stackedensemble":
+            base = dict(response_column="dep_delayed_15min",
+                        ignored_columns=["yr"], nfolds=3, seed=1,
+                        keep_cross_validation_predictions=True, device=dev)
+            bases = [models.GBM(ntrees=5, max_depth=4, **base).train(frame),
+                     models.GLM(**base).train(frame)]
+            m = models.StackedEnsemble(
+                response_column="dep_delayed_15min", base_models=bases,
+                seed=1, device=dev).train(frame)
+            return [dkv.get(m.output["metalearner_key"])
+                    .output["beta_std_flat"]]
+        if family == "gam":
+            m = models.GAM(gam_columns=["crs_dep_time"], device=dev,
+                           **reg).train(frame)
+            return [dkv.get(m.output["glm_key"]).output["beta_std_flat"]]
+        if family == "anovaglm":
+            m = models.ANOVAGLM(device=dev, **reg).train(frame)
+            dev_full = dkv.get(m.output["full_model"]) \
+                .output["residual_deviance"]
+            return [[r["ss"] / dev_full for r in m.output["anova_table"]]]
+        out = []
+        for mode in ("maxr", "maxrsweep"):
+            m = models.ModelSelection(mode=mode, max_predictor_number=2,
+                                      device=dev, **reg).train(frame)
+            out.append([r["metric"] for r in m.output["subsets"]])
+            out.append([", ".join(r["predictors"])
+                        for r in m.output["subsets"]])
+        return out
+
+    got, again, cpu = fit("cuda", fr), fit("cuda", fr), fit("cpu", frc)
+    for a, b, c in zip(got, again, cpu):
+        assert repr(a) == repr(b)
+        if isinstance(a[0], str):
+            assert a == c
+            continue
+        a, c = np.asarray(a, np.float64), np.asarray(c, np.float64)
+        tol = 1e-5 if family == "modelselection" else 1e-4
+        assert np.abs(a - c).max() <= tol * max(np.abs(c).max(), 1.0)

@@ -419,3 +419,69 @@ def test_weighted_gram_row_blocks(frames, monkeypatch):
     with pytest.raises(ValueError, match="ordinal"):
         GLM(device="cpu", family="ordinal",
             **_cfg("ym")).train(fr).to_archive()
+
+
+def _cod_numpy_scalars(gram, xtwz, n, lam, alpha, beta0, penalize,
+                       max_inner=100, tol=1e-8, nonneg=None):
+    """The coordinate descent of ``glm._solve_penalized`` on numpy
+    scalars and strided Gram columns: the reference its Python-float
+    sweep is held to."""
+    G, c = gram / n, xtwz / n
+    l2 = lam * (1 - alpha) * penalize
+    l1 = lam * alpha * penalize
+    constrained = nonneg is not None and bool(np.any(nonneg))
+    beta = beta0.copy()
+    if constrained:
+        beta[nonneg] = np.maximum(beta[nonneg], 0.0)
+    d = np.diag(G).copy()
+    Gb = G @ beta
+    for _ in range(max_inner):
+        delta = 0.0
+        for j in range(len(beta)):
+            r = c[j] - (Gb[j] - d[j] * beta[j])
+            if penalize[j] > 0:
+                bj = np.sign(r) * max(abs(r) - l1[j], 0.0) \
+                    / (d[j] + l2[j] + 1e-12)
+            else:
+                bj = r / (d[j] + 1e-12)
+            if constrained and nonneg[j]:
+                bj = max(bj, 0.0)
+            diff = bj - beta[j]
+            if diff != 0.0:
+                Gb += G[:, j] * diff
+                delta = max(delta, abs(diff))
+                beta[j] = bj
+        if delta < tol:
+            break
+    return beta
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_coordinate_descent_bitwise_its_numpy_form(seed):
+    """``_solve_penalized``'s sweep on Python floats and contiguous Gram
+    rows gives bit for bit the coefficients of the same sweep on numpy
+    scalars (the same IEEE operations in the same order): L1, elastic
+    net, per-column factors (zeros included), non-negative columns, a
+    collinear pair and a warm start."""
+    rng = np.random.default_rng(seed)
+    P = int(rng.integers(3, 120))
+    n = int(rng.integers(P + 1, 3 * P + 60))
+    X = rng.normal(size=(n, P))
+    X[:, 1] = X[:, 0]
+    X[:, -1] = 1.0
+    w = rng.random(n)
+    gram = ((X * w[:, None]).T @ X).astype(np.float32).astype(np.float64)
+    xtwz = X.T @ (w * rng.normal(size=n))
+    pen = np.ones(P)
+    pen[-1] = 0.0
+    if seed % 2:
+        pen[: P // 3] = rng.random(P // 3) * 3
+    nonneg = rng.random(P) < 0.3 if seed % 3 == 0 else None
+    beta0 = rng.normal(size=P) if seed >= 3 else np.zeros(P)
+    for lam, alpha in ((1e-3, 1.0), (1e-2, 0.5), (0.3, 1.0)):
+        want = _cod_numpy_scalars(gram, xtwz, float(n), lam, alpha, beta0,
+                                  pen, nonneg=nonneg)
+        got = glm_mod._solve_penalized(gram, xtwz, float(n), lam, alpha,
+                                       beta0, pen, nonneg=nonneg)
+        assert got.dtype == want.dtype == np.float64
+        assert np.array_equal(got.view(np.int64), want.view(np.int64))

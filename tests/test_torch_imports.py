@@ -18,6 +18,9 @@ _FORBIDDEN = ("jax", "jaxlib", "h2o3_tpu")
 # the unsupervised, survival and feature-engineering families
 _UNSUPERVISED = ("kmeans", "aggregator", "pca", "glrm", "naivebayes",
                  "quantile", "coxph", "psvm", "targetencoder", "word2vec")
+# the composite builders
+_COMPOSITE = ("adaboost", "rulefit", "ensemble", "gam", "anovaglm",
+              "modelselection")
 
 
 def _forbidden(module: str) -> bool:
@@ -127,7 +130,7 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.models.tree.efb\n"
         "import h2o3_tpu_torch.models.isotonic\n"
         + "".join(f"import h2o3_tpu_torch.models.{m}\n"
-                  for m in _UNSUPERVISED)
+                  for m in _UNSUPERVISED + _COMPOSITE)
         + "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -139,7 +142,7 @@ def test_import_adds_no_jax_module():
     assert "h2o3_tpu_torch.models.cv" in added
     assert "h2o3_tpu_torch.models.tree.efb" in added
     assert "h2o3_tpu_torch.models.isotonic" in added
-    for m in _UNSUPERVISED:
+    for m in _UNSUPERVISED + _COMPOSITE:
         assert f"h2o3_tpu_torch.models.{m}" in added
     assert not [m for m in added if _forbidden(m)]
 
@@ -329,3 +332,55 @@ def test_unsupervised_families_are_exported_and_need_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         models.quantile(fr)
     assert set(models.quantile(fr, device="cpu")) == {"x", "z", "t", "e"}
+
+
+def test_composite_builders_are_exported_and_need_cuda(monkeypatch,
+                                                       tmp_path):
+    """``h2o3_tpu_torch.models`` and the package export the six composite
+    builders with their model and parameter classes, and
+    ``export_mojo``; each builder raises without CUDA unless told
+    device="cpu", and trains on the CPU when told (its inner GLM and
+    trees on the CPU too)."""
+    import h2o3_tpu_torch
+    from h2o3_tpu_torch import export, models
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.runtime import dkv
+    assert len(models.COMPOSITES) == 18
+    for n in models.COMPOSITES:
+        assert getattr(models, n) is getattr(h2o3_tpu_torch, n), n
+        assert n in models.__all__ and n in h2o3_tpu_torch.__all__, n
+    assert h2o3_tpu_torch.export_mojo is export.export_mojo
+    assert "export_mojo" in export.__all__
+    rng = np.random.default_rng(0)
+    n = 64
+    cols = {"x": rng.normal(size=n), "v": rng.normal(size=n),
+            "z": rng.normal(size=n),
+            "y": np.where(rng.random(n) < 0.5, "a", "b").astype(object)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    fr = Frame.from_numpy(cols, device="cpu")
+    base = models.GLM(response_column="y", nfolds=2, seed=1,
+                      keep_cross_validation_predictions=True,
+                      device="cpu").train(fr)
+    reg = dict(response_column="z", ignored_columns=["y"])
+    cases = [
+        (models.AdaBoost, dict(response_column="y", nlearners=2,
+                               ignored_columns=["z"])),
+        (models.RuleFit, dict(rule_generation_ntrees=2, max_rule_length=2,
+                              lambda_=0.1, **reg)),
+        (models.StackedEnsemble, dict(response_column="y",
+                                      base_models=[base])),
+        (models.GAM, dict(gam_columns=["x"], num_knots=4, **reg)),
+        (models.ANOVAGLM, dict(**reg)),
+        (models.ModelSelection, dict(max_predictor_number=1, **reg)),
+    ]
+    for cls, kw in cases:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            cls(**kw).train(fr)
+        m = cls(device="cpu", **kw).train(fr)
+        assert m.algo == cls.algo
+        with pytest.raises(ValueError, match="no portable export"):
+            export.export_mojo(m, str(tmp_path / "m.zip"))
+        inner = [m.output.get(k) for k in ("glm_key", "rule_model_key",
+                                           "metalearner_key", "full_model")]
+        for key in filter(None, inner):
+            assert dkv.get(key).params.device == "cpu", (cls, key)

@@ -5,6 +5,7 @@
     python tools/chip_phases.py efb          # phase 38
     python tools/chip_phases.py scan         # phases 40-42
     python tools/chip_phases.py algos        # phases 43-47
+    python tools/chip_phases.py composite    # phases 48-50
 
 Each line carries the card's name and power limit.  Run from the
 repository root; it needs one CUDA card and nvcc.  To time the training
@@ -15,6 +16,7 @@ paths in turns with another version of the package, use
 from __future__ import annotations
 
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -35,7 +37,7 @@ def smoke():
 def main() -> None:
     import torch
     if len(sys.argv) != 2 or sys.argv[1] not in ("options", "efb", "scan",
-                                                  "algos"):
+                                                  "algos", "composite"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("chip_phases: no CUDA device")
@@ -61,6 +63,10 @@ def main() -> None:
                hist.FINE_HIST, hist.HIST_WINDOWS, hist.SLOT_COMPACT,
                hist.SPLIT_RECORDS_MONO]
     what = sys.argv[1]
+    if what == "composite":
+        cs.log(json.dumps({"kernels": cs.composite_phases(
+            Frame, kernels[:6], hist, card)}))
+        return
     if what == "options":
         row, _ = cs.option_phases(Frame, XGBoost, GBM, DRF, kernels, hist,
                                   shared, gbm, card)
