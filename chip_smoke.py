@@ -235,8 +235,8 @@ Phases (any failure exits non-zero and prints no result line):
              full-prefix ``hist`` launches and 6 ``slot_compact`` and 6
              windowed ones (both arms one launch a level, levels 8-9
              node-sparse), the plain route's splits on the first tree, a
-             second train bitwise; trees/s at 10M rows (the timed train
-             twice), the device operations per tree, idle share and
+             second train bitwise; trees/s on the same 1M rows (the timed
+             train twice), the device operations per tree, idle share and
              device ms by op of a profiled train of the same size.
 28. DART — launch counts set to 0, then ``XGBoost(booster="dart",
              rate_drop=0.1, max_depth=6, nbins=256, seed=1)``, 20 trees on
@@ -382,7 +382,7 @@ Phases (any failure exits non-zero and prints no result line):
              CPU at 100k rows (a dropped row block must break it), timed
              at 1M, and the proximal path (absolute loss, L1) timed at
              1M, its accept/reject sequence and objective as the CPU's
-             at 20k;
+             at 5k;
 45. NaiveBayes, Quantile, TargetEncoder, isotonic — NaiveBayes against
              the CPU at 100k rows with both faults, timed at 10M;
              Quantile and a ``k_fold`` TargetEncoder timed at 10M rows,
@@ -396,7 +396,7 @@ Phases (any failure exits non-zero and prints no result line):
              against the CPU at 20k rows (a dropped block of rows must
              break it), timed at 100k rows (rank 1024);
              Word2Vec against the CPU on a seeded 100k-token corpus
-             (unsummed duplicate updates as the fault), timed on 1M
+             (unsummed duplicate updates as the fault), timed on 300k
              tokens.  TF32 leaves the GLRM, CoxPH and PSVM products as
              f32 rounds them (matrix-vector and narrow products): its
              readings are printed;
@@ -3651,11 +3651,11 @@ def uplift_columns(cols, n=None, seed=12):
     return out
 
 
-def uplift_phase(cols, fr10, Frame, kernels, hist, tmp, card):
+def uplift_phase(cols, kernels, hist, tmp, card):
     """Phase 27: UpliftDRF (depth 10, both arms on the K axis) on a
     1M-row uplift CSV imported onto the card: counted (one ``hist``
     launch per level for both arms), against the plain route, a second
-    train bitwise; trees/s at 10M rows."""
+    train bitwise; trees/s on the same 1M rows."""
     import torch
     from h2o3_tpu_torch import import_file
     from h2o3_tpu_torch.models.tree.uplift import UpliftDRF
@@ -3702,20 +3702,20 @@ def uplift_phase(cols, fr10, Frame, kernels, hist, tmp, card):
         f"tree; a second train bitwise; qini {met['qini']:.6f}, ate "
         f"{met['ate']:.6f}, mean uplift on the planted +0.15 rows "
         f"{float(up[cols['distance'][:ufr.nrows] > 700].mean()):.4f}")
-    u10 = uplift_columns(cols)
-    ufr10 = fr10.cbind(Frame.from_numpy(
-        {k: u10[k] for k in ("treatment", "conv")}))
+    # timed on the imported 1M rows: its train is launch-bound (~1,500
+    # device ops a tree), so trees/s barely moves with N, and at 10M rows
+    # the frame's binning and AUUC cost ~20 s of host time
     walls = []
     # the first is also the warmup; the timed train twice, for its spread
     for T in (1, UPLIFT_TIMED, UPLIFT_TIMED):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        UpliftDRF(ntrees=T, **UPLIFT_CFG).train(ufr10)
+        UpliftDRF(ntrees=T, **UPLIFT_CFG).train(ufr)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     T = UPLIFT_TIMED
     further = [(w - walls[0]) / (T - 1) * 1e3 for w in walls[1:]]
-    log(f"uplift at {ufr10.nrows} rows (the import plus a treatment and a "
+    log(f"uplift at {ufr.nrows} rows (the import plus a treatment and a "
         f"conversion) {card}: {T} trees in {walls[1]:.3f} s = "
         f"{T / walls[1]:.3f} trees/s, binning, the training scores and the "
         f"AUUC on the host included (1 tree: {walls[0]:.3f} s, so "
@@ -3723,11 +3723,11 @@ def uplift_phase(cols, fr10, Frame, kernels, hist, tmp, card):
         f"{walls[2]:.3f} s, {further[1]:.1f} ms a further tree)")
     probe_us = host_op_us()
     kern, busy = device_profile(lambda: UpliftDRF(ntrees=T, **UPLIFT_CFG)
-                                .train(ufr10))
+                                .train(ufr))
     if busy <= 0:
         log("profile uplift: no device time in the trace: not measured")
     else:
-        log(f"profile uplift of a {T}-tree train at {ufr10.nrows} rows: "
+        log(f"profile uplift of a {T}-tree train at {ufr.nrows} rows: "
             f"{sum(e.count for e in kern) / T:g} device operations per tree "
             f"(a small torch op costs the host {probe_us:.2f} us); device "
             f"busy {busy / T:.2f} ms per tree against "
@@ -3740,25 +3740,20 @@ def uplift_phase(cols, fr10, Frame, kernels, hist, tmp, card):
     return launches
 
 
-def import_phases(Frame, XGBoost, hist, batcher, kernels, card):
-    """Phases 23-27 in a temporary directory, removed after."""
-    import shutil
-    import tempfile
-    tmp = tempfile.mkdtemp(prefix="h2o3_smoke_")
-    try:
-        fr, exp, cols, small, nat = import_phase(Frame, tmp, card)
-        mark("phase 23")
-        xl = import_train_phase(fr, exp, XGBoost, kernels, card)
-        del exp
-        mark("phase 24")
-        dl = dt_phase(nat, cols, fr, kernels, hist, batcher, card)
-        mark("phase 25")
-        tl = isolation_phase(nat, small, cols, fr, batcher, card)
-        mark("phase 26")
-        ul = uplift_phase(cols, fr, Frame, kernels, hist, tmp, card)
-        mark("phase 27")
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+def import_phases(Frame, XGBoost, hist, batcher, kernels, card, tmp):
+    """Phases 23-27 in the temporary directory ``tmp`` (its 10M-row CSV,
+    ``bench.csv``, stays there for phase 54's grep)."""
+    fr, exp, cols, small, nat = import_phase(Frame, tmp, card)
+    mark("phase 23")
+    xl = import_train_phase(fr, exp, XGBoost, kernels, card)
+    del exp
+    mark("phase 24")
+    dl = dt_phase(nat, cols, fr, kernels, hist, batcher, card)
+    mark("phase 25")
+    tl = isolation_phase(nat, small, cols, fr, batcher, card)
+    mark("phase 26")
+    ul = uplift_phase(cols, kernels, hist, tmp, card)
+    mark("phase 27")
     log(f"launches on the import paths {card}: XGBoost {xl}; DT {dl}; "
         f"IsolationForest scoring: traverse {tl} (one over the 1M rows, "
         f"the rest serving); uplift {ul}")
@@ -5475,9 +5470,11 @@ ALGO_CHECK_ROWS = 1_000_000      # the f64 oracles, timed fits, archives
 ALGO_TIMED_ROWS = 10_000_000     # seconds a fit, busy and idle share
 ALGO_CPU_ROWS = 100_000          # the card against the CPU (and the
 #                                  faults) where the CPU fit is slow; PSVM
-ALGO_TINY_ROWS = 20_000          # the CPU side of the 100-exemplar, the
-#                                  proximal and the PSVM fits
-ALGO_CORPUS_TOKENS = 1_000_000   # Word2Vec's synthetic corpus (its CPU
+ALGO_TINY_ROWS = 20_000          # the CPU side of the 100-exemplar and
+#                                  the PSVM fits
+ALGO_PROX_ROWS = 5_000           # the CPU side of the proximal GLRM fit
+#                                  (its host loop costs ~1.5 ms a row)
+ALGO_CORPUS_TOKENS = 300_000     # Word2Vec's synthetic corpus (its CPU
 ALGO_CPU_TOKENS = 100_000        # comparison and faults on this many)
 # the response and phase 45's fold and rising-response columns
 BENCH_IGNORED = ["dep_delayed_15min", "fold", "yr"]
@@ -5551,7 +5548,8 @@ def last_block_dropped(datainfo):
 def hold(what, sound, faults, limit, card):
     """The sound reading within ``limit``; every planted fault's beyond."""
     log(f"{what} {card}: {sound:.3e} (limit {limit:g}); planted faults: "
-        + ", ".join(f"{k} {v:.3e}" for k, v in faults.items()))
+        + (", ".join(f"{k} {v:.3e}" for k, v in faults.items())
+           or "none"))
     if not sound <= limit:
         raise AssertionError(f"{what}: {sound:.3e} over its limit {limit}")
     for k, v in faults.items():
@@ -5954,7 +5952,7 @@ def pca_phase(Frame, models, pca, datainfo, card):
                  "glrm proximal")
     drop_designs(fr)
     del fr
-    _, fs, fsc = bench_frames(ALGO_TINY_ROWS, Frame)
+    _, fs, fsc = bench_frames(ALGO_PROX_ROWS, Frame)
     for c, asserted in ((pcfg, True),):
         a, b = GLRM(**c).train(fs), GLRM(device="cpu", **c).train(fsc)
         pgap = rel(a.output["objective"], b.output["objective"])
@@ -6229,8 +6227,8 @@ def synthetic_corpus(n_tokens, seed=46, vocab=5000):
 
 def survival_psvm_w2v_phase(Frame, models, coxph, psvm, w2v, card):
     """Phase 46: CoxPH at 1M rows against the CPU and an f64 oracle on
-    the card; PSVM at 100k rows (rank 1024); Word2Vec on a seeded ~1M
-    token corpus."""
+    the card; PSVM at 100k rows (rank 1024); Word2Vec timed on a seeded
+    300k-token corpus."""
     import torch
     t_phase = time.perf_counter()
     CoxPH, PSVM, Word2Vec = models.CoxPH, models.PSVM, models.Word2Vec
@@ -6314,7 +6312,7 @@ def survival_psvm_w2v_phase(Frame, models, coxph, psvm, w2v, card):
         f"{p.training_metrics.auc:.6f}; a second train bitwise")
     drop_designs(fs)
     del fs
-    # Word2Vec on ~1M tokens
+    # Word2Vec against the CPU on 100k tokens, timed on 300k
     words = synthetic_corpus(ALGO_CPU_TOKENS)
     wf = Frame.from_numpy({"words": words}, types={"words": "str"},
                           device="cpu")
@@ -6978,6 +6976,405 @@ def composite_phases(Frame, kernels, hist, card):
     return rows
 
 
+# ------------------------------------------------------------------------
+# phases 51-54: the data plane, and the builders that wait on it
+PLANE_ROWS = 10_000_000          # the verbs timed on the card
+PLANE_CHECK_ROWS = 1_000_000     # the card against the CPU
+PLANE_SORT = ["origin", "crs_dep_time"]
+PLANE_GB = (["origin", "dest"],
+            {"distance": ["count", "sum", "mean", "min", "max", "sd"],
+             "crs_dep_time": ["mean"]})
+# the same group-by as a Rapids string (AstGroup triples; nrow = count)
+PLANE_GB_TEXT = ("(GB {key} ['origin' 'dest'] nrow 'distance' 'all' "
+                 "sum 'distance' 'all' mean 'distance' 'all' "
+                 "min 'distance' 'all' max 'distance' 'all' "
+                 "sd 'distance' 'all' mean 'crs_dep_time' 'all')")
+SEG_CFG = dict(response_column="dep_delayed_15min", ntrees=5, max_depth=6,
+               nbins=256, seed=52, score_tree_interval=10 ** 9)
+# the infogram's predictors: four of the bench columns, one model each
+INFO_CFG = dict(response_column="dep_delayed_15min", seed=53,
+                ignored_columns=["year", "month", "origin", "dest"],
+                infogram_algorithm_params={"ntrees": 5, "max_depth": 4})
+INFO_LIMIT = 1e-4
+PAR_CFG = dict(response_column="dep_delayed_15min", max_depth=6, nbins=256,
+               seed=54, ntrees=10, sample_rate=0.8, grid_batch="off",
+               score_tree_interval=10 ** 9)
+PAR_HP = {"learn_rate": [0.05, 0.1], "reg_lambda": [0.0, 1.0]}
+# the grep of phase 54 over the phase-23 CSV: rows of 2007, December,
+# day 7, departing 23:00-23:59 (~1.4e-5 of the rows)
+GREP_REGEX = r"(?m)^2007,12,7,23[0-5][0-9],"
+
+
+def lookup_table(Frame, device):
+    """The 300-row table of phase 51's merges, keyed by ``origin`` (every
+    bench label once, in a shuffled order): a hub flag and a latitude."""
+    rng = np.random.default_rng(51)
+    labels = np.array([str(i) for i in rng.permutation(300)], object)
+    return Frame.from_numpy(
+        {"origin": labels, "hub": rng.integers(0, 2, 300).astype(np.float64),
+         "lat": rng.uniform(25.0, 49.0, 300)},
+        types={"origin": "cat"}, domains={"origin": sorted(labels)},
+        device=device)
+
+
+def plane_gap(got, want, exact=None):
+    """0 when the frames have the same names, row count, types, domains
+    and codes and the ``exact`` numeric columns (all of them when None)
+    are bitwise; else the largest relative gap of the other numeric
+    columns (over the column's largest |value|), inf where anything
+    exact differs."""
+    if got.names != want.names or got.nrows != want.nrows:
+        return float("inf")
+    gap = 0.0
+    for n in got.names:
+        a, b = got.vec(n), want.vec(n)
+        if a.type != b.type or a.domain != b.domain:
+            return float("inf")
+        x, y = a.to_numpy(), b.to_numpy()
+        if a.type == "cat" or exact is None or n in exact:
+            if not np.array_equal(np.asarray(x).view(np.uint8),
+                                  np.asarray(y).view(np.uint8)):
+                return float("inf")
+            continue
+        x, y = np.asarray(x, np.float64), np.asarray(y, np.float64)
+        if not np.array_equal(np.isnan(x), np.isnan(y)):
+            return float("inf")
+        ok = ~np.isnan(y)
+        if ok.any():
+            gap = max(gap, float(np.abs(x[ok] - y[ok]).max()
+                                 / max(np.abs(y[ok]).max(), 1e-30)))
+    return gap
+
+
+def gb_exact():
+    """The group-by's columns that must be bitwise: the keys, counts,
+    min and max."""
+    by, aggs = PLANE_GB
+    return set(by) | {f"{fn}_{c}" for c, fns in aggs.items() for fn in fns
+                      if fn in ("count", "min", "max")}
+
+
+def plane_verbs(rapids, ops, lk):
+    """Phase 51's verbs on a frame ``f`` (the rapids string through the
+    key the frame is stored under) with the lookup table ``lk``."""
+    return {
+        "sort": lambda f, key: ops.sort(f, PLANE_SORT),
+        "group_by": lambda f, key: ops.group_by(f, *PLANE_GB),
+        "merge left": lambda f, key: ops.merge(f, lk[f.device.type],
+                                               "origin", how="left"),
+        "merge inner": lambda f, key: ops.merge(f, lk[f.device.type],
+                                                "origin", how="inner"),
+        "rapids GB": lambda f, key: rapids.rapids(
+            PLANE_GB_TEXT.format(key=key)),
+    }
+
+
+def host_syncs(fn) -> int:
+    """The host synchronisations of one ``fn()``: the warnings that
+    ``torch.cuda.set_sync_debug_mode("warn")`` gives for it."""
+    import warnings
+    import torch
+    mode = torch.cuda.get_sync_debug_mode()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+    return sum(1 for w in caught if "synchroniz" in str(w.message))
+
+
+def plane_phase(Frame, card):
+    """Phase 51: sort, group-by, left and inner merge with a 300-row table
+    and the group-by as a Rapids string: at 1M rows each against the same
+    call on the CPU, bitwise (the group sums, means and sds too), three
+    planted faults (a group's row dropped, the group sums in f32, one sort
+    key's direction flipped); at 10M rows seconds and rows/s per verb,
+    the timed call bitwise the first, its host syncs
+    (``host_syncs``) and a device profile."""
+    import torch
+    from h2o3_tpu_torch import rapids
+    from h2o3_tpu_torch.rapids import device as rdev, ops
+    t_phase = time.perf_counter()
+    lk = {"cuda": lookup_table(Frame, "cuda"),
+          "cpu": lookup_table(Frame, "cpu")}
+    verbs = plane_verbs(rapids, ops, lk)
+    cols, types, domains = make_airlines_like(PLANE_CHECK_ROWS)
+    fr = Frame.from_numpy(cols, types=types, domains=domains,
+                          key="plane_card")
+    frc = Frame.from_numpy(cols, types=types, domains=domains,
+                           device="cpu", key="plane_cpu")
+    del cols
+    readings = {}
+    for name, fn in verbs.items():
+        got, want = fn(fr, "plane_card"), fn(frc, "plane_cpu")
+        grouped = name in ("group_by", "rapids GB")
+        readings[name] = plane_gap(got, want, gb_exact() if grouped
+                                   else None)
+        if name == "group_by":
+            gb_card, gb_cpu = got, want
+        if name == "rapids GB" and plane_gap(got, gb_card) != 0.0:
+            raise AssertionError("the Rapids (GB ...) string differs from "
+                                 "ops.group_by on the card")
+    # the planted faults: the largest group loses its first row; the group
+    # sums accumulate in f32 (the JAX package's precision); the sort's second
+    # key runs the other way
+    real_sums = rdev.segment_sums
+
+    def sums_f32(x, lengths):
+        return real_sums(x.to(torch.float32), lengths).to(x.dtype)
+
+    with swapped(rdev, "segment_sums", sums_f32):
+        gb_f32 = ops.group_by(fr, *PLANE_GB)
+    counts = gb_cpu.vec("count_distance").to_numpy()
+    g = int(np.argmax(counts))
+    keys = [gb_cpu.vec(c).to_numpy()[g] for c in PLANE_GB[0]]
+    hit = np.ones(fr.nrows, bool)
+    rows = np.flatnonzero((fr.vec("origin").to_numpy() == keys[0])
+                          & (fr.vec("dest").to_numpy() == keys[1]))
+    hit[rows[0]] = False
+    faults = {
+        "group_by": {"a group's row dropped": plane_gap(
+            ops.group_by(ops.filter_rows(fr, hit), *PLANE_GB), gb_cpu,
+            gb_exact()),
+            "the segment sums in f32": plane_gap(gb_f32, gb_cpu,
+                                                 gb_exact())},
+        "sort": {"a sort key's direction flipped": plane_gap(
+            ops.sort(fr, PLANE_SORT, ascending=[True, False]),
+            verbs["sort"](frc, None))},
+    }
+    # every verb bitwise, the group sums too: at these magnitudes f64 sums
+    # of the f32 columns are exact in any order, so the card's and the CPU's
+    # reduction orders could differ only in an sd's last rounding
+    for name, v in readings.items():
+        hold(f"{name} at {fr.nrows} rows: the card against the CPU", v,
+             faults.get(name, {}), 0.0, card)
+    log(f"group-by at {fr.nrows} rows: {gb_card.nrows} groups; the row "
+        f"dropped from group {keys} of {int(counts[g])} rows")
+    del fr, frc, gb_card, gb_cpu, gb_f32
+    # 10M rows: each verb once, then timed twice; the timed calls bitwise
+    # the first (a second card run of the data plane)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cols, types, domains = make_airlines_like(PLANE_ROWS)
+    f10 = Frame.from_numpy(cols, types=types, domains=domains,
+                           key="plane_10m")
+    del cols
+    torch.cuda.synchronize()
+    log(f"data plane frame: {f10.nrows} rows on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, fn in verbs.items():
+        first = fn(f10, "plane_10m")
+        secs = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            again = fn(f10, "plane_10m")
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if plane_gap(again, first) != 0.0:
+                raise AssertionError(f"{name} at {f10.nrows} rows: a second "
+                                     "card run differs from the first")
+        syncs = host_syncs(lambda: fn(f10, "plane_10m"))
+        kern, busy = device_profile(lambda: fn(f10, "plane_10m"))
+        log(f"{name} at {f10.nrows} rows {card}: {secs[0]:.4f} s and "
+            f"{secs[1]:.4f} s = {f10.nrows / min(secs) / 1e6:.1f} M rows/s "
+            f"({first.nrows} rows out); bitwise the first call; {syncs} "
+            f"host syncs a call; device busy {busy:.3f} ms in "
+            f"{sum(e.count for e in kern)} ops (idle share "
+            f"{idle_share(busy, min(secs)):.3f}): " + "; ".join(
+                f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                f"({e.count})" for e in kern[:6]))
+        del first, again
+    torch.cuda.synchronize()
+    log(f"data plane at {f10.nrows} rows: device peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del f10
+    torch.cuda.empty_cache()
+    log(f"phase 51 (the data plane) {time.perf_counter() - t_phase:.1f} s")
+
+
+def segments_phase(Frame, kernels, card):
+    """Phase 52: ``train_segments`` of the bench XGBoost (5 trees, depth
+    6) per carrier at 1M rows: 22 segments, trees x levels ``hist`` and
+    ``split_records`` launches a segment, each segment's trees bitwise
+    the same train on its rows (``filter_rows``)."""
+    from h2o3_tpu_torch.models import XGBoost, train_segments
+    from h2o3_tpu_torch.rapids import ops
+    t_phase = time.perf_counter()
+    cols, types, domains = make_airlines_like(PLANE_CHECK_ROWS)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    del cols
+    for k in kernels:
+        k.launches = 0
+    sm, secs = fit_timed(lambda: train_segments(
+        lambda: XGBoost(**SEG_CFG), fr, "carrier"))
+    launches = launches_of(kernels)
+    n = len(sm.results)
+    if n != 22 or any(r.status != "SUCCEEDED" for r in sm.results):
+        raise AssertionError("segments: " + str(
+            [(r.segment, r.status, r.error) for r in sm.results]))
+    per = SEG_CFG["ntrees"] * SEG_CFG["max_depth"]
+    check_launches("train_segments", launches,
+                   {"hist": n * per, "split_records": n * per})
+    log(f"train_segments at {fr.nrows} rows {card}: {n} carriers x "
+        f"{SEG_CFG['ntrees']} trees in {secs:.3f} s (the host's decode of "
+        f"the key column a segment included); launches {launches}")
+    codes = fr.vec("carrier").to_numpy()
+    t0 = time.perf_counter()
+    for r in sm.results:
+        label = r.segment["carrier"]
+        sub = ops.filter_rows(fr, codes == domains["carrier"].index(label))
+        own = XGBoost(**SEG_CFG).train(sub.drop(["carrier"]))
+        why = stacks_differ(sm.model(carrier=label), own)
+        if why or r.nrows != sub.nrows:
+            raise AssertionError(f"segment {label}: {why or 'rows'} differs "
+                                 f"from its own train")
+    log(f"train_segments: every segment's trees bitwise its own train on "
+        f"its filtered rows ({time.perf_counter() - t0:.1f} s for the {n} "
+        f"trains)")
+    log(f"phase 52 (train_segments) {time.perf_counter() - t_phase:.1f} s")
+
+
+def infogram_gap(m, ref):
+    """The infogram's largest gap from ``ref``: relevance, and the raw CMI
+    over the largest raw CMI, feature by feature (inf where the features
+    differ)."""
+    a = {r["column"]: r for r in m.output["admissible_score"]}
+    b = {r["column"]: r for r in ref.output["admissible_score"]}
+    if set(a) != set(b):
+        return float("inf")
+    top = max(max(abs(r["cmi_raw"]) for r in b.values()), 1e-30)
+    return max(max(abs(a[c]["relevance"] - b[c]["relevance"]),
+                   abs(a[c]["cmi_raw"] - b[c]["cmi_raw"]) / top)
+               for c in b)
+
+
+def infogram_phase(Frame, card):
+    """Phase 53: the core infogram over GBM at 1M rows on the card against
+    the same fit on the CPU (``INFO_LIMIT``; the planted fault: the CMI
+    estimated without the last tenth of the rows), a second fit bitwise,
+    seconds a fit."""
+    from h2o3_tpu_torch.models import Infogram, infogram
+    t_phase = time.perf_counter()
+    cols, types, domains = make_airlines_like(PLANE_CHECK_ROWS)
+    fr, frc = card_and_cpu(Frame, cols, types, domains)
+    del cols
+    m, secs = fit_timed(lambda: Infogram(**INFO_CFG).train(fr))
+    t0 = time.perf_counter()
+    ref = Infogram(device="cpu", **INFO_CFG).train(frc)
+    cpu_s = time.perf_counter() - t0
+    m2 = Infogram(**INFO_CFG).train(fr)
+    if m2.output["admissible_score"] != m.output["admissible_score"]:
+        raise AssertionError("infogram: a second card fit differs")
+    raw = infogram.Infogram.__dict__["_mean_log2_prob"]    # staticmethod
+
+    def tenth_dropped(model, frame, y, w):
+        keep = (len(y) * 9) // 10
+        return raw.__func__(model, frame.rows(np.arange(keep)), y[:keep],
+                            None if w is None else w[:keep])
+    infogram.Infogram._mean_log2_prob = staticmethod(tenth_dropped)
+    try:
+        fault = infogram_gap(Infogram(**INFO_CFG).train(fr), ref)
+    finally:
+        infogram.Infogram._mean_log2_prob = raw
+    hold(f"infogram at {fr.nrows} rows: relevance and raw CMI against the "
+         f"CPU's", infogram_gap(m, ref),
+         {"the CMI without the last tenth of the rows": fault},
+         INFO_LIMIT, card)
+    log(f"infogram at {fr.nrows} rows {card}: {secs:.3f} s a fit on the "
+        f"card ({m.output['nmodels_trained']} GBMs), {cpu_s:.3f} s on the "
+        f"CPU; admissible {m.admissible_features}; a second fit bitwise; "
+        + "; ".join(f"{r['column']} relevance {r['relevance']:.4f} cmi "
+                    f"{r['cmi']:.4f}" for r in m.output["admissible_score"]))
+    log(f"phase 53 (Infogram) {time.perf_counter() - t_phase:.1f} s")
+
+
+def parallel_phase(Frame, csv_path, card):
+    """Phase 54: ``GridSearch(parallelism=2)`` on the wave path at 1M rows,
+    each member bitwise its ``parallelism=1`` train, member trees/s of
+    both in turns (1, 2, 2, 1); the scan program refused under two
+    threads; then ``grep`` over the phase-23 CSV on the card bitwise the
+    same on the CPU, with its seconds."""
+    import torch
+    from h2o3_tpu_torch.models import GridSearch, XGBoost, grep
+    t_phase = time.perf_counter()
+    cols, types, domains = make_airlines_like(PLANE_CHECK_ROWS)
+    fr = Frame.from_numpy(cols, types=types, domains=domains)
+    del cols
+    GridSearch(XGBoost, PAR_HP, parallelism=2, **PAR_CFG).train(fr)  # warm
+    grids, tps = {}, {1: [], 2: []}
+    for par in (1, 2, 2, 1):
+        g, secs = fit_timed(lambda: GridSearch(
+            XGBoost, PAR_HP, parallelism=par, **PAR_CFG).train(fr))
+        grids.setdefault(par, g)
+        tps[par].append(len(g.models) * PAR_CFG["ntrees"] / secs)
+    g1, g2 = grids[1], grids[2]
+    if g1.entries != g2.entries or len(g2.models) != 4:
+        raise AssertionError("parallel waves: other members than the "
+                             "sequential grid's")
+    for a, b, e in zip(g1.models, g2.models, g1.entries):
+        why = stacks_differ(b, a)
+        if why or a.training_metrics.auc != b.training_metrics.auc:
+            raise AssertionError(f"parallel member {e}: {why or 'auc'} "
+                                 "differs from its sequential train")
+    try:
+        GridSearch(XGBoost, PAR_HP, parallelism=2, tree_program="scan",
+                   **PAR_CFG)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("parallelism=2 with tree_program='scan' was "
+                             "not refused")
+    log(f"grid waves at {fr.nrows} rows {card}: 4 members x "
+        f"{PAR_CFG['ntrees']} trees, each member of parallelism=2 bitwise "
+        f"its parallelism=1 train; member trees/s in turns: sequential "
+        + " and ".join(f"{v:.3f}" for v in tps[1]) + ", two threads "
+        + " and ".join(f"{v:.3f}" for v in tps[2])
+        + f"; the scan program refused: {refused[:80]}...")
+    del fr, g1, g2, grids
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    got = grep(csv_path, GREP_REGEX)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = grep(csv_path, GREP_REGEX, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    if got.nrows == 0 or plane_gap(got, want) != 0.0:
+        raise AssertionError("grep on the card differs from the CPU's")
+    log(f"grep {GREP_REGEX!r} over the {os.path.getsize(csv_path) / 1e6:.1f}"
+        f" MB phase-23 CSV {card}: {got.nrows} matches in {card_s:.3f} s "
+        f"(table on the card; {cpu_s:.3f} s with the table on the CPU), "
+        f"bitwise the CPU's")
+    log(f"phase 54 (parallel waves, grep) "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
+def plane_phases(Frame, kernels, card, csv_path=None):
+    """Phases 51-54; without the phase-23 CSV, phase 54 writes the 10M-row
+    bench CSV itself into a temporary directory."""
+    import shutil
+    import tempfile
+    plane_phase(Frame, card)
+    mark("phase 51")
+    segments_phase(Frame, kernels, card)
+    mark("phase 52")
+    infogram_phase(Frame, card)
+    mark("phase 53")
+    tmp = None
+    if csv_path is None:
+        tmp = tempfile.mkdtemp(prefix="h2o3_smoke_")
+        csv_path = os.path.join(tmp, "bench.csv")
+        write_csv(csv_path, make_airlines_like(IMPORT_ROWS)[0])
+    try:
+        parallel_phase(Frame, csv_path, card)
+    finally:
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
+    mark("phase 54")
+
+
 def load_other(path: str):
     """Another version of the ``h2o3_tpu_torch`` package, the one under
     ``path`` (e.g. ``git archive <rev> h2o3_tpu_torch`` unpacked where
@@ -7575,7 +7972,14 @@ def main() -> dict:
     rows += slot_headline(DRF, Frame, hist, shared, card, slot)
     mark("phase 22")
     # --------------------------- 23-27 file import, DT, IF/EIF, uplift
-    import_phases(Frame, XGBoost, hist, batcher, kernels_train, card)
+    # (the temporary directory, with the 10M-row CSV that phase 54 greps,
+    # is removed at exit)
+    import atexit
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="h2o3_smoke_")
+    atexit.register(shutil.rmtree, tmp, True)
+    import_phases(Frame, XGBoost, hist, batcher, kernels_train, card, tmp)
     # ------------------------------------------------ 28-32 DART, GLM
     dart_glm_phases(Frame, XGBoost, GLM, glm, gbm, hist, kernel, batcher,
                     from_reference, kernels_train, card)
@@ -7598,6 +8002,9 @@ def main() -> dict:
     mark("phases 43-47")
     # ----------------- 48-50 the composite builders and the archive writer
     rows += composite_phases(Frame, kernels_train, hist, card)
+    # ------ 51-54 the data plane, train_segments, Infogram, grid waves, grep
+    plane_phases(Frame, kernels_train, card,
+                 csv_path=os.path.join(tmp, "bench.csv"))
 
     return {"kernels": [traverse_row] + rows, "device": device}
 

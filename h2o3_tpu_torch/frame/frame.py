@@ -5,11 +5,12 @@ Every device Vec of a Frame lies on the same device and is padded to the
 same length, so row i of every column lines up; STR/UUID columns stay on
 the host.  Frames are immutable: the munging verbs (``cbind``,
 ``rename``, ``drop``, ``with_vec``, ``rows``, ``filter``,
-``split_frame``) return new Frames.  ``_matrix_cache`` memoizes
-per-frame device views (the response, the weights), as in the JAX
-package.  Not ported yet: the lineage records, ``sort``, ``merge``,
-``group_by``, ``impute``, ``scale``, ``cor``, ``var``, ``to_pandas`` and
-``spill`` (ROADMAP Queue 1, the data plane).
+``split_frame``) return new Frames, and so do the data plane's verbs
+(``sort``, ``merge``, ``group_by``, ``impute``, ``scale``), which
+delegate to ``rapids.ops`` as in the JAX package; ``cor`` and ``var``
+return matrices.  ``_matrix_cache`` memoizes per-frame device views
+(``matrix``, the response, the weights), as in the JAX package.  Not
+ported yet: the lineage records and ``spill`` (ROADMAP Queue 1, item 8).
 """
 
 from __future__ import annotations
@@ -177,15 +178,74 @@ class Frame:
             lo = hi
         return pieces
 
+    # ---------------------------------------------------------- device views
+    def matrix(self, cols: Optional[Sequence[str]] = None,
+               dtype=torch.float32) -> torch.Tensor:
+        """[padded_rows, len(cols)] block of the columns' payloads; cats
+        as raw codes (-1 NA).  Cached per column set and dtype."""
+        cols = list(cols) if cols is not None else list(self.names)
+        ck = (tuple(cols), str(dtype))
+        hit = self._matrix_cache.get(ck)
+        if hit is not None:
+            return hit
+        parts = []
+        for c in cols:
+            v = self.vec(c)
+            if v.data is None:
+                raise TypeError(f"column {c!r} of type {v.type} is host-only")
+            parts.append(v.data.to(dtype))
+        mat = torch.stack(parts, dim=1)
+        self._matrix_cache[ck] = mat
+        return mat
+
+    # ------------------------------------------------- the data plane's verbs
+    # h2o-py's H2OFrame carries the munging verbs as methods; the device
+    # implementations live in rapids/ops.py and these delegate.
+    def sort(self, by, ascending=True) -> "Frame":
+        from ..rapids import ops
+        return ops.sort(self, by, ascending=ascending)
+
+    def merge(self, other: "Frame", by, how: str = "inner") -> "Frame":
+        from ..rapids import ops
+        return ops.merge(self, other, by, how=how)
+
+    def group_by(self, by, aggs) -> "Frame":
+        from ..rapids import ops
+        return ops.group_by(self, by, aggs)
+
+    def impute(self, column: str, method: str = "mean",
+               combine_method: str = "interpolate") -> "Frame":
+        from ..rapids import ops
+        return ops.impute(self, column, method=method,
+                          combine_method=combine_method)
+
+    def scale(self, center: bool = True, scale: bool = True) -> "Frame":
+        from ..rapids import ops
+        return ops.scale(self, center=center, scale_=scale)
+
+    def cor(self, cols=None, use: str = "complete.obs"):
+        from ..rapids import ops
+        return ops.cor(self, cols, use=use)
+
+    def var(self, cols=None, use: str = "complete.obs"):
+        from ..rapids import ops
+        return ops.var(self, cols, use=use)
+
     # ---------------------------------------------------------------- export
+    def to_pandas(self):
+        """A pandas DataFrame of the decoded columns (pandas is imported
+        here, at the call)."""
+        import pandas as pd
+        return pd.DataFrame({n: v.decoded()
+                             for n, v in zip(self.names, self.vecs)})
+
     def to_numpy(self) -> np.ndarray:
         return np.stack([np.asarray(v.to_numpy(), dtype=np.float64)
                          for v in self.vecs], axis=1)
 
     def head(self, n: int = 10) -> "Frame":
         """The first ``n`` rows as a Frame (h2o-py's ``head``; the JAX
-        package returns a pandas DataFrame, and ``to_pandas`` is not
-        ported yet)."""
+        package returns a pandas DataFrame: ``head(n).to_pandas()``)."""
         return self.rows(np.arange(min(n, self.nrows)))
 
     def describe(self) -> Dict[str, dict]:

@@ -142,6 +142,10 @@ class Vec:
         return self.data.device if self.data is not None else None
 
     @property
+    def is_numeric(self) -> bool:
+        return self.type in (T_NUM, T_TIME)
+
+    @property
     def cardinality(self) -> int:
         return len(self.domain) if self.domain is not None else -1
 

@@ -1,11 +1,13 @@
 """Models: the training contract with its shared options
 (cross-validation in ``cv``), the GBM distributions (``distributions``:
 the JAX package's ten families and a custom one), the tree family, GLM,
-DeepLearning, the grid search, the unsupervised, survival and
+DeepLearning, the grid search (with concurrent waves through
+``parallel.map_builds``), the unsupervised, survival and
 feature-engineering families (KMeans, Aggregator, PCA/SVD, GLRM,
 NaiveBayes, Quantile, IsotonicRegression, CoxPH, PSVM, TargetEncoder,
-Word2Vec), and the composite builders that fit through GLM and the trees
-(AdaBoost, RuleFit, StackedEnsemble, GAM, ANOVAGLM, ModelSelection)."""
+Word2Vec), the composite builders that fit through GLM and the trees
+(AdaBoost, RuleFit, StackedEnsemble, GAM, ANOVAGLM, ModelSelection), one
+model per data segment (``train_segments``), Infogram and Grep."""
 
 from .adaboost import AdaBoost, AdaBoostModel, AdaBoostParameters
 from .aggregator import Aggregator
@@ -18,7 +20,9 @@ from .ensemble import (StackedEnsemble, StackedEnsembleModel,
 from .gam import GAM, GAMModel, GAMParameters
 from .glm import GLM, GLMParameters
 from .glrm import GLRM
+from .grep import Grep, GrepModel, GrepParameters, grep
 from .grid import Grid, GridSearch
+from .infogram import Infogram, InfogramModel, InfogramParameters
 from .isotonic import IsotonicRegression
 from .kmeans import KMeans
 from .modelselection import (ModelSelection, ModelSelectionModel,
@@ -28,6 +32,7 @@ from .pca import PCA, SVD
 from .psvm import PSVM
 from .quantile import Quantile, quantile
 from .rulefit import RuleFit, RuleFitModel, RuleFitParameters
+from .segments import SegmentModels, train_segments
 from .targetencoder import TargetEncoder
 from .tree.drf import DRF
 from .tree.dt import DecisionTree
@@ -48,8 +53,10 @@ COMPOSITES = ("AdaBoost", "AdaBoostModel", "AdaBoostParameters", "ANOVAGLM",
 __all__ = ["Aggregator", "CoxPH", "CustomDistribution", "DRF",
            "DecisionTree", "DeepLearning", "DeepLearningParameters",
            "ExtendedIsolationForest", "GBM", "GBMParameters", "GLM",
-           "GLMParameters", "GLRM", "Grid", "GridSearch", "IsolationForest",
-           "IsotonicRegression", "KMeans", "NaiveBayes", "PCA", "PSVM",
-           "Quantile", "SVD", "TargetEncoder", "UpliftDRF", "Word2Vec",
-           "XGBoost", "XGBoostParameters", "make_distribution",
-           "quantile"] + list(COMPOSITES)
+           "GLMParameters", "GLRM", "Grep", "GrepModel", "GrepParameters",
+           "Grid", "GridSearch", "Infogram", "InfogramModel",
+           "InfogramParameters", "IsolationForest", "IsotonicRegression",
+           "KMeans", "NaiveBayes", "PCA", "PSVM", "Quantile", "SVD",
+           "SegmentModels", "TargetEncoder", "UpliftDRF", "Word2Vec",
+           "XGBoost", "XGBoostParameters", "grep", "make_distribution",
+           "quantile", "train_segments"] + list(COMPOSITES)

@@ -9,9 +9,9 @@ As in the JAX package, every fold model trains on the FULL frame with its
 holdout rows' weights zeroed (a synthetic weight column), not on a row
 slice, so the folds share one geometry, and the fold draws are numpy's,
 so a seed gives the JAX package's folds bit for bit.  The folds train one
-after another; the reference's thread pool (``parallelism``) comes with
-``models/parallel.py`` (ROADMAP Queue 1 item 7), and no result depends
-on the order.
+after another: the base ``parallelism`` field that would run them on
+``models/parallel.py::map_builds`` comes with the runtime planes (ROADMAP
+Queue 1 item 9), and no result depends on the order.
 """
 
 from __future__ import annotations

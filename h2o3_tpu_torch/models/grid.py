@@ -9,10 +9,10 @@ budgets and early stopping over the model sequence) and
 Combos that differ only in scalar hyperparameters train as batched
 cohorts (``models/tree/grid_batch.py``: one level loop for G members);
 every other combo, and every member a cohort turns away (the reason is
-recorded as a ``grid_batch_fallback`` event), takes the wave path: one
-``builder.train`` after another.  Not ported yet: scheduler-parallel
-waves (``parallelism`` other than 0 or 1, ``runtime/parallel.py``) and
-``Grid.save``/``load`` (``persist/``).
+recorded as a ``grid_batch_fallback`` event), takes the wave path: waves
+of ``parallelism`` concurrent ``builder.train`` calls
+(``models/parallel.py::map_builds``), each member bitwise its sequential
+train.  Not ported yet: ``Grid.save``/``load`` (``persist/``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,15 @@ from ..runtime import dkv
 from ..runtime.device import resolve_device
 from ..runtime.observability import record
 from .base import Model
+from .parallel import effective_parallelism, map_builds
 from .scorekeeper import METRIC_MAXIMIZE, stop_early
+
+
+class _FailedBuild:
+    """A wave member whose build raised: its error's repr."""
+
+    def __init__(self, error: str):
+        self.error = error
 
 
 def default_sort_metric(model: Model) -> (str, bool):
@@ -108,8 +116,16 @@ class GridSearch:
     ``grid_batch``: "on" trains every cohort of combos that differ only in
     scalar hyperparameters as one batched build; "auto" does so where the
     cohort's resident state fits ``grid_batch.GRID_STATE_BUDGET``; "off"
-    is the wave path alone.  ``parallelism`` 0 (auto) and 1 build one
-    wave member at a time; concurrent waves are not ported yet.
+    is the wave path alone.  ``parallelism`` n > 1 builds the wave path
+    in waves of n concurrent members (threads sharing the card; budgets
+    and sequence early stopping are re-checked between waves, so a wave
+    may overshoot by at most n - 1 models, as in the reference's parallel
+    walker); 0 (auto) and 1 build one member at a time.  The waves are
+    kept for parity, not speed: on an H100 two concurrent waves built
+    0.44-0.79 times the member trees/s of sequential ones (one stream,
+    one interpreter; ``chip_smoke.py`` phase 54, PERF.md).  The whole-tree
+    scan program (``tree_program`` "scan" or "check") captures CUDA
+    graphs, whose capture is process-wide, so it is refused under n > 1.
     ``base_params`` go to every member's builder (``device`` included).
     """
 
@@ -117,10 +133,18 @@ class GridSearch:
                  search_criteria: Optional[dict] = None,
                  parallelism: int = 0, grid_batch: str = "auto",
                  **base_params):
-        if parallelism not in (0, 1):
-            raise NotImplementedError(
-                f"parallelism={parallelism}: scheduler-parallel grid waves "
-                "are not ported yet (runtime/parallel.py, ROADMAP Queue 1)")
+        if parallelism < 0:
+            raise ValueError(f"parallelism={parallelism}: use 0 (auto), 1 "
+                             "or n > 1 concurrent members")
+        programs = [str(base_params.get("tree_program", "auto")).lower()] \
+            + [str(v).lower() for v in hyper_params.get("tree_program", ())]
+        if parallelism > 1 and any(p in ("scan", "check") for p in programs):
+            raise ValueError(
+                f"parallelism={parallelism} with tree_program='scan'/'check':"
+                " the whole-tree program captures CUDA graphs, whose capture"
+                " mode and sync-debug mode are process-wide, so concurrent "
+                "members cannot capture; use parallelism=1 or the level "
+                "program")
         mode = str(grid_batch).lower()
         if mode not in ("auto", "on", "off"):
             raise ValueError(f"grid_batch={grid_batch!r}: use auto | on | "
@@ -233,20 +257,36 @@ class GridSearch:
                 stopped = seq_stop()
             remaining = [i for i in remaining if i not in taken]
 
-        # the wave path: one member after another
-        for i in remaining:
-            if stopped or out_of_time():
+        # the wave path: waves of ``par`` concurrent members (one at a
+        # time for parallelism 0 and 1); the deadline is armed in each
+        # member's thread and polled at its chunk fences
+        par = effective_parallelism(self.parallelism, len(remaining))
+        pos = 0
+        while pos < len(remaining) and not stopped:
+            if out_of_time() or (max_models and len(models) >= max_models):
                 break
-            if max_models and len(models) >= max_models:
-                break
-            try:
-                m = self.builder_cls(
-                    **{**self.base_params, **combos[i]}).train(frame, valid)
-            except Exception as e:                      # noqa: BLE001
-                # a failing member becomes a failed_entries row
-                failed_entries.append({**combos[i], "error": repr(e)})
-                continue
-            note(combos[i], m)
+            wave = remaining[pos: pos + par]
+            if max_models:
+                wave = wave[: max_models - len(models)]
+            pos += len(wave)
+
+            def build(i):
+                # a failing member (a mid-build DeadlineExceeded included)
+                # becomes a failed_entries row
+                try:
+                    return self.builder_cls(
+                        **{**self.base_params, **combos[i]}).train(
+                            frame, valid)
+                except Exception as e:                  # noqa: BLE001
+                    return _FailedBuild(repr(e))
+
+            for i, m in zip(wave, map_builds(
+                    [lambda i=i: build(i) for i in wave], par,
+                    deadline=deadline)):
+                if isinstance(m, _FailedBuild):
+                    failed_entries.append({**combos[i], "error": m.error})
+                    continue
+                note(combos[i], m)
             stopped = seq_stop()
         if not models:
             raise ValueError(

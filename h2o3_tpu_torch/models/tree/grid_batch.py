@@ -41,6 +41,7 @@ import torch
 from ...runtime import dkv
 from ...runtime import observability as obs
 from ...runtime.job import DONE, FAILED, RUNNING, Job
+from .. import parallel
 
 #: per-member knobs that batch as ``[G]`` operands (or per-member host
 #: state, for ``seed``); any other knob changes the build and so splits
@@ -200,7 +201,8 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
     successive halving through the host-side ``alive`` mask, the
     validation frame scored per member, and each member finished as its
     own train finishes (``_finalize_fused``).  ``deadline`` (a
-    ``time.monotonic()`` value) is checked at every chunk fence: the
+    ``time.monotonic()`` value) is armed as the thread's cooperative
+    deadline (``models/parallel.py``) and polled at every chunk fence: the
     members then keep the trees grown so far.
 
     Returns ``[(model, None) | (None, error_str)]`` aligned with
@@ -339,64 +341,70 @@ def train_cohort(builder_cls, base_params: dict, combos: Sequence[dict],
         alive[g] = False
         obs.record("grid_member_failed", algo=algo, member=g, error=repr(e))
 
-    for chunk_no, (c, t_done, score_now) in enumerate(
-            chunk_schedule(p0.ntrees, p0.score_tree_interval)):
-        if not any(alive):
-            break
-        if deadline is not None and time.monotonic() >= deadline:
-            # max_runtime_secs at the chunk fence: every member keeps the
-            # trees grown so far
-            obs.record("grid_cohort_deadline", algo=algo, trees=max(nt))
-            break
-        live = [g for g in range(G) if alive[g]]
-        F, per = scan_fn(codes, y, w, F, edges_mat, seeds, chunk_no, c,
-                         *head, list(alive), *tail)
-        for g in live:
-            try:
-                chunks[g].append(per[g])
-                nt[g] = t_done
-                jobs[g].update(t_done / p0.ntrees,
-                               f"tree {t_done}/{p0.ntrees}")
-                if valid is not None:
-                    Fvs[g] = Fvs[g] + traverse(per[g].levels, per[g].values,
-                                               Xv)
-            except Exception as e:                      # noqa: BLE001
-                member_failed(g, e)
-        if not score_now:
-            continue
-        for g in live:
-            if not alive[g]:
+    # max_runtime_secs: the deadline is armed in this thread and polled
+    # at every chunk fence (shared.chunk_schedule); past it every member
+    # keeps the trees grown so far
+    prev_deadline = parallel.get_deadline()
+    if deadline is not None:
+        parallel.set_deadline(deadline)
+    try:
+        for chunk_no, (c, t_done, score_now) in enumerate(
+                chunk_schedule(p0.ntrees, p0.score_tree_interval)):
+            if not any(alive):
+                break
+            live = [g for g in range(G) if alive[g]]
+            F, per = scan_fn(codes, y, w, F, edges_mat, seeds, chunk_no, c,
+                             *head, list(alive), *tail)
+            for g in live:
+                try:
+                    chunks[g].append(per[g])
+                    nt[g] = t_done
+                    jobs[g].update(t_done / p0.ntrees,
+                                   f"tree {t_done}/{p0.ntrees}")
+                    if valid is not None:
+                        Fvs[g] = Fvs[g] + traverse(per[g].levels, per[g].values,
+                                                   Xv)
+                except Exception as e:                      # noqa: BLE001
+                    member_failed(g, e)
+            if not score_now:
                 continue
-            try:
-                vstate = (Fvs[g], y_v, w_v) if valid is not None else None
-                if builders[g]._interval_score(
-                        models[g], t_done, F[g], y, w, di, dist,
-                        histories[g], vstate, metric_name, maximize):
-                    alive[g] = False            # the member's early stop
-            except Exception as e:                      # noqa: BLE001
-                member_failed(g, e)
-        # successive halving: at each rung's fence keep the best ``keep``
-        # members by metric; the others retire through the alive mask
-        while rungs and t_done >= rungs[0][0]:
-            _, keep = rungs.pop(0)
-            live_now = [g for g in range(G)
-                        if alive[g] and failed[g] is None]
-            if len(live_now) <= keep:
-                continue
-            key = f"valid_{h_metric}" if valid is not None else h_metric
-            worst = math.inf if h_maximize else -math.inf
+            for g in live:
+                if not alive[g]:
+                    continue
+                try:
+                    vstate = (Fvs[g], y_v, w_v) if valid is not None else None
+                    if builders[g]._interval_score(
+                            models[g], t_done, F[g], y, w, di, dist,
+                            histories[g], vstate, metric_name, maximize):
+                        alive[g] = False            # the member's early stop
+                except Exception as e:                      # noqa: BLE001
+                    member_failed(g, e)
+            # successive halving: at each rung's fence keep the best ``keep``
+            # members by metric; the others retire through the alive mask
+            while rungs and t_done >= rungs[0][0]:
+                _, keep = rungs.pop(0)
+                live_now = [g for g in range(G)
+                            if alive[g] and failed[g] is None]
+                if len(live_now) <= keep:
+                    continue
+                key = f"valid_{h_metric}" if valid is not None else h_metric
+                worst = math.inf if h_maximize else -math.inf
 
-            def rank(g):
-                v = histories[g][-1].get(key) if histories[g] else None
-                return worst if v is None else v
+                def rank(g):
+                    v = histories[g][-1].get(key) if histories[g] else None
+                    return worst if v is None else v
 
-            for g in sorted(live_now, key=rank, reverse=h_maximize)[keep:]:
-                alive[g] = False
-                models[g].output["halving"] = {"retired_at": int(t_done),
-                                               "rung_keep": keep}
-                obs.inc("grid_members_retired_total", algo=algo)
-                obs.record("grid_member_retired", algo=algo, member=g,
-                           trees=int(t_done))
+                for g in sorted(live_now, key=rank, reverse=h_maximize)[keep:]:
+                    alive[g] = False
+                    models[g].output["halving"] = {"retired_at": int(t_done),
+                                                   "rung_keep": keep}
+                    obs.inc("grid_members_retired_total", algo=algo)
+                    obs.record("grid_member_retired", algo=algo, member=g,
+                               trees=int(t_done))
+    except parallel.DeadlineExceeded:
+        obs.record("grid_cohort_deadline", algo=algo, trees=max(nt))
+    finally:
+        parallel.set_deadline(prev_deadline)
 
     results: List[Tuple[Optional[object], Optional[str]]] = []
     for g in range(G):

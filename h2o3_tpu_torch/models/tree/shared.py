@@ -1718,11 +1718,17 @@ def make_grid_scan_fn(G: int, dist, max_depth: int, nbins: int, F: int,
 def chunk_schedule(ntrees: int, score_tree_interval: int,
                    chunk_cap: int = 10):
     """Yield (chunk_len, trees_done, score_now): chunks of at most
-    ``chunk_cap`` trees whose boundaries land on the scoring intervals."""
+    ``chunk_cap`` trees whose boundaries land on the scoring intervals.
+    Each chunk fence polls the thread's cooperative deadline
+    (``parallel.check_deadline``, armed by ``map_builds`` and the cohort
+    trainer), so an in-flight build stops within one chunk of a grid's
+    max_runtime_secs."""
+    from ..parallel import check_deadline
     interval = max(1, min(score_tree_interval, ntrees))
     cap = min(chunk_cap, interval)
     t = 0
     while t < ntrees:
+        check_deadline()
         c = min(cap, ntrees - t, interval - (t % interval))
         t += c
         yield c, t, (t % interval == 0 or t >= ntrees)

@@ -1,0 +1,645 @@
+"""Rapids AST: parse and evaluate the Lisp-style expression language —
+the port of ``h2o3_tpu/rapids/ast.py``.
+
+Reference: ``water/rapids/Rapids.java:29`` (parser) and the Ast* op
+classes under ``water/rapids/ast/prims``: clients (h2o-py/h2o/expr.py:27)
+build ``(op arg ...)`` strings lazily and POST them to /99/Rapids; the
+server parses and evaluates them against frames in the key store.
+
+The evaluator maps ops onto the device munging engine (ops.py) and
+elementwise torch arithmetic on the frames' device; numbers, strings and
+lists follow the reference's literal syntax (``[1 2 3]`` number lists,
+``["a" "b"]`` string lists, ``'col'`` quoted strings).  Results are
+assigned keys in the port's key store by ``(tmp= ...)`` and ``(assign
+...)``, as in the reference session protocol.  A result made from no
+frame (``seq``, ``ls``, a scalar ``mktime``) lies on the session's device,
+``cuda`` unless ``rapids(..., device=...)`` names another.
+"""
+
+from __future__ import annotations
+
+import operator
+from typing import Any, List, Optional
+
+import numpy as np
+import torch
+
+from ..frame.frame import Frame
+from ..frame.vec import T_CAT, T_NUM, T_STR, Vec
+from ..runtime import dkv
+from ..runtime.device import resolve_device
+from . import ops
+
+
+# ------------------------------------------------------------------ parser
+class _Tok:
+    def __init__(self, text: str):
+        self.text = text
+        self.i = 0
+
+    def peek(self) -> str:
+        while self.i < len(self.text) and self.text[self.i].isspace():
+            self.i += 1
+        return self.text[self.i] if self.i < len(self.text) else ""
+
+    def next_token(self):
+        c = self.peek()
+        if c in "()[]{}":
+            self.i += 1
+            return c
+        if c in "'\"":
+            q = c
+            j = self.i + 1
+            out = []
+            while j < len(self.text) and self.text[j] != q:
+                if self.text[j] == "\\" and j + 1 < len(self.text):
+                    j += 1                 # backslash escape (h2o-py _quote)
+                out.append(self.text[j])
+                j += 1
+            self.i = j + 1
+            return ("str", "".join(out))
+        j = self.i
+        while j < len(self.text) and not self.text[j].isspace() \
+                and self.text[j] not in "()[]{}":
+            j += 1
+        tok = self.text[self.i: j]
+        self.i = j
+        return tok
+
+
+def parse(text: str):
+    """Rapids text -> nested python lists (strings/floats/markers)."""
+    tok = _Tok(text)
+
+    def read():
+        t = tok.next_token()
+        if t == "(":
+            out = []
+            while tok.peek() != ")":
+                if tok.peek() == "":
+                    raise ValueError("unbalanced (")
+                out.append(read())
+            tok.next_token()
+            return out
+        if t == "[":
+            out = ["__list__"]
+            while tok.peek() != "]":
+                if tok.peek() == "":
+                    raise ValueError("unbalanced [")
+                out.append(read())
+            tok.next_token()
+            return out
+        if t == "{":
+            # AstFunction syntax: { id1 id2 . body }  (AstFunction.java:63)
+            ids = []
+            while True:
+                nxt = read()
+                if nxt == ".":
+                    break
+                if not isinstance(nxt, str):
+                    raise ValueError(f"lambda formal must be an id: {nxt!r}")
+                ids.append(nxt)
+            body = read()
+            if tok.next_token() != "}":
+                raise ValueError("unbalanced {")
+            return ["__lambda__", ids, body]
+        if t in (")", "]", "}"):
+            raise ValueError(f"unexpected {t}")
+        if isinstance(t, tuple):
+            return ("str", t[1])
+        try:
+            return float(t)
+        except ValueError:
+            return t
+
+    out = read()
+    if tok.peek():
+        raise ValueError(f"trailing input: {tok.text[tok.i:]}")
+    return out
+
+
+# --------------------------------------------------------------- evaluator
+def _vecframe(v, name="x") -> Frame:
+    return Frame([name], [v]) if isinstance(v, Vec) else v
+
+
+def _numeric(fr: Frame) -> torch.Tensor:
+    """[padded, C] numeric view of all columns (cats as codes)."""
+    return torch.stack([v.numeric_data() for v in fr.vecs], dim=1)
+
+
+def _num_cols(out: torch.Tensor, names, nrows: int) -> Frame:
+    """A frame of float32 numeric columns from a [padded, C] block."""
+    out = out.to(torch.float32)
+    if out.ndim == 1:
+        out = out[:, None]
+    return Frame(list(names)[: out.shape[1]],
+                 [Vec(out[:, j].contiguous(), T_NUM, nrows)
+                  for j in range(out.shape[1])])
+
+
+_SCALAR_OPS = {"+": operator.add, "-": operator.sub, "*": operator.mul,
+               "/": operator.truediv, "^": operator.pow, "%": operator.mod,
+               "intDiv": operator.floordiv, "<": operator.lt,
+               "<=": operator.le, ">": operator.gt, ">=": operator.ge,
+               "==": operator.eq, "!=": operator.ne,
+               "&": lambda a, b: bool(a) and bool(b),
+               "|": lambda a, b: bool(a) or bool(b)}
+
+_TENSOR_OPS = {"+": torch.add, "-": torch.sub, "*": torch.mul,
+               "/": torch.div, "^": torch.pow, "%": torch.remainder,
+               "intDiv": torch.floor_divide, "<": torch.lt, "<=": torch.le,
+               ">": torch.gt, ">=": torch.ge, "==": torch.eq,
+               "!=": torch.ne, "&": torch.logical_and,
+               "|": torch.logical_or}
+
+
+def _binop(op, l, r):
+    """Elementwise arithmetic over frames, vecs and scalars, on the
+    frames' device in float32."""
+    if not isinstance(l, (Frame, Vec)) and not isinstance(r, (Frame, Vec)):
+        return float(_SCALAR_OPS[op](float(l), float(r)))
+    ref = l if isinstance(l, (Frame, Vec)) else r
+
+    def arr(x):
+        if isinstance(x, Frame):
+            return _numeric(x)
+        if isinstance(x, Vec):
+            return x.numeric_data()[:, None]
+        return None
+
+    la, ra = arr(l), arr(r)
+    dev = (la if la is not None else ra).device
+    if la is None:
+        la = torch.tensor(float(l), dtype=torch.float32, device=dev)
+    if ra is None:
+        ra = torch.tensor(float(r), dtype=torch.float32, device=dev)
+    out = _TENSOR_OPS[op](la, ra)
+    names = ref.names if isinstance(ref, Frame) else ["x"]
+    return _num_cols(out, [f"{n}" for n in names], ref.nrows)
+
+
+_UNARY = {
+    "abs": torch.abs, "log": torch.log, "log10": torch.log10,
+    "log2": torch.log2, "log1p": torch.log1p, "exp": torch.exp,
+    "expm1": torch.expm1, "sqrt": torch.sqrt, "floor": torch.floor,
+    "ceiling": torch.ceil, "round": torch.round, "trunc": torch.trunc,
+    "sign": torch.sign, "cos": torch.cos, "sin": torch.sin,
+    "tan": torch.tan, "acos": torch.acos, "asin": torch.asin,
+    "atan": torch.atan, "cosh": torch.cosh, "sinh": torch.sinh,
+    "tanh": torch.tanh, "not": torch.logical_not, "is.na": torch.isnan,
+}
+
+_STRING = {
+    "toupper": "toupper", "tolower": "tolower", "trim": "trim",
+    "lstrip": "lstrip", "rstrip": "rstrip", "substring": "substring",
+    "replacefirst": "sub", "replaceall": "gsub", "nchar": "nchar",
+    "countmatches": "countmatches",
+}
+
+
+def nan_reduce(name: str, X: torch.Tensor, dim: Optional[int] = None):
+    """numpy's nan-reductions (``nansum``, ``nanmean``, ``nanmax``,
+    ``nanmin``, ``nanmedian``, and ``nanstd``/``nanvar`` with ddof=1) over
+    all elements or along ``dim``; an all-NaN slice gives NaN (0 for the
+    sum)."""
+    if dim is None:
+        X, dim = X.reshape(-1), 0
+    nan = torch.isnan(X)
+    k = (~nan).sum(dim)
+    if name == "sum":
+        return torch.nansum(X, dim)
+    if name == "mean":
+        return torch.nanmean(X, dim)
+    if name in ("max", "min"):
+        fill = float("-inf") if name == "max" else float("inf")
+        Y = torch.where(nan, fill, X)
+        v = Y.amax(dim) if name == "max" else Y.amin(dim)
+        return torch.where(k > 0, v, float("nan"))
+    if name == "median":
+        s = torch.sort(X, dim=dim).values          # NaN sort last
+        lo = ((k - 1).clamp_min(0) // 2).unsqueeze(dim)
+        hi = (k // 2).clamp_max(max(X.shape[dim] - 1, 0)).unsqueeze(dim)
+        med = (torch.gather(s, dim, lo) * 0.5
+               + torch.gather(s, dim, hi) * 0.5).squeeze(dim)
+        return torch.where(k > 0, med, float("nan"))
+    if name in ("var", "sd"):
+        mean = torch.nanmean(X, dim, keepdim=True)
+        d2 = torch.where(nan, 0.0, (X - mean) ** 2).sum(dim)
+        v = torch.where(k > 1, d2 / (k - 1).clamp_min(1), float("nan"))
+        return v.sqrt() if name == "sd" else v
+    raise ValueError(f"unknown reduction {name!r}")
+
+
+_AGG = ("sum", "mean", "max", "min", "sd", "var", "median", "cor")
+
+
+class Lambda:
+    """A Rapids function value — ``{ ids . body }`` (AstFunction.java:16)."""
+
+    def __init__(self, ids: List[str], body):
+        self.ids = list(ids)
+        self.body = body
+
+    def __repr__(self):
+        return f"<lambda ({' '.join(self.ids)})>"
+
+
+class Session:
+    """One Rapids session: evaluates ASTs against the key store."""
+
+    def __init__(self, device=None):
+        self._env: List[dict] = []       # lexical frames, innermost last
+        self.device_arg = device
+
+    @property
+    def device(self) -> torch.device:
+        """The device of results made from no frame: ``cuda`` unless the
+        session names another."""
+        return resolve_device(self.device_arg)
+
+    def dev(self, fr) -> torch.device:
+        """The device of results made from ``fr``: its device columns',
+        else the session's."""
+        fr = _vecframe(fr)
+        if isinstance(fr, Frame) and fr._device_vec() is not None:
+            return fr.device
+        return self.device
+
+    def eval(self, text: str):
+        return self._ev(parse(text))
+
+    # -- helpers
+    def _frame(self, key: str) -> Frame:
+        fr = dkv.get(key)
+        if fr is None:
+            raise KeyError(f"no frame {key!r}")
+        return fr
+
+    def call(self, lam: Lambda, vals: List) -> Any:
+        """Apply a lambda: bind formals, evaluate the body."""
+        self._env.append(dict(zip(lam.ids, vals)))
+        try:
+            return self._ev(lam.body)
+        finally:
+            self._env.pop()
+
+    def _ev(self, node) -> Any:
+        if isinstance(node, float):
+            return node
+        if isinstance(node, tuple) and node[0] == "str":
+            return node[1]
+        if isinstance(node, str):
+            # boolean tokens (Rapids.java parses these as 1/0)
+            if node in ("TRUE", "True", "true"):
+                return 1.0
+            if node in ("FALSE", "False", "false"):
+                return 0.0
+            if node in ("NA", "NaN", "nan"):
+                return float("nan")
+            # lexical binding (lambda formal), then a stored key
+            for frame in reversed(self._env):
+                if node in frame:
+                    return frame[node]
+            return self._frame(node)
+        if not isinstance(node, list):
+            raise ValueError(f"bad node {node!r}")
+        if node and node[0] == "__list__":
+            return [self._ev(x) for x in node[1:]]
+        if node and node[0] == "__lambda__":
+            return Lambda(node[1], node[2])
+        op, *args = node
+        if isinstance(op, list):
+            # immediate application: ({x . body} arg ...)
+            fn = self._ev(op)
+            if not isinstance(fn, Lambda):
+                raise ValueError(f"cannot apply non-function {fn!r}")
+            return self.call(fn, [self._ev(a) for a in args])
+        return self._apply(op, args)
+
+    def _apply(self, op: str, args: List) -> Any:
+        ev = self._ev
+        if op in ("tmp=", "assign"):
+            key = args[0] if isinstance(args[0], str) else ev(args[0])
+            val = ev(args[1])
+            if isinstance(val, Vec):
+                val = _vecframe(val)
+            if isinstance(val, Frame):
+                val = Frame(val.names, val.vecs, key=key)
+            else:
+                dkv.put(key, val)
+            return val
+        if op == "rm":
+            dkv.remove(args[0] if isinstance(args[0], str) else ev(args[0]))
+            return None
+        if op in _TENSOR_OPS:
+            return _binop(op, ev(args[0]), ev(args[1]))
+        if op in _UNARY:
+            fr = _vecframe(ev(args[0]))
+            return _num_cols(_UNARY[op](_numeric(fr)), fr.names, fr.nrows)
+        if op in _AGG:
+            if op in ("var", "cor"):
+                # frame form -> covariance/correlation MATRIX (AstVariance);
+                # a single column falls through to the scalar reduction.
+                # Optional args: a y frame (the cross block, via cbind)
+                # and the use mode string.
+                probe = ev(args[0])
+                rest = [ev(a) for a in args[1:]]
+                y = next((r for r in rest if isinstance(r, Frame)), None)
+                use = next((r for r in rest if isinstance(r, str)),
+                           "complete.obs")
+                if use == "all.obs":
+                    use = "complete.obs"
+                fn = ops.var if op == "var" else ops.cor
+                if isinstance(probe, Frame) and (probe.ncols > 1
+                                                 or y is not None):
+                    if y is not None and y is not probe:
+                        joint = ops.cbind(probe, y.rename(
+                            {n: f"__y_{n}" for n in y.names}))
+                        M = fn(joint, use=use)["matrix"][
+                            :probe.ncols, probe.ncols:]
+                        names = y.names
+                    else:
+                        res = fn(probe, use=use)
+                        M, names = res["matrix"], res["columns"]
+                    dev = self.dev(probe)
+                    return Frame(names, [Vec.from_numpy(M[:, j], T_NUM,
+                                                        device=dev)
+                                         for j in range(M.shape[1])])
+                if op == "cor":
+                    raise ValueError("cor needs a multi-column frame")
+                args = [probe] + list(args[1:])
+            fr = _vecframe(ev(args[0]) if not isinstance(args[0], (Frame, Vec))
+                           else args[0])
+            return float(nan_reduce(op, _numeric(fr)[: fr.nrows]))
+        if op == "cols" or op == "cols_py":
+            fr = ev(args[0])
+            return fr[self._col_names(fr, ev(args[1]))]
+        if op == "rows":
+            fr = ev(args[0])
+            sel = ev(args[1])
+            if isinstance(sel, Frame):           # boolean mask frame
+                return ops.filter_rows(fr, sel.vecs[0])
+            return fr.rows(np.asarray(sel, dtype=np.int64))
+        if op == "sort":
+            fr = ev(args[0])
+            cols = self._col_names(fr, ev(args[1]))
+            asc = True
+            if len(args) > 2:
+                a = ev(args[2])
+                asc = [bool(x) for x in a] if isinstance(a, list) else bool(a)
+            return ops.sort(fr, cols, ascending=asc)
+        if op == "merge":
+            left, right = ev(args[0]), ev(args[1])
+            all_left = bool(ev(args[2])) if len(args) > 2 else False
+            by = self._col_names(left, ev(args[3])) if len(args) > 3 and \
+                args[3] is not None else \
+                [c for c in left.names if c in right.names]
+            return ops.merge(left, right, by,
+                             how="left" if all_left else "inner")
+        if op == "GB" or op == "group_by":
+            # (GB frame [by...] agg col na agg col na ...) — AstGroup triples
+            fr = ev(args[0])
+            by = self._col_names(fr, ev(args[1]))
+            aggs: dict = {}
+            rest = args[2:]
+            for i in range(0, len(rest) - 2, 3):
+                fn = rest[i] if isinstance(rest[i], str) else ev(rest[i])
+                col = self._col_names(fr, ev(rest[i + 1]))[0]
+                aggs.setdefault(col, []).append(
+                    {"nrow": "count"}.get(fn, fn))
+            return ops.group_by(fr, by, aggs)
+        if op == "rbind":
+            return ops.rbind(*[ev(a) for a in args])
+        if op == "cbind":
+            return ops.cbind(*[_vecframe(ev(a)) for a in args])
+        if op == "unique":
+            fr = _vecframe(ev(args[0]))
+            return Frame.from_numpy({fr.names[0]: ops.unique(fr.vecs[0])},
+                                    device=self.dev(fr))
+        if op == "table":
+            fr = _vecframe(ev(args[0]))
+            t = ops.table(fr.vecs[0])
+            return Frame.from_numpy({
+                fr.names[0]: np.asarray(list(t.keys()), object),
+                "Count": np.asarray(list(t.values()), np.float64)},
+                device=self.dev(fr))
+        if op == "ifelse":
+            c, yes, no = ev(args[0]), ev(args[1]), ev(args[2])
+            cv = c.vecs[0] if isinstance(c, Frame) else c
+            yv = yes.vecs[0] if isinstance(yes, Frame) else yes
+            nv = no.vecs[0] if isinstance(no, Frame) else no
+            return _vecframe(ops.ifelse(cv, yv, nv))
+        if op == "hist":
+            fr = _vecframe(ev(args[0]))
+            breaks = int(ev(args[1])) if len(args) > 1 else 20
+            counts, edges = ops.hist(fr.vecs[0], breaks)
+            return Frame.from_numpy({"breaks": edges[1:],
+                                     "counts": counts.astype(np.float64)},
+                                    device=self.dev(fr))
+        if op == "nrow":
+            return float(ev(args[0]).nrows)
+        if op == "ncol":
+            return float(ev(args[0]).ncols)
+        if op == "colnames=":
+            fr = ev(args[0])
+            names = ev(args[2])
+            names = names if isinstance(names, list) else [names]
+            idx = ev(args[1])
+            idx = [int(i) for i in (idx if isinstance(idx, list) else [idx])]
+            return fr.rename({fr.names[i]: str(n)
+                              for i, n in zip(idx, names)})
+        if op == "as.factor":
+            fr = _vecframe(ev(args[0]))
+            out = []
+            for v in fr.vecs:
+                if v.type == T_CAT:
+                    out.append(v)
+                else:
+                    x = v.to_numpy()
+                    out.append(Vec.from_numpy(
+                        np.asarray([("" if np.isnan(u) else str(u))
+                                    for u in x], dtype=object), T_CAT,
+                        device=self.dev(fr)))
+            return Frame(fr.names, out)
+        if op == "as.numeric":
+            fr = _vecframe(ev(args[0]))
+            return _num_cols(_numeric(fr), fr.names, fr.nrows)
+        if op == "quantile":
+            from ..models.quantile import quantile
+            fr = ev(args[0])
+            probs = [float(p) for p in ev(args[1])]
+            return quantile(fr, probs, device=self.dev(fr))
+        if op in _STRING:
+            from . import strings as _str
+            fn = getattr(_str, _STRING[op])
+            vals = [ev(a) for a in args]
+            # h2o-py sends replacefirst/replaceall as (pattern,
+            # replacement, frame, ignore_case); everything else frame-first
+            fi = next(i for i, v in enumerate(vals)
+                      if isinstance(v, (Frame, Vec)))
+            target = vals[fi]
+            extra = [v for i, v in enumerate(vals) if i != fi]
+            if extra and isinstance(extra[-1], float) and \
+                    op in ("replacefirst", "replaceall"):
+                extra = extra[:-1]            # ignore_case flag: unused
+            # Rapids numeric tokens are floats; string fns take ints
+            extra = [int(v) if isinstance(v, float) and
+                     float(v).is_integer() else v for v in extra]
+            # the numeric results of a string column need a device
+            kw = {"device": self.dev(target)} \
+                if op in ("nchar", "countmatches") else {}
+            if isinstance(target, Vec):
+                return _vecframe(fn(target, *extra, **kw))
+            # frame form: transform every string column, keep the names
+            # (AstToUpper & co. apply per string column)
+            return Frame(target.names,
+                         [fn(v, *extra, **kw)
+                          if v.type in (T_STR, T_CAT) else v
+                          for v in target.vecs])
+        if op == "scale":
+            fr = ev(args[0])
+            center = ev(args[1]) if len(args) > 1 else True
+            sc = ev(args[2]) if len(args) > 2 else True
+            if isinstance(center, list) or isinstance(sc, list):
+                raise NotImplementedError(
+                    "scale: per-column center/scale lists not supported; "
+                    "pass booleans")
+            return ops.scale(fr, center=bool(center), scale_=bool(sc))
+        if op == "apply":
+            return self._apply_margin(args)
+        if op == "ddply":
+            return self._ddply(args)
+        if op == "cut":
+            fr = _vecframe(ev(args[0]))
+            breaks = [float(b) for b in ev(args[1])]
+            labels = ev(args[2]) if len(args) > 2 and args[2] is not None \
+                else None
+            if isinstance(labels, list) and not labels:
+                labels = None
+            include_lowest = bool(ev(args[3])) if len(args) > 3 else False
+            right = bool(ev(args[4])) if len(args) > 4 else True
+            # args[5], the label digits: numpy's repr is used
+            return _vecframe(ops.cut(
+                fr.vecs[0], breaks, labels=labels,
+                include_lowest=include_lowest, right=right))
+        from .prims import PRIMS
+        if op in PRIMS:
+            return PRIMS[op](self, args)
+        if op in ("h2o.impute", "impute"):
+            fr = ev(args[0])
+            col = ev(args[1])
+            method = ev(args[2]) if len(args) > 2 else "mean"
+            combine = ev(args[3]) if len(args) > 3 else "interpolate"
+            if isinstance(col, float) and int(col) == -1:
+                # h2o-py sentinel: impute every numeric column with NAs
+                for name in fr.names:
+                    v = fr.vec(name)
+                    if v.is_numeric and v.rollups().nmissing:
+                        fr = ops.impute(fr, name, method=method,
+                                        combine_method=combine)
+                return fr
+            if not isinstance(col, str):
+                col = fr.names[int(col)]
+            return ops.impute(fr, col, method=method,
+                              combine_method=combine)
+        raise ValueError(f"unknown rapids op {op!r}")
+
+    def _apply_margin(self, args) -> Any:
+        """(apply frame margin fun) — AstApply.  margin 2 = per column
+        (the fun sees each single-column frame); margin 1 = per row,
+        evaluated VECTORIZED: the fun's body runs once with the formal
+        bound to the whole frame, which is exact for elementwise bodies
+        (the h2o-py lambda pattern); a bare reducer name ("mean", "sum",
+        ...) reduces row-wise."""
+        ev = self._ev
+        fr = ev(args[0])
+        margin = int(ev(args[1]))
+        fun = ev(args[2])
+        if isinstance(fun, (str, float)):
+            name = str(fun)
+            if name not in ("mean", "sum", "max", "min", "median", "sd",
+                            "var"):
+                raise ValueError(f"apply: unknown function {name!r}")
+            X = _numeric(fr)
+            mask = torch.arange(X.shape[0], device=X.device) < fr.nrows
+            Xv = torch.where(mask[:, None], X, float("nan"))
+            if margin == 1:              # per row
+                return Frame(["C1"], [Vec(nan_reduce(name, Xv, 1).to(
+                    torch.float32), T_NUM, fr.nrows)])
+            out = nan_reduce(name, Xv, 0)[None, :].to(torch.float32)
+            return Frame(list(fr.names),
+                         [Vec(out[:, j], T_NUM, 1)
+                          for j in range(out.shape[1])])
+        if not isinstance(fun, Lambda):
+            raise ValueError(f"apply: not a function: {fun!r}")
+        if margin == 1:
+            res = self.call(fun, [fr])
+            return _vecframe(res) if isinstance(res, (Frame, Vec)) else res
+        outs = []
+        for name in fr.names:
+            res = self.call(fun, [fr[[name]]])
+            if isinstance(res, (int, float)):
+                res = Frame([name], [Vec.from_numpy(
+                    np.asarray([float(res)]), T_NUM, device=self.dev(fr))])
+            outs.append(_vecframe(res, name))
+        return ops.cbind(*outs)
+
+    def _ddply(self, args) -> Any:
+        """(ddply frame [group_cols] fun) — AstDdply: per-group lambda."""
+        ev = self._ev
+        fr = ev(args[0])
+        by = self._col_names(fr, ev(args[1]))
+        fun = ev(args[2])
+        if not isinstance(fun, Lambda):
+            raise ValueError("ddply needs a function argument")
+        from .prims import _decoded
+        keys = [_decoded(fr.vec(c))[: fr.nrows] for c in by]
+        key_strs = np.asarray([tuple(str(k[i]) for k in keys)
+                               for i in range(fr.nrows)], object)
+        uniq, inverse = np.unique(
+            np.asarray(["\x00".join(t) for t in key_strs], object),
+            return_inverse=True)
+        rows_out: List[list] = []
+        for g, label in enumerate(uniq):
+            res = self.call(fun, [fr.rows(np.flatnonzero(inverse == g))])
+            if isinstance(res, Frame):
+                vals = [float(np.asarray(v.to_numpy(), np.float64)[0])
+                        for v in res.vecs]
+            elif isinstance(res, list):
+                vals = [float(x) for x in res]
+            else:
+                vals = [float(res)]
+            rows_out.append(list(label.split("\x00")) + vals)
+        nvals = len(rows_out[0]) - len(by) if rows_out else 0
+        cols: dict = {}
+        for j, c in enumerate(by):
+            col = np.asarray([r[j] for r in rows_out], object)
+            if fr.vec(c).type != T_CAT:
+                col = np.asarray([float(x) for x in col])
+            cols[c] = col
+        for v in range(nvals):
+            cols[f"ddply_C{v + 1}"] = np.asarray(
+                [r[len(by) + v] for r in rows_out])
+        return Frame.from_numpy(cols, device=self.dev(fr))
+
+    def _col_names(self, fr: Frame, sel) -> List[str]:
+        if isinstance(sel, str):
+            return [sel]
+        if isinstance(sel, float):
+            return [fr.names[int(sel)]]
+        return [s if isinstance(s, str) else fr.names[int(s)] for s in sel]
+
+
+_session: Optional[Session] = None
+
+
+def rapids(text: str, device=None):
+    """Evaluate a Rapids expression — the h2o.rapids / POST /99/Rapids
+    analog.  ``device`` places results made from no frame (``cuda``
+    unless named)."""
+    global _session
+    if _session is None:
+        _session = Session()
+    _session.device_arg = device
+    return _session.eval(text)

@@ -9,7 +9,7 @@ not ported: one process owns the store.
 from __future__ import annotations
 
 import threading
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional
 
 _store: Dict[str, Any] = {}
 _counter = 0
@@ -33,6 +33,12 @@ def put(key: str, value: Any) -> str:
 def get(key: str) -> Optional[Any]:
     with _lock:
         return _store.get(key)
+
+
+def keys(prefix: str = "") -> List[str]:
+    """Every key starting with ``prefix``."""
+    with _lock:
+        return [k for k in _store if k.startswith(prefix)]
 
 
 def remove(key: str) -> None:

@@ -49,6 +49,10 @@ from h2o3_tpu_torch.models import (PCA, PSVM, SVD, CoxPH, GLRM,
 from h2o3_tpu_torch.models import coxph as coxph_mod
 from h2o3_tpu_torch.models import word2vec as w2v
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 512
 _TYPES = {"c": "cat", "y": "cat"}
 _DOMAINS = {"c": ["a", "b", "c", "d"], "y": ["no", "yes"]}

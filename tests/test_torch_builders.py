@@ -41,6 +41,10 @@ from h2o3_tpu_torch.models.tree.isofor import (ExtendedIsolationForest,
 from h2o3_tpu_torch.models.tree.uplift import UpliftDRF
 from h2o3_tpu_torch.serving.kernel import PackedScorer
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 1200
 _UPLIFT = dict(response_column="y", treatment_column="treatment", ntrees=2,
                max_depth=4, seed=1, sample_rate=1.0, nbins=32)

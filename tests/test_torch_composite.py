@@ -56,6 +56,10 @@ from h2o3_tpu_torch.models import gam as pgam
 from h2o3_tpu_torch.runtime import dkv as pdkv
 from h2o3_tpu_torch.testing import trees_from_reference
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 2048
 _TYPES = {"c": "cat", "yb": "cat"}
 _DOMAINS = {"c": ["a", "b", "c", "d"], "yb": ["no", "yes"]}

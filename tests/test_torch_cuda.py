@@ -1628,3 +1628,35 @@ def test_composite_family_card_against_cpu(cuda, family):
         a, c = np.asarray(a, np.float64), np.asarray(c, np.float64)
         tol = 1e-5 if family == "modelselection" else 1e-4
         assert np.abs(a - c).max() <= tol * max(np.abs(c).max(), 1.0)
+
+
+def test_group_by_on_the_card_bitwise_run_to_run(cuda):
+    """A group-by of 300k rows over two keys (NA keys among them) on the
+    card: a second run bitwise the first (each group's sums reduce its
+    run of the sorted rows in a fixed order, no float atomics); keys,
+    counts, min and max bitwise the CPU's; sums, means and sds within
+    1e-6 of the largest |value| (f64 sums in another order, stored as
+    f32)."""
+    from h2o3_tpu_torch.frame import Frame
+    from h2o3_tpu_torch.rapids import ops
+    rng = np.random.default_rng(17)
+    n = 300_000
+    k = rng.integers(0, 50, n).astype(np.int32)
+    k[rng.random(n) < 0.01] = -1
+    cols = {"k": k, "g": rng.integers(0, 40, n).astype(np.float64),
+            "x": rng.normal(10.0, 3.0, n)}
+    kw = dict(types={"k": "cat"}, domains={"k": [str(i) for i in range(50)]})
+    aggs = {"x": ["count", "sum", "mean", "min", "max", "sd"]}
+    fr = Frame.from_numpy(cols, device=cuda, **kw)
+    frc = Frame.from_numpy(cols, device="cpu", **kw)
+    a, b = (ops.group_by(fr, ["k", "g"], aggs) for _ in range(2))
+    c = ops.group_by(frc, ["k", "g"], aggs)
+    assert a.nrows == c.nrows > 1500
+    for name in a.names:
+        x, y, z = (f.vec(name).to_numpy() for f in (a, b, c))
+        assert np.array_equal(np.asarray(x).view(np.uint8),
+                              np.asarray(y).view(np.uint8)), name
+        if name in ("k", "g", "count_x", "min_x", "max_x"):
+            np.testing.assert_array_equal(x, z, err_msg=name)
+        else:
+            assert np.abs(x - z).max() <= 1e-6 * np.abs(z).max(), name

@@ -41,6 +41,10 @@ from h2o3_tpu_torch.models import (DRF, GLM, DeepLearning, IsolationForest,
 from h2o3_tpu_torch.models import base
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 640
 _TYPES = {"c": "cat"}
 _DOMAINS = {"c": ["a", "b", "c", "d", "e"]}

@@ -41,6 +41,10 @@ from h2o3_tpu_torch.runtime.observability import timeline_events
 from h2o3_tpu_torch.serving import kernel
 from h2o3_tpu_torch.testing import delay_class
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 1984
 DEPTH = 4
 _BASE = dict(booster="dart", max_depth=DEPTH, nbins=32, seed=1, ntrees=6,

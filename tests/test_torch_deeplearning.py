@@ -40,6 +40,10 @@ from h2o3_tpu_torch.frame import Frame
 from h2o3_tpu_torch.models import DeepLearning
 from h2o3_tpu_torch.models import deeplearning as dl
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 300
 RESPONSES = ("yb", "ym", "yr")
 _TYPES = {"c": "cat"}

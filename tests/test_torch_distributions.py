@@ -36,6 +36,10 @@ from h2o3_tpu_torch.models import distributions as tdist
 from h2o3_tpu_torch.models.tree.gbm import GBM
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 _FAMILIES = [
     ("gaussian", {}), ("bernoulli", {}), ("poisson", {}), ("gamma", {}),
     ("tweedie", {"tweedie_power": 1.3}), ("laplace", {}),

@@ -7,10 +7,11 @@ level expanded back to the dense [2^d] contract.  The same numpy inputs
 from one seed go through the JAX function and its port: the slot maps,
 the sparse level's histograms, and binomial and 3-class (``delay_class``)
 forests trained by both packages (each JAX forest in one test) on the
-airlines-shaped bench frame at 4,096 rows, threshold 4, 3 trees, at
-depth 8 (levels 4-7 sparse; the JAX package compiles one program a
-level, so the depth sets these tests' seconds), the other forests at
-depth 12 (levels 4-11),
+airlines-shaped bench frame at 4,096 rows, 3 trees, at depth 5 from a
+threshold of 3 (levels 3-4 sparse; the JAX package compiles one program
+a level, so the depth sets these tests' seconds), the slot-budget forest
+at depth 9 from threshold 4 (levels 4-8; the budget of 64 slots binds
+from level 7), the port's own forests at depth 12 (levels 4-11),
 ``sample_rate=1`` and ``mtries=-2`` (unsampled: the two packages' random
 bits differ by design).  A shrunken slot budget makes both drop the same
 pairs.  The port is also held against itself: the sparse level bitwise
@@ -47,10 +48,19 @@ from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.serving import batcher
 from h2o3_tpu_torch.testing import delay_class, same_bits
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 4096
 DEPTH = 12
-# the depth of the two forests held level by level against the JAX package
-_FOREST_DEPTH = 8
+# the depth and first sparse level of the two forests held level by level
+# against the JAX package
+_FOREST_DEPTH = 5
+_FOREST_SPARSE_FROM = 3
+# the depth of the forest whose shrunken slot budget binds (64 slots: from
+# level 7, where up to 128 children are alive)
+_BUDGET_DEPTH = 9
 _DRF = dict(ntrees=3, max_depth=DEPTH, nbins=32, sample_rate=1.0,
             mtries=-2, seed=1, sparse_depth_threshold=4,
             score_tree_interval=10 ** 9)
@@ -77,7 +87,8 @@ def _train(kind, cols, jfr, fr):
     """Both packages' forests of one kind at ``_FOREST_DEPTH`` (each JAX
     forest is trained by one test only: under the suite's workers a
     shared fixture would train it once per worker)."""
-    cfg = dict(_DRF, max_depth=_FOREST_DEPTH, **_KINDS[kind])
+    cfg = dict(_DRF, max_depth=_FOREST_DEPTH,
+               sparse_depth_threshold=_FOREST_SPARSE_FROM, **_KINDS[kind])
     return JDRF(**cfg).train(jfr), DRF(device="cpu", **cfg).train(fr)
 
 
@@ -125,7 +136,7 @@ def _dropped(model, depth, threshold, F, nbins):
 def _assert_forests_match(kind, jm, tm, jfr, fr):
     """At every level of every (class) tree the same valid, feature, NA
     direction and bitwise thresholds as the JAX package's, dense levels
-    0-3 and sparse levels 4-7 alike, leaf values to rtol 1e-5 (both
+    0-2 and sparse levels 3-4 alike, leaf values to rtol 1e-5 (both
     resolve "auto" to the sparse layout); the averaged predictions to
     1e-5; the training AUC, rmse and gini (binomial) or accuracy and mean
     per-class error (3-class), and the logloss, within 1e-5.  A binomial
@@ -308,20 +319,20 @@ def shrunk_budget(monkeypatch):
 
 
 def test_slot_budget_overflow_matches_jax(frames, shrunk_budget):
-    """At a budget of 64 slots a depth-12 binomial forest has more alive
+    """At a budget of 64 slots a depth-9 binomial forest has more alive
     children than slots from some level on: both packages drop the same
     pairs there (the same valid at every level, so the same terminal
     children) and grow the same trees; the port's own build at the full
     budget drops none."""
     cols, jfr, fr = frames
-    cfg = dict(_DRF, ntrees=1, **_KINDS["binomial"])
+    cfg = dict(_DRF, ntrees=1, max_depth=_BUDGET_DEPTH, **_KINDS["binomial"])
     jm = JDRF(**cfg).train(jfr)
     tm = DRF(device="cpu", **cfg).train(fr)
-    _assert_same_trees(jm, tm, DEPTH)
+    _assert_same_trees(jm, tm, _BUDGET_DEPTH)
     F = len(tm.datainfo.specs)
-    dropped = _dropped(tm, DEPTH, 4, F, 32)
+    dropped = _dropped(tm, _BUDGET_DEPTH, 4, F, 32)
     assert sum(dropped.values()) > 0, dropped
-    assert _dropped(jm, DEPTH, 4, F, 32) == dropped
+    assert _dropped(jm, _BUDGET_DEPTH, 4, F, 32) == dropped
 
 
 # ------------------------------------------------ (d) the batched K round

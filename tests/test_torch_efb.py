@@ -40,6 +40,10 @@ from h2o3_tpu_torch.models import DRF, DecisionTree, GridSearch
 from h2o3_tpu_torch.models.tree import binning, efb, hist, shared
 from h2o3_tpu_torch.models.tree.gbm import GBM
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 
 def _int_hist(rng, L, F, B):
     """Integer-valued H [3, L, F, B] with a populated NA bin."""

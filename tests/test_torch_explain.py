@@ -21,6 +21,7 @@ import zipfile
 
 import numpy as np
 import pytest
+import torch
 
 from h2o3_tpu import Frame as JFrame
 from h2o3_tpu.export import load_h2o_mojo as jload_h2o_mojo
@@ -34,6 +35,10 @@ from h2o3_tpu_torch.frame import Frame
 from h2o3_tpu_torch.models import DRF
 from h2o3_tpu_torch.models.tree.gbm import GBM
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
+
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
 
 _CATS = ("RACE", "DPROS")
 

@@ -53,6 +53,10 @@ from h2o3_tpu_torch.models.datainfo import DataInfo
 from h2o3_tpu_torch.models.tree.drf import DRF
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N = 1984
 RESPONSES = ("yg", "yb", "yp", "ygam", "ypos", "ym")
 _TYPES = {"c": "cat", "yb": "cat", "ym": "cat"}

@@ -47,6 +47,10 @@ from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.runtime.observability import timeline_events
 from h2o3_tpu_torch.testing import same_bits
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 # the bench frame cut as in tests/test_torch_multinomial.py: 3,264 rows,
 # depth 4, 32 bins, 5 trees
 N_SLICE = 3264
@@ -446,7 +450,8 @@ def test_fallbacks_recorded_and_wave_path_trains(frames):
     and train with their folds on the wave path.  Members whose option
     the port lacks (export_checkpoints_dir) also fall back, and their own
     builder then raises, so each becomes a failed entry; a grid of
-    nothing else trains no model and says so."""
+    nothing else trains no model and says so.  Concurrent waves refuse
+    the whole-tree scan program, whose graph capture is process-wide."""
     import time
     *_, fr = frames
     t0 = time.time()
@@ -466,8 +471,9 @@ def test_fallbacks_recorded_and_wave_path_trains(frames):
                    export_checkpoints_dir="/nonexistent", **_BASE).train(fr)
     assert any("export_checkpoints_dir" in str(e.get("reason"))
                for e in _fallbacks(t0))
-    with pytest.raises(NotImplementedError, match="parallel"):
-        GridSearch(XGBoost, _HP, parallelism=4, **_BASE)
+    with pytest.raises(ValueError, match="parallelism"):
+        GridSearch(XGBoost, _HP, parallelism=4, tree_program="scan",
+                   **_BASE)
 
 
 def test_grid_runs_on_cuda_unless_told(frames, monkeypatch):

@@ -45,6 +45,10 @@ from h2o3_tpu_torch.frame import Frame
 from h2o3_tpu_torch.models.tree import binning, hist
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 # the slice's frame and model, as tests/test_torch_training.py trains them
 N_SLICE = 3904
 _CFG = dict(response_column="dep_delayed_15min", max_depth=4, nbins=32,
@@ -371,10 +375,9 @@ def test_select_superbins_and_best_splits_hier_bitwise(nbins, K, prm):
 # ------------------------------------------------------------ (d) trains
 
 @pytest.fixture(scope="module")
-def trained():
+def port_trained():
     cols, types, domains = make_airlines_like(N_SLICE)
     jfr = JFrame.from_numpy(cols, types=types, domains=domains)
-    jm = JXGBoost(**_CFG).train(jfr)
     fr = Frame.from_numpy(cols, types=types, domains=domains, device="cpu")
     # the port's train, watched: each level's rows (the leaf ids that
     # partition routes) and the inputs of best_splits_hier
@@ -394,7 +397,17 @@ def trained():
         tm = XGBoost(device="cpu", **_CFG).train(fr)
     finally:
         hist.partition, hist.best_splits_hier = real_part, real_best
-    return cols, types, domains, jfr, jm, fr, tm, parts, searches
+    return cols, types, domains, jfr, fr, tm, parts, searches
+
+
+@pytest.fixture(scope="module")
+def trained(port_trained):
+    """The port's watched train and the JAX package's: only the tests
+    that read the JAX model ask for it, so an xdist worker that runs none
+    of them never trains it."""
+    cols, types, domains, jfr, fr, tm, parts, searches = port_trained
+    return (cols, types, domains, jfr, JXGBoost(**_CFG).train(jfr), fr, tm,
+            parts, searches)
 
 
 def test_hier_slice_trees_match_jax(trained):
@@ -464,12 +477,12 @@ def test_hier_slice_predictions_and_metrics_match_jax(trained):
     assert abs(a.logloss - b.logloss) <= 1e-5
 
 
-def test_hier_check_modes_and_exact_search(trained):
+def test_hier_check_modes_and_exact_search(port_trained):
     """hist_mode="check" crosschecks the exact search on the first tree,
     split_mode="check" resolves to "separate" under hier (the JAX
     package's resolver), and training then grows the same hier trees;
     split_search="auto" is the exact search."""
-    cols, types, domains, _, _, fr, tm, _, _ = trained
+    cols, types, domains, _, fr, tm, _, _ = port_trained
     m = XGBoost(device="cpu", hist_mode="check", split_mode="check",
                 **_CFG).train(fr)
     for a, b in zip(m.output["trees"], tm.output["trees"]):

@@ -11,6 +11,10 @@ import numpy as np
 import pytest
 import torch
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "h2o3_tpu_torch")
 
@@ -21,6 +25,8 @@ _UNSUPERVISED = ("kmeans", "aggregator", "pca", "glrm", "naivebayes",
 # the composite builders
 _COMPOSITE = ("adaboost", "rulefit", "ensemble", "gam", "anovaglm",
               "modelselection")
+# the builders over the data plane and the concurrent builds
+_DATA_PLANE = ("segments", "infogram", "grep", "parallel")
 
 
 def _forbidden(module: str) -> bool:
@@ -129,8 +135,12 @@ def test_import_adds_no_jax_module():
         "import h2o3_tpu_torch.models.cv\n"
         "import h2o3_tpu_torch.models.tree.efb\n"
         "import h2o3_tpu_torch.models.isotonic\n"
+        "import h2o3_tpu_torch.rapids\n"
+        "import h2o3_tpu_torch.rapids.prims\n"
+        "import h2o3_tpu_torch.frame.create\n"
+        "import h2o3_tpu_torch.explain\n"
         + "".join(f"import h2o3_tpu_torch.models.{m}\n"
-                  for m in _UNSUPERVISED + _COMPOSITE)
+                  for m in _UNSUPERVISED + _COMPOSITE + _DATA_PLANE)
         + "print(json.dumps(sorted(set(sys.modules) - before)))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
@@ -142,8 +152,11 @@ def test_import_adds_no_jax_module():
     assert "h2o3_tpu_torch.models.cv" in added
     assert "h2o3_tpu_torch.models.tree.efb" in added
     assert "h2o3_tpu_torch.models.isotonic" in added
-    for m in _UNSUPERVISED + _COMPOSITE:
+    for m in _UNSUPERVISED + _COMPOSITE + _DATA_PLANE:
         assert f"h2o3_tpu_torch.models.{m}" in added
+    for m in ("ast", "device", "expr", "ops", "prims", "strings"):
+        assert f"h2o3_tpu_torch.rapids.{m}" in added
+    assert "h2o3_tpu_torch.frame.create" in added
     assert not [m for m in added if _forbidden(m)]
 
 

@@ -53,6 +53,10 @@ from h2o3_tpu_torch.runtime import config
 from h2o3_tpu_torch.serving import batcher
 from h2o3_tpu_torch.testing import delay_class, same_bits
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 K = 3
 # the slice's frame: 3,264 rows (a multiple of the JAX mesh's 64-row
 # padding), chosen because every split of both 5-round models wins by a
@@ -333,11 +337,18 @@ def _slice_frames():
 
 
 @pytest.fixture(scope="module")
-def trained():
+def port_trained():
     cols, jfr, fr = _slice_frames()
-    jm = JXGBoost(**_XGB).train(jfr)
-    tm = XGBoost(device="cpu", **_XGB).train(fr)
-    return cols, jfr, jm, fr, tm
+    return cols, jfr, fr, XGBoost(device="cpu", **_XGB).train(fr)
+
+
+@pytest.fixture(scope="module")
+def trained(port_trained):
+    """The port's train and the JAX package's: only the tests that read
+    the JAX model ask for it, so an xdist worker that runs none of them
+    never trains it."""
+    cols, jfr, fr, tm = port_trained
+    return cols, jfr, JXGBoost(**_XGB).train(jfr), fr, tm
 
 
 def _records_margins(monkeypatch, estimator, cfg, fr, depth):
@@ -454,10 +465,10 @@ def test_archive_layout_matches_jax_export(trained):
                                rtol=1e-6)
 
 
-def test_multinomial_model_publishes(trained):
+def test_multinomial_model_publishes(port_trained):
     """A trained multinomial model publishes (``to_archive`` ->
     ``from_reference`` -> ``predict_rows``) and answers as ``m.predict``."""
-    cols, _, _, fr, tm = trained
+    cols, _, fr, tm = port_trained
     n = 200
     rows = [{k: (str(int(v[i])) if k in ("carrier", "origin", "dest")
                  else float(v[i]))
@@ -481,12 +492,12 @@ def test_multinomial_model_publishes(trained):
     assert from_reference(*tm.to_archive()).meta["nclass_trees"] == K
 
 
-def test_multinomial_check_modes_and_hier(trained):
+def test_multinomial_check_modes_and_hier(port_trained):
     """split_mode="check" and hist_mode="check" run their K-tree
     crosschecks on the first round and then train the batched path (the
     same trees); split_search="hier" trains through the K loop of single
     hierarchical builds."""
-    *_, fr, tm = trained
+    *_, fr, tm = port_trained
     m = XGBoost(device="cpu", hist_mode="check", split_mode="check",
                 **_XGB).train(fr)
     for a, b in zip(m.output["stacked"], tm.output["stacked"]):
@@ -502,11 +513,11 @@ def test_multinomial_check_modes_and_hier(trained):
                - me.training_metrics.logloss) < 0.01
 
 
-def test_multinomial_validation_frame_scores_per_class(trained):
+def test_multinomial_validation_frame_scores_per_class(port_trained):
     """A validation frame is scored class by class as the chunks grow: on
     the training frame itself its metrics are the training metrics, and
     the model's own scoring of it agrees."""
-    *_, fr, _ = trained
+    *_, fr, _ = port_trained
     m = XGBoost(device="cpu", **dict(_XGB, ntrees=2)).train(fr, valid=fr)
     a, b = m.training_metrics, m.validation_metrics
     for name in ("logloss", "mean_per_class_error", "accuracy"):

@@ -27,6 +27,7 @@ import zipfile
 
 import numpy as np
 import pytest
+import torch
 
 from h2o3_tpu.frame.frame import Frame as Frame_j
 from h2o3_tpu.frame import parse as JP
@@ -35,6 +36,10 @@ from h2o3_tpu_torch import fastcsv
 from h2o3_tpu_torch import import_file, upload_string
 from h2o3_tpu_torch.frame import Frame
 from h2o3_tpu_torch.frame import parse as P
+
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
 
 _CATS = ["lvl0", "lvl1", '"lvl,2"', '"say ""hi"""', "lvl4"]
 

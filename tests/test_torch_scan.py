@@ -46,6 +46,10 @@ from h2o3_tpu_torch.models.tree.gbm import GBM, GBMParameters
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.testing import same_bits
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 F, N, NBINS = 5, 256, 16
 
 

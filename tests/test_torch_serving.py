@@ -30,6 +30,10 @@ from h2o3_tpu_torch.export.mojo import from_reference, import_mojo
 from h2o3_tpu_torch.runtime import observability as obs
 from h2o3_tpu_torch.serving import batcher, kernel, pack
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 # port vs JAX scores: f32 class sums in another order, torch's sigmoid
 # and softmax against jnp's 1/(1+exp(-s)) and exp/sum
 RTOL, ATOL = 1e-5, 1e-6

@@ -17,6 +17,10 @@ import torch
 from h2o3_tpu_torch.models.tree import hist
 from h2o3_tpu_torch.testing import same_bits
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 
 def _level_case(rng, K, A_prev, A, n, case, p_valid=0.75):
     """Slot maps and each row's slot for one level of K trees.  ``case``:

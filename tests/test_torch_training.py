@@ -38,6 +38,10 @@ from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.serving import batcher
 from h2o3_tpu_torch.testing import tie_hist
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 N_BIN = 4032          # a multiple of the JAX mesh's 64-row padding
 # the slice's frame: 3,904 rows (also a multiple of 64), chosen because
 # every split of the 5-tree model wins by a clear gain margin (see
@@ -553,7 +557,7 @@ _CFG = dict(response_column="dep_delayed_15min", max_depth=4, nbins=32,
 
 
 @pytest.fixture(scope="module")
-def trained():
+def port_trained():
     # the frame as bench_trees makes it, with no missing values: every NA
     # bucket is then exactly empty, so NA directions cannot tie by noise
     # (on a frame with NaNs, a node whose NA bucket empties keeps an f32
@@ -561,10 +565,17 @@ def trained():
     # noise in either package)
     cols, types, domains = make_airlines_like(N_SLICE)
     jfr = JFrame.from_numpy(cols, types=types, domains=domains)
-    jm = JXGBoost(**_CFG).train(jfr)
     fr = Frame.from_numpy(cols, types=types, domains=domains, device="cpu")
-    tm = XGBoost(device="cpu", **_CFG).train(fr)
-    return cols, jfr, jm, fr, tm
+    return cols, jfr, fr, XGBoost(device="cpu", **_CFG).train(fr)
+
+
+@pytest.fixture(scope="module")
+def trained(port_trained):
+    """The port's train and the JAX package's: only the tests that read
+    the JAX model ask for it, so an xdist worker that runs none of them
+    never trains it."""
+    cols, jfr, fr, tm = port_trained
+    return cols, jfr, JXGBoost(**_CFG).train(jfr), fr, tm
 
 
 def test_slice_trees_match_jax(trained, monkeypatch):
@@ -621,11 +632,11 @@ def test_slice_predictions_and_metrics_match_jax(trained):
     assert abs(a.logloss - b.logloss) <= 1e-5
 
 
-def test_trained_port_model_publishes(trained):
+def test_trained_port_model_publishes(port_trained):
     """The ROADMAP gate: a trained port model publishes into the serving
     plane (through to_archive + from_reference) and answers predict_rows
     as model.predict does."""
-    cols, _, _, fr, tm = trained
+    cols, _, fr, tm = port_trained
     n = 300
     rows = []
     for i in range(n):
@@ -651,10 +662,10 @@ def test_trained_port_model_publishes(trained):
         got["predict"], dom[want.vec("predict").to_numpy()[:n]])
 
 
-def test_check_modes_run(trained):
+def test_check_modes_run(port_trained):
     """hist_mode="check" and split_mode="check" run their crosschecks on
     the first tree and then train the default path."""
-    *_, fr, tm = trained
+    *_, fr, tm = port_trained
     m = XGBoost(device="cpu", hist_mode="check", split_mode="check",
                 **_CFG).train(fr)
     for a, b in zip(m.output["trees"], tm.output["trees"]):
@@ -663,13 +674,13 @@ def test_check_modes_run(trained):
                                           b.feat[d].numpy())
 
 
-def test_varbin_layout_trains_the_same_trees(trained, monkeypatch):
+def test_varbin_layout_trains_the_same_trees(port_trained, monkeypatch):
     """H2O3_TPU_HIST_IMPL=varbin forces the packed histogram layout on the
     CPU (on a card it engages by itself where packing saves work, as at
     nbins=128 here): the same trees as the uniform layout, since both
     give the same sums up to f32 rounding."""
     from h2o3_tpu_torch.runtime import config
-    *_, fr, _ = trained
+    *_, fr, _ = port_trained
     cfg = {**_CFG, "nbins": 128, "ntrees": 2}
     plain = XGBoost(device="cpu", **cfg).train(fr)
     monkeypatch.setenv("H2O3_TPU_HIST_IMPL", "varbin")

@@ -43,6 +43,10 @@ from h2o3_tpu_torch.models.tree.isofor import IsolationForest
 from h2o3_tpu_torch.models.tree.xgboost import XGBoost
 from h2o3_tpu_torch.testing import same_bits
 
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
+
 
 def _int_hist(rng, L, F, B):
     """Integer-valued H [3, L, F, B] with a populated NA bin."""

@@ -25,6 +25,7 @@ frames' rollups differ in the last bit) is held to:
 
 import numpy as np
 import pytest
+import torch
 
 from h2o3_tpu import Frame as JFrame
 from h2o3_tpu.models import (PCA as JPCA, SVD as JSVD, GLRM as JGLRM,
@@ -40,6 +41,10 @@ from h2o3_tpu_torch.models import (GLRM, PCA, SVD, Aggregator,
                                    quantile)
 from h2o3_tpu_torch.models import pca as pca_mod
 from h2o3_tpu_torch.runtime import job as tjob
+
+# the suite's xdist workers share the host's cores: one torch thread
+# each (by default every worker would start one per core)
+torch.set_num_threads(1)
 
 N = 512
 _TYPES = {"c": "cat"}

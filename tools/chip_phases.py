@@ -6,6 +6,7 @@
     python tools/chip_phases.py scan         # phases 40-42
     python tools/chip_phases.py algos        # phases 43-47
     python tools/chip_phases.py composite    # phases 48-50
+    python tools/chip_phases.py plane        # phases 51-54
 
 Each line carries the card's name and power limit.  Run from the
 repository root; it needs one CUDA card and nvcc.  To time the training
@@ -37,7 +38,8 @@ def smoke():
 def main() -> None:
     import torch
     if len(sys.argv) != 2 or sys.argv[1] not in ("options", "efb", "scan",
-                                                  "algos", "composite"):
+                                                  "algos", "composite",
+                                                  "plane"):
         raise SystemExit(__doc__)
     if not torch.cuda.is_available():
         raise SystemExit("chip_phases: no CUDA device")
@@ -63,6 +65,9 @@ def main() -> None:
                hist.FINE_HIST, hist.HIST_WINDOWS, hist.SLOT_COMPACT,
                hist.SPLIT_RECORDS_MONO]
     what = sys.argv[1]
+    if what == "plane":                  # writes its own 10M-row CSV
+        cs.plane_phases(Frame, kernels[:6], card)
+        return
     if what == "composite":
         cs.log(json.dumps({"kernels": cs.composite_phases(
             Frame, kernels[:6], hist, card)}))
